@@ -1,0 +1,96 @@
+"""Offline inference CLI of the PyTorch port.
+
+    python -m livespeechportraits_torch.demo --id Synthetic --driving_audio tone.wav
+
+Runs audio -> frames at 60 FPS on one device (``--device``, default
+``cuda``), prints the per-stage ms and the frame rate, and writes
+``<results_dir>/<id>/<audio name>/<audio name>.avi`` when cv2 is importable,
+otherwise ``frames.npy`` plus the ``.wav`` there.  Only the synthetic person
+is ported: it fabricates an asset pack and random-init models, so no data
+or checkpoint is needed.  A missing audio file falls back to a 3 s test tone.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+from os.path import join
+
+import numpy as np
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--id", default="Synthetic", choices=["Synthetic"],
+                        help="person id (only the synthetic person is ported)")
+    parser.add_argument("--driving_audio", default="./data/input/00083.wav")
+    parser.add_argument("--results_dir", default="./results")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--render_batch", type=int, default=8)
+    parser.add_argument("--image_size", type=int, default=0,
+                        help="render resolution, a power of two (0 = config, 512)")
+    parser.add_argument("--duration", type=float, default=0.0,
+                        help="cap on driving-audio seconds (0 = full)")
+    parser.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from livespeechportraits_tpu.config import PersonConfig, replace
+    from livespeechportraits_torch.pipeline import animate as animate_mod
+    from livespeechportraits_torch.pipeline import assets as assets_mod
+    from livespeechportraits_torch.pipeline import video as video_mod
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda was asked for but torch sees no CUDA device")
+    cfg = PersonConfig(name=args.id)
+    if args.image_size:
+        if args.image_size & (args.image_size - 1):
+            raise SystemExit(f"--image_size {args.image_size} must be a power of two")
+        n_down = min(8, int(math.log2(args.image_size)))
+        cfg = replace(cfg, feature2face=replace(
+            cfg.feature2face, load_size=args.image_size, n_downsample=n_down))
+
+    if os.path.exists(args.driving_audio):
+        audio = video_mod.load_wav(args.driving_audio)
+    else:
+        print(f"driving audio {args.driving_audio!r} not found; using a 3 s test tone")
+        audio = video_mod.make_test_tone(3.0)
+    if args.duration > 0:
+        audio = audio[: int(args.duration * 16000)]
+    min_seconds = (cfg.audio2headpose.frame_future + 1) / 60.0
+    if len(audio) < int(min_seconds * 16000) + 16000 // 60:
+        raise SystemExit(f"driving audio too short: {len(audio) / 16000:.2f}s; needs > "
+                         f"{min_seconds:.2f}s")
+
+    person_assets, person_models = assets_mod.make_synthetic_person(
+        cfg, image_size=cfg.feature2face.load_size, device=device)
+    print(f"Animating {len(audio) / 16000:.2f}s of audio for '{args.id}' on {device} ...")
+    t0 = time.perf_counter()
+    result = animate_mod.animate(cfg, person_assets, person_models, audio, seed=args.seed,
+                                 render_batch=args.render_batch)
+    wall = time.perf_counter() - t0
+    print(f"stages (ms): {json.dumps({k: round(v, 1) for k, v in result.stage_ms.items()})}")
+    print(f"{result.nframe} frames in {wall:.2f}s -> {result.nframe / wall:.1f} fps end-to-end")
+
+    audio_name = os.path.splitext(os.path.basename(args.driving_audio))[0]
+    save_root = join(args.results_dir, args.id, audio_name)
+    os.makedirs(save_root, exist_ok=True)
+    if video_mod.cv2 is not None:
+        out_path = video_mod.write_video(result.frames, join(save_root, audio_name + ".avi"),
+                                         audio)
+        print(f"wrote video {out_path}")
+    else:
+        np.save(join(save_root, "frames.npy"), result.frames)
+        wav_path = join(save_root, audio_name + ".wav")
+        video_mod.save_wav(wav_path, audio[: int(result.nframe * 16000 / 60)])
+        print(f"cv2 is not importable: wrote frames {join(save_root, 'frames.npy')} "
+              f"and audio {wav_path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,55 @@
+"""APC (Autoregressive Predictive Coding) speech encoder: a stack of
+single-layer GRUs, 80 mel -> hidden -> hidden.
+
+Counterpart of ``livespeechportraits_tpu/models/apc.py`` (``apply_apc``,
+``encode_fast``).  Parameter names follow the reference's
+``rnns.{i}.weight_ih_l0`` layout.  On the card every layer's time loop runs
+in the GRU kernel K2 (ops/recurrent_cuda.py); the optional residual add sits
+outside the recurrence, so both settings take the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from livespeechportraits_tpu.config import APCConfig
+from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.ops import recurrent_cuda
+
+Tensor = torch.Tensor
+
+
+class APCEncoder(nn.Module):
+    def __init__(self, cfg: APCConfig):
+        super().__init__()
+        self.rnns = nn.ModuleList([
+            nn_core.RNNWeights(cfg.mel_dim if i == 0 else cfg.hidden_size,
+                               cfg.hidden_size, 1, gates=3)
+            for i in range(cfg.num_layers)
+        ])
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for rnn in self.rnns:
+            nn_core.init_rnn_(rnn, gen)
+
+
+def apply_apc(model: APCEncoder, mels: Tensor, residual: bool = False) -> Tensor:
+    """[B, T, mel_dim] -> [B, T, hidden] top-layer GRU states.  The residual
+    adds a layer's input when the widths match, except after the top layer.
+    A CUDA tensor runs each layer in K2, which takes batch 1; a CPU tensor
+    takes the plain loop at any batch."""
+    x = mels
+    n = len(model.rnns)
+    for i, rnn in enumerate(model.rnns):
+        y, _ = recurrent_cuda.gru_layer(x, *rnn.layer(0))
+        if i + 1 < n and residual and x.shape[-1] == y.shape[-1]:
+            y = y + x
+        x = y
+    return x
+
+
+def encode_fast(model: APCEncoder, mels: Tensor, residual: bool = False) -> Tensor:
+    """[T, mel] -> [T, H], the batch-1 inference path: the GRU kernel on a
+    CUDA tensor, the plain loop on a CPU tensor."""
+    return apply_apc(model, mels[None], residual=residual)[0]

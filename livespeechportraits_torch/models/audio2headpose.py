@@ -1,0 +1,102 @@
+"""Audio2Headpose: autoregressive conditional WaveNet + GMM head pose.
+
+Counterpart of ``livespeechportraits_tpu/models/audio2headpose.py``
+(``_audio_downsample``, ``_decode_scan``, ``generate_sequence``).  The decode
+primes the WaveNet ring buffers on R-1 warm-up frames, hoists every layer's
+audio projection over all frames into one matmul each, then steps frame by
+frame: stream_step, then one GMM sample that becomes the next input.
+
+With ``frame_future`` f and receptive field R, decode step i reads audio row
+i+f (rows < 0 clamp to row 0) and the history starts as ``pre_headpose``
+repeated.  The decode is a plain Python loop over frames.  Its noise is
+drawn up front on the CPU (ops/gmm.draw_noise), so a run draws the same
+noise on any device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from livespeechportraits_tpu.config import Audio2HeadposeConfig
+from livespeechportraits_torch.models import nn_core, wavenet
+from livespeechportraits_torch.ops import gmm
+
+Tensor = torch.Tensor
+
+
+class Audio2Headpose(nn.Module):
+    def __init__(self, cfg: Audio2HeadposeConfig):
+        super().__init__()
+        if cfg.decoder != "wavenet":
+            raise NotImplementedError(f"Audio2Headpose decoder {cfg.decoder!r}: only the "
+                                      "WaveNet decoder is ported")
+        H = cfg.apc_hidden_size
+        self.audio_downsample = nn.Sequential(nn.Linear(2 * H, H), nn.BatchNorm1d(H),
+                                              nn.LeakyReLU(0.2), nn.Linear(H, H))
+        self.WaveNet = wavenet.WaveNet(cfg.wavenet, cfg.gmm_output_dim)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn_core.init_normal_(self.audio_downsample, gen)
+        self.WaveNet.reset_parameters(gen)
+        nn_core.init_batchnorm_(self)
+
+
+def _audio_downsample(model: Audio2Headpose, audio: Tensor) -> Tensor:
+    """[B, T, 2H] paired APC frames -> [B, T, H] conditioning (eval BN)."""
+    B, T, D = audio.shape
+    d = model.audio_downsample
+    x = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(audio.reshape(B * T, D), d[0]), d[1]))
+    return nn_core.dense(x, d[3]).reshape(B, T, -1)
+
+
+def _decode_scan(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_ds: Tensor,
+                 pre_headpose: Tensor, gumbel: Tensor, eps: Tensor, nframe: int,
+                 sigma_scale: float) -> Tensor:
+    """audio_ds [T, cond_ch] -> [nframe, ndim] sampled poses; gumbel
+    [nframe, ncenter] and eps [nframe, ndim] are the per-step noise."""
+    net = model.WaveNet
+    R = cfg.wavenet.receptive_field
+    f = cfg.frame_future
+    dev = audio_ds.device
+
+    warm_idx = torch.as_tensor(np.maximum(np.arange(-(R - 1), 0) + f, 0), device=dev)
+    x_warm = pre_headpose.expand(1, R - 1, pre_headpose.shape[-1])
+    state = wavenet.stream_init(net, x_warm, audio_ds[warm_idx][None])
+
+    step_idx = torch.arange(nframe, device=dev) + f
+    cond_proj = wavenet.precompute_cond_projections(net, audio_ds[step_idx][None])
+
+    x_prev = pre_headpose[None]
+    samples = []
+    for i in range(nframe):
+        proj_t = [(fp[:, i], gp[:, i]) for fp, gp in cond_proj]
+        state, out = wavenet.stream_step(net, state, x_prev, cond_proj_t=proj_t)
+        x_prev = gmm.sample_gmm(out, cfg.ncenter, cfg.ndim, gumbel[i:i + 1], eps[i:i + 1],
+                                sigma_scale=sigma_scale)
+        samples.append(x_prev)
+    return torch.cat(samples, dim=0)
+
+
+def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_feats: Tensor,
+                      pre_headpose: Tensor, seed: int = 0, sigma_scale: float = 0.3,
+                      noise: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """Full-utterance decode: [2T, H] APC features -> [T - frame_future, ndim].
+
+    noise: (gumbel [n, ncenter], eps [n, ndim]) for the n = T - frame_future
+    steps; drawn from ``torch.Generator().manual_seed(seed)`` when None."""
+    T = audio_feats.shape[0] // 2
+    paired = audio_feats[:2 * T].reshape(T, -1)[None]
+    audio_ds = _audio_downsample(model, paired)[0]
+    nframe = T - cfg.frame_future
+    if nframe <= 0:
+        raise ValueError(f"utterance too short: {T} frames <= frame_future {cfg.frame_future}")
+    if noise is None:
+        noise = gmm.draw_noise(nframe, cfg.ncenter, cfg.ndim,
+                               torch.Generator().manual_seed(seed))
+    gumbel, eps = (n.to(audio_ds.device, torch.float32) for n in noise)
+    return _decode_scan(model, cfg, audio_ds, pre_headpose, gumbel, eps, nframe,
+                        float(sigma_scale))

@@ -1,0 +1,170 @@
+"""The layer functions the offline path uses, on PyTorch tensors.
+
+Counterpart of ``livespeechportraits_tpu/models/nn_core.py``.  Weights are
+in torch's layouts (Linear ``[out, in]``, Conv ``[out, in, k...]``, RNN
+``[G*H, in]``), so the reference's state dicts load unchanged; activations
+are NCHW / NCW inside the networks.
+
+``gru_layer`` and ``lstm_layer`` are the plain PyTorch twins of the CUDA
+recurrence kernels (``ops/recurrent_cuda.py``): a Python loop over time with
+the input projection hoisted out of it, as in JAX.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+
+def dense(x: Tensor, layer: nn.Linear) -> Tensor:
+    """x @ W^T + b over the last axis."""
+    return F.linear(x, layer.weight, layer.bias)
+
+
+def conv1d(x: Tensor, layer: nn.Conv1d, dilation: int = 1,
+           padding: Union[int, Tuple[int, int]] = 0) -> Tensor:
+    """x: [N, C, W]; padding is symmetric, or (left, right) for causal
+    convolutions."""
+    if isinstance(padding, int):
+        padding = (padding, padding)
+    if padding != (0, 0):
+        x = F.pad(x, padding)
+    return F.conv1d(x, layer.weight, layer.bias, dilation=dilation)
+
+
+def conv2d(x: Tensor, layer: nn.Conv2d, stride: int = 1, padding: int = 0) -> Tensor:
+    """x: [N, C, H, W] -> [N, C', H', W']; symmetric integer zero padding."""
+    return F.conv2d(x, layer.weight, layer.bias, stride=stride, padding=padding)
+
+
+def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5) -> Tensor:
+    """Eval-mode BatchNorm over channel axis 1, with the running stats:
+    (x - mean) * rsqrt(var + eps) * scale + bias, in x's dtype."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = bn.running_mean.to(x.dtype).view(shape)
+    var = bn.running_var.to(x.dtype).view(shape)
+    scale = bn.weight.to(x.dtype).view(shape)
+    bias = bn.bias.to(x.dtype).view(shape)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def leaky_relu(x: Tensor, slope: float = 0.2) -> Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def upsample_nearest_2x(x: Tensor) -> Tensor:
+    """[N, C, H, W] -> [N, C, 2H, 2W] nearest neighbour (keeps the
+    channels_last memory format)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def gru_layer(x: Tensor, w_ih: Tensor, w_hh: Tensor, b_ih: Tensor, b_hh: Tensor,
+              h0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """GRU over [B, T, I] -> ([B, T, H], h_T [B, H]); gates r, z, n."""
+    B, T, _ = x.shape
+    H = w_hh.shape[1]
+    h = x.new_zeros(B, H) if h0 is None else h0.reshape(B, H)
+    xp = x @ w_ih.t() + b_ih  # [B, T, 3H]
+    ys = []
+    for t in range(T):
+        hp = h @ w_hh.t() + b_hh
+        xr, xz, xn = xp[:, t].split(H, dim=-1)
+        hr, hz, hn = hp.split(H, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1 - z) * n + z * h
+        ys.append(h)
+    return torch.stack(ys, dim=1) if ys else x.new_zeros(B, 0, H), h
+
+
+def lstm_layer(x: Tensor, w_ih: Tensor, w_hh: Tensor, b_ih: Tensor, b_hh: Tensor,
+               state: Optional[Tuple[Tensor, Tensor]] = None
+               ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """LSTM over [B, T, I] -> ([B, T, H], (h_T, c_T)); gates i, f, g, o."""
+    B, T, _ = x.shape
+    H = w_hh.shape[1]
+    if state is None:
+        h, c = x.new_zeros(B, H), x.new_zeros(B, H)
+    else:
+        h, c = state[0].reshape(B, H), state[1].reshape(B, H)
+    xp = x @ w_ih.t() + b_ih  # [B, T, 4H]
+    ys = []
+    for t in range(T):
+        gates = xp[:, t] + h @ w_hh.t() + b_hh
+        i, f, g, o = gates.split(H, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        g = torch.tanh(g)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys, dim=1) if ys else x.new_zeros(B, 0, H), (h, c)
+
+
+class RNNWeights(nn.Module):
+    """Parameter holder for a stack of GRU (gates=3) or LSTM (gates=4)
+    layers with ``torch.nn.GRU`` / ``torch.nn.LSTM`` parameter names
+    (``weight_ih_l{k}``, ...), so reference state dicts load unchanged.
+    The recurrence itself runs in ops/recurrent_cuda.py, not in cuDNN."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int, gates: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        for k in range(num_layers):
+            in_dim = input_size if k == 0 else hidden_size
+            G = gates * hidden_size
+            self.register_parameter(f"weight_ih_l{k}", nn.Parameter(torch.empty(G, in_dim)))
+            self.register_parameter(f"weight_hh_l{k}", nn.Parameter(torch.empty(G, hidden_size)))
+            self.register_parameter(f"bias_ih_l{k}", nn.Parameter(torch.empty(G)))
+            self.register_parameter(f"bias_hh_l{k}", nn.Parameter(torch.empty(G)))
+
+    def layer(self, k: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+        """(w_ih, w_hh, b_ih, b_hh) of layer k."""
+        return (getattr(self, f"weight_ih_l{k}"), getattr(self, f"weight_hh_l{k}"),
+                getattr(self, f"bias_ih_l{k}"), getattr(self, f"bias_hh_l{k}"))
+
+
+# ---------------------------------------------------------------------------
+# Random init at the JAX package's scales, from an explicit torch.Generator
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_normal_(module: nn.Module, gen: torch.Generator, gain: float = 0.02) -> None:
+    """normal(0, gain) weights and zero biases for every Linear / Conv in
+    ``module`` (nn_core.dense_init / conv*_init), in registration order."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * gain)
+            if m.bias is not None:
+                m.bias.zero_()
+
+
+@torch.no_grad()
+def init_batchnorm_(module: nn.Module, gen: Optional[torch.Generator] = None,
+                    gain: float = 0.02) -> None:
+    """Running stats (0, 1), bias 0, and scale 1 - or N(1, gain) when a
+    generator is given (nn_core.batchnorm_init with init_scale_noise)."""
+    for m in module.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.reset_running_stats()
+            m.bias.zero_()
+            if gen is None:
+                m.weight.fill_(1.0)
+            else:
+                m.weight.copy_(1.0 + gain * torch.randn(m.weight.shape, generator=gen))
+
+
+@torch.no_grad()
+def init_rnn_(rnn: RNNWeights, gen: torch.Generator) -> None:
+    """torch's RNN default: U(-1/sqrt(H), 1/sqrt(H)) (uniform_fan_init)."""
+    bound = 1.0 / math.sqrt(rnn.hidden_size)
+    for p in rnn.parameters():
+        p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)

@@ -1,0 +1,106 @@
+"""Log-mel audio front-end: 120 Hz, 80-d normalised log-mel frames.
+
+Counterpart of ``livespeechportraits_tpu/ops/mel.py`` (``_mel_sequence_impl``
+/ ``compute_mel_sequence``): one gather frames the whole utterance, then one
+``torch.fft.rfft`` and one mel-filterbank matmul, all in f32.  Each frame is
+a 266-sample clip reflect-padded by 189 samples, windowed by a periodic Hann
+window zero-padded to n_fft = 512, clips past the end of the audio are
+zero-padded, and the log-mel is clamped at 1e-5 and scaled to [0, 1].
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from livespeechportraits_tpu.config import FPS, MEL_RATE, SAMPLE_RATE
+
+LOG_MEL_MIN = math.log(1e-5)
+
+
+def _hz_to_mel(f) -> np.ndarray:
+    """Slaney mel scale: linear below 1 kHz, log above."""
+    f = np.asarray(f, dtype=np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(f >= min_log_hz,
+                    min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                    f / f_sp)
+
+
+def _mel_to_hz(m) -> np.ndarray:
+    m = np.asarray(m, dtype=np.float64)
+    f_sp = 200.0 / 3
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(m >= min_log_mel, min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                    m * f_sp)
+
+
+def mel_filterbank(sr: int = SAMPLE_RATE, n_fft: int = 512, n_mels: int = 80,
+                   fmin: float = 90.0, fmax: float = 7600.0) -> np.ndarray:
+    """[n_mels, 1 + n_fft//2] triangular filterbank, slaney-normalised
+    (librosa.filters.mel with the reference's arguments)."""
+    fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    mel_pts = _mel_to_hz(np.linspace(_hz_to_mel(fmin), _hz_to_mel(fmax), n_mels + 2))
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    enorm = 2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels])
+    weights *= enorm[:, None]
+    return weights.astype(np.float32)
+
+
+def _hann_periodic(n: int) -> np.ndarray:
+    """torch.hann_window default (periodic=True)."""
+    k = np.arange(n, dtype=np.float64)
+    return (0.5 * (1.0 - np.cos(2.0 * np.pi * k / n))).astype(np.float32)
+
+
+def _reflect_index(p: np.ndarray, n: int) -> np.ndarray:
+    """'reflect' padding index map (edge excluded), valid for |pad| < n."""
+    p = np.where(p < 0, -p, p)
+    return np.where(p >= n, 2 * (n - 1) - p, p)
+
+
+def _mel_sequence_impl(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """[N] audio -> [n_frames, 80] normalised log-mel, on audio's device."""
+    sr = SAMPLE_RATE
+    n_fft, n_mels = 512, 80
+    win_length = sr // FPS  # 266
+    step = sr * 0.5 / FPS  # 133.333... (fractional hop, floor per frame)
+    pad = (n_fft - sr // MEL_RATE) // 2  # 189
+    dev = audio.device
+
+    starts = np.floor(np.arange(n_frames) * step).astype(np.int64)
+    col = _reflect_index(np.arange(n_fft) - pad, win_length)
+    idx = torch.as_tensor(starts[:, None] + col[None, :], device=dev)
+
+    window = np.zeros(n_fft, dtype=np.float32)
+    lpad = (n_fft - win_length) // 2
+    window[lpad:lpad + win_length] = _hann_periodic(win_length)
+
+    audio_padded = torch.cat([audio.float(), audio.new_zeros(win_length, dtype=torch.float32)])
+    frames = audio_padded[idx] * torch.as_tensor(window, device=dev)  # [n_frames, n_fft]
+    mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()
+    basis = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, 90.0, 7600.0), device=dev)
+    melspec = mag @ basis.t()
+    log_mel = torch.log(torch.clamp(melspec, min=1e-5))
+    return (log_mel - LOG_MEL_MIN) / -LOG_MEL_MIN
+
+
+def compute_mel_sequence(audio, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Frame an utterance into [2 * floor(len/sr*60), 80] log-mel features:
+    video frame i yields mel frames 2i and 2i+1.  Empty audio gives [0, 80]."""
+    audio = torch.as_tensor(np.asarray(audio, dtype=np.float32), device=device)
+    n_frames = 2 * int(audio.shape[0] / SAMPLE_RATE * FPS)
+    if n_frames == 0:
+        return torch.zeros(0, 80, device=device)
+    return _mel_sequence_impl(audio, n_frames)

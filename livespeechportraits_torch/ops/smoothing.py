@@ -1,0 +1,149 @@
+"""Motion post-processing: temporal smoothing, amplitude scaling, lip
+de-intersection.
+
+Counterpart of ``livespeechportraits_tpu/ops/smoothing.py`` (without the
+bucket-padding ``valid_len`` option).  ``gaussian_filter1d`` reproduces
+scipy.ndimage.gaussian_filter1d's defaults (truncate 4.0, mode 'reflect',
+which repeats the edge sample: [d c b a | a b c d]); the padding is an index
+map, since ``F.pad(mode='reflect')`` is the other reflection.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+# Landmark-group index constants (funcs/utils.py:267-273 of the reference).
+MOUTH_RANGE = (46, 64)
+UPPER_OUTER_LIP = tuple(range(47, 52))
+UPPER_INNER_LIP = (63, 62, 61)
+LOWER_INNER_LIP = (58, 59, 60)
+LOWER_OUTER_LIP = tuple(range(57, 52, -1))
+LOWER_MOUTH = (53, 54, 55, 56, 57, 58, 59, 60)
+UPPER_MOUTH = (46, 47, 48, 49, 50, 51, 52, 61, 62, 63)
+
+
+def _gaussian_kernel(sigma: float, truncate: float = 4.0) -> np.ndarray:
+    """scipy.ndimage-compatible discrete Gaussian kernel."""
+    radius = int(truncate * float(sigma) + 0.5)
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_filter1d(x: Tensor, sigma: float, truncate: float = 4.0) -> Tensor:
+    """Gaussian smoothing along axis 0 of [T, D] (scipy 'reflect' mode)."""
+    if sigma <= 0:
+        return x
+    kernel = _gaussian_kernel(sigma, truncate)
+    radius = kernel.shape[0] // 2
+    T = x.shape[0]
+    # closed form of the repeated reflection: a period-2T triangle
+    m = np.mod(np.arange(-radius, T + radius), 2 * T)
+    idx = torch.as_tensor(np.where(m < T, m, 2 * T - 1 - m), device=x.device)
+    xp = x[idx].float()  # [T + 2r, D]
+    k = torch.as_tensor(kernel, device=x.device)
+    # correlate each column, out[t] = sum_j k[j] * xp[t + j], as a matmul
+    # over sliding windows: full f32 on the card, where a float32 conv
+    # would run in TF32 by default
+    out = xp.unfold(0, k.shape[0], 1) @ k  # [T, D, 2r+1] @ [2r+1]
+    return out.to(x.dtype)
+
+
+def landmark_smooth_3d(pts3d: Tensor, smooth_sigma: float = 0.0,
+                       area: str = "only_mouth") -> Tensor:
+    """Temporal smoothing of [T, 73, 3] landmarks; 'only_mouth' smooths the
+    mouth block on its own and puts it back over the global pass."""
+    if smooth_sigma == 0:
+        return pts3d
+    T = pts3d.shape[0]
+    if area == "all":
+        return gaussian_filter1d(pts3d.reshape(T, -1), smooth_sigma).reshape(pts3d.shape)
+    if area != "only_mouth":
+        raise ValueError(f"unknown smoothing area {area!r}")
+    m0, m1 = MOUTH_RANGE
+    mouth = gaussian_filter1d(pts3d[:, m0:m1, :].reshape(T, -1), smooth_sigma)
+    smoothed = gaussian_filter1d(pts3d.reshape(T, -1), smooth_sigma).reshape(pts3d.shape)
+    smoothed = smoothed.clone()
+    smoothed[:, m0:m1, :] = mouth.reshape(T, m1 - m0, 3)
+    return smoothed
+
+
+def mouth_amp(pts3d: Tensor, is_delta: bool = True, method: str = "XY",
+              params: Sequence[float] = (1.0, 1.0)) -> Tensor:
+    """Mouth-region amplitude scaling of [T, 73, 3] (funcs/utils.py:274-325)."""
+    m0, m1 = MOUTH_RANGE
+    p = list(params)
+    out = pts3d.clone()
+    dev = pts3d.device
+    if method == "XY":
+        ax, ay = p
+        if is_delta:
+            out[:, m0:m1, 0] *= ax
+            out[:, m0:m1, 1] *= ay
+        else:
+            mean_xy = pts3d[:, m0:m1, :2].mean(dim=0)
+            out[:, m0:m1, 0] += (ax - 1) * (pts3d[:, m0:m1, 0] - mean_xy[:, 0])
+            out[:, m0:m1, 1] += (ay - 1) * (pts3d[:, m0:m1, 1] - mean_xy[:, 1])
+    elif method == "delta":
+        if is_delta:
+            out[1:, m0:m1] += p[0] * (pts3d[1:, m0:m1] - pts3d[:-1, m0:m1])
+    elif method == "XYZ":
+        if is_delta:
+            out[:, m0:m1, :] *= torch.tensor(p, device=dev, dtype=out.dtype)
+    elif method == "LowerMore":
+        if is_delta:
+            up = torch.tensor(UPPER_MOUTH, device=dev)
+            lo = torch.tensor(LOWER_MOUTH, device=dev)
+            out[:, up, :] *= torch.tensor(p[:3], device=dev, dtype=out.dtype)
+            out[:, lo, :] *= torch.tensor(p[3:], device=dev, dtype=out.dtype)
+    elif method == "CloseSmall":
+        up = torch.tensor(UPPER_MOUTH, device=dev)
+        lo = torch.tensor(LOWER_MOUTH, device=dev)
+        open_score = (pts3d[:, up, 1] > 0).sum(1) + (pts3d[:, lo, 1] < 0).sum(1)
+        is_open = (open_score > 16 * 0.3)[:, None, None]
+        scale = torch.where(is_open, torch.tensor(p[:3], device=dev, dtype=out.dtype),
+                            torch.tensor(p[3:], device=dev, dtype=out.dtype))
+        out[:, m0:m1, :] *= scale
+    else:
+        raise ValueError(f"unknown AMP method {method!r}")
+    return out
+
+
+def solve_intersect_mouth(pts3d: Tensor) -> Tensor:
+    """De-intersect flipped lips (funcs/utils.py:330-357): a frame whose
+    three inner lower-lip points all sit above the inner upper lip gets half
+    the overlap pushed back into each inner lip, and the outer lips move by
+    the mean overlap over all flipped frames."""
+    dev = pts3d.device
+    ui = torch.tensor(UPPER_INNER_LIP, device=dev)
+    li = torch.tensor(LOWER_INNER_LIP, device=dev)
+    uo = torch.tensor(UPPER_OUTER_LIP, device=dev)
+    lo = torch.tensor(LOWER_OUTER_LIP, device=dev)
+    upper_y = pts3d[:, ui, 1]
+    lower_y = pts3d[:, li, 1]
+    flip = (lower_y > upper_y).sum(1) == 3  # [T]
+    diff_half = (lower_y - upper_y) * 0.5
+    n_flip = torch.clamp(flip.sum(), min=1)
+    global_mean = (diff_half * flip[:, None]).sum() / (n_flip * diff_half.shape[1])
+    fmask = flip[:, None]
+    zero = torch.zeros((), device=dev, dtype=pts3d.dtype)
+    out = pts3d.clone()
+    out[:, ui, 1] += torch.where(fmask, diff_half, zero)
+    out[:, li, 1] += torch.where(fmask, -diff_half, zero)
+    out[:, uo, 1] += torch.where(fmask, global_mean, zero)
+    out[:, lo, 1] += torch.where(fmask, -global_mean, zero)
+    return out
+
+
+def headpose_smooth(headpose: Tensor, smooth_sigmas: Tuple[float, float] = (0.0, 0.0)
+                    ) -> Tensor:
+    """Smooth [T, 6] head pose: rotation with sigma[0], translation with
+    sigma[1]."""
+    rot = gaussian_filter1d(headpose[:, :3], smooth_sigmas[0])
+    trans = gaussian_filter1d(headpose[:, 3:], smooth_sigmas[1])
+    return torch.cat([rot, trans], dim=1)

@@ -1,0 +1,175 @@
+"""Per-person asset packs and the four models, on PyTorch.
+
+Counterpart of ``livespeechportraits_tpu/pipeline/assets.py``
+(``PersonAssets``, ``PersonModels``, ``make_synthetic_person``).  The asset
+arrays stay numpy; ``PersonAssets.tensor`` uploads one to a device once and
+caches it.  ``make_synthetic_person`` builds the same numpy asset pack as the
+JAX package, bit for bit (same ``default_rng`` draws in the same order); its
+random-init models come from a ``torch.Generator`` at the JAX init scales,
+so they are not the JAX package's weights - ``from_jax`` loads those.
+"""
+
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from livespeechportraits_tpu.config import EYE_BROW_INDICES, PersonConfig
+from livespeechportraits_torch.models.apc import APCEncoder
+from livespeechportraits_torch.models.audio2feature import Audio2Feature
+from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
+from livespeechportraits_torch.models.feature2face import Feature2FaceG
+from livespeechportraits_torch.utils.convert import params_from_jax
+
+
+@dataclass
+class PersonAssets:
+    """Numpy-side per-subject data."""
+
+    mean_pts3d: np.ndarray  # [73, 3]
+    std_mean_pts3d: np.ndarray  # [73, 3] mean of tracked pts3d
+    mean_translation: np.ndarray  # [3]
+    candidate_eye_brow: np.ndarray  # [Ncand, 16, 3]
+    candidate_images: np.ndarray  # [4, H, W, 3] float32 in [-1, 1]
+    shoulders: np.ndarray  # [18, 2]
+    shoulder3D: np.ndarray  # [18, 3]
+    ref_trans: np.ndarray  # [3]
+    camera_intrinsic: np.ndarray  # [3, 3]
+    apc_feature_base: np.ndarray  # [N, 512] LLE bank
+    scale: float
+    image_pad: Optional[tuple] = None  # (top, bottom, left, right)
+
+    def tensor(self, name: str, device: torch.device | str) -> torch.Tensor:
+        """A field as a tensor on ``device``, uploaded once and cached (the
+        LLE bank and the candidate images are megabytes)."""
+        cache = self.__dict__.setdefault("_tensor_cache", {})
+        key = (name, str(torch.device(device)))
+        if key not in cache:
+            cache[key] = torch.as_tensor(np.asarray(getattr(self, name)), device=device)
+        return cache[key]
+
+
+@dataclass
+class PersonModels:
+    """The four learned stages as modules, in eval mode, without gradients."""
+
+    apc: APCEncoder
+    audio2feature: Audio2Feature
+    audio2headpose: Audio2Headpose
+    feature2face: Feature2FaceG
+
+    def to(self, device: torch.device | str) -> "PersonModels":
+        for m in self._modules():
+            m.to(device)
+        return self
+
+    def _modules(self):
+        return (self.apc, self.audio2feature, self.audio2headpose, self.feature2face)
+
+
+def build_models(cfg: PersonConfig) -> PersonModels:
+    """Modules for ``cfg`` with uninitialised weights."""
+    models = PersonModels(
+        apc=APCEncoder(cfg.apc),
+        audio2feature=Audio2Feature(cfg.audio2feature),
+        audio2headpose=Audio2Headpose(cfg.audio2headpose),
+        feature2face=Feature2FaceG(cfg.feature2face),
+    )
+    for m in models._modules():
+        m.eval().requires_grad_(False)
+    return models
+
+
+def init_models(cfg: PersonConfig, seed: int) -> PersonModels:
+    """Random-init models at the JAX init scales, drawn on the CPU from one
+    ``torch.Generator`` so the weights are the same whatever the device."""
+    gen = torch.Generator().manual_seed(seed)
+    models = build_models(cfg)
+    for m in models._modules():
+        m.reset_parameters(gen)
+    return models
+
+
+def from_jax(cfg: PersonConfig, models_np: Any, device: torch.device | str = "cpu"
+             ) -> PersonModels:
+    """Load a JAX ``PersonModels`` (pytrees of numpy-convertible leaves)
+    through ``params_from_jax``; every module loads with strict=True."""
+    models = build_models(cfg)
+    for name in ("apc", "audio2feature", "audio2headpose", "feature2face"):
+        getattr(models, name).load_state_dict(params_from_jax(getattr(models_np, name)),
+                                              strict=True)
+    return models.to(device)
+
+
+def _synthetic_face_landmarks() -> np.ndarray:
+    """A plausible 73-point 3D face in the tracker's frame: about 0.2 units
+    across, centred at the origin, mouth on rows 46-63."""
+    rng = np.random.default_rng(1234)
+    pts = np.zeros((73, 3), np.float32)
+    ang = np.linspace(-np.pi * 0.8, np.pi * 0.8, 15)
+    pts[0:15] = np.stack([0.1 * np.sin(ang), -0.1 * np.cos(ang), np.zeros(15)], 1)
+    pts[15:21] = [[0.02 + 0.008 * i, 0.06, 0.01] for i in range(6)]
+    pts[21:27] = [[-0.02 - 0.008 * i, 0.06, 0.01] for i in range(6)]
+    pts[27:31] = [[0.04 - 0.005 * i, 0.03, 0.012] for i in range(4)]
+    pts[31:35] = [[-0.04 + 0.005 * i, 0.03, 0.012] for i in range(4)]
+    pts[65:73] = pts[27:35] + np.array([0.0, 0.005, 0.0], np.float32)
+    pts[35:46] = [[0.0, 0.02 - 0.006 * i, 0.02] for i in range(11)]
+    mang = np.linspace(0, 2 * np.pi, 18, endpoint=False)
+    pts[46:64] = np.stack(
+        [0.03 * np.cos(mang), -0.05 + 0.015 * np.sin(mang), np.full(18, 0.015)], 1)
+    pts[64] = [0.0, -0.05, 0.015]
+    pts += rng.normal(0, 1e-3, pts.shape)
+    return pts
+
+
+def synthetic_seed(cfg: PersonConfig) -> int:
+    """The deterministic per-name seed of the synthetic person."""
+    return 0 if cfg.name == "Synthetic" else zlib.crc32(cfg.name.encode()) % 2**31
+
+
+def make_synthetic_person(cfg: PersonConfig, image_size: int = 512, bank_size: int = 256,
+                          skip_models: bool = False, device: torch.device | str = "cpu"
+                          ) -> Tuple[PersonAssets, Optional[PersonModels]]:
+    """Fabricate an asset pack and random-init models.  The camera sits at
+    fx = fy = 2.4 * image_size with the face at z ~ 1, so the projected face
+    lands inside the image."""
+    rng = np.random.default_rng(0)
+    mean_pts3d = _synthetic_face_landmarks()
+    tracked = mean_pts3d[None] + rng.normal(0, 2e-3, (40, 73, 3)).astype(np.float32)
+
+    f = image_size * 2.4
+    K = np.array([[f, 0, image_size / 2], [0, f, image_size / 2], [0, 0, 1]], np.float32)
+    mean_translation = np.array([0.0, 0.05, 1.0], np.float32)
+
+    cands = rng.uniform(-0.3, 0.3, (4, image_size, image_size, 3)).astype(np.float32)
+    shoulder_y = image_size * 0.8
+    xs = np.linspace(image_size * 0.2, image_size * 0.8, 9, dtype=np.float32)
+    shoulders2d = np.concatenate([np.stack([xs, np.full(9, shoulder_y)], 1),
+                                  np.stack([xs, np.full(9, shoulder_y + 14)], 1)])
+    sh3 = np.concatenate([
+        np.stack([(xs - image_size / 2) / f, np.full(9, (shoulder_y - image_size / 2) / f),
+                  np.ones(9)], 1),
+        np.stack([(xs - image_size / 2) / f,
+                  np.full(9, (shoulder_y + 14 - image_size / 2) / f), np.ones(9)], 1),
+    ]).astype(np.float32)
+
+    assets = PersonAssets(
+        mean_pts3d=mean_pts3d,
+        std_mean_pts3d=tracked.mean(axis=0),
+        mean_translation=mean_translation,
+        candidate_eye_brow=(tracked - mean_pts3d)[10:, list(EYE_BROW_INDICES)],
+        candidate_images=cands,
+        shoulders=shoulders2d,
+        shoulder3D=sh3,
+        ref_trans=mean_translation.copy(),
+        camera_intrinsic=K,
+        apc_feature_base=rng.normal(0, 1, (bank_size, cfg.apc.hidden_size)).astype(np.float32),
+        scale=1.0,
+    )
+    if skip_models:
+        return assets, None
+    return assets, init_models(cfg, synthetic_seed(cfg)).to(device)

@@ -1,0 +1,77 @@
+"""PyTorch port on the card: each CUDA kernel against its plain twin, and
+the slice on the GPU against the same slice on the CPU.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The
+file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures JAX.)"""
+
+import numpy as np
+import pytest
+import torch
+
+from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.ops import rasterize, rasterize_cuda, recurrent_cuda
+from livespeechportraits_torch.pipeline import animate, assets, video
+from torch_parity import cuda_device, small_person_config  # noqa: F401
+
+pytestmark = pytest.mark.cuda
+
+
+def _segments(n_frames: int, size: int) -> torch.Tensor:
+    """Random integer segments plus block-edge crossings, a zero-length
+    segment, off-canvas and negative endpoints and -1e6 padding."""
+    rng = np.random.default_rng(0)
+    table = np.trunc(rng.uniform(-10, size + 10, (n_frames, 100, 4))).astype(np.float32)
+    extra = np.array([[31, 5, 33, size - 8], [0, 63, size - 1, 64], [50, 50, 50, 50],
+                      [-20, -3, -1, -1], [size - 2, size - 2, size + 12, size + 70],
+                      [-1e6, -1e6, -1e6, -1e6]], np.float32)
+    return torch.tensor(np.concatenate([table, np.broadcast_to(extra, (n_frames, 6, 4))], 1))
+
+
+def test_rasterizer_kernel_matches_plain_bitwise(cuda_device):
+    table = _segments(3, 512).to(cuda_device)
+    before = rasterize_cuda.LAUNCHES
+    out = rasterize_cuda.rasterize_segments(table, 512, 512)
+    ref = rasterize.rasterize_segments(table, 512, 512)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.LAUNCHES == before + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("gates,H,I,T", [(3, 512, 80, 64), (4, 256, 512, 64)])
+def test_recurrence_kernel_matches_plain(cuda_device, gates, H, I, T):
+    g = torch.Generator().manual_seed(0)
+    bound = 1 / np.sqrt(H)
+    shapes = [(gates * H, I), (gates * H, H), (gates * H,), (gates * H,)]
+    w = [((torch.rand(s, generator=g) * 2 - 1) * bound).to(cuda_device) for s in shapes]
+    x = torch.randn(1, T, I, generator=g).to(cuda_device)
+    plain = nn_core.gru_layer if gates == 3 else nn_core.lstm_layer
+    kernel = recurrent_cuda.gru_layer if gates == 3 else recurrent_cuda.lstm_layer
+    before = recurrent_cuda.GRU_LAUNCHES + recurrent_cuda.LSTM_LAUNCHES
+    ref, _ = plain(x, *w)
+    ys, _ = kernel(x, *w)
+    torch.cuda.synchronize()
+    assert recurrent_cuda.GRU_LAUNCHES + recurrent_cuda.LSTM_LAUNCHES == before + 1
+    assert (ys - ref).abs().max().item() <= 1e-5  # f32, summation order only
+
+
+def test_small_slice_gpu_matches_cpu(cuda_device):
+    """The whole slice at test widths, f32 renderer and TF32 off: landmarks
+    within 1e-3 px and frames within one uint8 level of the CPU run."""
+    cfg = small_person_config(image_size=64)
+    person, models_cpu = assets.make_synthetic_person(cfg, image_size=64)
+    _, models_gpu = assets.make_synthetic_person(cfg, image_size=64, device=cuda_device)
+    audio = video.make_test_tone(1.0)
+    ref = animate.animate(cfg, person, models_cpu, audio, seed=3)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = animate.animate(cfg, person, models_gpu, audio, seed=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert out.frames.shape == ref.frames.shape == (45, 64, 64, 3)
+    assert np.abs(out.landmarks - ref.landmarks).max() <= 1e-3
+    assert np.abs(out.frames.astype(int) - ref.frames.astype(int)).max() <= 1
