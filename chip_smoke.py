@@ -17,6 +17,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
    share and each kernel's device time per launch at the main path's shapes.
    The kernel phases also print device_ms, the kernel's device time per
    launch from a trace, beside ms, the CUDA-event time per wrapper call.
+6c. K4 (int8 3x3 conv) at four main-path shapes, B=16, against its plain
+   twin: bitwise in int32 and with the fused bf16 rescale epilogue.
+6d. serve: the serving path, serve.Predictor(device="cuda") booted with the
+   int8 calibrated renderer (writing an artifact), three predict() requests
+   with bucketing and the yuv420 transfer; frame counts, every kernel
+   launched (K4 at least 44 per 16-frame batch), PSNR against the bf16
+   float renderer, bucketed against exact, a second Predictor booted from
+   the artifact giving the same frames bit for bit, and one traced request.
 7. the motion half and one f32 frame on the GPU against the CPU, TF32 off.
 8. the kernels' JSON line, then {"ok": true, "device": {...}} as the last
    line.
@@ -26,8 +34,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +49,11 @@ import torch
 RNN_TOL = 1e-5  # K2/K3 against the plain loop at every length, f32
 LANDMARK_TOL_PX = 1e-3  # motion half, GPU against CPU, TF32 off
 FRAME_TOL = 1e-5  # one f32 frame before the uint8 cast, GPU against CPU, TF32 off
+INT8_PSNR_DB = 30.0  # int8 frames against the bf16 float renderer (the JAX package's gate)
+# Bucketed against the exact request on the card (measured: landmarks
+# 3.05e-5 px, every frame value equal, in two calls)
+BUCKET_LANDMARK_TOL_PX = 1e-4
+BUCKET_FRAME_SHARE = 0.9999  # share of frame values within 1 level
 
 
 def log(phase: str, **kv) -> None:
@@ -97,12 +112,27 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
+def top_kernels(events, n: int):
+    """The n kernel names with the most device time, as (name[:60], ms)."""
+    total = {}
+    for e in events:
+        total[e.name] = total.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    ranked = sorted(total.items(), key=lambda kv: -kv[1])[:n]
+    return [(name[:60], round(ms, 3)) for name, ms in ranked]
+
+
 def fmt(ms) -> str:
     return "not_measured" if ms is None else f"{ms:.4f}"
 
 
 # Kernel symbols as the profiler names them (demangled).
-SYMBOLS = {"K1": "rasterize_kernel", "K2": "rnn_kernel<3>", "K3": "rnn_kernel<4>"}
+SYMBOLS = {"K1": "rasterize_kernel", "K2": "rnn_kernel<3>", "K3": "rnn_kernel<4>",
+           "K4": "q8conv_kernel"}
+
+# K4's main-path shapes at B=16 (512^2 'normal' ResUNet): (name, input
+# size, Cin, Cout, stride)
+K4_CASES = (("outermost residual conv", 256, 64, 64, 1), ("stage-2 down conv", 256, 64, 128, 2),
+            ("stage-2 up conv", 256, 256, 64, 1), ("innermost residual conv", 2, 512, 512, 1))
 
 
 def nvidia_smi() -> str:
@@ -167,6 +197,179 @@ def segment_table(person, n_frames: int, dev) -> torch.Tensor:
     pad = torch.full((128 - table.shape[1] - extra.shape[0], 4), -1e6)
     rows = torch.cat([extra, pad])[None].expand(n_frames, -1, -1)
     return torch.cat([table, rows], dim=1).contiguous().to(dev)
+
+
+def check_q8conv(dev):
+    """K4 against conv_s8_plain (int32) and rescale_plain (bf16 epilogue),
+    bitwise, at the four K4_CASES; returns the first case's numbers."""
+    from livespeechportraits_torch.ops import q8conv_cuda as q8
+
+    cl = torch.channels_last
+    out = {}
+    for i, (name, size, cin, cout, stride) in enumerate(K4_CASES):
+        g = torch.Generator().manual_seed(100 + i)
+        x = torch.randint(-127, 128, (16, cin, size, size), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8)
+        x, w = x.to(dev).contiguous(memory_format=cl), w.to(dev).contiguous(memory_format=cl)
+        scale = (torch.rand(cout, generator=g) * 1e-5).to(dev, torch.bfloat16)
+        bias = torch.randn(cout, generator=g).to(dev, torch.bfloat16)
+        ref = q8.conv_s8_plain(x, w, stride)
+        got = q8.conv_s8(x, w, stride)
+        fused = q8.conv_s8_rescale(x, w, stride, 1, scale, bias)
+        fused_ref = q8.rescale_plain(ref, scale, bias)
+        torch.cuda.synchronize()
+        int_diff = int((got != ref).sum().item())
+        bf16_diff = int((fused != fused_ref).sum().item())
+        err = (fused.float() - fused_ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: q8.conv_s8_rescale(x, w, stride, 1, scale, bias), reps=20)
+        plain_ms = cuda_ms(lambda: q8.rescale_plain(q8.conv_s8_plain(x, w, stride), scale, bias),
+                           reps=3, warmup=1)
+        dev_ms, _ = kernel_device_ms(
+            trace(lambda: [q8.conv_s8_rescale(x, w, stride, 1, scale, bias)
+                           for _ in range(20)])[0], SYMBOLS["K4"])
+        ops = 2 * ref.numel() * cin * 9
+        log("K4", case=repr(name), input=f"16x{cin}x{size}x{size}", cout=cout, stride=stride,
+            int32_mismatched=int_diff, bf16_mismatched=bf16_diff, max_abs_acc=int(ref.abs().max()),
+            ms=f"{ms:.4f}", device_ms=fmt(dev_ms), plain_ms=f"{plain_ms:.4f}",
+            tops=f"{ops / (dev_ms or ms) / 1e9:.1f}")
+        if int_diff or bf16_diff:
+            raise AssertionError(f"K4 {name}: {int_diff} int32 and {bf16_diff} bf16 values "
+                                 "differ from the plain twin")
+        if i == 0:
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
+def chirp(seconds: float) -> np.ndarray:
+    n = int(seconds * 16000)
+    f = 120 + 400 * np.linspace(0, seconds, n)
+    return (0.3 * np.sin(2 * np.pi * f * np.arange(n) / 16000)).astype(np.float32)
+
+
+def check_serve(dev) -> int:
+    """The serving path on the card; returns K4's launches over its
+    requests.  Raises on any failed check."""
+    from livespeechportraits_torch import serve
+    from livespeechportraits_torch.models.nn_core import QConv2d
+    from livespeechportraits_torch.ops import gmm, q8conv_cuda, rasterize_cuda, recurrent_cuda
+    from livespeechportraits_torch.pipeline import animate, video
+
+    counters = ((rasterize_cuda, "LAUNCHES"), (recurrent_cuda, "GRU_LAUNCHES"),
+                (recurrent_cuda, "LSTM_LAUNCHES"), (q8conv_cuda, "LAUNCHES"))
+    ff = 15
+    requests = (("tone 3.0 s", video.make_test_tone(3.0)), ("chirp 1.7 s", chirp(1.7)),
+                ("tone 2.5 s", video.make_test_tone(2.5)))
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "serving_int8.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pq = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "q"))
+        pq.setup("Synthetic", image_size=512, quantize=True, calibrate=True, artifact=art)
+        torch.cuda.synchronize()
+        boot_q = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pf = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "f"))
+        pf.setup("Synthetic", image_size=512)
+        torch.cuda.synchronize()
+        boot_f = time.perf_counter() - t0
+        n_q8 = sum(isinstance(m, QConv2d) for m in pq._models.feature2face.modules())
+        if n_q8 != 44:
+            raise AssertionError(f"serve: {n_q8} int8 convs in the 'normal' ResUNet, want 44")
+        log("serve_boot", int8_calibrate_and_save_s=f"{boot_q:.3f}", float_s=f"{boot_f:.3f}",
+            artifact_mb=f"{os.path.getsize(art) / 2**20:.1f}", int8_convs=n_q8)
+        pq.predict(requests[0][1][:16000], write_video=False)  # warm
+        pf.predict(requests[0][1][:16000], write_video=False)
+
+        k4_launches = 0
+        int8_frames = {}
+        for name, audio in requests:
+            for mod, attr in counters:
+                setattr(mod, attr, 0)
+            torch.cuda.synchronize()
+            res = pq.predict(audio, write_video=False)
+            torch.cuda.synchronize()
+            launches = {f"K{i + 1}": getattr(mod, attr) for i, (mod, attr) in enumerate(counters)}
+            n = res.nframe
+            want = int(len(audio) / 16000 * 60) - ff
+            f = res.frames
+            ref = pf.predict(audio, write_video=False)
+            db = psnr(f, ref.frames)
+            log("serve_request", audio=repr(name), nframe=n, wall_s=f"{res.wall_s:.4f}",
+                fps=f"{n / res.wall_s:.2f}", launches=json.dumps(launches),
+                psnr_vs_bf16_db=f"{db:.2f}", bf16_wall_s=f"{ref.wall_s:.4f}",
+                bf16_render_device_ms=f"{ref.stage_ms['render_device']:.3f}",
+                stage_ms=json.dumps({k: round(v, 3) for k, v in res.stage_ms.items()}))
+            if n != want or f.shape != (want, 512, 512, 3) or f.dtype != np.uint8:
+                raise AssertionError(f"serve {name}: {n} frames {f.shape} {f.dtype}, want {want}")
+            if f.min() == f.max():
+                raise AssertionError(f"serve {name}: the frames are constant")
+            if launches["K4"] < n_q8 * math.ceil(n / 16) or min(launches.values()) == 0:
+                raise AssertionError(f"serve {name}: launches {launches}")
+            if not db >= INT8_PSNR_DB:
+                raise AssertionError(f"serve {name}: int8 PSNR {db:.2f} dB < {INT8_PSNR_DB}")
+            k4_launches += launches["K4"]
+            int8_frames[name] = f
+
+        # bucketed against exact (the chirp), through animate as predict calls it
+        audio = requests[1][1]
+        valid = int(len(audio) / 16000 * 60)
+        padded = np.pad(audio, (0, 2 * 16000 - len(audio)))
+        args = (pq._cfg, pq._assets, pq._models)
+        exact = animate.animate(*args, audio, seed=0, render_batch=16, transfer="yuv420",
+                                profile=True)
+        bucketed = animate.animate(*args, padded, seed=0, render_batch=16, transfer="yuv420",
+                                   valid_frames=valid, profile=True)
+        lm_err = float(np.abs(bucketed.landmarks - exact.landmarks).max())
+        d = np.abs(bucketed.frames.astype(int) - exact.frames.astype(int))
+        within = float((d <= 1).mean())
+        t0 = time.perf_counter()
+        gmm.draw_noise(valid + 60, 1, 12, 0)
+        noise_ms = (time.perf_counter() - t0) * 1e3
+        log("serve_bucket", landmark_max_px=f"{lm_err:.3e}", tol_px=BUCKET_LANDMARK_TOL_PX,
+            frame_max_levels=int(d.max()), frames_within_1=f"{within:.6f}",
+            frames_equal=f"{float((d == 0).mean()):.6f}", share_tol=BUCKET_FRAME_SHARE,
+            headpose_ms_padded=f"{bucketed.stage_ms['headpose']:.3f}",
+            headpose_ms_exact=f"{exact.stage_ms['headpose']:.3f}",
+            draw_noise_ms=f"{noise_ms:.3f}",
+            stage_ms_bucketed=json.dumps({k: round(v, 3) for k, v in bucketed.stage_ms.items()}))
+        if not (bucketed.nframe == exact.nframe and lm_err <= BUCKET_LANDMARK_TOL_PX
+                and within >= BUCKET_FRAME_SHARE):
+            raise AssertionError("serve: the bucketed chirp differs from the exact request")
+
+        # a second Predictor booted from the artifact
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pa = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "a"))
+        pa.setup("Synthetic", image_size=512, artifact=art)
+        torch.cuda.synchronize()
+        boot_a = time.perf_counter() - t0
+        same = all(np.array_equal(pa.predict(a, write_video=False).frames, int8_frames[nm])
+                   for nm, a in requests)
+        log("serve_artifact_boot", boot_s=f"{boot_a:.3f}", frames_bitwise=same)
+        if not same:
+            raise AssertionError("serve: the artifact-booted Predictor gave other frames")
+
+        # one traced request: device busy share and the kernels' device time
+        audio = requests[0][1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pq.predict(audio, write_video=False)
+        wall = (time.perf_counter() - t0) * 1e3
+        events, traced_wall = trace(lambda: pq.predict(audio, write_video=False))
+        busy = busy_ms(events)
+        per_kernel = {k: kernel_device_ms(events, sym) for k, sym in SYMBOLS.items()}
+        log("profile_serve", wall_ms=f"{wall:.3f}", traced_wall_ms=f"{traced_wall:.3f}",
+            device_busy_ms=f"{busy:.3f}", busy_share=f"{busy / wall:.4f}",
+            kernels=json.dumps({k: {"device_ms_per_launch": v[0], "launches": v[1],
+                                    "device_ms_total": None if v[0] is None else v[0] * v[1]}
+                                for k, v in per_kernel.items() if v[1]}),
+            top=json.dumps(top_kernels(events, 8)))
+    return k4_launches
 
 
 def main() -> int:
@@ -276,16 +479,21 @@ def main() -> int:
         events, traced_wall = trace(fn)
         busy = busy_ms(events)
         per_kernel = {k: kernel_device_ms(events, s) for k, s in SYMBOLS.items()}
-        top = {}
-        for e in events:
-            top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        top = sorted(top.items(), key=lambda kv: -kv[1])[:6]
         log(f"profile_{half}", wall_ms=f"{wall:.3f}", traced_wall_ms=f"{traced_wall:.3f}",
             device_busy_ms=f"{busy:.3f}", busy_share=f"{busy / wall:.4f}",
             device_events=len(events),
             kernels=json.dumps({k: {"device_ms_per_launch": v[0], "launches": v[1]}
                                 for k, v in per_kernel.items() if v[1]}),
-            top=json.dumps([(name[:60], round(ms, 3)) for name, ms in top]))
+            top=json.dumps(top_kernels(events, 6)))
+
+    # 6c. K4 against its plain twin at four main-path shapes
+    k4 = check_q8conv(dev)
+    kernels.append({"name": "K4 q8conv (int8 3x3 conv)", "route": "cuda",
+                    "source": "livespeechportraits_torch/csrc/q8conv.cu",
+                    "replaces": "livespeechportraits_tpu/models/nn_core.py:241", **k4})
+
+    # 6d. the serving path
+    kernels[-1]["launches"] = check_serve(dev)
 
     # 7. GPU against CPU on the same port, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False

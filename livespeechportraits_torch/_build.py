@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ``csrc/`` into one shared library and load it.
 
-The library is compiled by nvcc at first use for ``sm_90a`` (Hopper) and
-bound with ctypes: each entry point has a plain C signature, takes device
+The library is compiled by nvcc at first use for ``sm_90a`` (Hopper), one
+nvcc process per source, all started together, then linked, and bound
+with ctypes: each entry point has a plain C signature, takes device
 pointers and a CUDA stream as ``void*``, and returns its
 ``cudaGetLastError()``.  The file name carries a hash of the sources and
 flags, so an edit rebuilds and an unchanged tree reuses the build.
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -55,14 +56,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cus = [str(s) for s in _sources()]
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [(p.communicate()[0], p.returncode) for p in procs]
+    try:
+        for (log, rc), src in zip(logs, _sources()):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({rc}):\n{log}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -76,7 +93,8 @@ def library() -> ctypes.CDLL:
         lib.lsp_rasterize.argtypes = [p, i, i, p, i, i, f, p]
         lib.lsp_gru.argtypes = [p, p, p, p, p, p, i, i, p]
         lib.lsp_lstm.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
-        for fn in (lib.lsp_rasterize, lib.lsp_gru, lib.lsp_lstm):
+        lib.lsp_q8conv.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, i, p, p, p]
+        for fn in (lib.lsp_rasterize, lib.lsp_gru, lib.lsp_lstm, lib.lsp_q8conv):
             fn.restype = ctypes.c_int
         lib.lsp_error_string.argtypes = [i]
         lib.lsp_error_string.restype = ctypes.c_char_p

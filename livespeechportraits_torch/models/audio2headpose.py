@@ -87,7 +87,8 @@ def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_fe
     """Full-utterance decode: [2T, H] APC features -> [T - frame_future, ndim].
 
     noise: (gumbel [n, ncenter], eps [n, ndim]) for the n = T - frame_future
-    steps; drawn from ``torch.Generator().manual_seed(seed)`` when None."""
+    steps; ``gmm.draw_noise(n, ..., seed)`` when None, whose step-i draws
+    depend on (seed, i) alone."""
     T = audio_feats.shape[0] // 2
     paired = audio_feats[:2 * T].reshape(T, -1)[None]
     audio_ds = _audio_downsample(model, paired)[0]
@@ -95,8 +96,7 @@ def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_fe
     if nframe <= 0:
         raise ValueError(f"utterance too short: {T} frames <= frame_future {cfg.frame_future}")
     if noise is None:
-        noise = gmm.draw_noise(nframe, cfg.ncenter, cfg.ndim,
-                               torch.Generator().manual_seed(seed))
+        noise = gmm.draw_noise(nframe, cfg.ncenter, cfg.ndim, seed)
     gumbel, eps = (n.to(audio_ds.device, torch.float32) for n in noise)
     return _decode_scan(model, cfg, audio_ds, pre_headpose, gumbel, eps, nframe,
                         float(sigma_scale))

@@ -1,7 +1,9 @@
 """Feature2Face generator: the ResUNet renderer ('normal' and 'large').
 
-Counterpart of the float generator path of ``livespeechportraits_tpu/models/
-feature2face.py`` (``_resblock``, ``_resunet_stage``, ``apply_generator``).
+Counterpart of the generator path of ``livespeechportraits_tpu/models/
+feature2face.py`` (``_resblock``, ``_resunet_stage``, ``apply_generator``) and
+its int8 inference transforms (``quantize_generator``, ``fold_bn_generator``,
+``calibrate_generator``).
 The modules mirror the reference's nested ``nn.Sequential`` so that its
 state-dict keys (``netG.model.model.0.weight`` ...) load unchanged; the
 forward walks each Sequential with the nn_core functions.  The public
@@ -13,8 +15,9 @@ forward walks each Sequential with the nn_core functions.  The public
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Iterator, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -37,6 +40,7 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         b = self.block
+        # conv2d runs nn.Conv2d or an int8 QConv2d alike
         y = torch.relu(nn_core.batchnorm(nn_core.conv2d(x, b[0], padding=1), b[1]))
         y = nn_core.batchnorm(nn_core.conv2d(y, b[3], padding=1), b[4])
         return torch.relu(x + y)
@@ -71,7 +75,7 @@ class ResUnetBlock(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         y = x
         for m in self.model:
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
                 y = nn_core.conv2d(y, m, stride=m.stride[0], padding=m.padding[0])
             elif isinstance(m, nn.BatchNorm2d):
                 y = nn_core.batchnorm(y, m)
@@ -104,6 +108,7 @@ class Feature2FaceG(nn.Module):
         if cfg.size not in N_RES:
             raise NotImplementedError(f"generator size {cfg.size!r}: only the ResUNet "
                                       "('normal', 'large') is ported")
+        self.size = cfg.size
         self.netG = ResUnetGenerator(cfg.input_nc, cfg.output_nc, cfg.n_downsample, cfg.ngf,
                                      N_RES[cfg.size])
 
@@ -115,9 +120,13 @@ class Feature2FaceG(nn.Module):
 
 
 def cast_generator(model: Feature2FaceG, dtype: torch.dtype) -> Feature2FaceG:
-    """A copy with every float tensor (weights, BN statistics) in ``dtype``,
-    like JAX's _cast_net for the bf16 compute path, and conv weights in
-    channels_last memory."""
+    """A copy with every float tensor (weights, BN statistics, int8 scales
+    and biases) in ``dtype``, like JAX's _cast_net for the bf16 compute
+    path, and 4-d weights in channels_last memory; int8 weights stay int8.
+    A model already cast so is returned as it is (a server casts once)."""
+    w = next(model.parameters())
+    if w.dtype == dtype and w.is_contiguous(memory_format=torch.channels_last):
+        return model
     return copy.deepcopy(model).to(dtype=dtype, memory_format=torch.channels_last)
 
 
@@ -135,3 +144,149 @@ def apply_generator(model: Feature2FaceG, x: Tensor) -> Tensor:
 def to_uint8(y: Tensor) -> Tensor:
     """[-1, 1] -> uint8, truncating like JAX's astype after the clip."""
     return ((y + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# int8 inference transforms (feature2face.py:330-371, 491-636 of the JAX
+# package).  Each returns a new model and leaves its argument unchanged.
+# ---------------------------------------------------------------------------
+
+
+def _resunet_only(model: Feature2FaceG, what: str) -> None:
+    if model.size not in N_RES:
+        raise NotImplementedError(f"{what} targets the ResUNet variants ('normal'/'large'), "
+                                  f"not {model.size!r}")
+
+
+def _stages(model: Feature2FaceG) -> Iterator[ResUnetBlock]:
+    """The U-Net stages, outermost first."""
+    stage: Optional[ResUnetBlock] = model.netG.model
+    while stage is not None:
+        yield stage
+        stage = next((m for m in stage.model if isinstance(m, ResUnetBlock)), None)
+
+
+def quantize_generator(model: Feature2FaceG) -> Feature2FaceG:
+    """Every conv but the outermost stage's down (13 -> ngf) and up (-> 3)
+    convs becomes an int8 QConv2d with per-output-channel weight scales;
+    the outermost stage's residual blocks are quantized too."""
+    _resunet_only(model, "int8 quantization")
+    q = copy.deepcopy(model)
+    for stage in _stages(q):
+        seq = stage.model
+        for i, m in enumerate(seq):
+            if isinstance(m, nn.Conv2d) and not stage.outermost:
+                seq[i] = nn_core.QConv2d.from_conv(m)
+            elif isinstance(m, ResnetBlock):
+                m.block[0] = nn_core.QConv2d.from_conv(m.block[0])
+                m.block[3] = nn_core.QConv2d.from_conv(m.block[3])
+    return q
+
+
+@torch.no_grad()
+def _fold_pair(conv, bn: nn.BatchNorm2d, eps: float) -> None:
+    """Fold bn's running stats into conv (w' = w*k or w_scale' = w_scale*k,
+    b' = b*k + bias - mean*k, k = scale * rsqrt(var + eps)) and leave bn at
+    JAX's identity values (1, 0, 0, 1 - eps)."""
+    k = bn.weight * torch.rsqrt(bn.running_var + eps)
+    b = bn.bias - bn.running_mean * k
+    if isinstance(conv, nn_core.QConv2d):
+        conv.w_scale = conv.w_scale * k
+        conv.b = (torch.zeros_like(k) if conv.b is None else conv.b) * k + b
+    else:
+        conv.weight.copy_(conv.weight * k.view(-1, 1, 1, 1))
+        old = torch.zeros_like(k) if conv.bias is None else conv.bias
+        conv.bias = nn.Parameter(old * k + b, requires_grad=False)
+    bn.weight.fill_(1.0)
+    bn.bias.zero_()
+    bn.running_mean.zero_()
+    bn.running_var.fill_(1.0 - eps)
+
+
+def fold_bn_generator(model: Feature2FaceG, eps: float = 1e-5) -> Feature2FaceG:
+    """Eval-only: fold every conv -> BN pair into the conv, on a float or an
+    int8 model (for an int8 conv the fold lands on w_scale)."""
+    _resunet_only(model, "BN folding")
+    q = copy.deepcopy(model)
+    for m in q.modules():
+        if isinstance(m, ResnetBlock):
+            _fold_pair(m.block[0], m.block[1], eps)
+            _fold_pair(m.block[3], m.block[4], eps)
+        elif isinstance(m, ResUnetBlock):
+            seq = m.model
+            for i in range(len(seq) - 1):
+                if isinstance(seq[i + 1], nn.BatchNorm2d):
+                    _fold_pair(seq[i], seq[i + 1], eps)
+    return q
+
+
+def _convs_in_order(stage: ResUnetBlock) -> Iterator[nn.Module]:
+    """A stage's convs in the order the forward consumes them: down,
+    res_down (conv1, conv2 each), the inner stage, up, res_up - JAX's
+    calibration walk."""
+    for m in stage.model:
+        if isinstance(m, ResUnetBlock):
+            yield from _convs_in_order(m)
+        elif isinstance(m, ResnetBlock):
+            yield m.block[0]
+            yield m.block[3]
+        elif isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
+            yield m
+
+
+def _assign_x_scales(model: Feature2FaceG, scales: np.ndarray) -> None:
+    """Give the quantized convs, in consumption order, one scale each."""
+    it = iter(scales)
+    for conv in _convs_in_order(model.netG.model):
+        if isinstance(conv, nn_core.QConv2d):
+            try:
+                s = next(it)
+            except StopIteration:
+                raise RuntimeError("parameter walk visited more quantized convs than the "
+                                   "forward recorded - forward/walk order mismatch") from None
+            conv.x_scale = torch.tensor(s, dtype=torch.float32, device=conv.w_scale.device)
+    leftovers = sum(1 for _ in it)
+    if leftovers:
+        raise RuntimeError(f"calibration recorded {leftovers} more conv activations than the "
+                           "parameter walk visited - forward/walk order mismatch")
+
+
+@torch.no_grad()
+def calibrate_generator(model: Feature2FaceG, inputs,
+                        compute_dtype: Optional[torch.dtype] = None) -> Feature2FaceG:
+    """Static activation scales for an int8 model: run the forward on
+    ``inputs`` (one [B, H, W, input_nc] batch or a list), record each
+    quantized conv's input amax in call order, and store x_scale =
+    max-over-batches(amax) / 127 (f32) on each of them (JAX's margin 1)."""
+    _resunet_only(model, "int8 calibration")
+    batches = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    net = model if compute_dtype is None else cast_generator(model, compute_dtype)
+    amax = None
+    for x in batches:
+        with nn_core.recording_amax(net) as record:
+            apply_generator(net, x)
+        if not record:
+            raise ValueError("calibration recorded no activations: the model has no "
+                             "quantized convs - run quantize_generator first")
+        a = torch.stack(record).cpu().numpy()
+        amax = a if amax is None else np.maximum(amax, a)
+    out = copy.deepcopy(model)
+    _assign_x_scales(out, np.maximum(amax, 1e-12) / 127.0)
+    return out
+
+
+def conform_to_state_dict(model: Feature2FaceG, sd) -> None:
+    """Shape the module tree, in place, for a state dict of a transformed
+    generator: a conv whose entry is int8 (``w_q``) becomes a QConv2d, and a
+    float conv that carries a bias after BN folding gets one."""
+    for prefix, parent in list(model.named_modules()):
+        for name, child in list(parent.named_children()):
+            if not isinstance(child, nn.Conv2d):
+                continue
+            key = f"{prefix}.{name}" if prefix else name
+            if f"{key}.w_q" in sd:
+                w_q = torch.zeros(sd[f"{key}.w_q"].shape, dtype=torch.int8)
+                setattr(parent, name, nn_core.QConv2d(
+                    w_q, torch.zeros(w_q.shape[0]), child.stride[0], child.padding[0]))
+            elif f"{key}.bias" in sd and child.bias is None:
+                child.bias = nn.Parameter(torch.zeros(child.out_channels), requires_grad=False)

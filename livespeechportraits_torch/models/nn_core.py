@@ -12,12 +12,15 @@ the input projection hoisted out of it, as in JAX.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from livespeechportraits_torch.ops import q8conv_cuda
 
 Tensor = torch.Tensor
 
@@ -38,9 +41,106 @@ def conv1d(x: Tensor, layer: nn.Conv1d, dilation: int = 1,
     return F.conv1d(x, layer.weight, layer.bias, dilation=dilation)
 
 
-def conv2d(x: Tensor, layer: nn.Conv2d, stride: int = 1, padding: int = 0) -> Tensor:
-    """x: [N, C, H, W] -> [N, C', H', W']; symmetric integer zero padding."""
+def conv2d(x: Tensor, layer: Union[nn.Conv2d, "QConv2d"], stride: int = 1,
+           padding: int = 0) -> Tensor:
+    """x: [N, C, H, W] -> [N, C', H', W']; symmetric integer zero padding.
+    A QConv2d layer runs the int8 convolution (conv2d_q8)."""
+    if isinstance(layer, QConv2d):
+        return conv2d_q8(x, layer, stride, padding)
     return F.conv2d(x, layer.weight, layer.bias, stride=stride, padding=padding)
+
+
+# ---------------------------------------------------------------------------
+# int8 convolution (nn_core.quantize_weight_int8 / quantize_conv /
+# _quantize_activation / _conv2d_q8 of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def quantize_weight_int8(w: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-output-channel symmetric int8 weights of a conv weight [O, I, kh,
+    kw]: (w_q int8 in [-127, 127], scale [O]) with scale = amax / 127
+    floored at 1e-12 / 127, in JAX's operation order."""
+    w = w.detach().float()
+    s_k = torch.clamp(w.abs().amax(dim=(1, 2, 3), keepdim=True), min=1e-12) / 127.0
+    w_q = torch.clamp(torch.round(w / s_k), -127, 127).to(torch.int8)
+    return w_q, s_k.flatten()
+
+
+class QConv2d(nn.Module):
+    """A 3x3 conv with int8 weights and per-tensor int8 activations.
+
+    Buffers: ``w_q`` [O, I, 3, 3] int8, ``w_scale`` [O], and optionally
+    ``b`` [O] (after BN folding) and ``x_scale`` [] (after calibration; the
+    activation scale is dynamic without it).  The float buffers follow the
+    module's dtype like any float leaf; ``w_q`` stays int8."""
+
+    def __init__(self, w_q: Tensor, w_scale: Tensor, stride: int, padding: int,
+                 b: Optional[Tensor] = None, x_scale: Optional[Tensor] = None):
+        super().__init__()
+        self.stride, self.padding = (stride, stride), (padding, padding)  # as nn.Conv2d
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("b", b)
+        self.register_buffer("x_scale", x_scale)
+        # the list calibration appends this conv's input amax to (see
+        # recording_amax); None outside calibration
+        self.amax_record: Optional[list] = None
+
+    @classmethod
+    def from_conv(cls, conv: nn.Conv2d) -> "QConv2d":
+        w_q, scale = quantize_weight_int8(conv.weight)
+        b = None if conv.bias is None else conv.bias.detach().float().clone()
+        return cls(w_q, scale, conv.stride[0], conv.padding[0], b=b)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # the optional buffers exist when the state dict carries them
+        for name in ("b", "x_scale"):
+            if getattr(self, name) is None and prefix + name in state_dict:
+                setattr(self, name, torch.empty_like(state_dict[prefix + name]))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+@contextlib.contextmanager
+def recording_amax(module: nn.Module):
+    """Calibration: within the block every QConv2d of ``module`` appends its
+    input's |x| max (f32) to the yielded list, in call order, and quantizes
+    with that amax."""
+    record: list = []
+    convs = [m for m in module.modules() if isinstance(m, QConv2d)]
+    for c in convs:
+        c.amax_record = record
+    try:
+        yield record
+    finally:
+        for c in convs:
+            c.amax_record = None
+
+
+def quantize_activation(layer: QConv2d, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """(x_q int8, s_x f32 scalar): x_q = clip(round(x * (1/s_x).to(dt)),
+    -127, 127) in x's dtype, round half to even.  s_x is the calibrated
+    x_scale, the recorded amax / 127 during calibration, or the dynamic
+    amax / 127."""
+    dt = x.dtype
+    if layer.amax_record is not None:
+        amax = x.abs().amax().float()
+        layer.amax_record.append(amax)
+        s_x = torch.clamp(amax, min=1e-12) / 127.0
+    elif layer.x_scale is not None:
+        s_x = layer.x_scale.float()
+    else:
+        s_x = torch.clamp(x.abs().amax().float(), min=1e-12) / 127.0
+    x_q = torch.clamp(torch.round(x * torch.reciprocal(s_x).to(dt)), -127, 127)
+    return x_q.to(torch.int8), s_x
+
+
+def conv2d_q8(x: Tensor, layer: QConv2d, stride: int, padding: int) -> Tensor:
+    """y = conv_s8(x_q, w_q).to(dt) * (w_scale * s_x).to(dt) + b, the int32
+    sums exact (kernel K4 on the card, ops/q8conv_cuda.py)."""
+    x_q, s_x = quantize_activation(layer, x)
+    scale = (layer.w_scale.float() * s_x).to(x.dtype)
+    return q8conv_cuda.conv_s8_rescale(x_q.contiguous(memory_format=torch.channels_last),
+                                       layer.w_q, stride, padding, scale, layer.b)
 
 
 def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5) -> Tensor:

@@ -12,6 +12,7 @@ means (ncenter*ndim), -log sigma (ncenter*ndim)].
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -41,11 +42,35 @@ def sample_gmm(gmm_params: Tensor, ncenter: int, ndim: int, gumbel: Tensor, eps:
     return sample.reshape(*lead, ndim)
 
 
-def draw_noise(n: int, ncenter: int, ndim: int, generator: torch.Generator):
-    """(gumbel [n, ncenter], eps [n, ndim]) drawn on the CPU from
-    ``generator``, so a run draws the same noise whatever its device."""
-    u = torch.rand(n, ncenter, generator=generator, dtype=torch.float64)
-    u = u.clamp(min=torch.finfo(torch.float64).tiny)
-    gumbel = (-torch.log(-torch.log(u))).float()
-    eps = torch.randn(n, ndim, generator=generator)
-    return gumbel, eps
+def _mix64(z: np.ndarray) -> np.ndarray:
+    """SplitMix64's finaliser on uint64 arrays (wrapping arithmetic)."""
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def step_uniforms(seed: int, n: int, width: int) -> np.ndarray:
+    """[n, width] float64 uniforms in (0, 1).  Row i is a hash of (seed, i,
+    column) alone - a counter-based generator - so the draws of decode step
+    i do not depend on how many steps are drawn."""
+    key = _mix64(np.array([seed % 2**64], np.uint64) + np.uint64(0x9E3779B97F4A7C15))
+    ctr = (np.arange(n, dtype=np.uint64)[:, None] * np.uint64(width)
+           + np.arange(width, dtype=np.uint64)[None, :])
+    bits = _mix64(_mix64(ctr ^ key) + key)
+    return ((bits >> np.uint64(11)).astype(np.float64) + 0.5) * 2.0 ** -53
+
+
+def draw_noise(n: int, ncenter: int, ndim: int, seed: int):
+    """(gumbel [n, ncenter], eps [n, ndim]) float32 on the CPU for n decode
+    steps.  Step i's Gumbel and normal draws come together from one row of
+    ``step_uniforms(seed, ...)``, so they depend only on (seed, i), as
+    JAX's fold_in(key, i) draws do: a clip and its bucket-padded copy share
+    the draws of every frame they share, on any device."""
+    pairs = -(-ndim // 2)
+    u = step_uniforms(seed, n, ncenter + 2 * pairs)
+    gumbel = -np.log(-np.log(u[:, :ncenter]))
+    u1, u2 = u[:, ncenter::2], u[:, ncenter + 1::2]  # Box-Muller pairs
+    r = np.sqrt(-2.0 * np.log(u1))
+    eps = np.concatenate([r * np.cos(2 * np.pi * u2), r * np.sin(2 * np.pi * u2)], axis=1)
+    return (torch.from_numpy(gumbel.astype(np.float32)),
+            torch.from_numpy(eps[:, :ndim].astype(np.float32)))

@@ -1,8 +1,8 @@
 """Motion post-processing: temporal smoothing, amplitude scaling, lip
 de-intersection.
 
-Counterpart of ``livespeechportraits_tpu/ops/smoothing.py`` (without the
-bucket-padding ``valid_len`` option).  ``gaussian_filter1d`` reproduces
+Counterpart of ``livespeechportraits_tpu/ops/smoothing.py``.
+``gaussian_filter1d`` reproduces
 scipy.ndimage.gaussian_filter1d's defaults (truncate 4.0, mode 'reflect',
 which repeats the edge sample: [d c b a | a b c d]); the padding is an index
 map, since ``F.pad(mode='reflect')`` is the other reflection.
@@ -10,7 +10,7 @@ map, since ``F.pad(mode='reflect')`` is the other reflection.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,16 +35,25 @@ def _gaussian_kernel(sigma: float, truncate: float = 4.0) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-def gaussian_filter1d(x: Tensor, sigma: float, truncate: float = 4.0) -> Tensor:
-    """Gaussian smoothing along axis 0 of [T, D] (scipy 'reflect' mode)."""
+def gaussian_filter1d(x: Tensor, sigma: float, truncate: float = 4.0,
+                      valid_len: Optional[int] = None) -> Tensor:
+    """Gaussian smoothing along axis 0 of [T, D] (scipy 'reflect' mode).
+
+    valid_len: treat only rows [0, valid_len) as the signal (the rest is
+    bucket padding, serve.py); the reflection is built from those rows, so
+    rows >= valid_len are never read and outputs [0, valid_len) equal
+    filtering the unpadded signal bit for bit."""
     if sigma <= 0:
         return x
     kernel = _gaussian_kernel(sigma, truncate)
     radius = kernel.shape[0] // 2
     T = x.shape[0]
-    # closed form of the repeated reflection: a period-2T triangle
-    m = np.mod(np.arange(-radius, T + radius), 2 * T)
-    idx = torch.as_tensor(np.where(m < T, m, 2 * T - 1 - m), device=x.device)
+    n = T if valid_len is None else int(valid_len)
+    if n < 1:
+        raise ValueError(f"valid_len must be >= 1, got {valid_len}")
+    # closed form of the repeated reflection: a period-2n triangle
+    m = np.mod(np.arange(-radius, T + radius), 2 * n)
+    idx = torch.as_tensor(np.where(m < n, m, 2 * n - 1 - m), device=x.device)
     xp = x[idx].float()  # [T + 2r, D]
     k = torch.as_tensor(kernel, device=x.device)
     # correlate each column, out[t] = sum_j k[j] * xp[t + j], as a matmul
@@ -55,19 +64,23 @@ def gaussian_filter1d(x: Tensor, sigma: float, truncate: float = 4.0) -> Tensor:
 
 
 def landmark_smooth_3d(pts3d: Tensor, smooth_sigma: float = 0.0,
-                       area: str = "only_mouth") -> Tensor:
+                       area: str = "only_mouth", valid_len: Optional[int] = None) -> Tensor:
     """Temporal smoothing of [T, 73, 3] landmarks; 'only_mouth' smooths the
-    mouth block on its own and puts it back over the global pass."""
+    mouth block on its own and puts it back over the global pass.
+    valid_len: see gaussian_filter1d."""
     if smooth_sigma == 0:
         return pts3d
     T = pts3d.shape[0]
     if area == "all":
-        return gaussian_filter1d(pts3d.reshape(T, -1), smooth_sigma).reshape(pts3d.shape)
+        return gaussian_filter1d(pts3d.reshape(T, -1), smooth_sigma,
+                                 valid_len=valid_len).reshape(pts3d.shape)
     if area != "only_mouth":
         raise ValueError(f"unknown smoothing area {area!r}")
     m0, m1 = MOUTH_RANGE
-    mouth = gaussian_filter1d(pts3d[:, m0:m1, :].reshape(T, -1), smooth_sigma)
-    smoothed = gaussian_filter1d(pts3d.reshape(T, -1), smooth_sigma).reshape(pts3d.shape)
+    mouth = gaussian_filter1d(pts3d[:, m0:m1, :].reshape(T, -1), smooth_sigma,
+                              valid_len=valid_len)
+    smoothed = gaussian_filter1d(pts3d.reshape(T, -1), smooth_sigma,
+                                 valid_len=valid_len).reshape(pts3d.shape)
     smoothed = smoothed.clone()
     smoothed[:, m0:m1, :] = mouth.reshape(T, m1 - m0, 3)
     return smoothed
@@ -114,11 +127,12 @@ def mouth_amp(pts3d: Tensor, is_delta: bool = True, method: str = "XY",
     return out
 
 
-def solve_intersect_mouth(pts3d: Tensor) -> Tensor:
+def solve_intersect_mouth(pts3d: Tensor, valid: Optional[Tensor] = None) -> Tensor:
     """De-intersect flipped lips (funcs/utils.py:330-357): a frame whose
     three inner lower-lip points all sit above the inner upper lip gets half
     the overlap pushed back into each inner lip, and the outer lips move by
-    the mean overlap over all flipped frames."""
+    the mean overlap over all flipped frames.  ``valid`` ([T] bool) keeps
+    bucket-padding rows out of that statistic."""
     dev = pts3d.device
     ui = torch.tensor(UPPER_INNER_LIP, device=dev)
     li = torch.tensor(LOWER_INNER_LIP, device=dev)
@@ -127,6 +141,8 @@ def solve_intersect_mouth(pts3d: Tensor) -> Tensor:
     upper_y = pts3d[:, ui, 1]
     lower_y = pts3d[:, li, 1]
     flip = (lower_y > upper_y).sum(1) == 3  # [T]
+    if valid is not None:
+        flip = flip & valid
     diff_half = (lower_y - upper_y) * 0.5
     n_flip = torch.clamp(flip.sum(), min=1)
     global_mean = (diff_half * flip[:, None]).sum() / (n_flip * diff_half.shape[1])
@@ -140,10 +156,10 @@ def solve_intersect_mouth(pts3d: Tensor) -> Tensor:
     return out
 
 
-def headpose_smooth(headpose: Tensor, smooth_sigmas: Tuple[float, float] = (0.0, 0.0)
-                    ) -> Tensor:
+def headpose_smooth(headpose: Tensor, smooth_sigmas: Tuple[float, float] = (0.0, 0.0),
+                    valid_len: Optional[int] = None) -> Tensor:
     """Smooth [T, 6] head pose: rotation with sigma[0], translation with
-    sigma[1]."""
-    rot = gaussian_filter1d(headpose[:, :3], smooth_sigmas[0])
-    trans = gaussian_filter1d(headpose[:, 3:], smooth_sigmas[1])
+    sigma[1].  valid_len: see gaussian_filter1d."""
+    rot = gaussian_filter1d(headpose[:, :3], smooth_sigmas[0], valid_len=valid_len)
+    trans = gaussian_filter1d(headpose[:, 3:], smooth_sigmas[1], valid_len=valid_len)
     return torch.cat([rot, trans], dim=1)

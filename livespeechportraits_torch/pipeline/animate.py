@@ -1,16 +1,18 @@
 """The audio -> video inference pipeline on PyTorch.
 
 Counterpart of ``livespeechportraits_tpu/pipeline/animate.py``: the staged
-``compute_motion`` (without ``fused`` and ``valid_frames``), ``_jit_post``
-as a plain function, ``render_frames`` with the exact RGB transfer, and
-``animate``.  Stages:
+``compute_motion`` with ``valid_frames`` bucketing (without ``fused``),
+``_jit_post`` as a plain function, ``render_frames`` with the exact ``rgb``
+and the ``yuv420`` transfers, ``build_render_inputs`` and ``animate``.
+Stages:
 
     1. mel + APC features  (ops/mel.py, models/apc.py: GRU kernel K2)
     2. LLE manifold projection (ops/manifold.py)
     3. Audio2Mouth (models/audio2feature.py: LSTM kernel K3)
     4. Audio2Headpose decode (models/audio2headpose.py)
     5. post-processing: smoothing, AMP, projection (_post)
-    6. rendering: rasteriser kernel K1 + Feature2Face U-Net, frames batched
+    6. rendering: rasteriser kernel K1 + Feature2Face U-Net (the int8 convs
+       on kernel K4), frames batched
 
 Every stage runs on the device of the models.  ``stage_ms`` holds host
 wall-clock per stage; with ``profile=True`` each stage ends in
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,18 +61,42 @@ def _device_of(models: PersonModels) -> torch.device:
     return next(models.apc.parameters()).device
 
 
+TRANSFERS = ("rgb", "yuv420")
+
+
+def _check_transfer(transfer: str) -> None:
+    if transfer not in TRANSFERS:
+        raise NotImplementedError(
+            f"transfer {transfer!r} is not ported: the port has {TRANSFERS}; the pack4e, "
+            "jpeg and jpeg4 coders are ROADMAP item 12")
+
+
 @torch.no_grad()
 def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                    audio: np.ndarray, seed: int = 0,
                    stage_ms: Optional[Dict[str, float]] = None, profile: bool = False,
-                   headpose_noise: Optional[Tuple[Tensor, Tensor]] = None):
-    """Stages 1-5: audio -> (landmarks2d [N, 73, 2], shoulders2d [N, S, 2],
-    head [N, 6], pts3d [N, 73, 3], N), tensors on the models' device.
+                   headpose_noise: Optional[Tuple[Tensor, Tensor]] = None,
+                   valid_frames: Optional[int] = None):
+    """Stages 1-5: audio -> (landmarks2d [N', 73, 2], shoulders2d [N', S, 2],
+    head [N', 6], pts3d [N', 73, 3], N), tensors on the models' device; the
+    first N rows are the frames (N' > N only with valid_frames).
 
     headpose_noise: (gumbel, eps) for the head-pose decode; drawn from
-    ``seed`` when None (models/audio2headpose.generate_sequence)."""
+    ``seed`` when None (models/audio2headpose.generate_sequence), the draws
+    of frame i depending on (seed, i) alone.
+
+    valid_frames: the unpadded audio's video-frame count when ``audio``
+    carries bucket padding (serve.py).  Features past the true end repeat
+    the last true row (what the A2F tail sees on the unpadded run), the
+    post stage reflects at the true end, and N = valid_frames -
+    frame_future: the first N rows equal the unpadded run's.  Every other
+    stage is prefix-causal over the padded audio."""
     sm = stage_ms if stage_ms is not None else {}
     dev = _device_of(models)
+    ff = cfg.audio2headpose.frame_future
+    if valid_frames is not None and int(valid_frames) <= ff:
+        raise ValueError(f"valid_frames={valid_frames} must exceed the head-pose lookahead "
+                         f"frame_future={ff} (audio too short for the bucket)")
 
     t0 = time.perf_counter()
     mel80 = mel.compute_mel_sequence(audio, device=dev)  # [2T, 80]
@@ -86,6 +112,12 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
         if profile:
             _sync(dev)
     sm["lle"] = (time.perf_counter() - t0) * 1e3
+
+    if valid_frames is not None:
+        # rows at or past the true end become the last true row: at the
+        # FRAME count 2*valid_frames-1, not the post-stage count
+        last = 2 * int(valid_frames) - 1
+        feats = feats[torch.clamp(torch.arange(feats.shape[0], device=dev), max=last)]
 
     t0 = time.perf_counter()
     pred_feat = a2f_model.generate_sequence(models.audio2feature, feats,
@@ -108,13 +140,18 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
     nframe = int(min(pred_feat.shape[0], pred_head.shape[0]))
     brow_idx = torch.as_tensor(np.arange(nframe) % assets.candidate_eye_brow.shape[0],
                                device=dev)
+    valid_len = None
+    if valid_frames is not None and int(valid_frames) - ff < nframe:
+        valid_len = int(valid_frames) - ff
     landmarks2d, shoulders2d, head, final = _post(
         cfg, pred_feat[:nframe], pred_head[:nframe],
         *(assets.tensor(k, dev) for k in ("mean_pts3d", "std_mean_pts3d",
                                           "mean_translation", "candidate_eye_brow")),
         brow_idx,
         *(assets.tensor(k, dev) for k in ("camera_intrinsic", "shoulder3D", "ref_trans")),
-        assets.scale)
+        assets.scale, valid_len)
+    if valid_frames is not None:
+        nframe = min(nframe, int(valid_frames) - ff)
     if profile:
         _sync(dev)
     sm["post"] = (time.perf_counter() - t0) * 1e3
@@ -123,26 +160,32 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
 
 def _post(cfg: PersonConfig, pred_feat: Tensor, pred_head: Tensor, mean_pts3d: Tensor,
           std_mean_pts3d: Tensor, mean_translation: Tensor, candidate_eye_brow: Tensor,
-          brow_idx: Tensor, K: Tensor, shoulder3D: Tensor, ref_trans: Tensor, scale: float):
+          brow_idx: Tensor, K: Tensor, shoulder3D: Tensor, ref_trans: Tensor, scale: float,
+          valid_len: Optional[int] = None):
     """Stage 5: smoothing, mouth AMP, lip de-intersection, head-pose
-    conditioning, eyebrow cycling, landmark and shoulder projection."""
+    conditioning, eyebrow cycling, landmark and shoulder projection.
+    valid_len: the true length of bucket-padded inputs; smoothing reflects
+    at it and the lip-flip statistic ignores the rows past it, so rows
+    [0, valid_len) equal the unpadded run's."""
     a2f_cfg = cfg.audio2feature
     a2h_cfg = cfg.audio2headpose
     nframe = pred_feat.shape[0]
     dev = pred_feat.device
     mouth_idx = torch.as_tensor(MOUTH_INDICES, device=dev)
     brow_rows = torch.as_tensor(EYE_BROW_INDICES, device=dev)
+    valid = None if valid_len is None else torch.arange(nframe, device=dev) < valid_len
 
     pts3d = pred_feat.new_zeros(nframe, 73, 3)
     pts3d[:, mouth_idx] = pred_feat.reshape(nframe, 25, 3)
-    pts3d = smoothing.landmark_smooth_3d(pts3d, a2f_cfg.smooth_sigma, "only_mouth")
+    pts3d = smoothing.landmark_smooth_3d(pts3d, a2f_cfg.smooth_sigma, "only_mouth",
+                                         valid_len=valid_len)
     pts3d = smoothing.mouth_amp(pts3d, True, a2f_cfg.amp_method, a2f_cfg.amp_params)
-    pts3d = smoothing.solve_intersect_mouth(pts3d + mean_pts3d)
+    pts3d = smoothing.solve_intersect_mouth(pts3d + mean_pts3d, valid)
 
     head = pred_head[:, :6].clone()
     head[:, :3] *= a2h_cfg.rot_amp
     head[:, 3:] *= a2h_cfg.trans_amp
-    head = smoothing.headpose_smooth(head, a2h_cfg.smooth_sigmas)
+    head = smoothing.headpose_smooth(head, a2h_cfg.smooth_sigmas, valid_len=valid_len)
     head[:, 3:] += mean_translation
     head[:, 0] += 180.0  # x-axis convention flip (reference demo.py:232)
 
@@ -158,42 +201,90 @@ def _post(cfg: PersonConfig, pred_feat: Tensor, pred_head: Tensor, mean_pts3d: T
     return landmarks2d, shoulders2d, head, final
 
 
+def _shift_shoulders(assets: PersonAssets, shoulders2d: Tensor) -> Tensor:
+    if assets.image_pad is None:
+        return shoulders2d
+    top, bottom, left, right = assets.image_pad
+    return shoulders2d + torch.tensor([right - left, top - bottom],
+                                      device=shoulders2d.device, dtype=torch.float32)
+
+
+def _cand_stack(assets: PersonAssets, size: int, dev: torch.device) -> Tensor:
+    """[H, W, 12]: the four candidate images on channels, as JAX's concat."""
+    cand = assets.tensor("candidate_images", dev)  # [4, H, W, 3]
+    return cand.permute(1, 2, 0, 3).reshape(size, size, 12)
+
+
+def compute_dtype(cfg: PersonConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.feature2face.precision == "bfloat16" else torch.float32
+
+
 @torch.no_grad()
 def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                   landmarks2d: Tensor, shoulders2d: Tensor, render_batch: int = 8,
                   keep_feature_maps: bool = False,
-                  stage_ms: Optional[Dict[str, float]] = None):
+                  stage_ms: Optional[Dict[str, float]] = None, transfer: str = "rgb"):
     """Stage 6: rasterise + U-Net, ``render_batch`` frames at a time.
-    Returns (frames [N, H, W, 3] uint8, edge maps [N, H, W] uint8 or None)."""
+    Returns (frames [N, H, W, 3] uint8, edge maps [N, H, W] uint8 or None).
+
+    transfer='rgb' (exact) fetches uint8 RGB; 'yuv420' packs each batch on
+    the device as planar 4:2:0 in one contiguous uint8 buffer (half the
+    bytes) and converts back to RGB on the host (i420_to_rgb).  On the card
+    each batch is fetched into pinned memory behind its render, and the host
+    converts it while the device renders the next batch: ``render_device``
+    then covers the device work and the overlapped host work, ``render``
+    the last batch's conversion."""
+    _check_transfer(transfer)
     sm = stage_ms if stage_ms is not None else {}
     dev = landmarks2d.device
     t0 = time.perf_counter()
     nframe = landmarks2d.shape[0]
     H = W = cfg.feature2face.load_size
-    if assets.image_pad is not None:
-        top, bottom, left, right = assets.image_pad
-        shoulders2d = shoulders2d + torch.tensor([right - left, top - bottom],
-                                                 device=dev, dtype=torch.float32)
-    dtype = torch.bfloat16 if cfg.feature2face.precision == "bfloat16" else torch.float32
-    net = f2f_model.cast_generator(models.feature2face, dtype)
-    cand = assets.tensor("candidate_images", dev)  # [4, H, W, 3]
-    cand_stack = cand.permute(1, 2, 0, 3).reshape(H, W, 12)  # JAX's concat on channels
+    shoulders2d = _shift_shoulders(assets, shoulders2d)
+    # a no-op for a generator already cast (serve.Predictor casts once)
+    net = f2f_model.cast_generator(models.feature2face, compute_dtype(cfg))
+    cand_stack = _cand_stack(assets, H, dev)
 
     pad_to = -(-nframe // render_batch) * render_batch
     lm = torch.cat([landmarks2d, landmarks2d[-1:].expand(pad_to - nframe, 73, 2)])
     sh = torch.cat([shoulders2d,
                     shoulders2d[-1:].expand(pad_to - nframe, *shoulders2d.shape[1:])])
-    frames, maps = [], []
+    encode = rgb_to_yuv420_packed if transfer == "yuv420" else f2f_model.to_uint8
+    frames = torch.empty(pad_to, H, W, 3, dtype=torch.uint8)
+    maps: List[Tensor] = []
+    pending = None  # the previous batch: (first frame, host tensor, its copy's event)
+
+    def finish(batch) -> None:
+        start, host, copied = batch
+        if copied is not None:
+            copied.synchronize()
+        frames[start:start + render_batch] = (i420_to_rgb(host, H, W)
+                                              if transfer == "yuv420" else host)
+
     for start in range(0, pad_to, render_batch):
         edge = rasterize_cuda.rasterize_feature_maps(
             lm[start:start + render_batch], sh[start:start + render_batch], (H, W))
         inp = torch.cat([edge[..., None], cand_stack.expand(render_batch, H, W, 12)], dim=-1)
-        frames.append(f2f_model.to_uint8(f2f_model.apply_generator(net, inp)))
+        out = encode(f2f_model.apply_generator(net, inp))
+        copied = None
+        if dev.type == "cuda":
+            # the copy to pinned memory queues behind the batch, so the host
+            # converts the previous batch while the device renders this one;
+            # two pinned buffers live at a time and the allocator reuses them
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            out = host
+        if pending is not None:
+            finish(pending)
+        pending = (start, out, copied)
         if keep_feature_maps:
             maps.append(edge)
     _sync(dev)
     sm["render_device"] = (time.perf_counter() - t0) * 1e3
-    frames_u8 = torch.cat(frames)[:nframe].cpu().numpy()
+    finish(pending)
+    frames_u8 = frames[:nframe].numpy()
     sm["render"] = (time.perf_counter() - t0) * 1e3 - sm["render_device"]
     fmap_u8 = None
     if keep_feature_maps:
@@ -201,19 +292,103 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     return frames_u8, fmap_u8
 
 
+@torch.no_grad()
+def build_render_inputs(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
+                        audio: np.ndarray, seed: int = 0, max_frames: int = 16) -> Tensor:
+    """The first ``max_frames`` renderer inputs [N, H, W, 13] (edge channel +
+    candidate stack) of ``audio``, exactly as render_frames feeds the U-Net:
+    the batches int8 calibration measures its scales on."""
+    landmarks2d, shoulders2d, _, _, nframe = compute_motion(cfg, assets, models, audio,
+                                                            seed=seed)
+    n = min(nframe, max_frames)
+    H = W = cfg.feature2face.load_size
+    edge = rasterize_cuda.rasterize_feature_maps(
+        landmarks2d[:n], _shift_shoulders(assets, shoulders2d[:n]), (H, W))
+    cand = _cand_stack(assets, H, landmarks2d.device)
+    return torch.cat([edge[..., None], cand.expand(n, H, W, 12)], dim=-1)
+
+
+def rgb_to_yuv420_packed(img: Tensor) -> Tensor:
+    """[B, H, W, 3] in [-1, 1] -> [B, H*W*3/2] uint8: the Y, U and V planes
+    (BT.601 full range, 2x2 chroma mean) packed in one contiguous buffer,
+    with the arithmetic of JAX's _rgb_to_yuv420_packed."""
+    rgb = (img + 1.0) * 127.5
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    u = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    v = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+
+    def down2(c):  # 2x2 mean, summed in JAX's reduction order
+        return (((c[:, 0::2, 0::2] + c[:, 0::2, 1::2]) + c[:, 1::2, 0::2])
+                + c[:, 1::2, 1::2]) / 4.0
+
+    def to_u8(c):
+        return torch.clamp(c + 0.5, 0, 255).to(torch.uint8).reshape(c.shape[0], -1)
+
+    return torch.cat([to_u8(y), to_u8(down2(u)), to_u8(down2(v))], dim=1)
+
+
+def yuv420_unpack(packed: np.ndarray, h: int, w: int):
+    """[B, h*w*3/2] packed planes -> (Y [B,h,w], U, V [B,h/2,w/2])."""
+    B = packed.shape[0]
+    y = packed[:, : h * w].reshape(B, h, w)
+    q = (h // 2) * (w // 2)
+    u = packed[:, h * w : h * w + q].reshape(B, h // 2, w // 2)
+    v = packed[:, h * w + q :].reshape(B, h // 2, w // 2)
+    return y, u, v
+
+
+def yuv420_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Host inverse of the yuv420 pack ([B,H,W] + 2x [B,H/2,W/2] uint8 ->
+    [B,H,W,3] uint8; nearest chroma upsampling)."""
+    yf = y.astype(np.float32)
+    uf = np.repeat(np.repeat(u.astype(np.float32) - 128.0, 2, axis=1), 2, axis=2)
+    vf = np.repeat(np.repeat(v.astype(np.float32) - 128.0, 2, axis=1), 2, axis=2)
+    r = yf + 1.402 * vf
+    g = yf - 0.344136 * uf - 0.714136 * vf
+    b = yf + 1.772 * uf
+    return np.clip(np.stack([r, g, b], axis=-1) + 0.5, 0, 255).astype(np.uint8)
+
+
+def i420_to_rgb(packed: Tensor, h: int, w: int) -> Tensor:
+    """[B, h*w*3/2] packed uint8 -> [B, h, w, 3] uint8 RGB on the CPU, in
+    torch with yuv420_to_rgb's operation order (JAX's compress.i420_to_rgb).
+    The chroma terms are computed at chroma resolution and broadcast over
+    each 2x2 block: nearest upsampling commutes with them exactly."""
+    y, u, v = yuv420_unpack(packed.cpu(), h, w)
+    B = y.shape[0]
+    uf, vf = u.float() - 128.0, v.float() - 128.0
+
+    def up(c):  # [B, h/2, w/2] -> broadcastable over [B, h/2, 2, w/2, 2]
+        return c.view(B, h // 2, 1, w // 2, 1)
+
+    yf = y.float().view(B, h // 2, 2, w // 2, 2)
+    r = yf + up(1.402 * vf)
+    g = yf - up(0.344136 * uf) - up(0.714136 * vf)
+    b = yf + up(1.772 * uf)
+    rgb = torch.stack([r, g, b], dim=-1).add_(0.5).clamp_(0, 255)
+    return rgb.to(torch.uint8).view(B, h, w, 3)
+
+
 def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio: np.ndarray,
             seed: int = 0, render_batch: int = 8, keep_feature_maps: bool = False,
             profile: bool = False,
-            headpose_noise: Optional[Tuple[Tensor, Tensor]] = None) -> AnimateResult:
+            headpose_noise: Optional[Tuple[Tensor, Tensor]] = None,
+            transfer: str = "rgb", valid_frames: Optional[int] = None) -> AnimateResult:
     """audio [-1, 1] float32 at 16 kHz -> frames at 60 FPS, on the models'
-    device."""
+    device.  transfer: 'rgb' (exact) or 'yuv420' (see render_frames).
+    valid_frames: the unpadded audio's frame count when ``audio`` is
+    bucket-padded (see compute_motion); the result then equals the unpadded
+    run's, trimmed to valid_frames - frame_future frames."""
+    _check_transfer(transfer)
     stage_ms: Dict[str, float] = {}
     landmarks2d, shoulders2d, head, final, nframe = compute_motion(
         cfg, assets, models, audio, seed=seed, stage_ms=stage_ms, profile=profile,
-        headpose_noise=headpose_noise)
+        headpose_noise=headpose_noise, valid_frames=valid_frames)
     frames, fmaps = render_frames(cfg, assets, models, landmarks2d[:nframe],
                                   shoulders2d[:nframe], render_batch=render_batch,
-                                  keep_feature_maps=keep_feature_maps, stage_ms=stage_ms)
+                                  keep_feature_maps=keep_feature_maps, stage_ms=stage_ms,
+                                  transfer=transfer)
     return AnimateResult(
         frames=frames,
         feature_maps=fmaps,

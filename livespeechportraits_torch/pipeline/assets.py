@@ -1,7 +1,8 @@
 """Per-person asset packs and the four models, on PyTorch.
 
 Counterpart of ``livespeechportraits_tpu/pipeline/assets.py``
-(``PersonAssets``, ``PersonModels``, ``make_synthetic_person``).  The asset
+(``PersonAssets``, ``PersonModels``, ``make_synthetic_person``,
+``quantize_person_models`` and the serving artifact).  The asset
 arrays stay numpy; ``PersonAssets.tensor`` uploads one to a device once and
 caches it.  ``make_synthetic_person`` builds the same numpy asset pack as the
 JAX package, bit for bit (same ``default_rng`` draws in the same order); its
@@ -11,8 +12,10 @@ so they are not the JAX package's weights - ``from_jax`` loads those.
 
 from __future__ import annotations
 
+import json
+import types
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -22,8 +25,11 @@ from livespeechportraits_tpu.config import EYE_BROW_INDICES, PersonConfig
 from livespeechportraits_torch.models.apc import APCEncoder
 from livespeechportraits_torch.models.audio2feature import Audio2Feature
 from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
+from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models.feature2face import Feature2FaceG
-from livespeechportraits_torch.utils.convert import params_from_jax
+from livespeechportraits_torch.utils.convert import params_from_jax, params_to_jax
+
+MODEL_FIELDS = ("apc", "audio2feature", "audio2headpose", "feature2face")
 
 
 @dataclass
@@ -68,7 +74,7 @@ class PersonModels:
         return self
 
     def _modules(self):
-        return (self.apc, self.audio2feature, self.audio2headpose, self.feature2face)
+        return tuple(getattr(self, name) for name in MODEL_FIELDS)
 
 
 def build_models(cfg: PersonConfig) -> PersonModels:
@@ -97,12 +103,99 @@ def init_models(cfg: PersonConfig, seed: int) -> PersonModels:
 def from_jax(cfg: PersonConfig, models_np: Any, device: torch.device | str = "cpu"
              ) -> PersonModels:
     """Load a JAX ``PersonModels`` (pytrees of numpy-convertible leaves)
-    through ``params_from_jax``; every module loads with strict=True."""
+    through ``params_from_jax``; every module loads with strict=True.  A
+    quantized, folded or calibrated generator tree loads into the matching
+    int8 module tree."""
     models = build_models(cfg)
-    for name in ("apc", "audio2feature", "audio2headpose", "feature2face"):
-        getattr(models, name).load_state_dict(params_from_jax(getattr(models_np, name)),
-                                              strict=True)
+    for name in MODEL_FIELDS:
+        sd = params_from_jax(getattr(models_np, name))
+        if name == "feature2face":
+            f2f.conform_to_state_dict(models.feature2face, sd)
+        getattr(models, name).load_state_dict(sd, strict=True)
     return models.to(device)
+
+
+def quantize_person_models(models: PersonModels, fold_bn: bool = True,
+                           calibrate_inputs=None, calibrate_dtype: Optional[torch.dtype] = None
+                           ) -> PersonModels:
+    """A copy with the renderer int8-quantized for inference
+    (feature2face.quantize_generator), its BN folded into the convs
+    (fold_bn) and, given ``calibrate_inputs`` (a [B, H, W, input_nc]
+    renderer batch or a list, e.g. animate.build_render_inputs), static
+    activation scales measured in ``calibrate_dtype``.  The motion models
+    are shared, unchanged."""
+    net = f2f.quantize_generator(models.feature2face)
+    if fold_bn:
+        net = f2f.fold_bn_generator(net)
+    if calibrate_inputs is not None:
+        net = f2f.calibrate_generator(net, calibrate_inputs, compute_dtype=calibrate_dtype)
+    return replace(models, feature2face=net)
+
+
+# ---------------------------------------------------------------------------
+# Serving artifact in the JAX package's format (assets.py:485-553 there): one
+# .npz holding every leaf of the four JAX parameter trees plus a JSON
+# manifest of their structure, so an artifact written by either package boots
+# the other.
+# ---------------------------------------------------------------------------
+
+
+def _flatten_tree(tree, prefix: str, out: dict, bf16: bool):
+    """bf16: the tree's float leaves hold bfloat16 values (a cast module);
+    they are stored as float32 and marked "dt": "bfloat16", as JAX does."""
+    if isinstance(tree, dict):
+        return {"t": "d", "k": {k: _flatten_tree(v, f"{prefix}.{k}", out, bf16)
+                                for k, v in tree.items()}}
+    if isinstance(tree, (list, tuple)):
+        return {"t": "l" if isinstance(tree, list) else "u",
+                "i": [_flatten_tree(v, f"{prefix}.{n}", out, bf16)
+                      for n, v in enumerate(tree)]}
+    if isinstance(tree, (str, int, float, bool)) or tree is None:
+        return {"t": "p", "v": tree}
+    out[prefix] = np.asarray(tree)
+    spec = {"t": "a", "key": prefix}
+    if bf16 and out[prefix].dtype == np.float32:
+        spec["dt"] = "bfloat16"
+    return spec
+
+
+def _unflatten_tree(spec, arrays):
+    t = spec["t"]
+    if t == "d":
+        return {k: _unflatten_tree(v, arrays) for k, v in spec["k"].items()}
+    if t in ("l", "u"):
+        seq = [_unflatten_tree(v, arrays) for v in spec["i"]]
+        return seq if t == "l" else tuple(seq)
+    if t == "p":
+        return spec["v"]
+    # a leaf marked "dt": "bfloat16" is stored as the float32 of the same
+    # value; the port's modules load it as float32, exactly
+    return arrays[spec["key"]]
+
+
+def save_models_artifact(models: PersonModels, path: str) -> str:
+    """Write the four models (int8 weights and calibrated scales included)
+    as one .npz with a JSON manifest.  Returns the path written."""
+    arrays: dict = {}
+    manifest = {}
+    for name in MODEL_FIELDS:
+        model = getattr(models, name)
+        bf16 = next(model.parameters()).dtype == torch.bfloat16
+        manifest[name] = _flatten_tree(params_to_jax(model), name, arrays, bf16)
+    arrays["__manifest__"] = np.frombuffer(json.dumps(manifest).encode(), dtype=np.uint8)
+    with open(path, "wb") as f:  # a file handle: np.savez appends no .npz
+        np.savez(f, **arrays)
+    return path
+
+
+def load_models_artifact(path: str, cfg: PersonConfig, device: torch.device | str = "cpu"
+                         ) -> PersonModels:
+    """Inverse of save_models_artifact, onto ``device``."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    manifest = json.loads(bytes(arrays.pop("__manifest__")).decode())
+    trees = {name: _unflatten_tree(spec, arrays) for name, spec in manifest.items()}
+    return from_jax(cfg, types.SimpleNamespace(**trees), device)
 
 
 def _synthetic_face_landmarks() -> np.ndarray:

@@ -1,0 +1,165 @@
+"""Serving wrapper of the PyTorch port: a Predictor that loads a subject
+once and answers many requests.
+
+Counterpart of ``livespeechportraits_tpu/serve.py``: ``setup()`` builds the
+synthetic subject (or boots the four models from a serving artifact),
+optionally int8-quantizes the renderer with calibrated static activation
+scales, and casts the renderer to its compute dtype once; ``predict()`` caps
+the audio, pads it to a length bucket, runs ``animate()`` with the yuv420
+transfer and muxes a video.
+
+Bucketing does not change a result: every stage before post-processing is
+prefix-causal over the zero-padded audio, the head-pose noise of frame i
+depends on (seed, i) alone, and the post stage reflects at the true end
+(``animate.compute_motion(valid_frames=)``).  On the CPU the bucketed and
+the exact request are bitwise equal; on the card cuBLAS may pick another
+algorithm for another row count, so they agree within rounding.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import shutil
+import tempfile
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from livespeechportraits_tpu.config import PersonConfig, load_person_config, replace
+from livespeechportraits_torch.models import feature2face as f2f
+from livespeechportraits_torch.pipeline import animate as animate_mod
+from livespeechportraits_torch.pipeline import assets as assets_mod
+from livespeechportraits_torch.pipeline import video as video_mod
+
+
+@dataclass
+class PredictResult:
+    video_path: str
+    nframe: int
+    wall_s: float
+    stage_ms: dict
+    frames: Optional[np.ndarray] = None  # [nframe, H, W, 3] uint8
+
+
+class Predictor:
+    """Load once, predict many, on one device."""
+
+    def __init__(self, max_audio_seconds: float = 10.0, results_dir: Optional[str] = None,
+                 bucket_seconds: float = 1.0, device: str | torch.device = "cuda"):
+        """bucket_seconds > 0 pads each request's audio to the next multiple
+        of it, so requests of nearby lengths run the same shapes (the
+        result is the exact request's); 0 runs every length as it is."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} was asked for but torch sees no CUDA device")
+        self.max_audio_seconds = max_audio_seconds
+        self.bucket_seconds = bucket_seconds
+        self.results_dir = results_dir or tempfile.mkdtemp(prefix="lsp_serve_")
+        self._person: Optional[str] = None
+        self._cfg: Optional[PersonConfig] = None
+        self._assets: Optional[assets_mod.PersonAssets] = None
+        self._models: Optional[assets_mod.PersonModels] = None
+
+    def setup(self, person_id: str = "Synthetic", config_dir: str = "./config",
+              image_size: int = 512, quantize: bool = False, calibrate: bool = True,
+              artifact: Optional[str] = None, f2f_ckpt: str = "", a2f_ckpt: str = "",
+              a2h_ckpt: str = "", apc_ckpt: str = "", data_parallel: bool = False) -> None:
+        """Build the subject and its models once.
+
+        quantize=True int8-quantizes the renderer (BN folded into the
+        convs); with calibrate, static activation scales are measured in
+        the compute dtype on the renderer inputs of a 1 s test tone.
+        artifact: a serving-model .npz (the JAX package's format).  If it
+        exists the four models load from it and quantize/calibrate are
+        ignored; otherwise the models built here are written to it."""
+        if data_parallel:
+            raise NotImplementedError("data_parallel is not ported (ROADMAP item 16)")
+        ckpts = f2f_ckpt or a2f_ckpt or a2h_ckpt or apc_ckpt
+        boot_artifact = bool(artifact) and os.path.exists(artifact)
+        if boot_artifact and ckpts:
+            # never serve stale artifact weights over a freshly named checkpoint
+            raise ValueError(f"artifact {artifact!r} already exists and would shadow the "
+                             "*_ckpt weights; delete it or drop the ckpt args")
+        if ckpts:
+            raise NotImplementedError("the *_ckpt trainer checkpoints are not ported "
+                                      "(ROADMAP item 15)")
+        cfg_path = os.path.join(config_dir, person_id + ".yaml")
+        cfg = (load_person_config(cfg_path, name=person_id) if os.path.exists(cfg_path)
+               else PersonConfig(name=person_id))
+        if person_id != "Synthetic" and cfg.data_root:
+            raise NotImplementedError(f"subject {person_id!r} needs load_person, which is not "
+                                      "ported; only the synthetic subject is")
+        n_down = min(8, int(math.log2(image_size)))
+        cfg = replace(cfg, feature2face=replace(cfg.feature2face, load_size=image_size,
+                                                n_downsample=n_down))
+        person, models = assets_mod.make_synthetic_person(
+            cfg, image_size=image_size, skip_models=boot_artifact, device=self.device)
+        if boot_artifact:
+            models = assets_mod.load_models_artifact(artifact, cfg, self.device)
+        else:
+            if quantize:
+                calib = calib_dtype = None
+                if calibrate:
+                    tone = video_mod.make_test_tone(1.0)
+                    calib = animate_mod.build_render_inputs(cfg, person, models, tone,
+                                                            max_frames=16)
+                    if cfg.feature2face.precision == "bfloat16":
+                        calib_dtype = torch.bfloat16
+                models = assets_mod.quantize_person_models(
+                    models, calibrate_inputs=calib, calibrate_dtype=calib_dtype)
+            if artifact:
+                assets_mod.save_models_artifact(models, artifact)
+        # cast the renderer once here, not per request
+        models.feature2face = f2f.cast_generator(models.feature2face,
+                                                 animate_mod.compute_dtype(cfg))
+        self._cfg, self._assets, self._models, self._person = cfg, person, models, person_id
+
+    def predict(self, driving_audio: str | np.ndarray, seed: int = 0, render_batch: int = 16,
+                transfer: str = "yuv420", write_video: bool = True) -> PredictResult:
+        """audio (a wav path, or float32 in [-1, 1] at 16 kHz) -> a muxed
+        video in results_dir (cleaned per request) and its frames.
+        write_video=False skips the mux (video_path '')."""
+        if self._cfg is None:
+            raise RuntimeError("call setup() first")
+        shutil.rmtree(self.results_dir, ignore_errors=True)
+        os.makedirs(self.results_dir, exist_ok=True)
+        if isinstance(driving_audio, str):
+            audio = video_mod.load_wav(driving_audio)
+            name = os.path.splitext(os.path.basename(driving_audio))[0]
+        else:
+            audio = np.asarray(driving_audio, np.float32)
+            name = "request"
+        audio = audio[: int(self.max_audio_seconds * 16000)]
+
+        true_audio = audio
+        ff = self._cfg.audio2headpose.frame_future
+        true_frames = int(len(true_audio) / 16000 * 60) - ff
+        if true_frames <= 0:
+            raise ValueError(f"audio too short: {len(true_audio) / 16000:.2f}s yields "
+                             f"{true_frames} frames after the head-pose decoder's {ff}-frame "
+                             f"lookahead; send > {(ff + 1) / 60:.2f}s")
+        valid_frames = None
+        if self.bucket_seconds > 0:
+            bucket = int(self.bucket_seconds * 16000)
+            audio = np.pad(audio, (0, -(-len(audio) // bucket) * bucket - len(audio)))
+            valid_frames = int(len(true_audio) / 16000 * 60)
+
+        t0 = time.perf_counter()
+        result = animate_mod.animate(self._cfg, self._assets, self._models, audio, seed=seed,
+                                     render_batch=render_batch, transfer=transfer,
+                                     valid_frames=valid_frames)
+        wall = time.perf_counter() - t0
+        frames = result.frames[:true_frames]
+        out_path = ""
+        if write_video:
+            out_path = os.path.join(self.results_dir, f"{name}.avi")
+            video_mod.write_video(frames, out_path, true_audio)
+        return PredictResult(video_path=out_path, nframe=len(frames), wall_s=wall,
+                             stage_ms=result.stage_ms, frames=frames)
+
+    def stream(self, *args, **kwargs):
+        raise NotImplementedError("Predictor.stream is not ported (ROADMAP item 13: streaming)")

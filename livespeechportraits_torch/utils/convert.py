@@ -1,4 +1,4 @@
-"""JAX parameter pytrees -> the port's state dicts.
+"""JAX parameter pytrees <-> the port's state dicts.
 
 The port's modules use the reference's state-dict key names (those that
 ``livespeechportraits_tpu/utils/torch_convert.export_*`` emit), so a JAX tree
@@ -9,7 +9,11 @@ reference's released ``.pkl`` checkpoints.  Layout maps:
     JAX conv1d  [k, in, out]       -> Conv1d [out, in, k]
     JAX conv2d  [kh, kw, in, out]  -> Conv2d [out, in, kh, kw]
     JAX RNN     [in, G*H]          -> weight_*_l{k} [G*H, in]
+    JAX int8 conv2d {w_q [kh, kw, in, out] int8, w_scale, b?, x_scale?}
+                                   -> QConv2d {w_q [out, in, kh, kw], ...}
 
+``params_to_jax`` is the inverse, for the four models; its leaves are
+numpy arrays (int8 weights stay int8, float leaves become float32).
 Leaves may be numpy arrays or anything ``np.asarray`` accepts; this module
 imports no JAX.
 """
@@ -20,6 +24,13 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
+
+from livespeechportraits_torch.models import feature2face as f2f
+from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.models.apc import APCEncoder
+from livespeechportraits_torch.models.audio2feature import Audio2Feature
+from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -41,6 +52,13 @@ def _conv1d(p, out: StateDict, name: str) -> None:
 
 
 def _conv2d(p, out: StateDict, name: str) -> None:
+    if "w_q" in p:  # int8 conv (nn_core.quantize_conv)
+        out[f"{name}.w_q"] = torch.tensor(np.asarray(p["w_q"], np.int8).transpose(3, 2, 0, 1))
+        out[f"{name}.w_scale"] = _t(p["w_scale"])
+        for k in ("b", "x_scale"):
+            if k in p:
+                out[f"{name}.{k}"] = _t(p[k])
+        return
     out[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
     if "b" in p:
         out[f"{name}.bias"] = _t(p["b"])
@@ -143,3 +161,117 @@ def params_from_jax(tree: Dict[str, Any]) -> StateDict:
     else:
         raise ValueError(f"unrecognised parameter tree with keys {sorted(tree)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The port's modules -> JAX parameter pytrees (numpy leaves)
+# ---------------------------------------------------------------------------
+
+
+def _a(sd: StateDict, key: str) -> np.ndarray:
+    t = sd[key].detach().cpu()
+    return t.numpy() if t.dtype == torch.int8 else t.float().numpy()
+
+
+def _weight_to(sd: StateDict, name: str, *axes: int) -> Dict[str, np.ndarray]:
+    """{"w": the weight with its axes permuted, "b": the bias if any}."""
+    p = {"w": _a(sd, f"{name}.weight").transpose(*axes)}
+    if f"{name}.bias" in sd:
+        p["b"] = _a(sd, f"{name}.bias")
+    return p
+
+
+def _linear_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
+    return _weight_to(sd, name, 1, 0)
+
+
+def _conv1d_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
+    return _weight_to(sd, name, 2, 1, 0)
+
+
+def _conv2d_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
+    if f"{name}.w_q" not in sd:
+        return _weight_to(sd, name, 2, 3, 1, 0)
+    p = {"w_q": _a(sd, f"{name}.w_q").transpose(2, 3, 1, 0),
+         "w_scale": _a(sd, f"{name}.w_scale")}
+    for k in ("b", "x_scale"):
+        if f"{name}.{k}" in sd:
+            p[k] = _a(sd, f"{name}.{k}")
+    return p
+
+
+def _batchnorm_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
+    return {"scale": _a(sd, f"{name}.weight"), "bias": _a(sd, f"{name}.bias"),
+            "mean": _a(sd, f"{name}.running_mean"), "var": _a(sd, f"{name}.running_var")}
+
+
+def _rnn_to(sd: StateDict, prefix: str, layer: int = 0) -> Dict[str, np.ndarray]:
+    return {"w_ih": _a(sd, f"{prefix}.weight_ih_l{layer}").T,
+            "w_hh": _a(sd, f"{prefix}.weight_hh_l{layer}").T,
+            "b_ih": _a(sd, f"{prefix}.bias_ih_l{layer}"),
+            "b_hh": _a(sd, f"{prefix}.bias_hh_l{layer}")}
+
+
+def _wavenet_to(sd: StateDict, pre: str, n_blocks: int) -> Dict[str, Any]:
+    p: Dict[str, Any] = {"start1": _conv1d_to(sd, f"{pre}.start_conv1"),
+                         "start2": _conv1d_to(sd, f"{pre}.start_conv2"),
+                         "end1": _conv1d_to(sd, f"{pre}.end_conv_1"),
+                         "end2": _conv1d_to(sd, f"{pre}.end_conv_2"), "blocks": []}
+    for i in range(n_blocks):
+        b = f"{pre}.residual_blocks.{i}"
+        blk = {"filter": _conv1d_to(sd, f"{b}.filter_conv"),
+               "gate": _conv1d_to(sd, f"{b}.gate_conv"),
+               "res": _conv1d_to(sd, f"{b}.residual_conv"),
+               "skip": _conv1d_to(sd, f"{b}.skip_conv")}
+        if f"{b}.cond_filter_conv.weight" in sd:
+            blk["cond_filter"] = _conv1d_to(sd, f"{b}.cond_filter_conv")
+            blk["cond_gate"] = _conv1d_to(sd, f"{b}.cond_gate_conv")
+        p["blocks"].append(blk)
+    return p
+
+
+def _resblock_to(sd: StateDict, name: str) -> Dict[str, Any]:
+    return {"conv1": _conv2d_to(sd, f"{name}.block.0"), "bn1": _batchnorm_to(sd, f"{name}.block.1"),
+            "conv2": _conv2d_to(sd, f"{name}.block.3"), "bn2": _batchnorm_to(sd, f"{name}.block.4")}
+
+
+def _res_stage_to(sd: StateDict, stage: f2f.ResUnetBlock, block: str) -> Dict[str, Any]:
+    """Inverse of _res_stage, walking the stage's Sequential."""
+    seq = stage.model
+    p: Dict[str, Any] = {"res_down": []}
+    for i, m in enumerate(seq):
+        name = f"{block}.model.{i}"
+        if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
+            p["up" if "down" in p else "down"] = _conv2d_to(sd, name)
+        elif isinstance(m, nn.BatchNorm2d):
+            p["up_bn" if "up" in p else "down_bn"] = _batchnorm_to(sd, name)
+        elif isinstance(m, f2f.ResnetBlock):
+            p.setdefault("res_up" if "up" in p else "res_down", []).append(
+                _resblock_to(sd, name))
+        elif isinstance(m, f2f.ResUnetBlock):
+            p["sub"] = _res_stage_to(sd, m, name)
+    return p
+
+
+def params_to_jax(model: nn.Module) -> Dict[str, Any]:
+    """One of the port's four models as the JAX package's parameter tree
+    (the inverse of params_from_jax)."""
+    sd = model.state_dict()
+    if isinstance(model, APCEncoder):
+        return {"layers": [_rnn_to(sd, f"rnns.{i}") for i in range(len(model.rnns))]}
+    if isinstance(model, Audio2Feature):
+        return {"down1": _linear_to(sd, "downsample.0"),
+                "down_bn": _batchnorm_to(sd, "downsample.1"),
+                "down2": _linear_to(sd, "downsample.3"),
+                "lstm": [_rnn_to(sd, "LSTM", i) for i in range(model.LSTM.num_layers)],
+                "fc1": _linear_to(sd, "fc.0"), "fc1_bn": _batchnorm_to(sd, "fc.1"),
+                "fc2": _linear_to(sd, "fc.3"), "fc2_bn": _batchnorm_to(sd, "fc.4"),
+                "fc3": _linear_to(sd, "fc.6")}
+    if isinstance(model, Audio2Headpose):
+        return {"down1": _linear_to(sd, "audio_downsample.0"),
+                "down_bn": _batchnorm_to(sd, "audio_downsample.1"),
+                "down2": _linear_to(sd, "audio_downsample.3"),
+                "wavenet": _wavenet_to(sd, "WaveNet", len(model.WaveNet.residual_blocks))}
+    if isinstance(model, f2f.Feature2FaceG):
+        return {"net": _res_stage_to(sd, model.netG.model, "netG.model"), "size": model.size}
+    raise TypeError(f"no JAX tree for {type(model).__name__}")

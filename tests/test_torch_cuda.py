@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from livespeechportraits_torch.models import nn_core
-from livespeechportraits_torch.ops import rasterize, rasterize_cuda, recurrent_cuda
+from livespeechportraits_torch.ops import q8conv_cuda, rasterize, rasterize_cuda, recurrent_cuda
 from livespeechportraits_torch.pipeline import animate, assets, video
 from torch_parity import cuda_device, small_person_config  # noqa: F401
 
@@ -56,6 +56,31 @@ def test_recurrence_kernel_matches_plain(cuda_device, gates, H, I, T):
     torch.cuda.synchronize()
     assert recurrent_cuda.GRU_LAUNCHES + recurrent_cuda.LSTM_LAUNCHES == before + 1
     assert (ys - ref).abs().max().item() <= 1e-5  # f32, summation order only
+
+
+@pytest.mark.parametrize("cin,cout,size,stride", [(64, 64, 40, 1), (64, 128, 33, 2),
+                                                  (1024, 512, 3, 1), (48, 24, 7, 2)])
+def test_q8conv_kernel_matches_plain_bitwise(cuda_device, cin, cout, size, stride):
+    """K4 against its float64 twin: int32 sums and the fused bf16 / f32
+    epilogue bit for bit, ragged sizes and a partial channel tile."""
+    g = torch.Generator().manual_seed(cin + cout)
+    cl = torch.channels_last
+    x = torch.randint(-127, 128, (3, cin, size, size + 3), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8)
+    x = x.to(cuda_device).contiguous(memory_format=cl)
+    w = w.to(cuda_device).contiguous(memory_format=cl)
+    before = q8conv_cuda.LAUNCHES
+    ref = q8conv_cuda.conv_s8_plain(x, w, stride)
+    assert torch.equal(q8conv_cuda.conv_s8(x, w, stride), ref)
+    for dt in (torch.float32, torch.bfloat16):
+        scale = (torch.rand(cout, generator=g) * 1e-4).to(cuda_device, dt)
+        bias = torch.randn(cout, generator=g).to(cuda_device, dt)
+        out = q8conv_cuda.conv_s8_rescale(x, w, stride, 1, scale, bias)
+        assert torch.equal(out, q8conv_cuda.rescale_plain(ref, scale, bias))
+    torch.cuda.synchronize()
+    assert q8conv_cuda.LAUNCHES == before + 3
+    with pytest.raises(ValueError, match="channels_last"):
+        q8conv_cuda.conv_s8(x.contiguous(), w, stride)
 
 
 def test_small_slice_gpu_matches_cpu(cuda_device):

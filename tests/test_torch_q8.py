@@ -1,0 +1,281 @@
+"""PyTorch port, the int8 renderer: nn_core's int8 layer, the K4 twin
+(ops/q8conv_cuda.conv_s8_plain) and feature2face's quantize / fold /
+calibrate transforms, each against the JAX package on the same numpy inputs
+at test widths (ngf 8, 5 downsamplings, 32^2)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from livespeechportraits_tpu.config import Feature2FaceConfig
+from livespeechportraits_tpu.models import feature2face as jf2f
+from livespeechportraits_tpu.models import nn_core as jcore
+from livespeechportraits_torch.models import feature2face as f2f
+from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.ops import q8conv_cuda
+from livespeechportraits_torch.utils.convert import params_from_jax, params_to_jax
+
+CFG = Feature2FaceConfig(size="normal", ngf=8, n_downsample=5, load_size=32)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _jax_generator(seed: int, noisy_bn: bool = False):
+    """A JAX ResUNet tree at test widths; noisy_bn gives every BN
+    non-trivial running stats, so folding has work to do."""
+    params = jax.tree.map(np.asarray, jf2f.init_generator(jax.random.PRNGKey(seed), CFG))
+    if not noisy_bn:
+        return params
+    rng = _rng(seed)
+
+    def walk(d):
+        if isinstance(d, dict):
+            if "mean" in d and "var" in d:
+                return dict(d, mean=(0.3 * rng.standard_normal(d["mean"].shape)).astype(np.float32),
+                            var=np.exp(0.5 * rng.standard_normal(d["var"].shape)).astype(np.float32))
+            return {k: walk(v) for k, v in d.items()}
+        if isinstance(d, list):
+            return [walk(v) for v in d]
+        return d
+
+    return walk(params)
+
+
+def _port_generator(tree) -> f2f.Feature2FaceG:
+    model = f2f.Feature2FaceG(CFG).eval().requires_grad_(False)
+    sd = params_from_jax(tree)
+    f2f.conform_to_state_dict(model, sd)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _inputs(seed, n=2):
+    return _rng(seed).uniform(-1, 1, (n, 32, 32, CFG.input_nc)).astype(np.float32)
+
+
+def _port_apply(model, x, dtype=torch.float32):
+    with torch.no_grad():
+        return f2f.apply_generator(f2f.cast_generator(model, dtype), torch.tensor(x)).numpy()
+
+
+def _psnr(a, b):
+    return 10 * np.log10(4.0 / max(float(np.mean((a - b) ** 2)), 1e-12))  # [-1, 1] range
+
+
+@pytest.mark.parametrize("shape,zero_channel", [((3, 3, 16, 24), False), ((3, 3, 8, 5), True),
+                                                 ((3, 3, 64, 32), False)])
+def test_quantize_weight_int8_bitwise(shape, zero_channel):
+    w = (_rng(1).standard_normal(shape) * 0.02).astype(np.float32)  # JAX HWIO
+    if zero_channel:
+        w[..., 0] = 0.0  # exercises the 1e-12 floor
+    q_ref, s_ref = jcore.quantize_weight_int8(jnp.asarray(w))
+    q, s = nn_core.quantize_weight_int8(torch.tensor(w.transpose(3, 2, 0, 1).copy()))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q.numpy().transpose(2, 3, 1, 0), np.asarray(q_ref))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+
+
+@pytest.mark.parametrize("stride,hw", [(1, (13, 7)), (2, (13, 7)), (2, (8, 11)), (1, (1, 2))])
+def test_q8_twin_matches_jax_int8_conv(stride, hw):
+    """conv_s8 on the CPU (the K4 twin, a float64 conv) against JAX's
+    s8 x s8 -> s32 lax.conv: bitwise in int32, ragged H and W."""
+    rng = _rng(2)
+    x = rng.integers(-127, 128, (2, *hw, 24), dtype=np.int8)  # NHWC
+    w = rng.integers(-127, 128, (3, 3, 24, 40), dtype=np.int8)  # HWIO
+    ref = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (stride, stride), [(1, 1), (1, 1)],
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
+    ours = q8conv_cuda.conv_s8(torch.tensor(x).permute(0, 3, 1, 2),
+                               torch.tensor(w.transpose(3, 2, 0, 1).copy()), stride)
+    assert ours.dtype == torch.int32
+    np.testing.assert_array_equal(ours.permute(0, 2, 3, 1).numpy(), np.asarray(ref))
+
+
+def test_int32_to_bf16_matches_jax():
+    """The rescale casts the int32 sums to bf16: torch and XLA round alike,
+    also past 2^24 where the cast rounds twice (int32 -> f32 -> bf16)."""
+    rng = _rng(3)
+    v = np.concatenate([rng.integers(-3_000_000, 3_000_000, 20000),
+                        rng.integers(-(1 << 28), 1 << 28, 20000),
+                        np.arange(-(1 << 25), (1 << 25) + 1, 4099)]).astype(np.int32)
+    ref = np.asarray(jnp.asarray(v).astype(jnp.bfloat16).astype(jnp.float32))
+    ours = torch.tensor(v).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(ours, ref)
+
+
+def _q_layer(stride, static, seed=4):
+    """A quantized JAX conv 24 -> 40 with a bias (and x_scale if static),
+    and the same layer as the port's QConv2d."""
+    rng = _rng(seed)
+    p = {"w": (rng.standard_normal((3, 3, 24, 40)) * 0.05).astype(np.float32),
+         "b": (rng.standard_normal(40) * 0.1).astype(np.float32)}
+    if static:
+        p["x_scale"] = np.float32(2.5 / 127)
+    qp = jax.tree.map(np.asarray, jcore.quantize_conv(jax.tree.map(jnp.asarray, p)))
+    sd = params_from_jax({"net": {"down": qp, "res_down": [], "up": qp}, "size": "normal"})
+    layer = nn_core.QConv2d(torch.zeros(40, 24, 3, 3, dtype=torch.int8), torch.zeros(40),
+                            stride, 1)
+    layer.load_state_dict({k.split(".")[-1]: v for k, v in sd.items()
+                           if k.startswith("netG.model.model.0.")})
+    return qp, layer
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("static", [False, True])
+def test_quantized_layer_matches_jax(stride, static):
+    """One full int8 layer (quantize, s8 conv, rescale, bias) given the same
+    input: bitwise in f32, and in bf16 too (measured: 0 values differ; the
+    bound stated for bf16 is 1 bf16 ulp, |y| * 2^-7, since the frameworks
+    may round the quantize and rescale chain at other places)."""
+    qp, layer = _q_layer(stride, static)
+    x = _rng(5).standard_normal((2, 11, 9, 24)).astype(np.float32)
+    ref = np.asarray(jcore.conv2d(jax.tree.map(jnp.asarray, qp), jnp.asarray(x), stride, 1))
+    ours = nn_core.conv2d(torch.tensor(x).permute(0, 3, 1, 2), layer, stride, 1)
+    np.testing.assert_array_equal(ours.permute(0, 2, 3, 1).numpy(), ref)
+
+    qp16 = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+                        if np.asarray(a).dtype == np.float32 else jnp.asarray(a), qp)
+    ref16 = np.asarray(jcore.conv2d(qp16, jnp.asarray(x).astype(jnp.bfloat16), stride, 1)
+                       ).astype(np.float32)
+    ours16 = nn_core.conv2d(torch.tensor(x).permute(0, 3, 1, 2).bfloat16(),
+                            layer.to(torch.bfloat16), stride, 1)
+    ours16 = ours16.float().permute(0, 2, 3, 1).numpy()
+    bound = np.abs(ref16) * 2.0 ** -7
+    assert (np.abs(ours16 - ref16) <= bound).all()
+
+
+def test_cast_generator_leaves_int8_weights():
+    model = f2f.quantize_generator(_port_generator(_jax_generator(6)))
+    cast = f2f.cast_generator(model, torch.bfloat16)
+    conv = cast.netG.model.model[2].block[0]
+    assert isinstance(conv, nn_core.QConv2d)
+    assert conv.w_q.dtype == torch.int8 and conv.w_scale.dtype == torch.bfloat16
+    assert conv.w_q.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(conv.w_q, model.netG.model.model[2].block[0].w_q)
+    assert f2f.cast_generator(cast, torch.bfloat16) is cast  # already cast: no copy
+
+
+def test_quantize_generator_structure_matches_jax():
+    """The outermost down and up convs stay float, every other conv is int8
+    (44 per 'normal' forward at 8 downsamplings, 26 at 5), with JAX's
+    weights and scales bit for bit."""
+    tree = _jax_generator(7)
+    ours = f2f.quantize_generator(_port_generator(tree))
+    ref = jax.tree.map(np.asarray, jf2f.quantize_generator(tree))
+    assert sum(isinstance(m, nn_core.QConv2d) for m in ours.modules()) == 26
+    assert isinstance(ours.netG.model.model[0], torch.nn.Conv2d)
+    got = params_to_jax(ours)
+    jax.tree.map(np.testing.assert_array_equal, got, ref)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_fold_bn_matches_unfolded(quantized):
+    """Folding is an exact rewrite of the eval forward up to f32 rounding
+    (atol 2e-5, as the JAX package's own test), and leaves each BN at JAX's
+    identity values; the folded leaves equal JAX's fold within 8 f32 ulps
+    (measured 2: torch and XLA round rsqrt differently)."""
+    tree = _jax_generator(8, noisy_bn=True)
+    model = _port_generator(tree)
+    if quantized:
+        model = f2f.quantize_generator(model)
+    x = _inputs(9)
+    folded = f2f.fold_bn_generator(model)
+    np.testing.assert_allclose(_port_apply(folded, x), _port_apply(model, x), atol=2e-5)
+    bn = folded.netG.model.model[3].model[1]  # the second stage's down BN
+    assert torch.equal(bn.running_var, torch.full_like(bn.running_var, 1 - 1e-5))
+    assert torch.equal(bn.weight, torch.ones_like(bn.weight))
+    jtree = jf2f.quantize_generator(tree) if quantized else tree
+    ref = jax.tree.map(np.asarray, jf2f.fold_bn_generator(jtree))
+    def close(a, b):
+        if a.dtype == np.int8:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_array_max_ulp(a, b, maxulp=8)
+
+    jax.tree.map(close, params_to_jax(folded)["net"], ref["net"])
+
+
+def test_calibrated_scales_match_jax():
+    """calibrate_generator on a quantized, folded tree: every x_scale equals
+    JAX's for the same conv (rtol 1e-6), which proves the walk order."""
+    tree = jax.tree.map(np.asarray,
+                        jf2f.fold_bn_generator(jf2f.quantize_generator(_jax_generator(10))))
+    calib = [_inputs(11), _inputs(12)]
+    ref = jf2f.calibrate_generator(tree, [jnp.asarray(c) for c in calib])
+    ours = f2f.calibrate_generator(_port_generator(tree), [torch.tensor(c) for c in calib])
+    got = params_to_jax(ours)
+    scales = []
+
+    def check(path, a, b):
+        if path[-1].key == "x_scale":
+            scales.append(float(a))
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6)
+
+    jax.tree_util.tree_map_with_path(check, got, jax.tree.map(np.asarray, ref))
+    assert len(scales) == 26 and len(set(scales)) > 20
+
+
+def test_quantized_generator_matches_jax():
+    """JAX's quantized, folded and calibrated tree converted to the port:
+    the same forward in f32 and in bf16.  Measured: max 1.1e-8 over the
+    tanh output in both (|y| <= 0.06); bound 1e-7."""
+    tree = jax.tree.map(np.asarray,
+                        jf2f.fold_bn_generator(jf2f.quantize_generator(_jax_generator(13))))
+    tree = jax.tree.map(np.asarray, jf2f.calibrate_generator(tree, jnp.asarray(_inputs(14))))
+    model = _port_generator(tree)
+    x = _inputs(15)
+    ref, _ = jf2f.apply_generator(tree, jnp.asarray(x))
+    np.testing.assert_allclose(_port_apply(model, x), np.asarray(ref), atol=1e-7, rtol=0)
+    jtree = dict(tree, net=jax.tree.map(jnp.asarray, tree["net"]))
+    ref16, _ = jf2f.apply_generator(jtree, jnp.asarray(x), compute_dtype=jnp.bfloat16)
+    np.testing.assert_allclose(_port_apply(model, x, torch.bfloat16), np.asarray(ref16),
+                               atol=1e-7, rtol=0)
+
+
+def test_int8_generator_close_to_float():
+    """The port's own int8 generator against its float forward: PSNR above
+    28 dB, as the JAX package requires of its own."""
+    model = _port_generator(_jax_generator(16))
+    x = _inputs(17)
+    y = _port_apply(model, x)
+    yq = _port_apply(f2f.quantize_generator(model), x)
+    assert _psnr(yq, y) > 28.0 and np.any(yq != y)
+
+
+def test_calibration_errors():
+    model = _port_generator(_jax_generator(18))
+    with pytest.raises(ValueError, match="recorded no activations"):
+        f2f.calibrate_generator(model, torch.tensor(_inputs(19)))
+    q = f2f.quantize_generator(model)
+    with pytest.raises(RuntimeError, match="walk visited more"):
+        f2f._assign_x_scales(q, np.ones(25, np.float32))
+    with pytest.raises(RuntimeError, match="1 more conv activations"):
+        f2f._assign_x_scales(q, np.ones(27, np.float32))
+    q.size = "small"
+    for fn in (f2f.quantize_generator, f2f.fold_bn_generator):
+        with pytest.raises(NotImplementedError):
+            fn(q)
+    with pytest.raises(NotImplementedError):
+        f2f.calibrate_generator(q, torch.tensor(_inputs(19)))
+
+
+def test_recording_is_scoped_to_the_block():
+    q = f2f.quantize_generator(_port_generator(_jax_generator(20)))
+    with nn_core.recording_amax(q) as record:
+        f2f.apply_generator(q, torch.tensor(_inputs(21)))
+    assert len(record) == 26
+    assert all(m.amax_record is None for m in q.modules() if isinstance(m, nn_core.QConv2d))
+
+
+def test_q8conv_dispatch_has_no_fallback():
+    """A CPU tensor takes the twin; any device but the CPU and CUDA raises
+    (a CUDA tensor launches K4 or raises: tests/test_torch_cuda.py)."""
+    x = torch.zeros(1, 16, 4, 4, dtype=torch.int8)
+    w = torch.zeros(8, 16, 3, 3, dtype=torch.int8)
+    assert q8conv_cuda.conv_s8(x, w, 1).shape == (1, 8, 4, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        q8conv_cuda.conv_s8(x.to("meta"), w.to("meta"), 1)
