@@ -8,6 +8,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
 1. device: the card's name, torch and CUDA versions, nvidia-smi's name and
    power limit.  No CUDA device is a failure; nothing falls back to the CPU.
 2. build: nvcc builds the kernels in livespeechportraits_torch/csrc/.
+2b. the kernels and aten ops that three nn_core.conv2d_q8 calls of a
+   calibrated (static x_scale) bf16 layer launch: K4 alone, no quantize
+   pass.
 3. K1 (rasteriser) on 8 frames at 512^2 against its plain twin, bitwise.
 4. K2 (GRU time loop) at H=512, in=80 against the plain loop.
 5. K3 (LSTM time loop) at H=256, in=512 against the plain loop.
@@ -16,18 +19,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
    Then one traced run of each half (torch.profiler): the device's busy
    share and each kernel's device time per launch at the main path's shapes.
    The kernel phases also print device_ms, the kernel's device time per
-   launch from a trace, beside ms, the CUDA-event time per wrapper call.
-6c. K4 (int8 3x3 conv) at four main-path shapes, B=16, against its plain
-   twin: bitwise in int32 and with the fused bf16 rescale epilogue.
+   launch from a trace (K4's from CUDA-graph replays), beside ms, the
+   CUDA-event time per wrapper call.
+6c. K4 (the int8 3x3 conv with the activation quantize folded in) at seven
+   B=16 shapes, against its plain twin: bitwise in the int32 mode and in
+   the fused bf16 mode (inputs with exact rounding ties and values past
+   +-127), with device time, bound, share of the bound and the bf16 cuDNN
+   conv of the same shape as a yardstick; then the 44 convs of one 'normal'
+   ResUNet forward (bitwise, device time beside the bound).
 6d. serve: the serving path, serve.Predictor(device="cuda") booted with the
    int8 calibrated renderer (writing an artifact), three predict() requests
    with bucketing and the yuv420 transfer; frame counts, every kernel
    launched (K4 at least 44 per 16-frame batch), PSNR against the bf16
    float renderer, bucketed against exact, a second Predictor booted from
-   the artifact giving the same frames bit for bit, and one traced request.
+   the artifact giving the same frames bit for bit, and one traced request
+   (K4's device time and launches, the int8 and the bf16 float renderer's
+   render_device on the same request).
 7. the motion half and one f32 frame on the GPU against the CPU, TF32 off.
-8. the kernels' JSON line, then {"ok": true, "device": {...}} as the last
-   line.
+8. the kernels' JSON line (each with its bound: the larger of the bytes it
+   must move over 3.35 TB/s and its operations over the peak rate of their
+   type, and where one PyTorch call computes the same function, that call's
+   time), then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -42,6 +54,10 @@ import time
 
 import numpy as np
 import torch
+
+# Published H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
 
 # Stated tolerances (see PERF.md), each about ten times the error measured
 # on an H100 80GB HBM3: the recurrences 9.6e-7 at T=1200/600, the landmarks
@@ -121,18 +137,36 @@ def top_kernels(events, n: int):
     return [(name[:60], round(ms, 3)) for name, ms in ranked]
 
 
+def kernel_device_total(events, symbol: str):
+    """(total device ms, kernel count) of the kernels whose name holds symbol."""
+    times = [e.time_range.elapsed_us() / 1e3 for e in events if symbol in e.name]
+    return sum(times), len(times)
+
+
 def fmt(ms) -> str:
     return "not_measured" if ms is None else f"{ms:.4f}"
 
 
+def bound(nbytes: float, ops: float, kind: str):
+    """(bound ms, what sets it): the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 # Kernel symbols as the profiler names them (demangled).
+# K4 is its main kernel plus, for a split K loop, the reduction pass.
 SYMBOLS = {"K1": "rasterize_kernel", "K2": "rnn_kernel<3>", "K3": "rnn_kernel<4>",
-           "K4": "q8conv_kernel"}
+           "K4": "q8conv_"}
 
 # K4's main-path shapes at B=16 (512^2 'normal' ResUNet): (name, input
 # size, Cin, Cout, stride)
 K4_CASES = (("outermost residual conv", 256, 64, 64, 1), ("stage-2 down conv", 256, 64, 128, 2),
-            ("stage-2 up conv", 256, 256, 64, 1), ("innermost residual conv", 2, 512, 512, 1))
+            ("stage-2 up conv", 256, 256, 64, 1), ("innermost residual conv", 2, 512, 512, 1),
+            ("stage-7 residual conv, split-K", 8, 512, 512, 1),
+            ("stage-6 residual conv, split-K", 16, 512, 512, 1),
+            ("stage-4 up conv", 64, 1024, 256, 1))
 
 
 def nvidia_smi() -> str:
@@ -157,22 +191,44 @@ def check_recurrence(name, gates, H, I, lengths, main_T, dev):
     plain = nn_core.gru_layer if gates == 3 else nn_core.lstm_layer
     kernel = recurrent_cuda.gru_layer if gates == 3 else recurrent_cuda.lstm_layer
     w = rnn_weights(gates, H, I, dev, seed=gates)
+    # The one PyTorch call that computes the same function: a one-layer
+    # cuDNN GRU / LSTM with the same weights, f32, TF32 off.
+    library = (torch.nn.GRU if gates == 3 else torch.nn.LSTM)(I, H, 1, batch_first=True).to(dev)
+    with torch.no_grad():
+        for p, t in zip((library.weight_ih_l0, library.weight_hh_l0, library.bias_ih_l0,
+                         library.bias_hh_l0), w):
+            p.copy_(t)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     out = {}
-    for T in lengths:
-        x = torch.randn(1, T, I, generator=torch.Generator().manual_seed(T)).to(dev)
-        ref, _ = plain(x, *w)
-        ys, _ = kernel(x, *w)
-        err = (ys - ref).abs().max().item()
-        ms = cuda_ms(lambda: kernel(x, *w), reps=10)
-        plain_ms = cuda_ms(lambda: plain(x, *w), reps=2, warmup=1)
-        dev_ms, _ = kernel_device_ms(trace(lambda: [kernel(x, *w) for _ in range(10)])[0],
-                                     SYMBOLS[name])
-        log(name, H=H, input=I, T=T, max_abs_err=f"{err:.3e}", tol=RNN_TOL, ms=f"{ms:.4f}",
-            device_ms=fmt(dev_ms), plain_ms=f"{plain_ms:.4f}")
-        if not err <= RNN_TOL:
-            raise AssertionError(f"{name} at T={T}: max abs error {err} > {RNN_TOL}")
-        if T == main_T:
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    try:
+        for T in lengths:
+            x = torch.randn(1, T, I, generator=torch.Generator().manual_seed(T)).to(dev)
+            ref, _ = plain(x, *w)
+            ys, _ = kernel(x, *w)
+            err = (ys - ref).abs().max().item()
+            ms = cuda_ms(lambda: kernel(x, *w), reps=10)  # the wrapper: addmm + the kernel
+            plain_ms = cuda_ms(lambda: plain(x, *w), reps=2, warmup=1)
+            dev_ms, _ = kernel_device_ms(trace(lambda: [kernel(x, *w) for _ in range(10)])[0],
+                                         SYMBOLS[name])
+            with torch.no_grad():
+                lib_err = (library(x)[0] - ref).abs().max().item()
+                lib_ms = cuda_ms(lambda: library(x), reps=10)
+            # the wrapper's work, x -> ys: the input projection and the recurrence
+            G = gates * H
+            nbytes = 4 * (T * I + G * I + G * H + 2 * G + T * H)
+            bound_ms, bound_by = bound(nbytes, 2 * T * G * (I + H), "f32")
+            log(name, H=H, input=I, T=T, max_abs_err=f"{err:.3e}", tol=RNN_TOL, ms=f"{ms:.4f}",
+                device_ms=fmt(dev_ms), plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+                library_max_abs_err=f"{lib_err:.3e}", bound_ms=f"{bound_ms:.5f}",
+                bound_by=bound_by)
+            if not err <= RNN_TOL:
+                raise AssertionError(f"{name} at T={T}: max abs error {err} > {RNN_TOL}")
+            if T == main_T:
+                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return out
 
 
@@ -199,45 +255,182 @@ def segment_table(person, n_frames: int, dev) -> torch.Tensor:
     return torch.cat([table, rows], dim=1).contiguous().to(dev)
 
 
+def k4_bound(B: int, size: int, cin: int, cout: int, stride: int, in_bytes: int,
+             out_bytes: int):
+    """K4's bound at one shape: the input read once, the weights, the output
+    written once; 2 * M * Cout * 9 * Cin int8 operations."""
+    ho = (size - 1) // stride + 1
+    m = B * ho * ho
+    nbytes = B * size * size * cin * in_bytes + cout * 9 * cin + m * cout * out_bytes
+    return bound(nbytes, 2 * m * cout * 9 * cin, "int8")
+
+
+def k4_inputs(B: int, size: int, cin: int, cout: int, dev, seed: int):
+    """A bf16 activation on a 1/8 grid (randn * 12) with r = 4 (s_x = 0.25):
+    every odd multiple of 1/8 lands on x * r = k + 0.5, and ~1 % of the
+    values land past +-127; int8 weights, a bf16 scale and bias."""
+    cl = torch.channels_last
+    g = torch.Generator().manual_seed(seed)
+    x = torch.round(torch.randn(B, cin, size, size, generator=g) * 96) / 8
+    x = x.to(dev, torch.bfloat16).contiguous(memory_format=cl)
+    w = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8)
+    w = w.to(dev).contiguous(memory_format=cl)
+    r = torch.reciprocal(torch.tensor(0.25)).to(dev, torch.bfloat16)
+    scale = (torch.rand(cout, generator=g) * 1e-5).to(dev, torch.bfloat16)
+    bias = torch.randn(cout, generator=g).to(dev, torch.bfloat16)
+    return x, w, r, scale, bias
+
+
+def graph_ms(fn, calls: int = 5, replays: int = 4) -> float:
+    """Device time per fn() call: CUDA events around replays of a CUDA graph
+    of `calls` calls, so no host dispatch gap is counted.  Used for K4: on
+    the H100, torch.profiler has dropped the device records of whole traces
+    in this script's runs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def check_q8conv(dev):
-    """K4 against conv_s8_plain (int32) and rescale_plain (bf16 epilogue),
-    bitwise, at the four K4_CASES; returns the first case's numbers."""
+    """K4 against conv_s8_plain (int32 mode) and conv_q8_plain (fused bf16
+    mode), bitwise, at K4_CASES; returns the first case's numbers."""
     from livespeechportraits_torch.ops import q8conv_cuda as q8
 
     cl = torch.channels_last
     out = {}
     for i, (name, size, cin, cout, stride) in enumerate(K4_CASES):
-        g = torch.Generator().manual_seed(100 + i)
-        x = torch.randint(-127, 128, (16, cin, size, size), generator=g, dtype=torch.int8)
-        w = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8)
-        x, w = x.to(dev).contiguous(memory_format=cl), w.to(dev).contiguous(memory_format=cl)
-        scale = (torch.rand(cout, generator=g) * 1e-5).to(dev, torch.bfloat16)
-        bias = torch.randn(cout, generator=g).to(dev, torch.bfloat16)
-        ref = q8.conv_s8_plain(x, w, stride)
-        got = q8.conv_s8(x, w, stride)
-        fused = q8.conv_s8_rescale(x, w, stride, 1, scale, bias)
-        fused_ref = q8.rescale_plain(ref, scale, bias)
+        x, w, r, scale, bias = k4_inputs(16, size, cin, cout, dev, 100 + i)
+        g = torch.Generator().manual_seed(200 + i)
+        x_q = torch.randint(-127, 128, (16, cin, size, size), generator=g, dtype=torch.int8)
+        x_q = x_q.to(dev).contiguous(memory_format=cl)
+        ref = q8.conv_s8_plain(x_q, w, stride)
+        got = q8.conv_s8(x_q, w, stride)
+        fused = q8.conv_q8(x, r, w, stride, 1, scale, bias)
+        fused_ref = q8.conv_q8_plain(x, r, w, stride, 1, scale, bias)
         torch.cuda.synchronize()
+        xr = (x.float() * float(r)).abs()
+        ties, clamped = float(((xr % 1) == 0.5).float().mean()), float((xr > 127.5).float().mean())
         int_diff = int((got != ref).sum().item())
         bf16_diff = int((fused != fused_ref).sum().item())
         err = (fused.float() - fused_ref.float()).abs().max().item()
-        ms = cuda_ms(lambda: q8.conv_s8_rescale(x, w, stride, 1, scale, bias), reps=20)
-        plain_ms = cuda_ms(lambda: q8.rescale_plain(q8.conv_s8_plain(x, w, stride), scale, bias),
-                           reps=3, warmup=1)
-        dev_ms, _ = kernel_device_ms(
-            trace(lambda: [q8.conv_s8_rescale(x, w, stride, 1, scale, bias)
-                           for _ in range(20)])[0], SYMBOLS["K4"])
+        fn = lambda: q8.conv_q8(x, r, w, stride, 1, scale, bias)  # noqa: E731
+        ms = cuda_ms(fn, reps=20)
+        plain_ms = cuda_ms(lambda: q8.conv_q8_plain(x, r, w, stride, 1, scale, bias), reps=3,
+                           warmup=1)
+        dev_ms = graph_ms(fn)
+        wb = w.to(torch.bfloat16).contiguous(memory_format=cl)
+        conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x, wb, stride=stride, padding=1),
+                          reps=20)
+        bound_ms, bound_by = k4_bound(16, size, cin, cout, stride, 2, 2)
         ops = 2 * ref.numel() * cin * 9
         log("K4", case=repr(name), input=f"16x{cin}x{size}x{size}", cout=cout, stride=stride,
-            int32_mismatched=int_diff, bf16_mismatched=bf16_diff, max_abs_acc=int(ref.abs().max()),
-            ms=f"{ms:.4f}", device_ms=fmt(dev_ms), plain_ms=f"{plain_ms:.4f}",
-            tops=f"{ops / (dev_ms or ms) / 1e9:.1f}")
+            kernel="halo" if q8.uses_halo(size, size, stride, 1) else "gather",
+            split_k=q8.split_k(ref.numel() // cout, cout, cin,
+                               q8.uses_halo(size, size, stride, 1))[1],
+            int32_mismatched=int_diff, bf16_mismatched=bf16_diff, ties=f"{ties:.3f}",
+            past_127=f"{clamped:.4f}", max_abs_acc=int(ref.abs().max()), ms=f"{ms:.4f}",
+            device_ms=fmt(dev_ms), bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            share=f"{bound_ms / dev_ms:.3f}", tops=f"{ops / dev_ms / 1e9:.1f}",
+            plain_ms=f"{plain_ms:.4f}", bf16_conv_ms_cudnn_other_function=f"{conv_ms:.4f}")
         if int_diff or bf16_diff:
             raise AssertionError(f"K4 {name}: {int_diff} int32 and {bf16_diff} bf16 values "
                                  "differ from the plain twin")
         if i == 0:
-            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": None}
     return out
+
+
+def check_k4_forward(dev):
+    """K4 at each of the 44 int8 conv shapes of one 'normal' 512^2 ResUNet
+    forward at B=16 (each distinct shape once): fused bf16 bitwise against
+    the twin, device ms beside the bound; the sums per forward."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.ops import q8conv_cuda as q8
+
+    shapes = f2f.int8_conv_shapes(Feature2FaceConfig())
+    total_ms = total_bound = 0.0
+    for j, shape in enumerate(dict.fromkeys(shapes)):
+        size, cin, cout, stride = shape
+        n = shapes.count(shape)
+        x, w, r, scale, bias = k4_inputs(16, size, cin, cout, dev, 300 + j)
+        got = q8.conv_q8(x, r, w, stride, 1, scale, bias)
+        diff = int((got != q8.conv_q8_plain(x, r, w, stride, 1, scale, bias)).sum().item())
+        dev_ms = graph_ms(lambda: q8.conv_q8(x, r, w, stride, 1, scale, bias))
+        bound_ms, bound_by = k4_bound(16, size, cin, cout, stride, 2, 2)
+        total_ms += n * dev_ms
+        total_bound += n * bound_ms
+        log("K4_forward", shape=f"{size}^2:{cin}->{cout}/s{stride}", convs=n,
+            kernel="halo" if q8.uses_halo(size, size, stride, 1) else "gather",
+            bf16_mismatched=diff, device_ms=f"{dev_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, share=f"{bound_ms / dev_ms:.3f}")
+        if diff:
+            raise AssertionError(f"K4 at {shape}: {diff} values differ from the plain twin")
+    log("K4_forward_total", convs=len(shapes), device_ms=f"{total_ms:.4f}",
+        bound_ms=f"{total_bound:.4f}", share=f"{total_bound / total_ms:.3f}")
+
+
+def check_conv2d_q8_launches(dev):
+    """Three nn_core.conv2d_q8 calls of a calibrated (static x_scale) bf16
+    layer: K4 launched once a call (its counter), no aten op but
+    aten::empty on the host (no quantize pass), and, from the trace's
+    device records, the kernels: K4 and at most the two small kernels of
+    the scale product a call.  A trace whose device records the profiler
+    dropped is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import q8conv_cuda
+
+    g = torch.Generator().manual_seed(7)
+    w_q, w_scale = nn_core.quantize_weight_int8(torch.randn(64, 64, 3, 3, generator=g) * 0.05)
+    layer = nn_core.QConv2d(w_q, w_scale, 1, 1, b=torch.zeros(64),
+                            x_scale=torch.tensor(4.0 / 127)).to(dev, torch.bfloat16)
+    layer.w_q = layer.w_q.contiguous(memory_format=torch.channels_last)
+    x = torch.randn(16, 64, 256, 256, generator=g).to(dev, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    nn_core.conv2d_q8(x, layer, 1, 1)  # the first call computes the static (r, scale)
+    calls = 3
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        before = q8conv_cuda.LAUNCHES
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                nn_core.conv2d_q8(x, layer, 1, 1)
+            torch.cuda.synchronize()
+        launches = q8conv_cuda.LAUNCHES - before
+        events = list(prof.events())
+        names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    aten = sorted({e.name for e in events if e.name.startswith("aten::")})
+    k4 = sum(SYMBOLS["K4"] in nm for nm in names)
+    others = [nm for nm in names if SYMBOLS["K4"] not in nm]
+    log("K4_layer_launches", calls=calls, k4_launches=launches, device_records=len(names),
+        traces=attempt + 1, k4_kernels=k4, other_kernels=len(others),
+        kernels=json.dumps(sorted({nm[:60] for nm in names})), aten_ops=json.dumps(aten))
+    if launches != calls or set(aten) - {"aten::empty"}:
+        raise AssertionError(f"{calls} conv2d_q8 calls: {launches} K4 launches, ops {aten}")
+    if names and (k4 != calls or len(others) > 2 * calls):
+        raise AssertionError(f"{calls} conv2d_q8 calls with a static scale launched {names}")
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -354,18 +547,26 @@ def check_serve(dev) -> int:
         if not same:
             raise AssertionError("serve: the artifact-booted Predictor gave other frames")
 
-        # one traced request: device busy share and the kernels' device time
+        # one traced request: device busy share and the kernels' device time,
+        # and the int8 and bf16 float renderers' render_device on the request
         audio = requests[0][1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pq.predict(audio, write_video=False)
+        res = pq.predict(audio, write_video=False)
         wall = (time.perf_counter() - t0) * 1e3
+        ref = pf.predict(audio, write_video=False)
+        q8conv_cuda.LAUNCHES = 0
         events, traced_wall = trace(lambda: pq.predict(audio, write_video=False))
         busy = busy_ms(events)
         per_kernel = {k: kernel_device_ms(events, sym) for k, sym in SYMBOLS.items()}
+        k4_ms, k4_kernels = kernel_device_total(events, SYMBOLS["K4"])
         log("profile_serve", wall_ms=f"{wall:.3f}", traced_wall_ms=f"{traced_wall:.3f}",
             device_busy_ms=f"{busy:.3f}", busy_share=f"{busy / wall:.4f}",
-            kernels=json.dumps({k: {"device_ms_per_launch": v[0], "launches": v[1],
+            k4_device_ms=f"{k4_ms:.3f}", k4_launches=q8conv_cuda.LAUNCHES,
+            k4_device_kernels=k4_kernels,
+            int8_render_device_ms=f"{res.stage_ms['render_device']:.3f}",
+            bf16_render_device_ms=f"{ref.stage_ms['render_device']:.3f}",
+            kernels=json.dumps({k: {"device_ms_per_kernel": v[0], "kernels": v[1],
                                     "device_ms_total": None if v[0] is None else v[0] * v[1]}
                                 for k, v in per_kernel.items() if v[1]}),
             top=json.dumps(top_kernels(events, 8)))
@@ -376,7 +577,7 @@ def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; nothing runs on the CPU")
-    from livespeechportraits_tpu.config import PersonConfig
+    from livespeechportraits_torch.config import PersonConfig
     from livespeechportraits_torch import _build
     from livespeechportraits_torch.models import feature2face as f2f
     from livespeechportraits_torch.ops import rasterize, rasterize_cuda, recurrent_cuda
@@ -394,9 +595,12 @@ def main() -> int:
     _build.library()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc_seconds=_build.build_seconds, library=lib_path.name)
+    # 2b. what one int8 layer launches (first, while the profiler's records
+    # are complete)
+    check_conv2d_q8_launches(dev)
 
     cfg = PersonConfig()
-    person, models_cpu = assets.make_synthetic_person(cfg, image_size=512)
+    person, models_cpu = assets.make_synthetic_person(cfg, image_size=512, device="cpu")
     kernels = []
 
     # 3. K1 against its plain twin
@@ -410,25 +614,29 @@ def main() -> int:
     k1_dev, _ = kernel_device_ms(
         trace(lambda: [rasterize_cuda.rasterize_segments(table, 512, 512)
                        for _ in range(50)])[0], SYMBOLS["K1"])
+    # bound: the segment table read and the f32 maps written once; after
+    # per-block culling a pixel tests a few segments, so bytes set it
+    k1_bound, k1_by = bound(table.numel() * 4 + out.numel() * 4, 0, "f32")
     log("K1", frames=8, size=512, segments=table.shape[1], lit=int(ref.sum().item()),
         mismatched=mismatched, ms=f"{k1_ms:.4f}", device_ms=fmt(k1_dev),
-        plain_ms=f"{k1_plain:.4f}")
+        plain_ms=f"{k1_plain:.4f}", bound_ms=f"{k1_bound:.5f}", bound_by=k1_by)
     if mismatched:
         raise AssertionError(f"K1: {mismatched} pixels differ from the plain twin")
     kernels.append({"name": "K1 rasterize_segments", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/rasterize.cu",
-                    "replaces": "livespeechportraits_tpu/ops/rasterize_pallas.py:36",
-                    "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain})
+                    "replaces": "livespeechportraits_tpu/ops/rasterize_pallas.py:115",
+                    "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+                    "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None})
 
     # 4. K2, 5. K3 (main-path lengths for 3 s: 360 mel steps, 198 frames)
     k2 = check_recurrence("K2", 3, 512, 80, (64, 360, 1200), 360, dev)
     kernels.append({"name": "K2 gru_layer", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/recurrent.cu",
-                    "replaces": "livespeechportraits_tpu/ops/recurrent_pallas.py:36", **k2})
+                    "replaces": "livespeechportraits_tpu/ops/recurrent_pallas.py:67", **k2})
     k3 = check_recurrence("K3", 4, 256, 512, (64, 198, 600), 198, dev)
     kernels.append({"name": "K3 lstm_layer", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/recurrent.cu",
-                    "replaces": "livespeechportraits_tpu/ops/recurrent_pallas.py:147", **k3})
+                    "replaces": "livespeechportraits_tpu/ops/recurrent_pallas.py:176", **k3})
 
     # 6. slice: warm once, then zero the counters and drive the main path
     models = assets.init_models(cfg, assets.synthetic_seed(cfg)).to(dev)
@@ -486,8 +694,9 @@ def main() -> int:
                                 for k, v in per_kernel.items() if v[1]}),
             top=json.dumps(top_kernels(events, 6)))
 
-    # 6c. K4 against its plain twin at four main-path shapes
+    # 6c. K4 against its plain twin at the main-path shapes
     k4 = check_q8conv(dev)
+    check_k4_forward(dev)
     kernels.append({"name": "K4 q8conv (int8 3x3 conv)", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/q8conv.cu",
                     "replaces": "livespeechportraits_tpu/models/nn_core.py:241", **k4})

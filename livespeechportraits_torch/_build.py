@@ -93,7 +93,7 @@ def library() -> ctypes.CDLL:
         lib.lsp_rasterize.argtypes = [p, i, i, p, i, i, f, p]
         lib.lsp_gru.argtypes = [p, p, p, p, p, p, i, i, p]
         lib.lsp_lstm.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
-        lib.lsp_q8conv.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, i, p, p, p]
+        lib.lsp_q8conv.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, i, i, p]
         for fn in (lib.lsp_rasterize, lib.lsp_gru, lib.lsp_lstm, lib.lsp_q8conv):
             fn.restype = ctypes.c_int
         lib.lsp_error_string.argtypes = [i]

@@ -39,7 +39,7 @@ def main(argv=None) -> None:
 
     import torch
 
-    from livespeechportraits_tpu.config import PersonConfig, replace
+    from livespeechportraits_torch.config import PersonConfig, replace
     from livespeechportraits_torch.pipeline import animate as animate_mod
     from livespeechportraits_torch.pipeline import assets as assets_mod
     from livespeechportraits_torch.pipeline import video as video_mod

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from livespeechportraits_tpu.config import APCConfig
+from livespeechportraits_torch.config import APCConfig
 from livespeechportraits_torch.models import nn_core
 from livespeechportraits_torch.ops import recurrent_cuda
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from livespeechportraits_tpu.config import Audio2FeatureConfig
+from livespeechportraits_torch.config import Audio2FeatureConfig
 from livespeechportraits_torch.models import nn_core
 from livespeechportraits_torch.ops import recurrent_cuda
 

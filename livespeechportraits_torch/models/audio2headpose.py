@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from livespeechportraits_tpu.config import Audio2HeadposeConfig
+from livespeechportraits_torch.config import Audio2HeadposeConfig
 from livespeechportraits_torch.models import nn_core, wavenet
 from livespeechportraits_torch.ops import gmm
 

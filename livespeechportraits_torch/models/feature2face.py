@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from livespeechportraits_tpu.config import Feature2FaceConfig
+from livespeechportraits_torch.config import Feature2FaceConfig
 from livespeechportraits_torch.models import nn_core
 
 Tensor = torch.Tensor
@@ -150,6 +150,30 @@ def to_uint8(y: Tensor) -> Tensor:
 # int8 inference transforms (feature2face.py:330-371, 491-636 of the JAX
 # package).  Each returns a new model and leaves its argument unchanged.
 # ---------------------------------------------------------------------------
+
+
+def int8_conv_shapes(cfg: Feature2FaceConfig) -> list:
+    """(input size, Cin, Cout, stride) of each int8 conv of the quantized
+    ResUNet at cfg.load_size, in the order the forward runs them: each
+    stage's down conv, its residual convs, the inner stages, its up conv
+    (on the upsampled, concatenated map) and the residual convs after it.
+    The outermost stage's own down and up convs stay float."""
+    n_res = N_RES[cfg.size]
+    inner = [cfg.ngf, cfg.ngf * 2, cfg.ngf * 4] + [cfg.ngf * 8] * (cfg.n_downsample - 3)
+
+    def stage(k: int, size: int) -> list:
+        c, half = inner[k], size // 2
+        shapes = [(size, inner[k - 1], c, 2)] if k else []
+        shapes += [(half, c, c, 1)] * (2 * n_res)
+        if k + 1 < len(inner):
+            shapes += stage(k + 1, half)
+        if k:
+            up_in = c if k + 1 == len(inner) else 2 * c
+            shapes += [(size, up_in, inner[k - 1], 1)]
+            shapes += [(size, inner[k - 1], inner[k - 1], 1)] * (2 * n_res)
+        return shapes
+
+    return stage(0, cfg.load_size)
 
 
 def _resunet_only(model: Feature2FaceG, what: str) -> None:

@@ -85,12 +85,28 @@ class QConv2d(nn.Module):
         # the list calibration appends this conv's input amax to (see
         # recording_amax); None outside calibration
         self.amax_record: Optional[list] = None
+        # (dtype, x_scale, w_scale, their versions, r, scale) of the last
+        # static_operands call
+        self._static: Optional[tuple] = None
 
     @classmethod
     def from_conv(cls, conv: nn.Conv2d) -> "QConv2d":
         w_q, scale = quantize_weight_int8(conv.weight)
         b = None if conv.bias is None else conv.bias.detach().float().clone()
         return cls(w_q, scale, conv.stride[0], conv.padding[0], b=b)
+
+    def static_operands(self, dt: torch.dtype) -> Tuple[Tensor, Tensor]:
+        """rescale_operands of the calibrated x_scale for activations of
+        dtype dt, kept until x_scale or w_scale is replaced (a cast or a
+        move) or changed in place, so a calibrated conv launches no kernel
+        but K4."""
+        versions = (self.x_scale._version, self.w_scale._version)
+        c = self._static
+        if (c is None or c[0] != dt or c[1] is not self.x_scale or c[2] is not self.w_scale
+                or c[3] != versions):
+            r, scale = rescale_operands(self.w_scale, self.x_scale.float(), dt)
+            c = self._static = (dt, self.x_scale, self.w_scale, versions, r, scale)
+        return c[4], c[5]
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # the optional buffers exist when the state dict carries them
@@ -116,31 +132,37 @@ def recording_amax(module: nn.Module):
             c.amax_record = None
 
 
-def quantize_activation(layer: QConv2d, x: Tensor) -> Tuple[Tensor, Tensor]:
-    """(x_q int8, s_x f32 scalar): x_q = clip(round(x * (1/s_x).to(dt)),
-    -127, 127) in x's dtype, round half to even.  s_x is the calibrated
-    x_scale, the recorded amax / 127 during calibration, or the dynamic
-    amax / 127."""
-    dt = x.dtype
+def activation_scale(layer: QConv2d, x: Tensor) -> Tensor:
+    """s_x, the per-tensor activation scale (f32 scalar): the recorded amax
+    / 127 during calibration, the calibrated x_scale, or the dynamic amax /
+    127 (JAX's _quantize_activation)."""
     if layer.amax_record is not None:
         amax = x.abs().amax().float()
         layer.amax_record.append(amax)
-        s_x = torch.clamp(amax, min=1e-12) / 127.0
-    elif layer.x_scale is not None:
-        s_x = layer.x_scale.float()
-    else:
-        s_x = torch.clamp(x.abs().amax().float(), min=1e-12) / 127.0
-    x_q = torch.clamp(torch.round(x * torch.reciprocal(s_x).to(dt)), -127, 127)
-    return x_q.to(torch.int8), s_x
+        return torch.clamp(amax, min=1e-12) / 127.0
+    if layer.x_scale is not None:
+        return layer.x_scale.float()
+    return torch.clamp(x.abs().amax().float(), min=1e-12) / 127.0
+
+
+def rescale_operands(w_scale: Tensor, s_x: Tensor, dt: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """(r, scale) = (reciprocal(s_x).to(dt), (w_scale * s_x).to(dt)), the
+    quantize and rescale factors in JAX's cast order."""
+    return torch.reciprocal(s_x).to(dt), (w_scale.float() * s_x).to(dt)
 
 
 def conv2d_q8(x: Tensor, layer: QConv2d, stride: int, padding: int) -> Tensor:
-    """y = conv_s8(x_q, w_q).to(dt) * (w_scale * s_x).to(dt) + b, the int32
-    sums exact (kernel K4 on the card, ops/q8conv_cuda.py)."""
-    x_q, s_x = quantize_activation(layer, x)
-    scale = (layer.w_scale.float() * s_x).to(x.dtype)
-    return q8conv_cuda.conv_s8_rescale(x_q.contiguous(memory_format=torch.channels_last),
-                                       layer.w_q, stride, padding, scale, layer.b)
+    """y = conv_s8(clamp(round(x * r), -127, 127), w_q).to(dt) * scale + b
+    with (r, scale) from rescale_operands: one launch of kernel K4 on the
+    card (ops/q8conv_cuda.conv_q8), the int32 sums exact.  A calibrated
+    layer's (r, scale) are computed once (QConv2d.static_operands)."""
+    if layer.amax_record is None and layer.x_scale is not None:
+        r, scale = layer.static_operands(x.dtype)
+    else:
+        r, scale = rescale_operands(layer.w_scale, activation_scale(layer, x), x.dtype)
+    # a no-op for the renderer's activations; a 1-pixel-wide map may lose the format
+    x = x.contiguous(memory_format=torch.channels_last)
+    return q8conv_cuda.conv_q8(x, r, layer.w_q, stride, padding, scale, layer.b)
 
 
 def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5) -> Tensor:

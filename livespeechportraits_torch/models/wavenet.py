@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from livespeechportraits_tpu.config import WaveNetConfig
+from livespeechportraits_torch.config import WaveNetConfig
 from livespeechportraits_torch.models import nn_core
 
 Tensor = torch.Tensor

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from livespeechportraits_tpu.config import FPS, MEL_RATE, SAMPLE_RATE
+from livespeechportraits_torch.config import FPS, MEL_RATE, SAMPLE_RATE
 
 LOG_MEL_MIN = math.log(1e-5)
 
@@ -96,7 +96,7 @@ def _mel_sequence_impl(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
     return (log_mel - LOG_MEL_MIN) / -LOG_MEL_MIN
 
 
-def compute_mel_sequence(audio, device: torch.device | str = "cpu") -> torch.Tensor:
+def compute_mel_sequence(audio, device: torch.device | str = "cuda") -> torch.Tensor:
     """Frame an utterance into [2 * floor(len/sr*60), 80] log-mel features:
     video frame i yields mel frames 2i and 2i+1.  Empty audio gives [0, 80]."""
     audio = torch.as_tensor(np.asarray(audio, dtype=np.float32), device=device)

@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from livespeechportraits_tpu.config import EYE_BROW_INDICES, MOUTH_INDICES, PersonConfig
+from livespeechportraits_torch.config import EYE_BROW_INDICES, MOUTH_INDICES, PersonConfig
 from livespeechportraits_torch.models import apc as apc_model
 from livespeechportraits_torch.models import audio2feature as a2f_model
 from livespeechportraits_torch.models import audio2headpose as a2h_model

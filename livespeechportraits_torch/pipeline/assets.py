@@ -21,7 +21,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from livespeechportraits_tpu.config import EYE_BROW_INDICES, PersonConfig
+from livespeechportraits_torch.config import EYE_BROW_INDICES, PersonConfig
 from livespeechportraits_torch.models.apc import APCEncoder
 from livespeechportraits_torch.models.audio2feature import Audio2Feature
 from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
@@ -100,7 +100,7 @@ def init_models(cfg: PersonConfig, seed: int) -> PersonModels:
     return models
 
 
-def from_jax(cfg: PersonConfig, models_np: Any, device: torch.device | str = "cpu"
+def from_jax(cfg: PersonConfig, models_np: Any, device: torch.device | str = "cuda"
              ) -> PersonModels:
     """Load a JAX ``PersonModels`` (pytrees of numpy-convertible leaves)
     through ``params_from_jax``; every module loads with strict=True.  A
@@ -188,7 +188,7 @@ def save_models_artifact(models: PersonModels, path: str) -> str:
     return path
 
 
-def load_models_artifact(path: str, cfg: PersonConfig, device: torch.device | str = "cpu"
+def load_models_artifact(path: str, cfg: PersonConfig, device: torch.device | str = "cuda"
                          ) -> PersonModels:
     """Inverse of save_models_artifact, onto ``device``."""
     with np.load(path) as z:
@@ -225,7 +225,7 @@ def synthetic_seed(cfg: PersonConfig) -> int:
 
 
 def make_synthetic_person(cfg: PersonConfig, image_size: int = 512, bank_size: int = 256,
-                          skip_models: bool = False, device: torch.device | str = "cpu"
+                          skip_models: bool = False, device: torch.device | str = "cuda"
                           ) -> Tuple[PersonAssets, Optional[PersonModels]]:
     """Fabricate an asset pack and random-init models.  The camera sits at
     fx = fy = 2.4 * image_size with the face at z ~ 1, so the projected face

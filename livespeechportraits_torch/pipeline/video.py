@@ -1,27 +1,95 @@
-"""Host-side audio/video IO, shared with the JAX package.
+"""Host-side audio and video IO of the PyTorch port.
 
-``livespeechportraits_tpu/pipeline/video.py`` (``load_wav``, ``save_wav``,
-``write_video``, ``make_test_tone``) imports no JAX itself, but its
-package's ``__init__`` imports the JAX pipeline.  So the file is loaded here
-by path, as a module of its own, and the JAX package stays unimported.
-cv2 is optional there: ``write_video`` raises without it.
+The port's copy of what it uses from the JAX package's
+``pipeline/video.py``: ``load_wav`` (scipy, resampled to 16 kHz mono),
+``save_wav``, ``write_video`` (a cv2 DIVX .avi at 60 FPS, muxed with the
+audio by ffmpeg when it is on PATH, else the .wav is left beside it) and
+``make_test_tone``.  cv2 is optional: ``write_video`` raises without it.
 """
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
+import os
+import shutil
+import subprocess
+from math import gcd
+from typing import Optional
 
-import livespeechportraits_tpu
+import numpy as np
+from scipy.io import wavfile
+from scipy.signal import resample_poly
 
-_PATH = Path(livespeechportraits_tpu.__file__).resolve().parent / "pipeline" / "video.py"
-_spec = importlib.util.spec_from_file_location("livespeechportraits_torch.pipeline._tpu_video",
-                                               _PATH)
-_video = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(_video)
+from livespeechportraits_torch.config import FPS, SAMPLE_RATE
 
-cv2 = _video.cv2
-load_wav = _video.load_wav
-save_wav = _video.save_wav
-write_video = _video.write_video
-make_test_tone = _video.make_test_tone
+try:
+    import cv2
+except ImportError:  # pragma: no cover
+    cv2 = None
+
+
+def load_wav(path: str, target_sr: int = SAMPLE_RATE) -> np.ndarray:
+    """A wav file as float32 mono in [-1, 1] at target_sr."""
+    sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        audio = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        audio = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        audio = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        audio = data.astype(np.float32)
+    if audio.ndim == 2:
+        audio = audio.mean(axis=1)
+    if sr != target_sr:
+        g = gcd(sr, target_sr)
+        audio = resample_poly(audio, target_sr // g, sr // g).astype(np.float32)
+    return audio
+
+
+def save_wav(path: str, audio: np.ndarray, sr: int = SAMPLE_RATE) -> None:
+    wavfile.write(path, sr, (np.clip(audio, -1, 1) * 32767).astype(np.int16))
+
+
+def write_video(frames: np.ndarray, output_path: str, audio: Optional[np.ndarray] = None,
+                fps: int = FPS, sr: int = SAMPLE_RATE) -> str:
+    """frames [T, H, W, 3] uint8 RGB -> .avi (or .mp4 by extension), with the
+    audio muxed in when ffmpeg is present, else saved beside the video.
+    Returns the video path."""
+    if cv2 is None:  # pragma: no cover
+        raise RuntimeError("cv2 unavailable; cannot write video")
+    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+    T, H, W, _ = frames.shape
+    mp4 = output_path.lower().endswith(".mp4")
+    tmp_path = output_path + ".tmp" + os.path.splitext(output_path)[1]
+    out = cv2.VideoWriter(tmp_path, cv2.VideoWriter_fourcc(*("mp4v" if mp4 else "DIVX")),
+                          fps, (W, H))
+    for t in range(T):
+        out.write(cv2.cvtColor(frames[t], cv2.COLOR_RGB2BGR))
+    out.release()
+
+    if audio is not None:
+        wav_path = os.path.splitext(output_path)[0] + ".wav"
+        save_wav(wav_path, audio[: int(T * sr / fps)], sr)
+        ffmpeg = shutil.which("ffmpeg")
+        if ffmpeg is not None:
+            # mp4 cannot carry pcm_s16le under a stream copy: aac there
+            acodec = ["-c:a", "aac"] if mp4 else ["-c:a", "copy"]
+            rc = subprocess.call([ffmpeg, "-y", "-i", tmp_path, "-i", wav_path, "-c:v", "copy",
+                                  *acodec, "-shortest", output_path],
+                                 stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            if rc == 0 and os.path.getsize(output_path) > 0:
+                os.remove(tmp_path)
+                os.remove(wav_path)
+                return output_path
+            # a failed mux keeps the rendered video, with the wav beside it
+            print(f"ffmpeg mux failed (rc={rc}); writing video without embedded audio, "
+                  f"wav kept at {wav_path}")
+    os.replace(tmp_path, output_path)
+    return output_path
+
+
+def make_test_tone(seconds: float = 3.0, sr: int = SAMPLE_RATE) -> np.ndarray:
+    """A 220 Hz tone, amplitude-modulated at 3 Hz: the no-audio fallback."""
+    t = np.arange(int(seconds * sr)) / sr
+    return (0.3 * np.sin(2 * np.pi * 220 * t)
+            * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))).astype(np.float32)

@@ -29,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from livespeechportraits_tpu.config import PersonConfig, load_person_config, replace
+from livespeechportraits_torch.config import PersonConfig, load_person_config, replace
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.pipeline import animate as animate_mod
 from livespeechportraits_torch.pipeline import assets as assets_mod

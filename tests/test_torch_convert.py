@@ -15,7 +15,7 @@ from livespeechportraits_tpu.pipeline import assets as jassets
 from livespeechportraits_tpu.utils import torch_convert
 from livespeechportraits_torch.pipeline import assets
 from livespeechportraits_torch.utils.convert import params_from_jax
-from torch_parity import small_person_config, to_np
+from torch_parity import small_person_config, to_np, torch_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,7 +52,7 @@ def test_params_from_jax_matches_torch_convert_export(jax_models, which):
 
 def test_from_jax_loads_every_model_strictly(jax_models):
     cfg, models, _ = jax_models
-    ported = assets.from_jax(cfg, models)
+    ported = assets.from_jax(torch_config(cfg), models, device="cpu")
     w = ported.apc.rnns[1].weight_hh_l0
     np.testing.assert_array_equal(w.numpy(), np.asarray(models.apc["layers"][1]["w_hh"]).T)
     assert not any(p.requires_grad for p in ported.feature2face.parameters())
@@ -63,7 +63,8 @@ def test_from_jax_loads_every_model_strictly(jax_models):
 def test_synthetic_assets_bitwise_equal_to_jax():
     cfg = PersonConfig()
     ref, _ = jassets.make_synthetic_person(cfg, image_size=64, skip_models=True)
-    ours, _ = assets.make_synthetic_person(cfg, image_size=64, skip_models=True)
+    ours, _ = assets.make_synthetic_person(torch_config(cfg), image_size=64,
+                                           skip_models=True, device="cpu")
     for name in ("mean_pts3d", "std_mean_pts3d", "mean_translation", "candidate_eye_brow",
                  "candidate_images", "shoulders", "shoulder3D", "ref_trans",
                  "camera_intrinsic", "apc_feature_base"):
@@ -76,7 +77,7 @@ def test_synthetic_assets_bitwise_equal_to_jax():
 
 
 def test_synthetic_models_are_seeded_at_jax_scales():
-    cfg = small_person_config(image_size=32)
+    cfg = torch_config(small_person_config(image_size=32))
     a = assets.init_models(cfg, assets.synthetic_seed(cfg))
     b = assets.init_models(cfg, assets.synthetic_seed(cfg))
     for x, y in zip(a.feature2face.state_dict().values(), b.feature2face.state_dict().values()):

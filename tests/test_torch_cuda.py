@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.config import Feature2FaceConfig
+from livespeechportraits_torch.models import feature2face, nn_core
 from livespeechportraits_torch.ops import q8conv_cuda, rasterize, rasterize_cuda, recurrent_cuda
 from livespeechportraits_torch.pipeline import animate, assets, video
-from torch_parity import cuda_device, small_person_config  # noqa: F401
+from torch_parity import cuda_device, small_person_config, torch_config  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -58,11 +59,26 @@ def test_recurrence_kernel_matches_plain(cuda_device, gates, H, I, T):
     assert (ys - ref).abs().max().item() <= 1e-5  # f32, summation order only
 
 
+def _k4_inputs(B, cin, cout, h, w, dtype, device, seed):
+    """A float activation on a 1/8 grid with r = 4: exact rounding ties and
+    values past +-127; int8 weights, scale and bias of the activation dtype."""
+    g = torch.Generator().manual_seed(seed)
+    cl = torch.channels_last
+    x = (torch.round(torch.randn(B, cin, h, w, generator=g) * 96) / 8).to(device, dtype)
+    wq = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8)
+    r = torch.tensor(4.0).to(device, dtype)
+    scale = (torch.rand(cout, generator=g) * 1e-4).to(device, dtype)
+    bias = torch.randn(cout, generator=g).to(device, dtype)
+    return (x.contiguous(memory_format=cl), wq.to(device).contiguous(memory_format=cl), r,
+            scale, bias)
+
+
 @pytest.mark.parametrize("cin,cout,size,stride", [(64, 64, 40, 1), (64, 128, 33, 2),
                                                   (1024, 512, 3, 1), (48, 24, 7, 2)])
 def test_q8conv_kernel_matches_plain_bitwise(cuda_device, cin, cout, size, stride):
-    """K4 against its float64 twin: int32 sums and the fused bf16 / f32
-    epilogue bit for bit, ragged sizes and a partial channel tile."""
+    """K4 against its twins: the int32 sums of int8 input, and the fused
+    quantize + conv + rescale of bf16 / f32 input, bit for bit; ragged
+    sizes, a partial channel tile, split-K (1024 -> 512 at 3 x 6)."""
     g = torch.Generator().manual_seed(cin + cout)
     cl = torch.channels_last
     x = torch.randint(-127, 128, (3, cin, size, size + 3), generator=g, dtype=torch.int8)
@@ -73,21 +89,57 @@ def test_q8conv_kernel_matches_plain_bitwise(cuda_device, cin, cout, size, strid
     ref = q8conv_cuda.conv_s8_plain(x, w, stride)
     assert torch.equal(q8conv_cuda.conv_s8(x, w, stride), ref)
     for dt in (torch.float32, torch.bfloat16):
-        scale = (torch.rand(cout, generator=g) * 1e-4).to(cuda_device, dt)
-        bias = torch.randn(cout, generator=g).to(cuda_device, dt)
-        out = q8conv_cuda.conv_s8_rescale(x, w, stride, 1, scale, bias)
-        assert torch.equal(out, q8conv_cuda.rescale_plain(ref, scale, bias))
+        xf, _, r, scale, bias = _k4_inputs(3, cin, cout, size, size + 3, dt, cuda_device, cin)
+        out = q8conv_cuda.conv_q8(xf, r, w, stride, 1, scale, bias)
+        assert torch.equal(out, q8conv_cuda.conv_q8_plain(xf, r, w, stride, 1, scale, bias))
     torch.cuda.synchronize()
     assert q8conv_cuda.LAUNCHES == before + 3
     with pytest.raises(ValueError, match="channels_last"):
         q8conv_cuda.conv_s8(x.contiguous(), w, stride)
 
 
+@pytest.mark.parametrize("B,cin,cout,h,w", [(3, 48, 24, 16, 32), (2, 64, 64, 24, 48),
+                                             (2, 1024, 512, 16, 16)])
+def test_q8conv_halo_kernel_matches_plain_bitwise(cuda_device, B, cin, cout, h, w):
+    """K4's halo kernel (stride 1, H % 8 == 0, W % 16 == 0) against its
+    twins in all three modes: a partial channel tile and Cout < 64, several
+    patches per image, split-K over channel slices."""
+    assert q8conv_cuda.uses_halo(h, w, 1, 1)
+    g = torch.Generator().manual_seed(cin)
+    x_q = torch.randint(-127, 128, (B, cin, h, w), generator=g, dtype=torch.int8)
+    x_q = x_q.to(cuda_device).contiguous(memory_format=torch.channels_last)
+    for dt in (torch.float32, torch.bfloat16):
+        x, wq, r, scale, bias = _k4_inputs(B, cin, cout, h, w, dt, cuda_device, cin + cout)
+        assert torch.equal(q8conv_cuda.conv_q8(x, r, wq, 1, 1, scale, bias),
+                           q8conv_cuda.conv_q8_plain(x, r, wq, 1, 1, scale, bias))
+    assert torch.equal(q8conv_cuda.conv_s8(x_q, wq, 1), q8conv_cuda.conv_s8_plain(x_q, wq, 1))
+
+
+@pytest.mark.parametrize("size,cin,cout,stride",
+                         feature2face.int8_conv_shapes(Feature2FaceConfig()))
+def test_q8conv_kernel_at_the_resunet_shapes(cuda_device, size, cin, cout, stride):
+    """K4 at each of the 44 int8 conv shapes of the 'normal' 512^2 ResUNet,
+    B=2: the int32 mode and the fused bf16 mode bit for bit."""
+    x, w, r, scale, bias = _k4_inputs(2, cin, cout, size, size, torch.bfloat16, cuda_device,
+                                      size + cin + cout)
+    x_q = q8conv_cuda.quantize_plain(x, r)
+    assert torch.equal(q8conv_cuda.conv_s8(x_q, w, stride),
+                       q8conv_cuda.conv_s8_plain(x_q, w, stride))
+    assert torch.equal(q8conv_cuda.conv_q8(x, r, w, stride, 1, scale, bias),
+                       q8conv_cuda.conv_q8_plain(x, r, w, stride, 1, scale, bias))
+
+
+def test_conv_q8_refuses_a_host_scale(cuda_device):
+    x, w, r, scale, bias = _k4_inputs(1, 64, 64, 8, 8, torch.bfloat16, cuda_device, 0)
+    with pytest.raises(ValueError, match="r must be"):
+        q8conv_cuda.conv_q8(x, r.cpu(), w, 1, 1, scale, bias)
+
+
 def test_small_slice_gpu_matches_cpu(cuda_device):
     """The whole slice at test widths, f32 renderer and TF32 off: landmarks
     within 1e-3 px and frames within one uint8 level of the CPU run."""
-    cfg = small_person_config(image_size=64)
-    person, models_cpu = assets.make_synthetic_person(cfg, image_size=64)
+    cfg = torch_config(small_person_config(image_size=64))
+    person, models_cpu = assets.make_synthetic_person(cfg, image_size=64, device="cpu")
     _, models_gpu = assets.make_synthetic_person(cfg, image_size=64, device=cuda_device)
     audio = video.make_test_tone(1.0)
     ref = animate.animate(cfg, person, models_cpu, audio, seed=3)

@@ -16,12 +16,13 @@ from livespeechportraits_tpu.models import feature2face as jf2f
 from livespeechportraits_tpu.models import wavenet as jwn
 from livespeechportraits_torch.models import audio2feature, audio2headpose, feature2face, wavenet
 from livespeechportraits_torch.utils.convert import params_from_jax
-from torch_parity import jax_headpose_noise, to_np
+from torch_parity import jax_headpose_noise, to_np, torch_config
 
 H = 32
 WN = WaveNetConfig(residual_layers=3, residual_blocks=2, dilation_channels=8,
                    residual_channels=8, skip_channels=16, cond_channels=H)
 A2H = Audio2HeadposeConfig(apc_hidden_size=H, wavenet=WN, frame_future=5)
+T_A2H = torch_config(A2H)  # the same config as the port's class
 
 
 def _a2h_pair(seed=0):
@@ -32,7 +33,7 @@ def _a2h_pair(seed=0):
     params["down_bn"] = {k: (rng.uniform(0.5, 1.5, H) if k in ("scale", "var")
                              else rng.normal(0, 0.1, H)).astype(np.float32)
                          for k in ("scale", "bias", "mean", "var")}
-    model = audio2headpose.Audio2Headpose(A2H)
+    model = audio2headpose.Audio2Headpose(T_A2H)
     model.load_state_dict(params_from_jax(params), strict=True)
     return params, model.eval()
 
@@ -94,20 +95,20 @@ def test_audio2headpose_generate_sequence_matches_jax():
                                  jax.random.PRNGKey(7), sigma_scale=0.3)
     noise = jax_headpose_noise(7, 30 - A2H.frame_future, A2H.ncenter, A2H.ndim)
     with torch.no_grad():
-        ours = audio2headpose.generate_sequence(model, A2H, torch.tensor(feats),
+        ours = audio2headpose.generate_sequence(model, T_A2H, torch.tensor(feats),
                                                 torch.tensor(pre), sigma_scale=0.3,
                                                 noise=noise)
     assert ours.shape == (25, 12)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4)
     with pytest.raises(ValueError, match="too short"):
-        audio2headpose.generate_sequence(model, A2H, torch.tensor(feats[:10]),
+        audio2headpose.generate_sequence(model, T_A2H, torch.tensor(feats[:10]),
                                          torch.tensor(pre))
 
 
 def test_audio2feature_generate_sequence_matches_jax():
     cfg = Audio2FeatureConfig(apc_hidden_size=H, lstm_hidden_size=16)
     params = ja2f.init_audio2feature(jax.random.PRNGKey(8), cfg)
-    model = audio2feature.Audio2Feature(cfg)
+    model = audio2feature.Audio2Feature(torch_config(cfg))
     model.load_state_dict(params_from_jax(to_np(params)), strict=True)
     feats = np.random.default_rng(9).standard_normal((41, H)).astype(np.float32)
     ref = ja2f.generate_sequence(params, jnp.asarray(feats), frame_future=3, cfg=cfg)
@@ -120,7 +121,7 @@ def test_audio2feature_generate_sequence_matches_jax():
 def _f2f_pair(size, seed=10):
     cfg = Feature2FaceConfig(size=size, ngf=4, n_downsample=5, load_size=32)
     params = jf2f.init_generator(jax.random.PRNGKey(seed), cfg)
-    model = feature2face.Feature2FaceG(cfg)
+    model = feature2face.Feature2FaceG(torch_config(cfg))
     model.load_state_dict(params_from_jax(to_np(params)), strict=True)
     x = np.random.default_rng(seed).uniform(-1, 1, (2, 32, 32, 13)).astype(np.float32)
     return params, model, x

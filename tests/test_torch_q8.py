@@ -16,6 +16,7 @@ from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models import nn_core
 from livespeechportraits_torch.ops import q8conv_cuda
 from livespeechportraits_torch.utils.convert import params_from_jax, params_to_jax
+from torch_parity import torch_config
 
 CFG = Feature2FaceConfig(size="normal", ngf=8, n_downsample=5, load_size=32)
 
@@ -46,7 +47,7 @@ def _jax_generator(seed: int, noisy_bn: bool = False):
 
 
 def _port_generator(tree) -> f2f.Feature2FaceG:
-    model = f2f.Feature2FaceG(CFG).eval().requires_grad_(False)
+    model = f2f.Feature2FaceG(torch_config(CFG)).eval().requires_grad_(False)
     sd = params_from_jax(tree)
     f2f.conform_to_state_dict(model, sd)
     model.load_state_dict(sd, strict=True)
@@ -279,3 +280,168 @@ def test_q8conv_dispatch_has_no_fallback():
     assert q8conv_cuda.conv_s8(x, w, 1).shape == (1, 8, 4, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         q8conv_cuda.conv_s8(x.to("meta"), w.to("meta"), 1)
+
+
+# ---------------------------------------------------------------------------
+# the fused K4 path: quantize + int8 conv + rescale in one call (conv_q8)
+# ---------------------------------------------------------------------------
+
+
+def _tie_input(seed: int) -> np.ndarray:
+    """NHWC f32 values m / 16 with |m| <= 508: with r = 4 (the dynamic and
+    calibrated scale 0.25, amax 31.75 pinned) every m = 2 mod 4 is an exact
+    rounding tie; with r = 8 (the static scale 0.125) every odd m is, and
+    |x * r| reaches 254, past the clamp."""
+    x = _rng(seed).integers(-508, 509, (2, 11, 9, 32)).astype(np.float32) / 16
+    x[0, 0, 0, 0], x[1, 3, 2, 1] = 31.75, -31.75
+    return x
+
+
+def _fused_layer(stride: int, x_scale):
+    """A quantized JAX conv 32 -> 40 with a bias, and the same QConv2d."""
+    rng = _rng(30)
+    p = {"w": (rng.standard_normal((3, 3, 32, 40)) * 0.05).astype(np.float32),
+         "b": (rng.standard_normal(40) * 0.1).astype(np.float32)}
+    qp = jax.tree.map(np.asarray, jcore.quantize_conv(jax.tree.map(jnp.asarray, p)))
+    layer = nn_core.QConv2d(torch.tensor(qp["w_q"].transpose(3, 2, 0, 1).copy()),
+                            torch.tensor(qp["w_scale"]), stride, 1, b=torch.tensor(qp["b"]))
+    if x_scale is not None:
+        qp["x_scale"] = np.float32(x_scale)
+        layer.x_scale = torch.tensor(x_scale, dtype=torch.float32)
+    return qp, layer
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("mode", ["static", "dynamic", "calibration"])
+def test_fused_int8_layer_matches_jax_bitwise(dtype, stride, mode):
+    """nn_core.conv2d_q8 on the CPU (conv_q8's plain twin: quantize, float64
+    conv, rescale) against JAX's _conv2d_q8, bit for bit in f32 and bf16,
+    for each of the three activation scales, on inputs with exact rounding
+    ties (half to even in both) and, for the static scale, values past
+    +-127."""
+    qp, layer = _fused_layer(stride, 0.125 if mode == "static" else None)
+    x = _tie_input(31)
+    r = 8.0 if mode == "static" else 4.0
+    assert np.any(np.abs(x * r) % 1 == 0.5)
+    if mode == "static":
+        assert np.abs(x * r).max() > 127
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt)
+                      if np.asarray(a).dtype == np.float32 else jnp.asarray(a), qp)
+    xj = jnp.asarray(x).astype(jdt)
+    if mode == "calibration":
+        jcore.begin_calibration()
+    ref = np.asarray(jcore.conv2d(jq, xj, stride, 1).astype(jnp.float32))
+    ours_layer = layer.to(tdt)
+    xt = torch.tensor(x).permute(0, 3, 1, 2).to(tdt)
+    if mode == "calibration":
+        j_amax = jcore.end_calibration()
+        with nn_core.recording_amax(ours_layer) as record:
+            ours = nn_core.conv2d(xt, ours_layer, stride, 1)
+        assert float(record[0]) == float(j_amax[0]) == 31.75
+    else:
+        ours = nn_core.conv2d(xt, ours_layer, stride, 1)
+    assert ours.dtype == tdt
+    np.testing.assert_array_equal(ours.float().permute(0, 2, 3, 1).numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_plain_matches_jax(dtype):
+    """The quantize half of the twin against JAX's _quantize_activation
+    with a static scale: the same int8 values, ties and clamp included."""
+    qp, _ = _fused_layer(1, 0.125)
+    x = _tie_input(32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq = dict(qp, x_scale=jnp.asarray(qp["x_scale"]).astype(jdt))
+    x_q, s_x, _ = jcore._quantize_activation(jq, jnp.asarray(x).astype(jdt))
+    r = torch.reciprocal(torch.tensor(float(s_x))).to(tdt)
+    ours = q8conv_cuda.quantize_plain(torch.tensor(x).to(tdt), r)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(x_q))
+    assert ours.abs().max() == 127
+
+
+def test_conv_q8_checks_its_inputs():
+    """conv_q8 takes float activations in channels_last memory with r on
+    their device; it raises otherwise, on every device (a host r beside a
+    CUDA x: tests/test_torch_cuda.py)."""
+    cl = torch.channels_last
+    x = torch.randn(1, 16, 4, 4).contiguous(memory_format=cl)
+    w = torch.zeros(8, 16, 3, 3, dtype=torch.int8)
+    r, scale = torch.tensor(2.0), torch.ones(8)
+    y = q8conv_cuda.conv_q8(x, r, w, 1, 1, scale)
+    assert y.shape == (1, 8, 4, 4) and y.dtype == torch.float32
+    with pytest.raises(TypeError, match="dtype"):
+        q8conv_cuda.conv_q8(x.to(torch.int8), r, w, 1, 1, scale)
+    with pytest.raises(ValueError, match="channels_last"):
+        q8conv_cuda.conv_q8(x.contiguous(), r, w, 1, 1, scale)
+    with pytest.raises(ValueError, match="unsupported device"):
+        q8conv_cuda.conv_q8(x.to("meta"), r.to("meta"), w, 1, 1, scale)
+    with pytest.raises(ValueError, match="r must be"):
+        q8conv_cuda.conv_q8(x, r.to("meta"), w, 1, 1, scale)
+    with pytest.raises(ValueError, match="r must be"):
+        q8conv_cuda.conv_q8(x, r.to(torch.bfloat16), w, 1, 1, scale)
+
+
+def test_static_operands_are_kept_until_the_scales_change():
+    """A calibrated conv computes (r, scale) once per dtype; a cast, a new
+    buffer or an in-place change of x_scale recomputes them."""
+    _, layer = _fused_layer(1, 0.125)
+    r, scale = layer.static_operands(torch.float32)
+    assert layer.static_operands(torch.float32)[0] is r and float(r) == 8.0
+    torch.testing.assert_close(scale, layer.w_scale * 0.125, rtol=0, atol=0)
+    assert layer.static_operands(torch.bfloat16)[0].dtype == torch.bfloat16
+    layer.x_scale.fill_(0.25)
+    assert float(layer.static_operands(torch.float32)[0]) == 4.0
+    layer.to(torch.bfloat16)
+    r16, _ = layer.static_operands(torch.bfloat16)
+    assert r16 is layer.static_operands(torch.bfloat16)[0] and float(r16) == 4.0
+
+
+def test_int8_conv_shapes_follow_the_forward(monkeypatch):
+    """feature2face.int8_conv_shapes lists the shapes conv_q8 receives, in
+    call order: 26 at test widths; 44 in the 'normal' 512^2 ResUNet, 2.61
+    int8 TOP per 16-frame batch."""
+    seen = []
+    real = q8conv_cuda.conv_q8
+
+    def spy(x, r, w_q, stride, padding, scale, bias=None):
+        seen.append((x.shape[2], x.shape[1], w_q.shape[0], stride))
+        return real(x, r, w_q, stride, padding, scale, bias)
+
+    monkeypatch.setattr(q8conv_cuda, "conv_q8", spy)
+    _port_apply(f2f.quantize_generator(_port_generator(_jax_generator(33))), _inputs(34))
+    assert seen == f2f.int8_conv_shapes(CFG)
+    shapes = f2f.int8_conv_shapes(torch_config(Feature2FaceConfig()))
+    assert len(shapes) == 44 and shapes[0] == (256, 64, 64, 1) and shapes[-1] == (256, 64, 64, 1)
+    ops = sum(2 * 16 * (h // s) ** 2 * ci * co * 9 for h, ci, co, s in shapes)
+    assert round(ops / 1e12, 2) == 2.61
+
+
+@pytest.mark.parametrize("m,cout,cin,halo,want", [
+    (64, 512, 512, False, (4, 18)), (1024, 512, 512, False, (8, 9)),
+    (4096, 512, 512, False, (24, 3)), (16384, 512, 512, False, (72, 1)),
+    (1 << 20, 64, 64, False, (9, 1)), (8, 24, 48, False, (4, 3)),
+    (4096, 512, 512, True, (27, 3)), (512, 512, 512, True, (9, 8)),
+    (2048, 512, 1024, True, (36, 4)), (1 << 20, 64, 256, True, (36, 1))])
+def test_split_k_covers_the_k_loop(m, cout, cin, halo, want):
+    """K is split only when the output tiles fall short of the SMs, every
+    split has at least one K iteration, and the halo kernel's splits hold
+    whole 64-channel slices (9 iterations each)."""
+    per, splits = q8conv_cuda.split_k(m, cout, cin, halo)
+    n_iter = 9 * -(-cin // 64)
+    assert (per, splits) == want
+    assert (splits - 1) * per < n_iter <= splits * per
+    assert not halo or per % 9 == 0
+
+
+def test_halo_kernel_takes_the_stride_1_resunet_maps():
+    """csrc/q8conv.cu's halo kernel (8 x 16 output patches) takes every
+    stride-1 conv of the 'normal' ResUNet from 256^2 to 16^2; stride 2,
+    the 8^2 to 2^2 maps and ragged maps take the gather kernel."""
+    shapes = f2f.int8_conv_shapes(torch_config(Feature2FaceConfig()))
+    halo = [(h, s) for h, _, _, s in shapes if q8conv_cuda.uses_halo(h, h, s, 1)]
+    assert halo and all(s == 1 and h >= 16 for h, s in halo)
+    assert sum(s == 1 and h >= 16 for h, _, _, s in shapes) == len(halo) == 25
+    assert not q8conv_cuda.uses_halo(40, 43, 1, 1) and not q8conv_cuda.uses_halo(16, 16, 1, 0)
+    assert q8conv_cuda.uses_halo(8, 32, 1, 1)

@@ -18,7 +18,7 @@ from livespeechportraits_tpu.ops import recurrent_pallas as rp
 from livespeechportraits_torch.models import apc
 from livespeechportraits_torch.ops import recurrent_cuda
 from livespeechportraits_torch.utils.convert import params_from_jax
-from torch_parity import to_np
+from torch_parity import to_np, torch_config
 
 
 def _layer(p):
@@ -54,7 +54,7 @@ def test_apc_encode_fast_matches_jax(residual):
     params = japc.init_apc(jax.random.PRNGKey(5), cfg)
     mels = np.random.default_rng(6).standard_normal((25, 16)).astype(np.float32)
     ref = japc.encode(params, jnp.asarray(mels)[None], residual=residual)[0]
-    model = apc.APCEncoder(cfg)
+    model = apc.APCEncoder(torch_config(cfg))
     model.load_state_dict(params_from_jax(to_np(params)), strict=True)
     with torch.no_grad():
         ours = apc.encode_fast(model, torch.tensor(mels), residual=residual)

@@ -26,7 +26,7 @@ from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.ops import gmm
 from livespeechportraits_torch.pipeline import animate, assets, video
 from livespeechportraits_torch.utils.convert import params_from_jax, params_to_jax
-from torch_parity import jax_headpose_noise, small_person_config, to_np
+from torch_parity import jax_headpose_noise, small_person_config, to_np, torch_config
 
 FIELDS = ("apc", "audio2feature", "audio2headpose", "feature2face")
 
@@ -88,8 +88,8 @@ def test_bucketed_chirp_is_bitwise_exact(transfer, one_thread):
     """A bucket-padded run with valid_frames equals the exact-length run bit
     for bit on the CPU; a chirp, since a wrong feature repeat-pad (at the
     post-stage count) is invisible on stationary audio."""
-    cfg = small_person_config(image_size=32)
-    person, models = assets.make_synthetic_person(cfg, image_size=32)
+    cfg = torch_config(small_person_config(image_size=32))
+    person, models = assets.make_synthetic_person(cfg, image_size=32, device="cpu")
     audio = _chirp(0.9)
     exact = animate.animate(cfg, person, models, audio, seed=11, render_batch=4,
                             transfer=transfer)
@@ -102,8 +102,8 @@ def test_bucketed_chirp_is_bitwise_exact(transfer, one_thread):
 
 
 def test_valid_frames_guard():
-    cfg = small_person_config(image_size=32)
-    person, models = assets.make_synthetic_person(cfg, image_size=32)
+    cfg = torch_config(small_person_config(image_size=32))
+    person, models = assets.make_synthetic_person(cfg, image_size=32, device="cpu")
     with pytest.raises(ValueError, match="must exceed the head-pose lookahead"):
         animate.compute_motion(cfg, person, models, _chirp(1.0), valid_frames=15)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
@@ -118,8 +118,10 @@ def test_bucketed_int8_yuv420_animate_matches_jax(jax_person):
     1e-4 px, 1e-6, 1e-7; frames at most 1 level apart, on under 0.1 % of
     the values (an activation at an int8 rounding edge may flip a step)."""
     cfg, j_assets, _, jq = jax_person
-    person, _ = assets.make_synthetic_person(cfg, image_size=64, skip_models=True)
-    models = assets.from_jax(cfg, jq)
+    tcfg = torch_config(cfg)
+    person, _ = assets.make_synthetic_person(tcfg, image_size=64, skip_models=True,
+                                             device="cpu")
+    models = assets.from_jax(tcfg, jq, device="cpu")
     audio = _chirp(0.85)
     padded = _pad_to_bucket(audio)
     valid = int(len(audio) / 16000 * 60)
@@ -127,7 +129,7 @@ def test_bucketed_int8_yuv420_animate_matches_jax(jax_person):
                            valid_frames=valid)
     noise = jax_headpose_noise(2, 60 - cfg.audio2headpose.frame_future,
                                cfg.audio2headpose.ncenter, cfg.audio2headpose.ndim)
-    ours = animate.animate(cfg, person, models, padded, seed=2, transfer="yuv420",
+    ours = animate.animate(tcfg, person, models, padded, seed=2, transfer="yuv420",
                            valid_frames=valid, headpose_noise=noise)
     assert ours.nframe == ref.nframe == valid - 15
     assert ours.frames.shape == ref.frames.shape == (valid - 15, 64, 64, 3)
@@ -165,7 +167,8 @@ def test_yuv420_unpack_matches_jax():
 def test_params_to_jax_inverts_params_from_jax(jax_person, field):
     cfg, _, j_models, jq = jax_person
     tree = to_np(jq.feature2face if field == "feature2face_int8" else getattr(j_models, field))
-    ported = assets.from_jax(cfg, jq if field == "feature2face_int8" else j_models)
+    ported = assets.from_jax(torch_config(cfg), jq if field == "feature2face_int8" else j_models,
+                             device="cpu")
     _assert_trees_equal(params_to_jax(getattr(ported, field.split("_")[0])), tree)
 
 
@@ -174,7 +177,7 @@ def test_artifact_written_by_the_port_boots_jax(jax_person, tmp_path):
     load_models_artifact reads it to the same trees, and JAX's renderer on
     them matches the port's within 1e-7 (f32)."""
     cfg, _, _, jq = jax_person
-    models = assets.from_jax(cfg, jq)
+    models = assets.from_jax(torch_config(cfg), jq, device="cpu")
     path = assets.save_models_artifact(models, str(tmp_path / "port.npz"))
     loaded = jassets.load_models_artifact(path)
     for name in FIELDS:
@@ -189,13 +192,14 @@ def test_artifact_written_by_the_port_boots_jax(jax_person, tmp_path):
 def test_artifact_marks_bf16_leaves(jax_person, tmp_path):
     """A cast (bf16) renderer is stored as float32 marked "dt": "bfloat16";
     JAX loads bf16 leaves with the same values, the port float32 ones."""
-    cfg, _, _, jq = jax_person
-    models = assets.from_jax(cfg, jq)
+    cfg = torch_config(jax_person[0])
+    jq = jax_person[3]
+    models = assets.from_jax(cfg, jq, device="cpu")
     models.feature2face = f2f.cast_generator(models.feature2face, torch.bfloat16)
     path = assets.save_models_artifact(models, str(tmp_path / "bf16.npz"))
     up = jassets.load_models_artifact(path).feature2face["net"]["sub"]["up"]
     assert str(up["w_scale"].dtype) == "bfloat16" and up["w_q"].dtype == np.int8
-    back = assets.load_models_artifact(path, cfg).feature2face.state_dict()
+    back = assets.load_models_artifact(path, cfg, device="cpu").feature2face.state_dict()
     for k, v in models.feature2face.state_dict().items():
         assert torch.equal(back[k].to(v.dtype), v), k
 
@@ -203,7 +207,7 @@ def test_artifact_marks_bf16_leaves(jax_person, tmp_path):
 def test_artifact_written_by_jax_boots_the_port(jax_person, tmp_path):
     cfg, _, _, jq = jax_person
     path = jassets.save_models_artifact(jq, str(tmp_path / "jax.npz"))
-    models = assets.load_models_artifact(path, cfg)
+    models = assets.load_models_artifact(path, torch_config(cfg), device="cpu")
     for name in FIELDS:
         _assert_trees_equal(params_to_jax(getattr(models, name)), to_np(getattr(jq, name)))
     sd = params_from_jax(to_np(jq.feature2face))
@@ -222,7 +226,8 @@ def predictor(tmp_path_factory):
     booted once to write its artifact and once from it."""
     art = str(tmp_path_factory.mktemp("art") / "model.npz")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(serve, "PersonConfig", lambda name="Synthetic": small_person_config())
+        small = torch_config(small_person_config())
+        mp.setattr(serve, "PersonConfig", lambda name="Synthetic": small)
         first = serve.Predictor(max_audio_seconds=1.0, device="cpu",
                                 results_dir=str(tmp_path_factory.mktemp("srv0")))
         first.setup("Synthetic", image_size=32, quantize=True, artifact=art)

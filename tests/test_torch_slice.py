@@ -10,7 +10,7 @@ import pytest
 from livespeechportraits_tpu.pipeline import animate as janimate
 from livespeechportraits_tpu.pipeline import assets as jassets
 from livespeechportraits_torch.pipeline import animate, assets, video
-from torch_parity import jax_headpose_noise, small_person_config
+from torch_parity import jax_headpose_noise, small_person_config, torch_config
 
 
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
@@ -23,13 +23,15 @@ def test_animate_matches_jax(precision):
     cfg = small_person_config(image_size=64, precision=precision)
     j_assets, j_models = jassets.make_synthetic_person(cfg, key=jax.random.PRNGKey(5),
                                                        image_size=64)
-    person, _ = assets.make_synthetic_person(cfg, image_size=64, skip_models=True)
-    models = assets.from_jax(cfg, j_models)
+    tcfg = torch_config(cfg)
+    person, _ = assets.make_synthetic_person(tcfg, image_size=64, skip_models=True,
+                                             device="cpu")
+    models = assets.from_jax(tcfg, j_models, device="cpu")
     audio = video.make_test_tone(1.0)
     ref = janimate.animate(cfg, j_assets, j_models, audio, seed=2, keep_feature_maps=True)
     noise = jax_headpose_noise(2, ref.nframe, cfg.audio2headpose.ncenter,
                                cfg.audio2headpose.ndim)
-    ours = animate.animate(cfg, person, models, audio, seed=2, keep_feature_maps=True,
+    ours = animate.animate(tcfg, person, models, audio, seed=2, keep_feature_maps=True,
                            headpose_noise=noise)
     assert ours.nframe == ref.nframe == 45
     assert ours.frames.shape == ref.frames.shape == (45, 64, 64, 3)

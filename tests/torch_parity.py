@@ -7,10 +7,14 @@ and its PyTorch counterpart; weights cross through
 
 from __future__ import annotations
 
+import dataclasses
+import typing
+
 import numpy as np
 import pytest
 import torch
 
+from livespeechportraits_torch import config as tconfig
 from livespeechportraits_tpu.config import (APCConfig, Audio2FeatureConfig,
                                             Audio2HeadposeConfig, Feature2FaceConfig,
                                             PersonConfig, WaveNetConfig)
@@ -38,6 +42,22 @@ def small_person_config(image_size: int = 64, precision: str = "float32",
         feature2face=Feature2FaceConfig(ngf=8, n_downsample=5, load_size=image_size,
                                         precision=precision),
     )
+
+
+def torch_config(cfg):
+    """The port's config (livespeechportraits_torch.config) equal to a JAX
+    package config of the same class name, through dataclasses.asdict and
+    back: the port's code is handed its own config classes."""
+    return _config_from_dict(getattr(tconfig, type(cfg).__name__), dataclasses.asdict(cfg))
+
+
+def _config_from_dict(cls, d: dict):
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        t = hints[f.name]
+        kw[f.name] = _config_from_dict(t, d[f.name]) if dataclasses.is_dataclass(t) else d[f.name]
+    return cls(**kw)
 
 
 def to_np(tree):
