@@ -7,20 +7,28 @@ Phases, each printing one line; any failure raises and exits non-zero:
 
 1. device: the card's name, torch and CUDA versions, nvidia-smi's name and
    power limit.  No CUDA device is a failure; nothing falls back to the CPU.
-2. build: nvcc builds the kernels in livespeechportraits_torch/csrc/.
+2. build: nvcc builds the kernels in livespeechportraits_torch/csrc/; then
+   ptxas -v of the recurrence kernels: registers and spills (none allowed).
 2b. the kernels and aten ops that three nn_core.conv2d_q8 calls of a
    calibrated (static x_scale) bf16 layer launch: K4 alone, no quantize
    pass.
 3. K1 (rasteriser) on 8 frames at 512^2 against its plain twin, bitwise.
-4. K2 (GRU time loop) at H=512, in=80 against the plain loop.
-5. K3 (LSTM time loop) at H=256, in=512 against the plain loop.
+4. K2 (GRU time loop) at H=512, in=80, T = 64, 360, 1200; 5. K3 (LSTM) at
+   H=256, in=512, T = 64, 198, 600.  At each length: the plan
+   (recurrent_cuda.device_plan: the cluster kernel), kernel_ms (CUDA events
+   around _recurrence on a precomputed xp with nonzero h0 / c0: the kernel
+   alone) and us_per_step, the grid kernel's kernel_ms on the same inputs
+   (the design before, same run) and, for K3, the other cluster size; each
+   against the plain loop (ys, h_T, c_T); then the wrapper (addmm + kernel)
+   ms, plain_ms, cuDNN's library_ms and the bounds.
 6. slice: animate() on the full-width synthetic person, 3 s of test tone,
-   512^2 bf16 renderer; 165 frames, and every kernel's launch counter rose.
-   Then one traced run of each half (torch.profiler): the device's busy
-   share and each kernel's device time per launch at the main path's shapes.
-   The kernel phases also print device_ms, the kernel's device time per
-   launch from a trace (K4's from CUDA-graph replays), beside ms, the
-   CUDA-event time per wrapper call.
+   512^2 bf16 renderer; 165 frames, every kernel's launch counter rose,
+   and every GRU / LSTM launch took the cluster plan.  Then one traced run
+   of each half (torch.profiler): the device's busy share and each kernel's
+   device time per launch at the main path's shapes.  K1's phase also prints
+   device_ms, its device time per launch from a trace (K4's from CUDA-graph
+   replays, K2/K3's kernel_ms from CUDA events), beside ms, the CUDA-event
+   time per wrapper call.
 6c. K4 (the int8 3x3 conv with the activation quantize folded in) at seven
    B=16 shapes, against its plain twin: bitwise in the int32 mode and in
    the fused bf16 mode (inputs with exact rounding ties and values past
@@ -30,7 +38,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
 6d. serve: the serving path, serve.Predictor(device="cuda") booted with the
    int8 calibrated renderer (writing an artifact), three predict() requests
    with bucketing and the yuv420 transfer; frame counts, every kernel
-   launched (K4 at least 44 per 16-frame batch), PSNR against the bf16
+   launched (K4 at least 44 per 16-frame batch; 3 GRU + 3 LSTM launches,
+   all on the cluster plan), PSNR against the bf16
    float renderer, bucketed against exact, a second Predictor booted from
    the artifact giving the same frames bit for bit, and one traced request
    (K4's device time and launches, the int8 and the bf16 float renderer's
@@ -157,7 +166,7 @@ def bound(nbytes: float, ops: float, kind: str):
 
 # Kernel symbols as the profiler names them (demangled).
 # K4 is its main kernel plus, for a split K loop, the reduction pass.
-SYMBOLS = {"K1": "rasterize_kernel", "K2": "rnn_kernel<3>", "K3": "rnn_kernel<4>",
+SYMBOLS = {"K1": "rasterize_kernel", "K2": "rnn_cluster_kernel<3", "K3": "rnn_cluster_kernel<4",
            "K4": "q8conv_"}
 
 # K4's main-path shapes at B=16 (512^2 'normal' ResUNet): (name, input
@@ -183,13 +192,61 @@ def rnn_weights(gates: int, H: int, I: int, dev, seed: int):
     return [((torch.rand(s, generator=g) * 2 - 1) * bound).to(dev) for s in shapes]
 
 
-def check_recurrence(name, gates, H, I, lengths, main_T, dev):
-    """Kernel vs plain loop at each length; returns the main-path numbers."""
+def recurrence_inputs(gates: int, H: int, T: int, dev, seed: int):
+    """xp [T, G*H], w_hh, b_hh and a nonzero h0 (and c0) for _recurrence."""
+    g = torch.Generator().manual_seed(seed)
+    bound_w = 1 / math.sqrt(H)
+    w_hh = ((torch.rand(gates * H, H, generator=g) * 2 - 1) * bound_w).to(dev)
+    b_hh = ((torch.rand(gates * H, generator=g) * 2 - 1) * bound_w).to(dev)
+    xp = torch.randn(T, gates * H, generator=g).to(dev)
+    h0 = (torch.randn(H, generator=g) * 0.5).to(dev)
+    c0 = (torch.randn(H, generator=g) * 0.5).to(dev) if gates == 4 else None
+    return xp, w_hh, b_hh, h0, c0
+
+
+def plain_recurrence(gates: int, xp, w_hh, b_hh, h0, c0):
+    """nn_core's plain layer on a precomputed xp: W_ih = I and b_ih = 0 make
+    the input projection exact (each output is one product by 1)."""
     from livespeechportraits_torch.models import nn_core
-    from livespeechportraits_torch.ops import recurrent_cuda
+
+    G = xp.shape[1]
+    eye, zero = torch.eye(G, device=xp.device), torch.zeros(G, device=xp.device)
+    if gates == 3:
+        ys, h = nn_core.gru_layer(xp[None], eye, w_hh, zero, b_hh, h0[None])
+        return ys[0], h[0], None
+    ys, (h, c) = nn_core.lstm_layer(xp[None], eye, w_hh, zero, b_hh, (h0[None], c0[None]))
+    return ys[0], h[0], c[0]
+
+
+def recurrence_error(gates: int, got, ref) -> float:
+    """max |kernel - plain| over ys, h_T and (LSTM) c_T."""
+    errs = [(got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item()]
+    if gates == 4:
+        errs.append((got[2] - ref[2]).abs().max().item())
+    return max(errs)
+
+
+def check_recurrence(name, gates, H, I, lengths, main_T, dev):
+    """K2 / K3 at each length: the kernel alone (_recurrence on a precomputed
+    xp, nonzero h0 / c0) on its plan and on the grid kernel, each against the
+    plain loop; the wrapper (addmm + kernel) against nn_core's plain layer
+    and cuDNN's one-layer GRU / LSTM.  Returns the main length's numbers."""
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import recurrent_cuda as rc
 
     plain = nn_core.gru_layer if gates == 3 else nn_core.lstm_layer
-    kernel = recurrent_cuda.gru_layer if gates == 3 else recurrent_cuda.lstm_layer
+    kernel = rc.gru_layer if gates == 3 else rc.lstm_layer
+    plan = rc.device_plan(gates, H, dev)
+    if plan[0] != "cluster":
+        raise AssertionError(f"{name}: the main shape H={H} planned {plan}, not the cluster")
+    n_sm, smem_optin = rc.device_limits(dev)
+    # the grid kernel (the design before), and the other cluster size (one
+    # or two units a warp), each measured beside the plan's in the same run
+    others = {"grid": ("grid", math.ceil(H / n_sm))}
+    for units in (16, 32):
+        other = rc.cluster_plan(gates, H, units, smem_optin)
+        if other is not None and other != plan:
+            others["cluster_c%d" % other[1]] = other
     w = rnn_weights(gates, H, I, dev, seed=gates)
     # The one PyTorch call that computes the same function: a one-layer
     # cuDNN GRU / LSTM with the same weights, f32, TF32 off.
@@ -201,35 +258,84 @@ def check_recurrence(name, gates, H, I, lengths, main_T, dev):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     out = {}
+    G = gates * H
     try:
         for T in lengths:
+            # the kernel alone, against the plain loop on the same xp
+            args = recurrence_inputs(gates, H, T, dev, seed=1000 + T)
+            ref = plain_recurrence(gates, *args)
+            err = recurrence_error(gates, rc._recurrence(gates, *args), ref)
+            kernel_ms = cuda_ms(lambda: rc._recurrence(gates, *args), reps=20)
+            other_ms, other_err = {}, {}
+            for key, p in others.items():
+                other_err[key] = recurrence_error(gates, rc._recurrence(gates, *args, plan=p), ref)
+                other_ms[key] = cuda_ms(lambda: rc._recurrence(gates, *args, plan=p), reps=20)
+            # the recurrence's own bound: xp, W_hh, b_hh, h0 read, ys written once
+            k_bound, k_by = bound(4 * (T * G + G * H + G + 2 * H + T * H), 2 * T * G * H, "f32")
+            # the wrapper, x -> ys: the input projection and the recurrence
             x = torch.randn(1, T, I, generator=torch.Generator().manual_seed(T)).to(dev)
-            ref, _ = plain(x, *w)
+            wref, _ = plain(x, *w)
             ys, _ = kernel(x, *w)
-            err = (ys - ref).abs().max().item()
-            ms = cuda_ms(lambda: kernel(x, *w), reps=10)  # the wrapper: addmm + the kernel
+            wrap_err = (ys - wref).abs().max().item()
+            ms = cuda_ms(lambda: kernel(x, *w), reps=10)
             plain_ms = cuda_ms(lambda: plain(x, *w), reps=2, warmup=1)
-            dev_ms, _ = kernel_device_ms(trace(lambda: [kernel(x, *w) for _ in range(10)])[0],
-                                         SYMBOLS[name])
             with torch.no_grad():
-                lib_err = (library(x)[0] - ref).abs().max().item()
+                lib_err = (library(x)[0] - wref).abs().max().item()
                 lib_ms = cuda_ms(lambda: library(x), reps=10)
-            # the wrapper's work, x -> ys: the input projection and the recurrence
-            G = gates * H
             nbytes = 4 * (T * I + G * I + G * H + 2 * G + T * H)
             bound_ms, bound_by = bound(nbytes, 2 * T * G * (I + H), "f32")
-            log(name, H=H, input=I, T=T, max_abs_err=f"{err:.3e}", tol=RNN_TOL, ms=f"{ms:.4f}",
-                device_ms=fmt(dev_ms), plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
-                library_max_abs_err=f"{lib_err:.3e}", bound_ms=f"{bound_ms:.5f}",
-                bound_by=bound_by)
-            if not err <= RNN_TOL:
-                raise AssertionError(f"{name} at T={T}: max abs error {err} > {RNN_TOL}")
+            log(name, H=H, input=I, T=T, plan=json.dumps(plan), kernel_ms=f"{kernel_ms:.4f}",
+                us_per_step=f"{kernel_ms * 1e3 / T:.3f}", kernel_max_abs_err=f"{err:.3e}",
+                **{f"{k}_kernel_ms": f"{v:.4f}" for k, v in other_ms.items()},
+                **{f"{k}_us_per_step": f"{v * 1e3 / T:.3f}" for k, v in other_ms.items()},
+                **{f"{k}_max_abs_err": f"{v:.3e}" for k, v in other_err.items()},
+                kernel_bound_ms=f"{k_bound:.5f}", kernel_bound_by=k_by,
+                kernel_share=f"{k_bound / kernel_ms:.4f}", tol=RNN_TOL,
+                ms=f"{ms:.4f}", max_abs_err=f"{wrap_err:.3e}", plain_ms=f"{plain_ms:.4f}",
+                library_ms=f"{lib_ms:.4f}", library_max_abs_err=f"{lib_err:.3e}",
+                bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+            worst = max(err, wrap_err, *other_err.values())
+            if not worst <= RNN_TOL:
+                raise AssertionError(f"{name} at T={T}: max abs error {worst} > {RNN_TOL}")
             if T == main_T:
-                out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": lib_ms}
+                out = {"max_abs_err": max(err, wrap_err), "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                       "kernel_ms": kernel_ms, "grid_kernel_ms": other_ms["grid"]}
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return out
+
+
+def check_rnn_plans(launches, plans) -> None:
+    """The main path's GRU and LSTM launches (counts K2 / K3) all took the
+    cluster plan (plans: recurrent_cuda.PLAN_LAUNCHES read with them)."""
+    want = {"gru/cluster": launches["K2"], "lstm/cluster": launches["K3"]}
+    got = dict(plans)
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"recurrence launches by plan {got}, want {want} (all cluster)")
+
+
+def ptxas_summary(log: str):
+    """{kernel instance: (registers, spill bytes)} of the recurrence kernels
+    in nvcc's -Xptxas -v output, e.g. 'cluster<3,4,2>'."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"rnn_(cluster|grid)_kernelILi(\d)E(?:Li(\d)ELi(\d)E)?", m.group(1))
+            name = None if k is None else f"{k.group(1)}<{','.join(g for g in k.groups()[1:] if g)}>"
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out.setdefault(name, [None, 0])[1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, [None, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def segment_table(person, n_frames: int, dev) -> torch.Tensor:
@@ -483,10 +589,12 @@ def check_serve(dev) -> int:
         for name, audio in requests:
             for mod, attr in counters:
                 setattr(mod, attr, 0)
+            recurrent_cuda.PLAN_LAUNCHES.clear()
             torch.cuda.synchronize()
             res = pq.predict(audio, write_video=False)
             torch.cuda.synchronize()
             launches = {f"K{i + 1}": getattr(mod, attr) for i, (mod, attr) in enumerate(counters)}
+            plans = dict(recurrent_cuda.PLAN_LAUNCHES)
             n = res.nframe
             want = int(len(audio) / 16000 * 60) - ff
             f = res.frames
@@ -494,6 +602,7 @@ def check_serve(dev) -> int:
             db = psnr(f, ref.frames)
             log("serve_request", audio=repr(name), nframe=n, wall_s=f"{res.wall_s:.4f}",
                 fps=f"{n / res.wall_s:.2f}", launches=json.dumps(launches),
+                rnn_plans=json.dumps(plans),
                 psnr_vs_bf16_db=f"{db:.2f}", bf16_wall_s=f"{ref.wall_s:.4f}",
                 bf16_render_device_ms=f"{ref.stage_ms['render_device']:.3f}",
                 stage_ms=json.dumps({k: round(v, 3) for k, v in res.stage_ms.items()}))
@@ -503,6 +612,10 @@ def check_serve(dev) -> int:
                 raise AssertionError(f"serve {name}: the frames are constant")
             if launches["K4"] < n_q8 * math.ceil(n / 16) or min(launches.values()) == 0:
                 raise AssertionError(f"serve {name}: launches {launches}")
+            if launches["K2"] != 3 or launches["K3"] != 3:
+                raise AssertionError(f"serve {name}: {launches['K2']} GRU and {launches['K3']} "
+                                     "LSTM launches, want 3 + 3")
+            check_rnn_plans(launches, plans)
             if not db >= INT8_PSNR_DB:
                 raise AssertionError(f"serve {name}: int8 PSNR {db:.2f} dB < {INT8_PSNR_DB}")
             k4_launches += launches["K4"]
@@ -595,6 +708,15 @@ def main() -> int:
     _build.library()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc_seconds=_build.build_seconds, library=lib_path.name)
+    # registers and spills of the recurrence kernels (ptxas -v; the
+    # main-path instances are GRU H=512: cluster<3,4,2>, LSTM H=256:
+    # cluster<4,2,1>): none may spill
+    regs = ptxas_summary(_build.build_logs.get("recurrent.cu", ""))
+    log("ptxas_recurrence", instances=json.dumps({k: {"registers": r, "spill_bytes": b}
+                                                  for k, (r, b) in sorted(regs.items())}))
+    spills = {k: b for k, (r, b) in regs.items() if b}
+    if spills:
+        raise AssertionError(f"recurrence kernels spill: {spills}")
     # 2b. what one int8 layer launches (first, while the profiler's records
     # are complete)
     check_conv2d_q8_launches(dev)
@@ -643,14 +765,17 @@ def main() -> int:
     audio = video.make_test_tone(3.0)
     animate.animate(cfg, person, models, audio[:16000], seed=0)
     rasterize_cuda.LAUNCHES = recurrent_cuda.GRU_LAUNCHES = recurrent_cuda.LSTM_LAUNCHES = 0
+    recurrent_cuda.PLAN_LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = animate.animate(cfg, person, models, audio, seed=0, profile=True)
     wall = time.perf_counter() - t0
     launches = {"K1": rasterize_cuda.LAUNCHES, "K2": recurrent_cuda.GRU_LAUNCHES,
                 "K3": recurrent_cuda.LSTM_LAUNCHES}
+    plans = dict(recurrent_cuda.PLAN_LAUNCHES)
     frames = result.frames
     log("slice", frames=frames.shape, dtype=frames.dtype, launches=launches,
+        rnn_plans=json.dumps(plans),
         stage_ms=json.dumps({k: round(v, 3) for k, v in result.stage_ms.items()}),
         wall_s=f"{wall:.4f}", fps=f"{result.nframe / wall:.2f}",
         pixel_std=f"{frames.std():.4f}")
@@ -665,6 +790,7 @@ def main() -> int:
     for k, v in need.items():
         if launches[k] < v:
             raise AssertionError(f"slice: {k} launched {launches[k]} times, expected >= {v}")
+    check_rnn_plans(launches, plans)
     for entry, k in zip(kernels, ("K1", "K2", "K3")):
         entry["launches"] = launches[k]
 

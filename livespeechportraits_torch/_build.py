@@ -6,6 +6,8 @@ with ctypes: each entry point has a plain C signature, takes device
 pointers and a CUDA stream as ``void*``, and returns its
 ``cudaGetLastError()``.  The file name carries a hash of the sources and
 flags, so an edit rebuilds and an unchanged tree reuses the build.
+``build_logs`` keeps each source's nvcc output of a build (``ptxas -v``:
+registers, shared memory and spills of every kernel).
 """
 
 from __future__ import annotations
@@ -17,17 +19,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+build_logs: Dict[str, str] = {}
 
 
 def _sources():
@@ -68,6 +71,7 @@ def build() -> Path:
     logs = [(p.communicate()[0], p.returncode) for p in procs]
     try:
         for (log, rc), src in zip(logs, _sources()):
+            build_logs[src.name] = log
             if rc != 0:
                 raise RuntimeError(f"nvcc failed on {src.name} ({rc}):\n{log}")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -91,10 +95,12 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lsp_rasterize.argtypes = [p, i, i, p, i, i, f, p]
-        lib.lsp_gru.argtypes = [p, p, p, p, p, p, i, i, p]
-        lib.lsp_lstm.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
+        lib.lsp_gru.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        lib.lsp_lstm.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.lsp_q8conv.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, i, i, p]
-        for fn in (lib.lsp_rasterize, lib.lsp_gru, lib.lsp_lstm, lib.lsp_q8conv):
+        lib.lsp_smem_optin.argtypes = []
+        for fn in (lib.lsp_rasterize, lib.lsp_gru, lib.lsp_lstm, lib.lsp_q8conv,
+                   lib.lsp_smem_optin):
             fn.restype = ctypes.c_int
         lib.lsp_error_string.argtypes = [i]
         lib.lsp_error_string.restype = ctypes.c_char_p

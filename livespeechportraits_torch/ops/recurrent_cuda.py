@@ -2,18 +2,24 @@
 
 Counterpart of ``livespeechportraits_tpu/ops/recurrent_pallas.py``.  The
 input projection x @ W_ih^T + b_ih is one matmul over the whole sequence;
-the recurrence runs in ``csrc/recurrent.cu`` (a cooperative persistent grid
-with W_hh resident in shared memory, see the note at the top of that file).
+the recurrence runs in ``csrc/recurrent.cu``: one thread-block cluster with
+W_hh held on chip and h exchanged through distributed shared memory, or,
+for shapes a cluster cannot hold, a cooperative persistent grid (see the
+note at the top of that file).  ``plan`` makes that choice from the shape
+alone and the kernel checks the plan it is given.
 
 Dispatch is on the tensor's device: a CPU tensor takes the plain PyTorch
 twin (``models/nn_core.gru_layer`` / ``lstm_layer``), a CUDA tensor takes
 the kernel, and any other device raises.  ``GRU_LAUNCHES`` and
-``LSTM_LAUNCHES`` count kernel launches.
+``LSTM_LAUNCHES`` count kernel launches, ``PLAN_LAUNCHES`` the same
+launches by layer and plan (``"gru/cluster"``, ``"lstm/grid"``, ...).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import collections
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,9 +27,86 @@ from livespeechportraits_torch import _build
 from livespeechportraits_torch.models import nn_core
 
 Tensor = torch.Tensor
+Plan = Tuple  # ("cluster", blocks, units, reg_rows) or ("grid", units)
 
 GRU_LAUNCHES = 0
 LSTM_LAUNCHES = 0
+PLAN_LAUNCHES: collections.Counter = collections.Counter()
+
+# The cluster kernel's tile, as in csrc/recurrent.cu: 16 warps a block, each
+# warp 1 or 2 units with all their gates; a lane keeps at most 64 floats of
+# W_hh in registers (48 for a warp of 8 rows of 512); h padded to whole
+# 128-float columns, H <= 512.
+CLUSTER_WARPS = 16
+REG_FLOATS = 64
+REG_FLOATS_8X512 = 48
+RING = 8
+MAX_CLUSTER = 16
+MAX_CLUSTER_H = 512
+
+_limits: Dict[int, Tuple[int, int]] = {}
+
+
+def cluster_smem_bytes(gates: int, H: int, units: int, reg_rows: int) -> int:
+    """Shared memory of one cluster block: two mbarriers, two h buffers, the
+    W_hh rows that are not in registers, the xp ring, the gate sums and b_hh."""
+    k = 128 * math.ceil(H / 128)
+    smem_rows = gates * units // CLUSTER_WARPS - reg_rows
+    return 16 + 4 * (2 * k + smem_rows * CLUSTER_WARPS * k + (RING + 2) * gates * units)
+
+
+def grid_smem_bytes(gates: int, H: int, units: int) -> int:
+    """Shared memory of one grid block: its G*U rows of W_hh, h, the gate
+    sums and c."""
+    return 4 * (gates * units * H + H + gates * units + units)
+
+
+def cluster_plan(gates: int, H: int, units: int, smem_optin: int) -> Optional[Plan]:
+    """The cluster plan with ``units`` (16 or 32) units a block, or None
+    when the shape does not fit it."""
+    if H > MAX_CLUSTER_H or units not in (CLUSTER_WARPS, 2 * CLUSTER_WARPS):
+        return None
+    blocks = math.ceil(H / units)
+    rows = gates * units // CLUSTER_WARPS
+    kv = math.ceil(H / 128)
+    reg_rows = min(rows, (REG_FLOATS_8X512 if rows == 8 and kv == 4 else REG_FLOATS) // (4 * kv))
+    if blocks > MAX_CLUSTER or cluster_smem_bytes(gates, H, units, reg_rows) > smem_optin:
+        return None
+    return ("cluster", blocks, units, reg_rows)
+
+
+def plan(gates: int, H: int, n_sm: int, smem_optin: int) -> Plan:
+    """Which kernel runs a layer of this shape on a card with ``n_sm`` SMs
+    and ``smem_optin`` bytes of shared memory a block: the cluster kernel
+    with one unit a warp (16 a block) where that holds the shape, else two
+    units a warp, else the grid kernel with ceil(H / n_sm) units a block.
+    One unit a warp measured faster on an H100 at the LSTM's H=256: 16
+    blocks against 8 (PERF.md); the GRU's H=512 fits only two."""
+    for units in (CLUSTER_WARPS, 2 * CLUSTER_WARPS):
+        p = cluster_plan(gates, H, units, smem_optin)
+        if p is not None:
+            return p
+    units = math.ceil(H / n_sm)
+    if grid_smem_bytes(gates, H, units) > smem_optin:
+        raise ValueError(f"no recurrence kernel holds W_hh of {gates} gates at H={H}")
+    return ("grid", units)
+
+
+def device_limits(dev: torch.device) -> Tuple[int, int]:
+    """(SMs, opt-in shared memory bytes a block) of the card ``dev``."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _limits:
+        with torch.cuda.device(index):
+            smem = _build.library().lsp_smem_optin()
+        if smem <= 0:
+            raise RuntimeError(f"cannot query the shared memory of cuda:{index}")
+        _limits[index] = (torch.cuda.get_device_properties(index).multi_processor_count, smem)
+    return _limits[index]
+
+
+def device_plan(gates: int, H: int, dev: torch.device) -> Plan:
+    """``plan`` for the card ``dev``."""
+    return plan(gates, H, *device_limits(dev))
 
 
 def _check(name: str, t: Tensor, shape, device: torch.device) -> None:
@@ -38,10 +121,12 @@ def _check(name: str, t: Tensor, shape, device: torch.device) -> None:
 
 
 def _recurrence(gates: int, xp: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
-                c0: Optional[Tensor]):
+                c0: Optional[Tensor], plan: Optional[Plan] = None):
     """Launch K2 (gates=3) or K3 (gates=4) on CUDA tensors.
 
-    xp [T, G*H], w_hh [G*H, H], b_hh [G*H], h0 (and c0) [H]."""
+    xp [T, G*H], w_hh [G*H, H], b_hh [G*H], h0 (and c0) [H].  ``plan``
+    (default: ``device_plan``) names the kernel; the kernel refuses a plan
+    that does not fit the shape, and nothing retries another one."""
     global GRU_LAUNCHES, LSTM_LAUNCHES
     dev = xp.device
     if dev.type != "cuda":
@@ -58,21 +143,31 @@ def _recurrence(gates: int, xp: Tensor, w_hh: Tensor, b_hh: Tensor, h0: Tensor,
     hT = torch.empty(H, device=dev, dtype=torch.float32)
     if T == 0:
         return ys, h0.clone(), (None if c0 is None else c0.clone())
+    p = device_plan(gates, H, dev) if plan is None else plan
+    if p[0] == "cluster":
+        args = (p[1], p[2], p[3])
+    elif p[0] == "grid":
+        args = (0, p[1], 0)
+    else:
+        raise ValueError(f"unknown recurrence plan {p!r}")
+    layer = "gru" if gates == 3 else "lstm"
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if gates == 3:
             err = lib.lsp_gru(xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                              h0.data_ptr(), ys.data_ptr(), hT.data_ptr(), T, H, stream)
-            _build.check(err, "lsp_gru")
+                              h0.data_ptr(), ys.data_ptr(), hT.data_ptr(), T, H, *args, stream)
+            _build.check(err, f"lsp_gru {p}")
             GRU_LAUNCHES += 1
+            PLAN_LAUNCHES[f"{layer}/{p[0]}"] += 1
             return ys, hT, None
         cT = torch.empty(H, device=dev, dtype=torch.float32)
         err = lib.lsp_lstm(xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
                            h0.data_ptr(), c0.data_ptr(), ys.data_ptr(), hT.data_ptr(),
-                           cT.data_ptr(), T, H, stream)
-        _build.check(err, "lsp_lstm")
+                           cT.data_ptr(), T, H, *args, stream)
+        _build.check(err, f"lsp_lstm {p}")
         LSTM_LAUNCHES += 1
+        PLAN_LAUNCHES[f"{layer}/{p[0]}"] += 1
         return ys, hT, cT
 
 

@@ -59,6 +59,98 @@ def test_recurrence_kernel_matches_plain(cuda_device, gates, H, I, T):
     assert (ys - ref).abs().max().item() <= 1e-5  # f32, summation order only
 
 
+def _recurrence_inputs(gates, H, T, device, seed):
+    """xp, w_hh, b_hh and nonzero h0 (and c0), made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    bound = 1 / np.sqrt(H)
+    arrays = [rng.standard_normal((T, gates * H)),
+              rng.uniform(-bound, bound, (gates * H, H)),
+              rng.uniform(-bound, bound, gates * H), 0.5 * rng.standard_normal(H)]
+    if gates == 4:
+        arrays.append(0.5 * rng.standard_normal(H))
+    out = [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
+    return out if gates == 4 else out + [None]
+
+
+def _plain_recurrence(gates, xp, w_hh, b_hh, h0, c0):
+    """nn_core's plain layer on a precomputed xp: W_ih = I and b_ih = 0 make
+    the input projection exact (each output is one product by 1)."""
+    G = xp.shape[1]
+    eye, zero = torch.eye(G, device=xp.device), torch.zeros(G, device=xp.device)
+    if gates == 3:
+        ys, h = nn_core.gru_layer(xp[None], eye, w_hh, zero, b_hh, h0[None])
+        return ys[0], h[0], None
+    ys, (h, c) = nn_core.lstm_layer(xp[None], eye, w_hh, zero, b_hh, (h0[None], c0[None]))
+    return ys[0], h[0], c[0]
+
+
+def _assert_recurrence_close(gates, got, ref):
+    for a, b in zip(got[:2] if gates == 3 else got, ref):
+        assert (a - b).abs().max().item() <= 1e-5  # f32, summation order only
+
+
+@pytest.mark.parametrize("T", [1, 64, 1200])
+@pytest.mark.parametrize("gates,H", [(3, 512), (4, 256), (3, 200), (4, 200), (3, 201), (4, 48)])
+def test_cluster_recurrence_matches_plain_loop(cuda_device, gates, H, T):
+    """K2 / K3's cluster kernel against the plain loop: the main shapes,
+    ragged H (H % C != 0, an odd H), nonzero h0 / c0, ys and h_T / c_T."""
+    plan = recurrent_cuda.device_plan(gates, H, cuda_device)
+    assert plan[0] == "cluster"
+    if H in (200, 201):
+        assert H % plan[1] != 0
+    args = _recurrence_inputs(gates, H, T, cuda_device, seed=H + T)
+    got = recurrent_cuda._recurrence(gates, *args)
+    _assert_recurrence_close(gates, got, _plain_recurrence(gates, *args))
+
+
+def test_lstm_cluster_with_two_units_a_warp(cuda_device):
+    """K3 on the other cluster size (8 blocks of 32 units), which
+    chip_smoke.py times beside the plan's."""
+    plan = recurrent_cuda.cluster_plan(4, 256, 32, recurrent_cuda.device_limits(cuda_device)[1])
+    args = _recurrence_inputs(4, 256, 64, cuda_device, seed=5)
+    got = recurrent_cuda._recurrence(4, *args, plan=plan)
+    _assert_recurrence_close(4, got, _plain_recurrence(4, *args))
+
+
+@pytest.mark.parametrize("gates,H,plan", [(3, 1024, None), (3, 512, ("grid", 4)),
+                                          (4, 256, ("grid", 2))])
+def test_grid_recurrence_matches_plain_loop(cuda_device, gates, H, plan):
+    """The cooperative-grid kernel: the plan at GRU H=1024, and by an
+    explicit plan at the main shapes (the design the cluster replaced)."""
+    if plan is None:
+        assert recurrent_cuda.device_plan(gates, H, cuda_device)[0] == "grid"
+    args = _recurrence_inputs(gates, H, 64, cuda_device, seed=H)
+    got = recurrent_cuda._recurrence(gates, *args, plan=plan)
+    _assert_recurrence_close(gates, got, _plain_recurrence(gates, *args))
+
+
+def test_recurrence_counts_one_launch_per_call_by_plan(cuda_device):
+    args3 = _recurrence_inputs(3, 512, 8, cuda_device, seed=1)
+    args4 = _recurrence_inputs(4, 256, 8, cuda_device, seed=2)
+    before = (recurrent_cuda.GRU_LAUNCHES, recurrent_cuda.LSTM_LAUNCHES,
+              dict(recurrent_cuda.PLAN_LAUNCHES))
+    recurrent_cuda._recurrence(3, *args3)
+    assert recurrent_cuda.GRU_LAUNCHES == before[0] + 1
+    recurrent_cuda._recurrence(4, *args4)
+    recurrent_cuda._recurrence(4, *args4, plan=("grid", 2))
+    torch.cuda.synchronize()
+    assert recurrent_cuda.LSTM_LAUNCHES == before[1] + 2
+    counts = {k: recurrent_cuda.PLAN_LAUNCHES[k] - before[2].get(k, 0)
+              for k in ("gru/cluster", "lstm/cluster", "lstm/grid", "gru/grid")}
+    assert counts == {"gru/cluster": 1, "lstm/cluster": 1, "lstm/grid": 1, "gru/grid": 0}
+
+
+def test_recurrence_refuses_a_plan_that_does_not_fit(cuda_device):
+    """The kernel checks the plan it is given and the wrapper raises; it
+    does not launch and nothing retries another kernel."""
+    args = _recurrence_inputs(3, 512, 8, cuda_device, seed=3)
+    before = recurrent_cuda.GRU_LAUNCHES
+    for bad in (("cluster", 16, 32, 3), ("cluster", 8, 64, 4), ("cluster", 32, 16, 4)):
+        with pytest.raises(RuntimeError, match="lsp_gru"):
+            recurrent_cuda._recurrence(3, *args[:4], None, plan=bad)
+    assert recurrent_cuda.GRU_LAUNCHES == before
+
+
 def _k4_inputs(B, cin, cout, h, w, dtype, device, seed):
     """A float activation on a 1/8 grid with r = 4: exact rounding ties and
     values past +-127; int8 weights, scale and bias of the activation dtype."""

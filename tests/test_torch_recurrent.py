@@ -71,3 +71,47 @@ def test_wrappers_reject_other_devices():
         recurrent_cuda.gru_layer(x, *w)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         recurrent_cuda._recurrence(3, torch.zeros(3, 12), w[1], w[3], torch.zeros(4), None)
+
+
+# plan(): which kernel runs a shape, from the shape alone (H100: 132 SMs,
+# 227 KB of opt-in shared memory a block)
+H100 = (132, 232448)
+
+
+@pytest.mark.parametrize("gates,H,want", [(3, 512, ("cluster", 16, 32, 4)),
+                                          (4, 256, ("cluster", 16, 16, 4))])
+def test_plan_takes_the_cluster_at_the_main_shapes(gates, H, want):
+    assert recurrent_cuda.plan(gates, H, *H100) == want
+    # GRU H=512: 6 rows a warp, 4 in registers, 2 in shared memory
+    assert recurrent_cuda.cluster_smem_bytes(gates, H, want[2], want[3]) == (
+        16 + 4 * (1024 + 2 * 16 * 512 + 10 * 3 * 32) if gates == 3 else
+        16 + 4 * (512 + 10 * 4 * 16))
+
+
+def test_plan_takes_the_grid_where_no_cluster_holds_w_hh():
+    assert recurrent_cuda.plan(3, 1024, *H100) == ("grid", 8)
+    assert recurrent_cuda.grid_smem_bytes(3, 1024, 8) <= H100[1]
+    assert recurrent_cuda.cluster_plan(3, 1024, 32, H100[1]) is None
+    with pytest.raises(ValueError, match="no recurrence kernel"):
+        recurrent_cuda.plan(3, 1024, 4, H100[1])  # 256 units a block: 3 MB
+
+
+@pytest.mark.parametrize("gates,H", [(3, 48), (4, 48), (3, 200), (4, 200), (3, 201), (4, 1),
+                                     (3, 384), (4, 400), (4, 512)])
+def test_plan_gives_a_valid_cluster_at_small_and_ragged_sizes(gates, H):
+    kind, blocks, units, reg_rows = recurrent_cuda.plan(gates, H, *H100)
+    assert kind == "cluster" and 1 <= blocks <= recurrent_cuda.MAX_CLUSTER
+    assert (blocks - 1) * units < H <= blocks * units  # every unit owned, no empty block
+    if H in (200, 201, 400):
+        assert H % blocks != 0  # ragged: the last block owns fewer units
+    kv = -(-H // 128)
+    rows = gates * units // recurrent_cuda.CLUSTER_WARPS
+    assert 1 <= reg_rows <= rows and reg_rows * 4 * kv <= recurrent_cuda.REG_FLOATS
+    assert recurrent_cuda.cluster_smem_bytes(gates, H, units, reg_rows) <= H100[1]
+
+
+def test_cluster_plan_with_two_units_a_warp():
+    """The other cluster size (measured beside the plan's by chip_smoke.py)."""
+    assert recurrent_cuda.cluster_plan(4, 256, 32, H100[1]) == ("cluster", 8, 32, 8)
+    assert recurrent_cuda.cluster_plan(3, 512, 16, H100[1]) is None  # 32 blocks
+    assert recurrent_cuda.cluster_plan(3, 64, 24, H100[1]) is None  # not 16 or 32
