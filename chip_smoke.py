@@ -8,11 +8,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
 1. device: the card's name, torch and CUDA versions, nvidia-smi's name and
    power limit.  No CUDA device is a failure; nothing falls back to the CPU.
 2. build: nvcc builds the kernels in livespeechportraits_torch/csrc/; then
-   ptxas -v of the recurrence kernels: registers and spills (none allowed).
+   ptxas -v of the recurrence kernels and of K1's three instances:
+   registers and spills (none allowed).
 2b. the kernels and aten ops that three nn_core.conv2d_q8 calls of a
    calibrated (static x_scale) bf16 layer launch: K4 alone, no quantize
    pass.
-3. K1 (rasteriser) on 8 frames at 512^2 against its plain twin, bitwise.
+3. K1: the table entry (rasteriser, the Pallas kernel's function) on 8
+   frames at 512^2 against its plain twin on a hand-made edge-case table,
+   bitwise; then the render-input entry (landmarks -> the U-Net's bf16 / f32
+   NHWC input, one launch) at B = 16 and 8, bitwise against its twin and
+   against the sequence it replaced (rasterize_segments, cat, cast), with
+   device time by CUDA-graph replay, bound, share and the replaced
+   sequence's time (with and without building the table); and a call under
+   torch's sync debug mode makes no synchronizing host call.
 4. K2 (GRU time loop) at H=512, in=80, T = 64, 360, 1200; 5. K3 (LSTM) at
    H=256, in=512, T = 64, 198, 600.  At each length: the plan
    (recurrent_cuda.device_plan: the cluster kernel), kernel_ms (CUDA events
@@ -22,13 +30,15 @@ Phases, each printing one line; any failure raises and exits non-zero:
    against the plain loop (ys, h_T, c_T); then the wrapper (addmm + kernel)
    ms, plain_ms, cuDNN's library_ms and the bounds.
 6. slice: animate() on the full-width synthetic person, 3 s of test tone,
-   512^2 bf16 renderer; 165 frames, every kernel's launch counter rose,
-   and every GRU / LSTM launch took the cluster plan.  Then one traced run
+   512^2 bf16 renderer; 165 frames, K1 launched exactly once a batch of 8,
+   3 GRU + 3 LSTM launches, all on the cluster plan.  Then one traced run
    of each half (torch.profiler): the device's busy share and each kernel's
-   device time per launch at the main path's shapes.  K1's phase also prints
-   device_ms, its device time per launch from a trace (K4's from CUDA-graph
-   replays, K2/K3's kernel_ms from CUDA events), beside ms, the CUDA-event
-   time per wrapper call.
+   device time per launch at the main path's shapes; in the render half,
+   one K1 call a batch with no cat, cast or copy op before the first
+   convolution and no cudaStreamSynchronize in the loop; and the render
+   half once more under torch's sync debug mode (no synchronizing call).
+   K1's and K4's device times come from CUDA-graph replays, K2/K3's
+   kernel_ms from CUDA events; ms is the CUDA-event time per wrapper call.
 6c. K4 (the int8 3x3 conv with the activation quantize folded in) at seven
    B=16 shapes, against its plain twin: bitwise in the int32 mode and in
    the fused bf16 mode (inputs with exact rounding ties and values past
@@ -38,13 +48,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
 6d. serve: the serving path, serve.Predictor(device="cuda") booted with the
    int8 calibrated renderer (writing an artifact), three predict() requests
    with bucketing and the yuv420 transfer; frame counts, every kernel
-   launched (K4 at least 44 per 16-frame batch; 3 GRU + 3 LSTM launches,
-   all on the cluster plan), PSNR against the bf16
+   launched (K1 once a 16-frame batch, K4 at least 44 a batch; 3 GRU + 3
+   LSTM launches, all on the cluster plan), PSNR against the bf16
    float renderer, bucketed against exact, a second Predictor booted from
    the artifact giving the same frames bit for bit, and one traced request
-   (K4's device time and launches, the int8 and the bf16 float renderer's
-   render_device on the same request).
-7. the motion half and one f32 frame on the GPU against the CPU, TF32 off.
+   (K4's device time and launches, the render loop's K1 check as in 6, the
+   int8 and the bf16 float renderer's render_device on the same request).
+7. the motion half, one f32 render input (K1 against its twin, bitwise) and
+   one f32 frame on the GPU against the CPU, TF32 off.
 8. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -102,7 +113,8 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def trace(fn):
     """Run fn() once under torch.profiler.  Returns (the device-side events,
-    host wall ms of the traced call)."""
+    host wall ms of the traced call, the host-side events: aten ops, labels
+    and CUDA runtime calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -111,8 +123,10 @@ def trace(fn):
         fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return events, wall
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+    return device, wall, host
 
 
 def kernel_device_ms(events, symbol: str):
@@ -315,17 +329,33 @@ def check_rnn_plans(launches, plans) -> None:
         raise AssertionError(f"recurrence launches by plan {got}, want {want} (all cluster)")
 
 
+def kernel_label(mangled: str):
+    """A short name for a kernel instance of K1-K3 from its mangled name,
+    e.g. 'cluster<3,4,2>' or 'rasterize<LandmarkSrc,InputOut<2>>'; None for
+    others."""
+    import re
+
+    k = re.search(r"rnn_(cluster|grid)_kernelILi(\d)E(?:Li(\d)ELi(\d)E)?", mangled)
+    if k:
+        return f"{k.group(1)}<{','.join(g for g in k.groups()[1:] if g)}>"
+    k = re.search(r"rasterize_kernelI.*?(TableSrc|LandmarkSrc).*?(PlaneOut|InputOutILi(\d)E)",
+                  mangled)
+    if k:
+        out = "PlaneOut" if k.group(2) == "PlaneOut" else f"InputOut<{k.group(3)}>"
+        return f"rasterize<{k.group(1)},{out}>"
+    return None
+
+
 def ptxas_summary(log: str):
-    """{kernel instance: (registers, spill bytes)} of the recurrence kernels
-    in nvcc's -Xptxas -v output, e.g. 'cluster<3,4,2>'."""
+    """{kernel instance: (registers, spill bytes)} of the K1-K3 kernels in
+    nvcc's -Xptxas -v output (names from kernel_label)."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"rnn_(cluster|grid)_kernelILi(\d)E(?:Li(\d)ELi(\d)E)?", m.group(1))
-            name = None if k is None else f"{k.group(1)}<{','.join(g for g in k.groups()[1:] if g)}>"
+            name = kernel_label(m.group(1))
             continue
         if name is None:
             continue
@@ -338,11 +368,10 @@ def ptxas_summary(log: str):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def segment_table(person, n_frames: int, dev) -> torch.Tensor:
-    """The synthetic subject's projected face and shoulders under a few head
-    poses, plus hand-made segments: block-edge crossings, zero length,
-    off-canvas and negative endpoints, and -1e6 padding to 128 rows."""
-    from livespeechportraits_torch.ops import geometry, rasterize
+def projected(person, n_frames: int):
+    """The synthetic subject's projected landmarks [n, 73, 2] and shoulders
+    [n, 18, 2] under a few head poses, on the CPU."""
+    from livespeechportraits_torch.ops import geometry
 
     t = torch.arange(n_frames, dtype=torch.float32)
     head = torch.stack([180 + 3 * torch.sin(t), 4 * torch.cos(t), 2 * torch.sin(2 * t),
@@ -352,13 +381,180 @@ def segment_table(person, n_frames: int, dev) -> torch.Tensor:
                                     torch.tensor(person.std_mean_pts3d))
     sh, _ = geometry.project_shoulders(K, torch.tensor(person.shoulder3D), head[:, 3:],
                                        torch.tensor(person.ref_trans), 0.5)
-    table = rasterize.segment_table(lm, sh)
+    return lm, sh
+
+
+def segment_table(person, n_frames: int, dev) -> torch.Tensor:
+    """The projected face and shoulders' segments, plus hand-made segments:
+    block-edge crossings, zero length, off-canvas and negative endpoints,
+    and -1e6 padding to 128 rows."""
+    from livespeechportraits_torch.ops import rasterize
+
+    table = rasterize.segment_table(*projected(person, n_frames))
     extra = torch.tensor([[31, 5, 33, 300], [0, 255, 511, 256], [200, 200, 200, 200],
                           [-20, -3, -1, -1], [-5, 100, -5, 400], [505, 510, 530, 700]],
                          dtype=torch.float32)
     pad = torch.full((128 - table.shape[1] - extra.shape[0], 4), -1e6)
     rows = torch.cat([extra, pad])[None].expand(n_frames, -1, -1)
     return torch.cat([table, rows], dim=1).contiguous().to(dev)
+
+
+def render_case(person, n_frames: int, dev):
+    """Landmarks and shoulders for K1's render-input entry: the projected
+    subject, with points off the canvas, negative (truncated toward zero)
+    and fractional in the first and last frames."""
+    lm, sh = projected(person, n_frames)
+    lm[0, :4] = torch.tensor([[-0.7, 300.2], [-3.4, -0.2], [515.5, 260.0], [250.0, 530.9]])
+    lm[-1, 40:42] = torch.tensor([[0.4, -5.9], [511.6, 511.4]])
+    sh[-1, :2] = torch.tensor([[-4.2, 509.0], [520.3, 600.0]])
+    return lm.contiguous().to(dev), sh.contiguous().to(dev)
+
+
+def check_render_input(person, dev):
+    """K1's render-input entry (landmarks -> the U-Net's NHWC input, one
+    launch) at B = 16 and 8, 512^2, bf16 and f32: bitwise against its plain
+    twin and against the sequence it replaced (rasterize_segments on the
+    table, cat, cast); device time by CUDA-graph replay beside the bound
+    and the replaced sequence's.  Returns the kernels-line numbers (B=16,
+    bf16, with B=8 beside)."""
+    from livespeechportraits_torch.ops import rasterize, rasterize_cuda
+    from livespeechportraits_torch.pipeline import animate
+
+    size = (512, 512)
+    out = {}
+    for B in (16, 8):
+        for dtype in (torch.bfloat16, torch.float32):
+            lm, sh = render_case(person, B, dev)
+            cand = animate._cand_stack(person, 512, dev, dtype)
+            cand32 = cand.float()
+            table = rasterize.segment_table(lm, sh)
+
+            def replaced(table=table):
+                edge = rasterize_cuda.rasterize_segments(table, *size)
+                return torch.cat([edge[..., None], cand32.expand(B, *size, 12)], -1).to(dtype)
+
+            def with_table():
+                return replaced(rasterize.segment_table(lm, sh))
+
+            def new():
+                return rasterize_cuda.render_input(lm, sh, cand, size)
+
+            got, twin, ref = new(), rasterize.render_input(lm, sh, cand, size), replaced()
+            torch.cuda.synchronize()
+            n_twin, n_ref = int((got != twin).sum()), int((got != ref).sum())
+            err = max((got.float() - twin.float()).abs().max().item(),
+                      (got.float() - ref.float()).abs().max().item())
+            dev_ms, ref_ms = graph_ms(new), graph_ms(replaced)
+            ms = cuda_ms(new, reps=50)
+            table_ms = cuda_ms(with_table, reps=10)
+            plain_ms = cuda_ms(lambda: rasterize.render_input(lm, sh, cand, size), reps=2,
+                               warmup=1)
+            pairs = rasterize_cuda.segment_pairs(dev, sh.shape[1])
+            nbytes = (got.numel() + cand.numel()) * got.element_size() + 4 * (
+                lm.numel() + sh.numel() + pairs.numel())
+            bound_ms, bound_by = bound(nbytes, 0, "f32")
+            log("K1_render_input", frames=B, size="512x512", dtype=str(dtype)[6:],
+                segments=pairs.shape[0], lit=int(got[..., 0].float().sum().item()),
+                mismatched_twin=n_twin, mismatched_replaced=n_ref, device_ms=f"{dev_ms:.5f}",
+                bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, share=f"{bound_ms / dev_ms:.3f}",
+                replaced_device_ms=f"{ref_ms:.5f}", speedup=f"{ref_ms / dev_ms:.2f}",
+                replaced_with_table_ms=f"{table_ms:.5f}", ms=f"{ms:.5f}",
+                plain_ms=f"{plain_ms:.4f}")
+            if n_twin or n_ref:
+                raise AssertionError(f"K1 render input B={B} {dtype}: {n_twin} values differ "
+                                     f"from the twin, {n_ref} from the replaced sequence")
+            nums = {"device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share": bound_ms / dev_ms, "replaced_device_ms": ref_ms,
+                    "replaced_with_table_ms": table_ms, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err}
+            if dtype == torch.bfloat16 and B == 16:
+                out.update(nums)
+            elif dtype == torch.bfloat16:
+                out["b8"] = nums
+    # no host round trip: under torch's sync debug mode a call raises on a
+    # synchronizing operation; building the table the old way does raise
+    lm, sh = render_case(person, 4, dev)
+    cand = animate._cand_stack(person, 512, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rasterize_cuda.render_input(lm, sh, cand, size)
+        try:
+            rasterize.segment_table(lm, sh)
+            detected = False
+        except RuntimeError:
+            detected = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("K1_no_sync", render_input_syncs=0, old_table_build_detected=detected)
+    if not detected:
+        raise AssertionError("the sync debug mode did not see the old table build's copies")
+    return out
+
+
+K1_LABEL = "K1 render_input"
+
+
+class labelled_k1:
+    """Within the block, each rasterize_cuda.render_input call runs under a
+    torch.profiler label (K1_LABEL), so a trace shows where each batch's
+    input was made on the host."""
+
+    def __enter__(self):
+        from livespeechportraits_torch.ops import rasterize_cuda
+
+        self.orig = orig = rasterize_cuda.render_input
+
+        def labelled(*args, **kwargs):
+            with torch.profiler.record_function(K1_LABEL):
+                return orig(*args, **kwargs)
+
+        rasterize_cuda.render_input = labelled
+        return self
+
+    def __exit__(self, *exc):
+        from livespeechportraits_torch.ops import rasterize_cuda
+
+        rasterize_cuda.render_input = self.orig
+
+
+# host ops that would launch a concat or a cast/copy kernel
+COPY_OPS = ("aten::cat", "aten::_to_copy", "aten::copy_", "aten::clone")
+CONV_OPS = ("aten::conv2d", "aten::convolution")
+
+
+def check_render_trace(device, host, batches: int, where: str) -> dict:
+    """A traced render under labelled_k1: one K1 call a batch, no aten op
+    that copies (cat, cast, clone) between each K1 call and the next
+    convolution, and no cudaStreamSynchronize from the first K1 call to the
+    last.  The device kernels that follow the first K1 kernel are reported."""
+    start = lambda e: e.time_range.start  # noqa: E731
+    host = sorted(host, key=start)
+    k1 = [e for e in host if e.name == K1_LABEL]
+    copies, k1_end = [], None
+    for e in host:
+        if e.name == K1_LABEL:
+            k1_end = e.time_range.end
+        elif k1_end is not None and start(e) >= k1_end:
+            if e.name in CONV_OPS:
+                k1_end = None
+            elif e.name in COPY_OPS:
+                copies.append(e.name)
+    window = (start(k1[0]), k1[-1].time_range.end) if k1 else (0, 0)
+    syncs = sum(e.name == "cudaStreamSynchronize" and window[0] <= start(e) <= window[1]
+                for e in host)
+    runtime = sum(e.name.startswith("cuda") for e in host)
+    dev = sorted(device, key=start)
+    first = next((j for j, e in enumerate(dev) if SYMBOLS["K1"] in e.name), None)
+    following = [] if first is None else [e.name[:50] for e in dev[first + 1:first + 4]]
+    info = {"k1_calls": len(k1), "copy_ops_between_k1_and_conv": len(copies),
+            "stream_syncs_in_render_loop": syncs, "runtime_records": runtime,
+            "kernels_after_first_k1": following}
+    log(f"{where}_render_trace", **{k: json.dumps(v) for k, v in info.items()})
+    if len(k1) != batches or copies or syncs:
+        raise AssertionError(f"{where}: the traced render made {len(k1)} K1 calls (want "
+                             f"{batches}), copy ops {copies} before a conv, {syncs} stream syncs")
+    return info
 
 
 def k4_bound(B: int, size: int, cin: int, cout: int, stride: int, in_bytes: int,
@@ -612,6 +808,9 @@ def check_serve(dev) -> int:
                 raise AssertionError(f"serve {name}: the frames are constant")
             if launches["K4"] < n_q8 * math.ceil(n / 16) or min(launches.values()) == 0:
                 raise AssertionError(f"serve {name}: launches {launches}")
+            if launches["K1"] != math.ceil(n / 16):
+                raise AssertionError(f"serve {name}: {launches['K1']} K1 launches for {n} "
+                                     f"frames in batches of 16")
             if launches["K2"] != 3 or launches["K3"] != 3:
                 raise AssertionError(f"serve {name}: {launches['K2']} GRU and {launches['K3']} "
                                      "LSTM launches, want 3 + 3")
@@ -669,7 +868,9 @@ def check_serve(dev) -> int:
         wall = (time.perf_counter() - t0) * 1e3
         ref = pf.predict(audio, write_video=False)
         q8conv_cuda.LAUNCHES = 0
-        events, traced_wall = trace(lambda: pq.predict(audio, write_video=False))
+        with labelled_k1():
+            events, traced_wall, host = trace(lambda: pq.predict(audio, write_video=False))
+        check_render_trace(events, host, math.ceil(res.nframe / 16), "serve")
         busy = busy_ms(events)
         per_kernel = {k: kernel_device_ms(events, sym) for k, sym in SYMBOLS.items()}
         k4_ms, k4_kernels = kernel_device_total(events, SYMBOLS["K4"])
@@ -710,13 +911,15 @@ def main() -> int:
         nvcc_seconds=_build.build_seconds, library=lib_path.name)
     # registers and spills of the recurrence kernels (ptxas -v; the
     # main-path instances are GRU H=512: cluster<3,4,2>, LSTM H=256:
-    # cluster<4,2,1>): none may spill
-    regs = ptxas_summary(_build.build_logs.get("recurrent.cu", ""))
-    log("ptxas_recurrence", instances=json.dumps({k: {"registers": r, "spill_bytes": b}
-                                                  for k, (r, b) in sorted(regs.items())}))
-    spills = {k: b for k, (r, b) in regs.items() if b}
-    if spills:
-        raise AssertionError(f"recurrence kernels spill: {spills}")
+    # cluster<4,2,1>) and of K1's three instances: none may spill
+    for what, src, want in (("recurrence", "recurrent.cu", 1), ("k1", "rasterize.cu", 3)):
+        regs = ptxas_summary(_build.build_logs.get(src, ""))
+        log(f"ptxas_{what}", instances=json.dumps({k: {"registers": r, "spill_bytes": b}
+                                                   for k, (r, b) in sorted(regs.items())}))
+        spills = {k: b for k, (r, b) in regs.items() if b}
+        if spills or len(regs) < want:
+            raise AssertionError(f"{src}: kernels spill ({spills}) or ptxas -v listed "
+                                 f"{len(regs)} instances")
     # 2b. what one int8 layer launches (first, while the profiler's records
     # are complete)
     check_conv2d_q8_launches(dev)
@@ -725,30 +928,31 @@ def main() -> int:
     person, models_cpu = assets.make_synthetic_person(cfg, image_size=512, device="cpu")
     kernels = []
 
-    # 3. K1 against its plain twin
+    # 3. K1: the table entry (the Pallas kernel's function) against its
+    # plain twin on the edge-case table, then the render-input entry
     table = segment_table(person, 8, dev)
     out = rasterize_cuda.rasterize_segments(table, 512, 512)
     ref = rasterize.rasterize_segments(table, 512, 512)
     mismatched = int((out != ref).sum().item())
-    k1_err = (out - ref).abs().max().item()
     k1_ms = cuda_ms(lambda: rasterize_cuda.rasterize_segments(table, 512, 512), reps=50)
     k1_plain = cuda_ms(lambda: rasterize.rasterize_segments(table, 512, 512), reps=3, warmup=1)
-    k1_dev, _ = kernel_device_ms(
-        trace(lambda: [rasterize_cuda.rasterize_segments(table, 512, 512)
-                       for _ in range(50)])[0], SYMBOLS["K1"])
+    k1_dev = graph_ms(lambda: rasterize_cuda.rasterize_segments(table, 512, 512))
     # bound: the segment table read and the f32 maps written once; after
-    # per-block culling a pixel tests a few segments, so bytes set it
+    # culling a pixel tests a few segments, so bytes set it
     k1_bound, k1_by = bound(table.numel() * 4 + out.numel() * 4, 0, "f32")
-    log("K1", frames=8, size=512, segments=table.shape[1], lit=int(ref.sum().item()),
-        mismatched=mismatched, ms=f"{k1_ms:.4f}", device_ms=fmt(k1_dev),
-        plain_ms=f"{k1_plain:.4f}", bound_ms=f"{k1_bound:.5f}", bound_by=k1_by)
+    log("K1", entry="rasterize_segments", frames=8, size=512, segments=table.shape[1],
+        lit=int(ref.sum().item()), mismatched=mismatched, ms=f"{k1_ms:.4f}",
+        device_ms=f"{k1_dev:.5f}", plain_ms=f"{k1_plain:.4f}", bound_ms=f"{k1_bound:.5f}",
+        bound_by=k1_by, share=f"{k1_bound / k1_dev:.3f}")
     if mismatched:
         raise AssertionError(f"K1: {mismatched} pixels differ from the plain twin")
-    kernels.append({"name": "K1 rasterize_segments", "route": "cuda",
+    k1 = check_render_input(person, dev)
+    kernels.append({"name": "K1 render_input (rasterizer + the U-Net's input)", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/rasterize.cu",
                     "replaces": "livespeechportraits_tpu/ops/rasterize_pallas.py:115",
-                    "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-                    "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None})
+                    **k1, "library_ms": None,
+                    "table_entry": {"frames": 8, "device_ms": k1_dev, "ms": k1_ms,
+                                    "plain_ms": k1_plain, "bound_ms": k1_bound}})
 
     # 4. K2, 5. K3 (main-path lengths for 3 s: 360 mel steps, 198 frames)
     k2 = check_recurrence("K2", 3, 512, 80, (64, 360, 1200), 360, dev)
@@ -788,8 +992,8 @@ def main() -> int:
         raise AssertionError("slice: non-finite landmarks")
     need = {"K1": math.ceil(n / 8), "K2": 3, "K3": 3}
     for k, v in need.items():
-        if launches[k] < v:
-            raise AssertionError(f"slice: {k} launched {launches[k]} times, expected >= {v}")
+        if launches[k] != v:
+            raise AssertionError(f"slice: {k} launched {launches[k]} times, expected {v}")
     check_rnn_plans(launches, plans)
     for entry, k in zip(kernels, ("K1", "K2", "K3")):
         entry["launches"] = launches[k]
@@ -810,7 +1014,10 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        events, traced_wall = trace(fn)
+        with labelled_k1():
+            events, traced_wall, host = trace(fn)
+        if half == "render":
+            check_render_trace(events, host, math.ceil(nframe / 8), "slice")
         busy = busy_ms(events)
         per_kernel = {k: kernel_device_ms(events, s) for k, s in SYMBOLS.items()}
         log(f"profile_{half}", wall_ms=f"{wall:.3f}", traced_wall_ms=f"{traced_wall:.3f}",
@@ -819,6 +1026,16 @@ def main() -> int:
             kernels=json.dumps({k: {"device_ms_per_launch": v[0], "launches": v[1]}
                                 for k, v in per_kernel.items() if v[1]}),
             top=json.dumps(top_kernels(events, 6)))
+    # the render half once more under torch's sync debug mode: a
+    # synchronizing host call raises (the pinned copy's event and the
+    # closing device synchronize are not such calls)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        halves["render"]()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("render_sync_debug", batches=math.ceil(nframe / 8), synchronizing_calls=0)
 
     # 6c. K4 against its plain twin at the main-path shapes
     k4 = check_q8conv(dev)
@@ -837,25 +1054,26 @@ def main() -> int:
     lm_gpu, sh_gpu, *_ = animate.compute_motion(cfg, person, models, audio, seed=0)
     lm_err = (lm_gpu.cpu() - lm_cpu).abs().max().item()
     i = n // 2
-    edge_cpu = rasterize_cuda.rasterize_feature_maps(lm_cpu[i:i + 1], sh_cpu[i:i + 1])
-    edge_gpu = rasterize_cuda.rasterize_feature_maps(lm_cpu[i:i + 1].to(dev),
-                                                     sh_cpu[i:i + 1].to(dev))
-    cand = person.tensor("candidate_images", "cpu").permute(1, 2, 0, 3).reshape(1, 512, 512, 12)
-    inp = torch.cat([edge_cpu[..., None], cand], dim=-1)
+    # the f32 render input: K1 on the card, its twin on the CPU
+    cand = animate._cand_stack(person, 512, "cpu", torch.float32)
+    inp = rasterize_cuda.render_input(lm_cpu[i:i + 1], sh_cpu[i:i + 1], cand)
+    inp_gpu = rasterize_cuda.render_input(lm_cpu[i:i + 1].to(dev), sh_cpu[i:i + 1].to(dev),
+                                          cand.to(dev))
     with torch.no_grad():
         y_cpu = f2f.apply_generator(f2f.cast_generator(models_cpu.feature2face, torch.float32),
                                     inp)
         y_gpu = f2f.apply_generator(f2f.cast_generator(models.feature2face, torch.float32),
                                     inp.to(dev))
     frame_err = (y_gpu.cpu() - y_cpu).abs().max().item()
-    edges_equal = torch.equal(edge_gpu.cpu(), edge_cpu)
+    inputs_equal = torch.equal(inp_gpu.cpu(), inp)
     log("gpu_vs_cpu", landmark_max_px=f"{lm_err:.3e}", landmark_tol_px=LANDMARK_TOL_PX,
         frame=i, frame_max_abs=f"{frame_err:.3e}", frame_tol=FRAME_TOL,
-        edges_bitwise=edges_equal)
+        render_input_bitwise=inputs_equal)
     if not lm_err <= LANDMARK_TOL_PX:
         raise AssertionError(f"landmarks differ by {lm_err} px > {LANDMARK_TOL_PX}")
-    if not frame_err <= FRAME_TOL or not edges_equal:
-        raise AssertionError(f"frame differs by {frame_err} > {FRAME_TOL} or edges differ")
+    if not frame_err <= FRAME_TOL or not inputs_equal:
+        raise AssertionError(f"frame differs by {frame_err} > {FRAME_TOL} or the render "
+                             "inputs differ")
 
     # 8. results
     print(smi)

@@ -95,12 +95,13 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lsp_rasterize.argtypes = [p, i, i, p, i, i, f, p]
+        lib.lsp_render_input.argtypes = [p, i, p, i, p, i, p, i, p, i, i, i, f, p]
         lib.lsp_gru.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.lsp_lstm.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.lsp_q8conv.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p, i, i, p]
         lib.lsp_smem_optin.argtypes = []
-        for fn in (lib.lsp_rasterize, lib.lsp_gru, lib.lsp_lstm, lib.lsp_q8conv,
-                   lib.lsp_smem_optin):
+        for fn in (lib.lsp_rasterize, lib.lsp_render_input, lib.lsp_gru, lib.lsp_lstm,
+                   lib.lsp_q8conv, lib.lsp_smem_optin):
             fn.restype = ctypes.c_int
         lib.lsp_error_string.argtypes = [i]
         lib.lsp_error_string.restype = ctypes.c_char_p

@@ -3,9 +3,10 @@
 Counterpart of ``livespeechportraits_tpu/ops/rasterize.py``: the 73 facial
 landmarks are joined into the reference's part polylines plus two shoulder
 polylines, and a pixel lights up when its distance to any segment is
-<= 1.5 px.  ``rasterize_segments`` is the plain twin of the CUDA kernel K1
-(``ops/rasterize_cuda.py``); every elementwise op rounds on its own, which
-is what the kernel reproduces bit for bit.
+<= 1.5 px.  ``rasterize_segments`` and ``render_input`` are the plain twins
+of the two entry points of the CUDA kernel K1 (``ops/rasterize_cuda.py``);
+every elementwise op rounds on its own, which is what the kernel reproduces
+bit for bit.
 """
 
 from __future__ import annotations
@@ -102,3 +103,15 @@ def rasterize_feature_maps(landmarks: Tensor, shoulders: Optional[Tensor] = None
     """[T, 73, 2] landmarks (+ [T, S2, 2] shoulders) -> [T, H, W] edge maps."""
     h, w = size
     return rasterize_segments(segment_table(landmarks, shoulders), height=h, width=w)
+
+
+def render_input(landmarks: Tensor, shoulders: Optional[Tensor], cand: Tensor,
+                 size: Tuple[int, int] = (512, 512)) -> Tensor:
+    """The renderer's input [T, H, W, 13] in ``cand``'s dtype: the edge maps
+    of [T, 73, 2] landmarks (+ [T, S2, 2] shoulders) as channel 0, then the
+    [H, W, 12] candidate stack; concatenated in f32, then cast (round to
+    nearest even): what K1's render-input entry computes in one launch."""
+    h, w = size
+    edge = rasterize_feature_maps(landmarks, shoulders, size)
+    inp = torch.cat([edge[..., None], cand.float().expand(edge.shape[0], h, w, 12)], dim=-1)
+    return inp.to(cand.dtype)

@@ -11,8 +11,8 @@ Stages:
     3. Audio2Mouth (models/audio2feature.py: LSTM kernel K3)
     4. Audio2Headpose decode (models/audio2headpose.py)
     5. post-processing: smoothing, AMP, projection (_post)
-    6. rendering: rasteriser kernel K1 + Feature2Face U-Net (the int8 convs
-       on kernel K4), frames batched
+    6. rendering: kernel K1 (landmarks -> the U-Net's input) + Feature2Face
+       U-Net (the int8 convs on kernel K4), frames batched
 
 Every stage runs on the device of the models.  ``stage_ms`` holds host
 wall-clock per stage; with ``profile=True`` each stage ends in
@@ -209,10 +209,12 @@ def _shift_shoulders(assets: PersonAssets, shoulders2d: Tensor) -> Tensor:
                                       device=shoulders2d.device, dtype=torch.float32)
 
 
-def _cand_stack(assets: PersonAssets, size: int, dev: torch.device) -> Tensor:
-    """[H, W, 12]: the four candidate images on channels, as JAX's concat."""
+def _cand_stack(assets: PersonAssets, size: int, dev: torch.device,
+                dtype: torch.dtype) -> Tensor:
+    """[H, W, 12] in ``dtype``: the four candidate images on channels, as
+    JAX's concat, cast once for a whole render call."""
     cand = assets.tensor("candidate_images", dev)  # [4, H, W, 3]
-    return cand.permute(1, 2, 0, 3).reshape(size, size, 12)
+    return cand.permute(1, 2, 0, 3).reshape(size, size, 12).to(dtype)
 
 
 def compute_dtype(cfg: PersonConfig) -> torch.dtype:
@@ -233,7 +235,9 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     each batch is fetched into pinned memory behind its render, and the host
     converts it while the device renders the next batch: ``render_device``
     then covers the device work and the overlapped host work, ``render``
-    the last batch's conversion."""
+    the last batch's conversion.  A batch's U-Net input is one K1 launch
+    (rasterize_cuda.render_input) and no host round trip, so the host
+    queues a batch while the device still renders the one before."""
     _check_transfer(transfer)
     sm = stage_ms if stage_ms is not None else {}
     dev = landmarks2d.device
@@ -243,7 +247,7 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     shoulders2d = _shift_shoulders(assets, shoulders2d)
     # a no-op for a generator already cast (serve.Predictor casts once)
     net = f2f_model.cast_generator(models.feature2face, compute_dtype(cfg))
-    cand_stack = _cand_stack(assets, H, dev)
+    cand_stack = _cand_stack(assets, H, dev, compute_dtype(cfg))
 
     pad_to = -(-nframe // render_batch) * render_batch
     lm = torch.cat([landmarks2d, landmarks2d[-1:].expand(pad_to - nframe, 73, 2)])
@@ -262,9 +266,8 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                                               if transfer == "yuv420" else host)
 
     for start in range(0, pad_to, render_batch):
-        edge = rasterize_cuda.rasterize_feature_maps(
-            lm[start:start + render_batch], sh[start:start + render_batch], (H, W))
-        inp = torch.cat([edge[..., None], cand_stack.expand(render_batch, H, W, 12)], dim=-1)
+        inp = rasterize_cuda.render_input(lm[start:start + render_batch],
+                                          sh[start:start + render_batch], cand_stack, (H, W))
         out = encode(f2f_model.apply_generator(net, inp))
         copied = None
         if dev.type == "cuda":
@@ -280,7 +283,7 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
             finish(pending)
         pending = (start, out, copied)
         if keep_feature_maps:
-            maps.append(edge)
+            maps.append(inp[..., 0].float())
     _sync(dev)
     sm["render_device"] = (time.perf_counter() - t0) * 1e3
     finish(pending)
@@ -296,16 +299,16 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
 def build_render_inputs(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                         audio: np.ndarray, seed: int = 0, max_frames: int = 16) -> Tensor:
     """The first ``max_frames`` renderer inputs [N, H, W, 13] (edge channel +
-    candidate stack) of ``audio``, exactly as render_frames feeds the U-Net:
-    the batches int8 calibration measures its scales on."""
+    candidate stack, in the renderer's compute dtype) of ``audio``, exactly
+    as render_frames feeds the U-Net (one K1 launch): the batches int8
+    calibration measures its scales on."""
     landmarks2d, shoulders2d, _, _, nframe = compute_motion(cfg, assets, models, audio,
                                                             seed=seed)
     n = min(nframe, max_frames)
     H = W = cfg.feature2face.load_size
-    edge = rasterize_cuda.rasterize_feature_maps(
-        landmarks2d[:n], _shift_shoulders(assets, shoulders2d[:n]), (H, W))
-    cand = _cand_stack(assets, H, landmarks2d.device)
-    return torch.cat([edge[..., None], cand.expand(n, H, W, 12)], dim=-1)
+    cand = _cand_stack(assets, H, landmarks2d.device, compute_dtype(cfg))
+    return rasterize_cuda.render_input(landmarks2d[:n],
+                                       _shift_shoulders(assets, shoulders2d[:n]), cand, (H, W))
 
 
 def rgb_to_yuv420_packed(img: Tensor) -> Tensor:

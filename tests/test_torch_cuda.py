@@ -42,6 +42,95 @@ def test_rasterizer_kernel_matches_plain_bitwise(cuda_device):
     assert torch.equal(out, ref)
 
 
+def _render_case(B: int, H: int, W: int, dtype, dev, seed: int = 0):
+    """Seeded landmarks inside the canvas plus off-canvas, negative
+    (truncated toward zero) and fractional points, 18 shoulder points, and a
+    candidate stack in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    lm = rng.uniform(8, min(H, W) - 8, (B, 73, 2)).astype(np.float32)
+    lm[0, :6] = [[-0.7, 5.2], [-3.4, -0.2], [W + 4.5, 10.0], [20.0, H + 0.9],
+                 [W - 0.5, H - 0.5], [-1e3, 40.0]]
+    lm[-1, 40:44] = [[0.4, -5.9], [W - 1.2, -2.0], [-2.6, H - 3.3], [60.5, 60.5]]
+    sh = rng.uniform(-5, max(H, W) + 5, (B, 18, 2)).astype(np.float32)
+    cand = torch.tensor(rng.uniform(-1, 1, (H, W, 12)).astype(np.float32))
+    return (torch.tensor(lm).to(dev), torch.tensor(sh).to(dev), cand.to(dev, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W", [(16, 512, 512), (8, 512, 512), (4, 96, 128), (3, 44, 72)])
+def test_render_input_matches_twin_and_replaced_sequence_bitwise(cuda_device, dtype, B, H, W):
+    """K1's render-input entry, one launch: bitwise equal to its plain twin
+    and to the sequence it replaced (the table, rasterize_segments, cat,
+    cast)."""
+    lm, sh, cand = _render_case(B, H, W, dtype, cuda_device, seed=B + H)
+    before = rasterize_cuda.LAUNCHES
+    got = rasterize_cuda.render_input(lm, sh, cand, (H, W))
+    assert rasterize_cuda.LAUNCHES == before + 1
+    twin = rasterize.render_input(lm, sh, cand, (H, W))
+    edge = rasterize_cuda.rasterize_segments(rasterize.segment_table(lm, sh), H, W)
+    replaced = torch.cat([edge[..., None], cand.float().expand(B, H, W, 12)], dim=-1).to(dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, W, 13) and got.is_contiguous()
+    assert torch.equal(got, twin)
+    assert torch.equal(got, replaced)
+    assert got[..., 0].sum() > 100
+
+
+def test_render_input_makes_no_host_round_trip(cuda_device):
+    """After the first call has put the index pairs on the card, a call
+    makes no synchronizing host operation; building the table the old way
+    (rasterize.segment_table) does, which shows the check sees them."""
+    lm, sh, cand = _render_case(4, 64, 64, torch.bfloat16, cuda_device)
+    rasterize_cuda.render_input(lm, sh, cand, (64, 64))
+    pairs = rasterize_cuda.segment_pairs(cuda_device, 18)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rasterize_cuda.render_input(lm, sh, cand, (64, 64))
+        rasterize_cuda.render_input(lm[:2], sh[:2], cand, (64, 64))
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            rasterize.segment_table(lm, sh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rasterize_cuda.segment_pairs(cuda_device, 18) is pairs
+
+
+def test_render_frames_batches_make_no_sync(cuda_device):
+    """render_frames on the card, six batches: no stream-synchronizing call
+    (torch's sync debug mode raises on one; the pinned copy's event and the
+    closing device synchronize are not such calls), frames as before."""
+    cfg = torch_config(small_person_config(image_size=64, precision="bfloat16"))
+    person, models = assets.make_synthetic_person(cfg, image_size=64, device=cuda_device)
+    lm, sh, _, _, n = animate.compute_motion(cfg, person, models, video.make_test_tone(1.0))
+    ref, _ = animate.render_frames(cfg, person, models, lm[:n], sh[:n])
+    torch.cuda.synchronize()
+    before = rasterize_cuda.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames, _ = animate.render_frames(cfg, person, models, lm[:n], sh[:n])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rasterize_cuda.LAUNCHES - before == -(-n // 8) == 6
+    assert np.array_equal(frames, ref)
+
+
+def test_render_input_refuses_what_the_kernel_does_not_take(cuda_device):
+    lm, sh, cand = _render_case(2, 64, 64, torch.bfloat16, cuda_device)
+    before = rasterize_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rasterize_cuda.render_input(lm, sh, torch.zeros(64, 60, 12, device=cuda_device,
+                                                        dtype=torch.bfloat16), (64, 60))
+    with pytest.raises(TypeError, match="cand must be"):
+        rasterize_cuda.render_input(lm, sh, cand.half(), (64, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        rasterize_cuda.render_input(lm.transpose(0, 1).contiguous().transpose(0, 1), sh, cand,
+                                    (64, 64))
+    with pytest.raises(ValueError, match="exceed"):
+        rasterize_cuda.render_input(lm, torch.zeros(2, 200, 2, device=cuda_device), cand,
+                                    (64, 64))
+    assert rasterize_cuda.LAUNCHES == before
+
+
 @pytest.mark.parametrize("gates,H,I,T", [(3, 512, 80, 64), (4, 256, 512, 64)])
 def test_recurrence_kernel_matches_plain(cuda_device, gates, H, I, T):
     g = torch.Generator().manual_seed(0)
