@@ -28,7 +28,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
    alone) and us_per_step, the grid kernel's kernel_ms on the same inputs
    (the design before, same run) and, for K3, the other cluster size; each
    against the plain loop (ys, h_T, c_T); then the wrapper (addmm + kernel)
-   ms, plain_ms, cuDNN's library_ms and the bounds.
+   ms, plain_ms, cuDNN's library_ms and the bounds.  Then each wrapper as
+   the stream calls it: chunk after chunk (K2: 64, 64, 31 rows; K3: 32, 32,
+   17) from a nonzero state carried from chunk to chunk, at each layer
+   input width, against nn_core's plain layer carried the same way.
 6. slice: animate() on the full-width synthetic person, 3 s of test tone,
    512^2 bf16 renderer; 165 frames, K1 launched exactly once a batch of 8,
    3 GRU + 3 LSTM launches, all on the cluster plan.  Then one traced run
@@ -44,7 +47,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
    the fused bf16 mode (inputs with exact rounding ties and values past
    +-127), with device time, bound, share of the bound and the bf16 cuDNN
    conv of the same shape as a yardstick; then the 44 convs of one 'normal'
-   ResUNet forward (bitwise, device time beside the bound).
+   ResUNet forward at B=16 (serving) and B=8 (the stream's render batch),
+   bitwise, device time beside the bound.
 6d. serve: the serving path, serve.Predictor(device="cuda") booted with the
    int8 calibrated renderer (writing an artifact), three predict() requests
    with bucketing and the yuv420 transfer; frame counts, every kernel
@@ -54,12 +58,31 @@ Phases, each printing one line; any failure raises and exits non-zero:
    the artifact giving the same frames bit for bit, and one traced request
    (K4's device time and launches, the render loop's K1 check as in 6, the
    int8 and the bf16 float renderer's render_device on the same request).
+6e. stream: the live path, Predictor.stream as the server's /stream calls
+   it (render batch 8, 100 ms pushes, pipeline depth 1) on the int8
+   Predictor, 3.0 s of tone, yuv420 then pack4e: the frame count of
+   predict(), K1-K4 all launched during the stream (the counts set to 0 just
+   before it; K2/K3 on the cluster plan), the frames against predict()'s
+   under the same transfer (PSNR >= 30 dB and >= 99 % of the values within
+   one level); the wall from the first push to the first batch,
+   latency_frames, each push's wall (median, p95, max), frames a second over
+   the stream's wall and each kernel's launches a push.
+6f. coders: a 3.0 s request under each transfer (rgb, yuv420, jpeg, jpeg4,
+   pack4e) against the rgb one (PSNR >= 30 dB), with the bytes fetched a
+   frame, the pack4e refetches and the wall; on one rendered 16-frame batch
+   at 512^2: each encoder's ms a call (CUDA events, host dispatch included)
+   and device ms (CUDA-graph replay), the host decoder's ms a frame, each
+   host decoder
+   against its numpy twin (within one level on under 0.1 % of the values),
+   and the card's encoders against the CPU's on the same frames (the share
+   of equal quantized coefficients; the decoded frames within one level).
 7. the motion half, one f32 render input (K1 against its twin, bitwise) and
    one f32 frame on the GPU against the CPU, TF32 off.
 8. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
-   time), then {"ok": true, "device": {...}} as the last line.
+   time, and its launches in 6e's yuv420 stream as stream_launches), then
+   {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -86,6 +109,12 @@ RNN_TOL = 1e-5  # K2/K3 against the plain loop at every length, f32
 LANDMARK_TOL_PX = 1e-3  # motion half, GPU against CPU, TF32 off
 FRAME_TOL = 1e-5  # one f32 frame before the uint8 cast, GPU against CPU, TF32 off
 INT8_PSNR_DB = 30.0  # int8 frames against the bf16 float renderer (the JAX package's gate)
+SERVING_PSNR_DB = 30.0  # a lossy transfer's frames against exact ones (the same gate)
+# The stream against predict() on the card: the share of frame values within
+# one level.  On the CPU the two are equal (tests/test_torch_streaming.py,
+# bound: under 1 % of the values differ, by one level); on the card the
+# chunks' GEMMs run other row counts, as the bucketed request's do.
+STREAM_FRAME_SHARE = 0.99
 # Bucketed against the exact request on the card (measured: landmarks
 # 3.05e-5 px, every frame value equal, in two calls)
 BUCKET_LANDMARK_TOL_PX = 1e-4
@@ -318,6 +347,48 @@ def check_recurrence(name, gates, H, I, lengths, main_T, dev):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     return out
+
+
+def check_carried(name, gates, H, inputs, chunks, dev) -> float:
+    """K2 / K3's wrapper as the stream calls it (apc.encode_chunk,
+    audio2feature.apply_chunk): a layer run chunk after chunk from a nonzero
+    state, each chunk from the state the last returned (gru_layer(h0=),
+    lstm_layer(state=)), against nn_core's plain layer chunked and carried
+    the same way, f32, at each layer input width of the stream.  One launch
+    a chunk.  Returns the max abs error over every chunk's ys and state."""
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import recurrent_cuda as rc
+
+    count = (lambda: rc.GRU_LAUNCHES) if gates == 3 else (lambda: rc.LSTM_LAUNCHES)
+    worst = 0.0
+    for I in inputs:
+        w = rnn_weights(gates, H, I, dev, seed=10 * gates + I)
+        g = torch.Generator().manual_seed(I)
+        x = torch.randn(1, sum(chunks), I, generator=g).to(dev)
+        start = [(torch.randn(1, H, generator=g) * 0.5).to(dev) for _ in range(gates - 2)]
+        got = ref = start[0] if gates == 3 else tuple(start)
+        before, s, err = count(), 0, 0.0
+        for T in chunks:
+            xs = x[:, s:s + T]
+            s += T
+            if gates == 3:
+                ys, got = rc.gru_layer(xs, *w, h0=got)
+                ys_ref, ref = nn_core.gru_layer(xs, *w, ref)
+                diffs = [ys - ys_ref, got - ref]
+            else:
+                ys, got = rc.lstm_layer(xs, *w, state=got)
+                ys_ref, ref = nn_core.lstm_layer(xs, *w, ref)
+                diffs = [ys - ys_ref, got[0] - ref[0], got[1] - ref[1]]
+            err = max(err, *(d.abs().max().item() for d in diffs))
+        launched = count() - before
+        log(f"{name}_carried", H=H, input=I, chunks=json.dumps(list(chunks)),
+            launches=launched, max_abs_err=f"{err:.3e}", tol=RNN_TOL)
+        if launched != len(chunks):
+            raise AssertionError(f"{name} carried: {launched} launches for {len(chunks)} chunks")
+        if not err <= RNN_TOL:
+            raise AssertionError(f"{name} carried at input {I}: max abs error {err} > {RNN_TOL}")
+        worst = max(worst, err)
+    return worst
 
 
 def check_rnn_plans(launches, plans) -> None:
@@ -660,10 +731,10 @@ def check_q8conv(dev):
     return out
 
 
-def check_k4_forward(dev):
+def check_k4_forward(dev, B: int):
     """K4 at each of the 44 int8 conv shapes of one 'normal' 512^2 ResUNet
-    forward at B=16 (each distinct shape once): fused bf16 bitwise against
-    the twin, device ms beside the bound; the sums per forward."""
+    forward at batch B (each distinct shape once): fused bf16 bitwise
+    against the twin, device ms beside the bound; the sums per forward."""
     from livespeechportraits_torch.config import Feature2FaceConfig
     from livespeechportraits_torch.models import feature2face as f2f
     from livespeechportraits_torch.ops import q8conv_cuda as q8
@@ -673,20 +744,21 @@ def check_k4_forward(dev):
     for j, shape in enumerate(dict.fromkeys(shapes)):
         size, cin, cout, stride = shape
         n = shapes.count(shape)
-        x, w, r, scale, bias = k4_inputs(16, size, cin, cout, dev, 300 + j)
+        x, w, r, scale, bias = k4_inputs(B, size, cin, cout, dev, 300 + j)
         got = q8.conv_q8(x, r, w, stride, 1, scale, bias)
         diff = int((got != q8.conv_q8_plain(x, r, w, stride, 1, scale, bias)).sum().item())
         dev_ms = graph_ms(lambda: q8.conv_q8(x, r, w, stride, 1, scale, bias))
-        bound_ms, bound_by = k4_bound(16, size, cin, cout, stride, 2, 2)
+        bound_ms, bound_by = k4_bound(B, size, cin, cout, stride, 2, 2)
         total_ms += n * dev_ms
         total_bound += n * bound_ms
-        log("K4_forward", shape=f"{size}^2:{cin}->{cout}/s{stride}", convs=n,
+        log("K4_forward", B=B, shape=f"{size}^2:{cin}->{cout}/s{stride}", convs=n,
             kernel="halo" if q8.uses_halo(size, size, stride, 1) else "gather",
             bf16_mismatched=diff, device_ms=f"{dev_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
             bound_by=bound_by, share=f"{bound_ms / dev_ms:.3f}")
         if diff:
-            raise AssertionError(f"K4 at {shape}: {diff} values differ from the plain twin")
-    log("K4_forward_total", convs=len(shapes), device_ms=f"{total_ms:.4f}",
+            raise AssertionError(f"K4 at B={B}, {shape}: {diff} values differ from the "
+                                 "plain twin")
+    log("K4_forward_total", B=B, convs=len(shapes), device_ms=f"{total_ms:.4f}",
         bound_ms=f"{total_bound:.4f}", share=f"{total_bound / total_ms:.3f}")
 
 
@@ -746,9 +818,9 @@ def chirp(seconds: float) -> np.ndarray:
     return (0.3 * np.sin(2 * np.pi * f * np.arange(n) / 16000)).astype(np.float32)
 
 
-def check_serve(dev) -> int:
-    """The serving path on the card; returns K4's launches over its
-    requests.  Raises on any failed check."""
+def check_serve(dev, tmp: str):
+    """The serving path on the card; returns (K4's launches over its
+    requests, the int8 Predictor).  Raises on any failed check."""
     from livespeechportraits_torch import serve
     from livespeechportraits_torch.models.nn_core import QConv2d
     from livespeechportraits_torch.ops import gmm, q8conv_cuda, rasterize_cuda, recurrent_cuda
@@ -759,132 +831,346 @@ def check_serve(dev) -> int:
     ff = 15
     requests = (("tone 3.0 s", video.make_test_tone(3.0)), ("chirp 1.7 s", chirp(1.7)),
                 ("tone 2.5 s", video.make_test_tone(2.5)))
-    with tempfile.TemporaryDirectory() as tmp:
-        art = os.path.join(tmp, "serving_int8.npz")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pq = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "q"))
-        pq.setup("Synthetic", image_size=512, quantize=True, calibrate=True, artifact=art)
-        torch.cuda.synchronize()
-        boot_q = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        pf = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "f"))
-        pf.setup("Synthetic", image_size=512)
-        torch.cuda.synchronize()
-        boot_f = time.perf_counter() - t0
-        n_q8 = sum(isinstance(m, QConv2d) for m in pq._models.feature2face.modules())
-        if n_q8 != 44:
-            raise AssertionError(f"serve: {n_q8} int8 convs in the 'normal' ResUNet, want 44")
-        log("serve_boot", int8_calibrate_and_save_s=f"{boot_q:.3f}", float_s=f"{boot_f:.3f}",
-            artifact_mb=f"{os.path.getsize(art) / 2**20:.1f}", int8_convs=n_q8)
-        pq.predict(requests[0][1][:16000], write_video=False)  # warm
-        pf.predict(requests[0][1][:16000], write_video=False)
+    art = os.path.join(tmp, "serving_int8.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pq = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "q"))
+    pq.setup("Synthetic", image_size=512, quantize=True, calibrate=True, artifact=art)
+    torch.cuda.synchronize()
+    boot_q = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pf = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "f"))
+    pf.setup("Synthetic", image_size=512)
+    torch.cuda.synchronize()
+    boot_f = time.perf_counter() - t0
+    n_q8 = sum(isinstance(m, QConv2d) for m in pq._models.feature2face.modules())
+    if n_q8 != 44:
+        raise AssertionError(f"serve: {n_q8} int8 convs in the 'normal' ResUNet, want 44")
+    log("serve_boot", int8_calibrate_and_save_s=f"{boot_q:.3f}", float_s=f"{boot_f:.3f}",
+        artifact_mb=f"{os.path.getsize(art) / 2**20:.1f}", int8_convs=n_q8)
+    pq.predict(requests[0][1][:16000], write_video=False)  # warm
+    pf.predict(requests[0][1][:16000], write_video=False)
 
-        k4_launches = 0
-        int8_frames = {}
-        for name, audio in requests:
-            for mod, attr in counters:
-                setattr(mod, attr, 0)
-            recurrent_cuda.PLAN_LAUNCHES.clear()
-            torch.cuda.synchronize()
-            res = pq.predict(audio, write_video=False)
-            torch.cuda.synchronize()
-            launches = {f"K{i + 1}": getattr(mod, attr) for i, (mod, attr) in enumerate(counters)}
-            plans = dict(recurrent_cuda.PLAN_LAUNCHES)
-            n = res.nframe
-            want = int(len(audio) / 16000 * 60) - ff
-            f = res.frames
-            ref = pf.predict(audio, write_video=False)
-            db = psnr(f, ref.frames)
-            log("serve_request", audio=repr(name), nframe=n, wall_s=f"{res.wall_s:.4f}",
-                fps=f"{n / res.wall_s:.2f}", launches=json.dumps(launches),
-                rnn_plans=json.dumps(plans),
-                psnr_vs_bf16_db=f"{db:.2f}", bf16_wall_s=f"{ref.wall_s:.4f}",
-                bf16_render_device_ms=f"{ref.stage_ms['render_device']:.3f}",
-                stage_ms=json.dumps({k: round(v, 3) for k, v in res.stage_ms.items()}))
-            if n != want or f.shape != (want, 512, 512, 3) or f.dtype != np.uint8:
-                raise AssertionError(f"serve {name}: {n} frames {f.shape} {f.dtype}, want {want}")
-            if f.min() == f.max():
-                raise AssertionError(f"serve {name}: the frames are constant")
-            if launches["K4"] < n_q8 * math.ceil(n / 16) or min(launches.values()) == 0:
-                raise AssertionError(f"serve {name}: launches {launches}")
-            if launches["K1"] != math.ceil(n / 16):
-                raise AssertionError(f"serve {name}: {launches['K1']} K1 launches for {n} "
-                                     f"frames in batches of 16")
-            if launches["K2"] != 3 or launches["K3"] != 3:
-                raise AssertionError(f"serve {name}: {launches['K2']} GRU and {launches['K3']} "
-                                     "LSTM launches, want 3 + 3")
-            check_rnn_plans(launches, plans)
-            if not db >= INT8_PSNR_DB:
-                raise AssertionError(f"serve {name}: int8 PSNR {db:.2f} dB < {INT8_PSNR_DB}")
-            k4_launches += launches["K4"]
-            int8_frames[name] = f
-
-        # bucketed against exact (the chirp), through animate as predict calls it
-        audio = requests[1][1]
-        valid = int(len(audio) / 16000 * 60)
-        padded = np.pad(audio, (0, 2 * 16000 - len(audio)))
-        args = (pq._cfg, pq._assets, pq._models)
-        exact = animate.animate(*args, audio, seed=0, render_batch=16, transfer="yuv420",
-                                profile=True)
-        bucketed = animate.animate(*args, padded, seed=0, render_batch=16, transfer="yuv420",
-                                   valid_frames=valid, profile=True)
-        lm_err = float(np.abs(bucketed.landmarks - exact.landmarks).max())
-        d = np.abs(bucketed.frames.astype(int) - exact.frames.astype(int))
-        within = float((d <= 1).mean())
-        t0 = time.perf_counter()
-        gmm.draw_noise(valid + 60, 1, 12, 0)
-        noise_ms = (time.perf_counter() - t0) * 1e3
-        log("serve_bucket", landmark_max_px=f"{lm_err:.3e}", tol_px=BUCKET_LANDMARK_TOL_PX,
-            frame_max_levels=int(d.max()), frames_within_1=f"{within:.6f}",
-            frames_equal=f"{float((d == 0).mean()):.6f}", share_tol=BUCKET_FRAME_SHARE,
-            headpose_ms_padded=f"{bucketed.stage_ms['headpose']:.3f}",
-            headpose_ms_exact=f"{exact.stage_ms['headpose']:.3f}",
-            draw_noise_ms=f"{noise_ms:.3f}",
-            stage_ms_bucketed=json.dumps({k: round(v, 3) for k, v in bucketed.stage_ms.items()}))
-        if not (bucketed.nframe == exact.nframe and lm_err <= BUCKET_LANDMARK_TOL_PX
-                and within >= BUCKET_FRAME_SHARE):
-            raise AssertionError("serve: the bucketed chirp differs from the exact request")
-
-        # a second Predictor booted from the artifact
+    k4_launches = 0
+    int8_frames = {}
+    for name, audio in requests:
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        recurrent_cuda.PLAN_LAUNCHES.clear()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pa = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "a"))
-        pa.setup("Synthetic", image_size=512, artifact=art)
-        torch.cuda.synchronize()
-        boot_a = time.perf_counter() - t0
-        same = all(np.array_equal(pa.predict(a, write_video=False).frames, int8_frames[nm])
-                   for nm, a in requests)
-        log("serve_artifact_boot", boot_s=f"{boot_a:.3f}", frames_bitwise=same)
-        if not same:
-            raise AssertionError("serve: the artifact-booted Predictor gave other frames")
-
-        # one traced request: device busy share and the kernels' device time,
-        # and the int8 and bf16 float renderers' render_device on the request
-        audio = requests[0][1]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         res = pq.predict(audio, write_video=False)
-        wall = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        launches = {f"K{i + 1}": getattr(mod, attr) for i, (mod, attr) in enumerate(counters)}
+        plans = dict(recurrent_cuda.PLAN_LAUNCHES)
+        n = res.nframe
+        want = int(len(audio) / 16000 * 60) - ff
+        f = res.frames
         ref = pf.predict(audio, write_video=False)
-        q8conv_cuda.LAUNCHES = 0
-        with labelled_k1():
-            events, traced_wall, host = trace(lambda: pq.predict(audio, write_video=False))
-        check_render_trace(events, host, math.ceil(res.nframe / 16), "serve")
-        busy = busy_ms(events)
-        per_kernel = {k: kernel_device_ms(events, sym) for k, sym in SYMBOLS.items()}
-        k4_ms, k4_kernels = kernel_device_total(events, SYMBOLS["K4"])
-        log("profile_serve", wall_ms=f"{wall:.3f}", traced_wall_ms=f"{traced_wall:.3f}",
-            device_busy_ms=f"{busy:.3f}", busy_share=f"{busy / wall:.4f}",
-            k4_device_ms=f"{k4_ms:.3f}", k4_launches=q8conv_cuda.LAUNCHES,
-            k4_device_kernels=k4_kernels,
-            int8_render_device_ms=f"{res.stage_ms['render_device']:.3f}",
+        db = psnr(f, ref.frames)
+        log("serve_request", audio=repr(name), nframe=n, wall_s=f"{res.wall_s:.4f}",
+            fps=f"{n / res.wall_s:.2f}", launches=json.dumps(launches),
+            rnn_plans=json.dumps(plans),
+            psnr_vs_bf16_db=f"{db:.2f}", bf16_wall_s=f"{ref.wall_s:.4f}",
             bf16_render_device_ms=f"{ref.stage_ms['render_device']:.3f}",
-            kernels=json.dumps({k: {"device_ms_per_kernel": v[0], "kernels": v[1],
-                                    "device_ms_total": None if v[0] is None else v[0] * v[1]}
-                                for k, v in per_kernel.items() if v[1]}),
-            top=json.dumps(top_kernels(events, 8)))
-    return k4_launches
+            stage_ms=json.dumps({k: round(v, 3) for k, v in res.stage_ms.items()}))
+        if n != want or f.shape != (want, 512, 512, 3) or f.dtype != np.uint8:
+            raise AssertionError(f"serve {name}: {n} frames {f.shape} {f.dtype}, want {want}")
+        if f.min() == f.max():
+            raise AssertionError(f"serve {name}: the frames are constant")
+        if launches["K4"] < n_q8 * math.ceil(n / 16) or min(launches.values()) == 0:
+            raise AssertionError(f"serve {name}: launches {launches}")
+        if launches["K1"] != math.ceil(n / 16):
+            raise AssertionError(f"serve {name}: {launches['K1']} K1 launches for {n} "
+                                 f"frames in batches of 16")
+        if launches["K2"] != 3 or launches["K3"] != 3:
+            raise AssertionError(f"serve {name}: {launches['K2']} GRU and {launches['K3']} "
+                                 "LSTM launches, want 3 + 3")
+        check_rnn_plans(launches, plans)
+        if not db >= INT8_PSNR_DB:
+            raise AssertionError(f"serve {name}: int8 PSNR {db:.2f} dB < {INT8_PSNR_DB}")
+        k4_launches += launches["K4"]
+        int8_frames[name] = f
+
+    # bucketed against exact (the chirp), through animate as predict calls it
+    audio = requests[1][1]
+    valid = int(len(audio) / 16000 * 60)
+    padded = np.pad(audio, (0, 2 * 16000 - len(audio)))
+    args = (pq._cfg, pq._assets, pq._models)
+    exact = animate.animate(*args, audio, seed=0, render_batch=16, transfer="yuv420",
+                            profile=True)
+    bucketed = animate.animate(*args, padded, seed=0, render_batch=16, transfer="yuv420",
+                               valid_frames=valid, profile=True)
+    lm_err = float(np.abs(bucketed.landmarks - exact.landmarks).max())
+    d = np.abs(bucketed.frames.astype(int) - exact.frames.astype(int))
+    within = float((d <= 1).mean())
+    t0 = time.perf_counter()
+    gmm.draw_noise(valid + 60, 1, 12, 0)
+    noise_ms = (time.perf_counter() - t0) * 1e3
+    log("serve_bucket", landmark_max_px=f"{lm_err:.3e}", tol_px=BUCKET_LANDMARK_TOL_PX,
+        frame_max_levels=int(d.max()), frames_within_1=f"{within:.6f}",
+        frames_equal=f"{float((d == 0).mean()):.6f}", share_tol=BUCKET_FRAME_SHARE,
+        headpose_ms_padded=f"{bucketed.stage_ms['headpose']:.3f}",
+        headpose_ms_exact=f"{exact.stage_ms['headpose']:.3f}",
+        draw_noise_ms=f"{noise_ms:.3f}",
+        stage_ms_bucketed=json.dumps({k: round(v, 3) for k, v in bucketed.stage_ms.items()}))
+    if not (bucketed.nframe == exact.nframe and lm_err <= BUCKET_LANDMARK_TOL_PX
+            and within >= BUCKET_FRAME_SHARE):
+        raise AssertionError("serve: the bucketed chirp differs from the exact request")
+
+    # a second Predictor booted from the artifact
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pa = serve.Predictor(device=dev, results_dir=os.path.join(tmp, "a"))
+    pa.setup("Synthetic", image_size=512, artifact=art)
+    torch.cuda.synchronize()
+    boot_a = time.perf_counter() - t0
+    same = all(np.array_equal(pa.predict(a, write_video=False).frames, int8_frames[nm])
+               for nm, a in requests)
+    log("serve_artifact_boot", boot_s=f"{boot_a:.3f}", frames_bitwise=same)
+    if not same:
+        raise AssertionError("serve: the artifact-booted Predictor gave other frames")
+
+    # one traced request: device busy share and the kernels' device time,
+    # and the int8 and bf16 float renderers' render_device on the request
+    audio = requests[0][1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pq.predict(audio, write_video=False)
+    wall = (time.perf_counter() - t0) * 1e3
+    ref = pf.predict(audio, write_video=False)
+    q8conv_cuda.LAUNCHES = 0
+    with labelled_k1():
+        events, traced_wall, host = trace(lambda: pq.predict(audio, write_video=False))
+    check_render_trace(events, host, math.ceil(res.nframe / 16), "serve")
+    busy = busy_ms(events)
+    per_kernel = {k: kernel_device_ms(events, sym) for k, sym in SYMBOLS.items()}
+    k4_ms, k4_kernels = kernel_device_total(events, SYMBOLS["K4"])
+    log("profile_serve", wall_ms=f"{wall:.3f}", traced_wall_ms=f"{traced_wall:.3f}",
+        device_busy_ms=f"{busy:.3f}", busy_share=f"{busy / wall:.4f}",
+        k4_device_ms=f"{k4_ms:.3f}", k4_launches=q8conv_cuda.LAUNCHES,
+        k4_device_kernels=k4_kernels,
+        int8_render_device_ms=f"{res.stage_ms['render_device']:.3f}",
+        bf16_render_device_ms=f"{ref.stage_ms['render_device']:.3f}",
+        kernels=json.dumps({k: {"device_ms_per_kernel": v[0], "kernels": v[1],
+                                "device_ms_total": None if v[0] is None else v[0] * v[1]}
+                            for k, v in per_kernel.items() if v[1]}),
+        top=json.dumps(top_kernels(events, 8)))
+    return k4_launches, pq
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counters, K1-K4."""
+    from livespeechportraits_torch.ops import q8conv_cuda, rasterize_cuda, recurrent_cuda
+
+    return {"K1": rasterize_cuda.LAUNCHES, "K2": recurrent_cuda.GRU_LAUNCHES,
+            "K3": recurrent_cuda.LSTM_LAUNCHES, "K4": q8conv_cuda.LAUNCHES}
+
+
+def zero_launch_counts() -> None:
+    from livespeechportraits_torch.ops import q8conv_cuda, rasterize_cuda, recurrent_cuda
+
+    rasterize_cuda.LAUNCHES = recurrent_cuda.GRU_LAUNCHES = recurrent_cuda.LSTM_LAUNCHES = 0
+    q8conv_cuda.LAUNCHES = 0
+    recurrent_cuda.PLAN_LAUNCHES.clear()
+
+
+def check_stream(pq, dev) -> dict:
+    """The live path on the card: Predictor.stream as /stream calls it, on
+    the int8 Predictor, yuv420 then pack4e.  Returns the kernels' launches
+    of the yuv420 stream.  Raises on any failed check."""
+    from livespeechportraits_torch import serve
+    from livespeechportraits_torch.ops import recurrent_cuda
+    from livespeechportraits_torch.pipeline import streaming, video
+
+    pushes, flushes, animators = [], [], []
+
+    class TimedAnimator(streaming.StreamingAnimator):
+        """The host wall of each push and of the flush, for the log."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            animators.append(self)
+
+        def push_audio(self, samples):
+            t0 = time.perf_counter()
+            out = super().push_audio(samples)
+            pushes.append((t0, time.perf_counter()))
+            return out
+
+        def flush(self):
+            t0 = time.perf_counter()
+            out = super().flush()
+            flushes.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    audio = video.make_test_tone(3.0)
+    kw = dict(render_batch=8, push_samples=1600, pipeline_depth=1)
+    serve.StreamingAnimator = TimedAnimator
+    try:
+        for _ in pq.stream(audio[:16000], transfer="yuv420", **kw):  # warm
+            pass
+        stream_launches = None
+        for transfer in ("yuv420", "pack4e"):
+            ref = pq.predict(audio, transfer=transfer, write_video=False)
+            pushes.clear()
+            flushes.clear()
+            animators.clear()
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            batches, first_at = [], None
+            for batch in pq.stream(audio, transfer=transfer, **kw):
+                if first_at is None:
+                    first_at = time.perf_counter()
+                batches.append(batch)
+            end = time.perf_counter()
+            launches = launch_counts()
+            plans = dict(recurrent_cuda.PLAN_LAUNCHES)
+            st = animators[0]
+            frames = np.concatenate(batches)
+            walls = np.array([(b - a) * 1e3 for a, b in pushes])
+            start = pushes[0][0]
+            d = np.abs(frames.astype(int) - ref.frames.astype(int)) if (
+                frames.shape == ref.frames.shape) else None
+            within = None if d is None else float((d <= 1).mean())
+            db = psnr(frames, ref.frames) if d is not None else float("nan")
+            log("stream", transfer=transfer, audio_s=3.0, nframe=len(frames),
+                predict_nframe=ref.nframe, batches=len(batches),
+                first_batch_after_ms=f"{(first_at - start) * 1e3:.3f}",
+                latency_frames=st.latency_frames,
+                latency_ms=f"{st.latency_frames / 60 * 1e3:.1f}", pushes=len(walls),
+                push_ms_median=f"{np.median(walls):.3f}",
+                push_ms_p95=f"{np.percentile(walls, 95):.3f}",
+                push_ms_max=f"{walls.max():.3f}", flush_ms=f"{flushes[0]:.3f}",
+                stream_wall_s=f"{end - start:.4f}", fps=f"{len(frames) / (end - start):.2f}",
+                predict_wall_s=f"{ref.wall_s:.4f}",
+                launches=json.dumps(launches), rnn_plans=json.dumps(plans),
+                launches_per_push=json.dumps({k: round(v / len(walls), 3)
+                                              for k, v in launches.items()}),
+                vs_predict_psnr_db=f"{db:.2f}",
+                vs_predict_max_levels=None if d is None else int(d.max()),
+                vs_predict_within_1=within, share_tol=STREAM_FRAME_SHARE,
+                link=json.dumps(st.link.stats()),
+                stage_ms=json.dumps({k: round(v, 3) for k, v in st.stage_ms.items()}))
+            if len(frames) != ref.nframe or frames.shape[1:] != ref.frames.shape[1:]:
+                raise AssertionError(f"stream {transfer}: {frames.shape} frames, predict gave "
+                                     f"{ref.nframe}")
+            if min(launches.values()) == 0:
+                raise AssertionError(f"stream {transfer}: a kernel did not launch: {launches}")
+            check_rnn_plans(launches, plans)
+            if not (db >= SERVING_PSNR_DB and within >= STREAM_FRAME_SHARE):
+                raise AssertionError(f"stream {transfer}: {db:.2f} dB, {within} of the values "
+                                     "within one level of predict()'s")
+            if stream_launches is None:
+                stream_launches = launches
+    finally:
+        serve.StreamingAnimator = streaming.StreamingAnimator
+    return stream_launches
+
+
+def check_coders(pq, dev) -> None:
+    """The frame coders on the card: a 3.0 s request under each transfer
+    against the rgb one, the encoders' device time and the host decoders'
+    time on one rendered 16-frame batch, each decoder against its numpy
+    twin, and the card's encoders against the CPU's on the same
+    frames.  Raises on any failed check."""
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.pipeline import animate, compress, video
+
+    H = W = pq._cfg.feature2face.load_size
+    audio = video.make_test_tone(3.0)
+    for transfer in animate.TRANSFERS:  # warm (the coders' constants reach the card)
+        pq.predict(audio[:16000], transfer=transfer, write_video=False)
+    res, launches = {}, {}
+    for transfer in animate.TRANSFERS:
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        res[transfer] = pq.predict(audio, transfer=transfer, write_video=False)
+        launches[transfer] = launch_counts()
+    rgb = res["rgb"].frames
+    for transfer, r in res.items():
+        rendered = -(-r.nframe // 16) * 16
+        db = psnr(r.frames, rgb)
+        log("coders_request", transfer=transfer, nframe=r.nframe, wall_s=f"{r.wall_s:.4f}",
+            wall_vs_yuv420=f"{r.wall_s / res['yuv420'].wall_s:.3f}",
+            bytes_per_frame=f"{r.link['fetch_bytes'] / rendered:.1f}",
+            fetch_bytes=r.link["fetch_bytes"], p4e_refetches=r.link["p4e_refetches"],
+            psnr_vs_rgb_db=f"{db:.2f}", launches=json.dumps(launches[transfer]),
+            render_device_ms=f"{r.stage_ms['render_device']:.3f}",
+            render_ms=f"{r.stage_ms['render']:.3f}")
+        if r.nframe != res["rgb"].nframe or min(launches[transfer].values()) == 0:
+            raise AssertionError(f"coders {transfer}: {r.nframe} frames, {launches[transfer]}")
+        if not db >= SERVING_PSNR_DB:
+            raise AssertionError(f"coders {transfer}: {db:.2f} dB against rgb")
+
+    # one rendered 16-frame batch at 512^2 of the request's landmarks
+    cfg, person, models = pq._cfg, pq._assets, pq._models
+    lm, sh, _, _, _ = animate.compute_motion(cfg, person, models, audio)
+    cand = animate._cand_stack(person, H, dev, animate.compute_dtype(cfg))
+    with torch.no_grad():
+        img = f2f.apply_generator(models.feature2face, animate.rasterize_cuda.render_input(
+            lm[:16], animate._shift_shoulders(person, sh[:16]), cand, (H, W)))
+    img_cpu = img.cpu()
+    coders = {
+        "rgb": (f2f.to_uint8, lambda c: c),
+        "yuv420": (animate.rgb_to_yuv420_packed, lambda c: compress.i420_to_rgb(
+            torch.from_numpy(c), H, W).numpy()),
+        "jpeg": (compress.encode_rgb_frames, lambda c: compress.decode_to_rgb(c, H, W)),
+        "jpeg4": (compress.encode_rgb_frames_p4, lambda c: compress.decode_to_rgb_p4(c, H, W)),
+        "pack4e": (lambda x: compress.encode_rgb_frames_p4e(x)[0],
+                   lambda c: compress.decode_to_rgb_p4e(c, 16, H, W)),
+    }
+    twins = {"yuv420": lambda c: compress.yuv420_to_rgb(*compress.yuv420_unpack(c, H, W)),
+             "jpeg": lambda c: compress.yuv420_to_rgb(*compress.decode_to_yuv(c, H, W)),
+             "jpeg4": lambda c: compress.yuv420_to_rgb(*compress.decode_to_yuv_p4(c, H, W)),
+             "pack4e": lambda c: compress.decode_to_rgb_p4e_np(c, 16, H, W)}
+    with torch.no_grad():
+        for name, (encode, decode) in coders.items():
+            enc_ms = cuda_ms(lambda: encode(img), reps=10)
+            enc_graph_ms = graph_ms(lambda: encode(img), calls=2, replays=3)
+            gpu_code = encode(img).cpu().numpy()
+            cpu_code = encode(img_cpu).numpy()
+            if name == "pack4e":  # the coded prefix; the rest of the cap is zero
+                _, n_gpu = compress.decode_to_rgb_p4e(gpu_code, 16, H, W, return_consumed=True)
+                _, n_cpu = compress.decode_to_rgb_p4e(cpu_code, 16, H, W, return_consumed=True)
+                gpu_code, cpu_code = gpu_code[:n_gpu], cpu_code[:n_cpu]
+            t0 = time.perf_counter()
+            for _ in range(3):
+                out = decode(gpu_code)
+            dec_ms = (time.perf_counter() - t0) * 1e3 / 3 / 16
+            d_cpu = np.abs(out.astype(int) - decode(cpu_code).astype(int))
+            twin = None
+            if name in twins:
+                dt = np.abs(out.astype(int) - twins[name](gpu_code).astype(int))
+                twin = (int(dt.max()), float((dt > 0).mean()))
+            coef_equal = None
+            if name in ("jpeg", "jpeg4", "pack4e"):
+                k_y, k_c = ((compress.DEFAULT_K_Y, compress.DEFAULT_K_C) if name == "jpeg"
+                            else (compress.DEFAULT_P4_K_Y, compress.DEFAULT_P4_K_C))
+                same = total = 0
+                for pg, pc, base, k in zip(compress.rgb_to_yuv_planes(img),
+                                           compress.rgb_to_yuv_planes(img_cpu),
+                                           (compress._Q_LUMA, compress._Q_CHROMA,
+                                            compress._Q_CHROMA), (k_y, k_c, k_c)):
+                    qg = compress._zigzag_quant(pg, base, compress.DEFAULT_QUALITY, k).cpu()
+                    qc = compress._zigzag_quant(pc, base, compress.DEFAULT_QUALITY, k)
+                    same += int((qg == qc).sum())
+                    total += qc.numel()
+                coef_equal = same / total
+            log("coders_batch", transfer=name, frames=16, size=H,
+                encode_ms=f"{enc_ms:.4f}", encode_device_ms=f"{enc_graph_ms:.4f}",
+                code_bytes=gpu_code.nbytes,
+                bytes_per_frame=f"{gpu_code.nbytes / 16:.1f}",
+                host_decode_ms_per_frame=f"{dec_ms:.3f}",
+                card_vs_cpu_coef_equal=coef_equal, card_vs_cpu_code_bytes_equal=(
+                    gpu_code.shape == cpu_code.shape and bool((gpu_code == cpu_code).all())),
+                card_vs_cpu_decoded_max_levels=int(d_cpu.max()),
+                decode_vs_numpy=None if twin is None else json.dumps(
+                    {"max_levels": twin[0], "share_differing": twin[1]}))
+            if d_cpu.max() > 1:
+                raise AssertionError(f"coders {name}: the card's code decodes {d_cpu.max()} "
+                                     "levels from the CPU's")
+            if twin is not None and not (twin[0] <= 1 and twin[1] < 1e-3):
+                raise AssertionError(f"coders {name}: native against numpy {twin}")
 
 
 def main() -> int:
@@ -956,10 +1242,13 @@ def main() -> int:
 
     # 4. K2, 5. K3 (main-path lengths for 3 s: 360 mel steps, 198 frames)
     k2 = check_recurrence("K2", 3, 512, 80, (64, 360, 1200), 360, dev)
+    # the stream's chunks: 64 mel rows a chunk of 32 frames, then a short one
+    k2["carried_max_abs_err"] = check_carried("K2", 3, 512, (80, 512), (64, 64, 31), dev)
     kernels.append({"name": "K2 gru_layer", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/recurrent.cu",
                     "replaces": "livespeechportraits_tpu/ops/recurrent_pallas.py:67", **k2})
     k3 = check_recurrence("K3", 4, 256, 512, (64, 198, 600), 198, dev)
+    k3["carried_max_abs_err"] = check_carried("K3", 4, 256, (512, 256), (32, 32, 17), dev)
     kernels.append({"name": "K3 lstm_layer", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/recurrent.cu",
                     "replaces": "livespeechportraits_tpu/ops/recurrent_pallas.py:176", **k3})
@@ -1039,13 +1328,19 @@ def main() -> int:
 
     # 6c. K4 against its plain twin at the main-path shapes
     k4 = check_q8conv(dev)
-    check_k4_forward(dev)
+    for B in (16, 8):  # the serving render batch and the stream's
+        check_k4_forward(dev, B)
     kernels.append({"name": "K4 q8conv (int8 3x3 conv)", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/q8conv.cu",
                     "replaces": "livespeechportraits_tpu/models/nn_core.py:241", **k4})
 
-    # 6d. the serving path
-    kernels[-1]["launches"] = check_serve(dev)
+    # 6d. the serving path; 6e. the live path; 6f. the frame coders
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels[-1]["launches"], pq = check_serve(dev, tmp)
+        stream_launches = check_stream(pq, dev)
+        for entry, k in zip(kernels, ("K1", "K2", "K3", "K4")):
+            entry["stream_launches"] = stream_launches[k]
+        check_coders(pq, dev)
 
     # 7. GPU against CPU on the same port, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -3,7 +3,9 @@
     python -m livespeechportraits_torch.demo --id Synthetic --driving_audio tone.wav
 
 Runs audio -> frames at 60 FPS on one device (``--device``, default
-``cuda``), prints the per-stage ms and the frame rate, and writes
+``cuda``), offline or, with ``--streaming``, through the live path (audio
+pushed 100 ms at a time, frames as they are determined), with any
+``--transfer``; prints the per-stage ms and the frame rate, and writes
 ``<results_dir>/<id>/<audio name>/<audio name>.avi`` when cv2 is importable,
 otherwise ``frames.npy`` plus the ``.wav`` there.  Only the synthetic person
 is ported: it fabricates an asset pack and random-init models, so no data
@@ -35,6 +37,17 @@ def main(argv=None) -> None:
     parser.add_argument("--duration", type=float, default=0.0,
                         help="cap on driving-audio seconds (0 = full)")
     parser.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    parser.add_argument("--transfer", default="rgb",
+                        choices=["rgb", "yuv420", "jpeg", "jpeg4", "pack4e"],
+                        help="the frames' transfer to the host: yuv420 halves the bytes; "
+                             "jpeg, jpeg4 and pack4e are DCT codes made on the device "
+                             "(pack4e fetches only its coded prefix)")
+    parser.add_argument("--streaming", action="store_true",
+                        help="drive the live streaming path (audio pushed in 100 ms "
+                             "chunks, frames emitted as they are determined)")
+    parser.add_argument("--pipeline_depth", type=int, default=0,
+                        help="with --streaming: hand each push's frames back up to N "
+                             "pushes later, so their fetch overlaps the next pushes")
     args = parser.parse_args(argv)
 
     import torch
@@ -71,23 +84,43 @@ def main(argv=None) -> None:
         cfg, image_size=cfg.feature2face.load_size, device=device)
     print(f"Animating {len(audio) / 16000:.2f}s of audio for '{args.id}' on {device} ...")
     t0 = time.perf_counter()
-    result = animate_mod.animate(cfg, person_assets, person_models, audio, seed=args.seed,
-                                 render_batch=args.render_batch)
-    wall = time.perf_counter() - t0
-    print(f"stages (ms): {json.dumps({k: round(v, 1) for k, v in result.stage_ms.items()})}")
-    print(f"{result.nframe} frames in {wall:.2f}s -> {result.nframe / wall:.1f} fps end-to-end")
+    if args.streaming:
+        from livespeechportraits_torch.pipeline.streaming import StreamingAnimator
+
+        stream = StreamingAnimator(cfg, person_assets, person_models, seed=args.seed,
+                                   render_batch=args.render_batch, transfer=args.transfer,
+                                   pipeline_depth=args.pipeline_depth)
+        chunks, first_at = [], None
+        for out in stream.run(audio):  # 100 ms pushes
+            if first_at is None:
+                first_at = time.perf_counter() - t0
+            chunks.append(out)
+        frames = np.concatenate(chunks)
+        wall = time.perf_counter() - t0
+        print(f"stages (ms): {json.dumps({k: round(v, 1) for k, v in stream.stage_ms.items()})}")
+        print(f"streaming: first frame after {first_at:.2f}s (algorithmic latency "
+              f"{stream.latency_frames} frames); {len(frames)} frames in {wall:.2f}s -> "
+              f"{len(frames) / wall:.1f} fps")
+    else:
+        result = animate_mod.animate(cfg, person_assets, person_models, audio,
+                                     seed=args.seed, render_batch=args.render_batch,
+                                     transfer=args.transfer)
+        wall = time.perf_counter() - t0
+        frames = result.frames
+        print(f"stages (ms): {json.dumps({k: round(v, 1) for k, v in result.stage_ms.items()})}")
+        print(f"{result.nframe} frames in {wall:.2f}s -> {result.nframe / wall:.1f} fps "
+              "end-to-end")
 
     audio_name = os.path.splitext(os.path.basename(args.driving_audio))[0]
     save_root = join(args.results_dir, args.id, audio_name)
     os.makedirs(save_root, exist_ok=True)
     if video_mod.cv2 is not None:
-        out_path = video_mod.write_video(result.frames, join(save_root, audio_name + ".avi"),
-                                         audio)
+        out_path = video_mod.write_video(frames, join(save_root, audio_name + ".avi"), audio)
         print(f"wrote video {out_path}")
     else:
-        np.save(join(save_root, "frames.npy"), result.frames)
+        np.save(join(save_root, "frames.npy"), frames)
         wav_path = join(save_root, audio_name + ".wav")
-        video_mod.save_wav(wav_path, audio[: int(result.nframe * 16000 / 60)])
+        video_mod.save_wav(wav_path, audio[: int(len(frames) * 16000 / 60)])
         print(f"cv2 is not importable: wrote frames {join(save_root, 'frames.npy')} "
               f"and audio {wav_path}")
 

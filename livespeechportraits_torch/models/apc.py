@@ -2,13 +2,16 @@
 single-layer GRUs, 80 mel -> hidden -> hidden.
 
 Counterpart of ``livespeechportraits_tpu/models/apc.py`` (``apply_apc``,
-``encode_fast``).  Parameter names follow the reference's
-``rnns.{i}.weight_ih_l0`` layout.  On the card every layer's time loop runs
-in the GRU kernel K2 (ops/recurrent_cuda.py); the optional residual add sits
-outside the recurrence, so both settings take the kernel.
+``encode_fast``) and of the streaming path's chunked GRU (``encode_chunk``).
+Parameter names follow the reference's ``rnns.{i}.weight_ih_l0`` layout.
+On the card every layer's time loop runs in the GRU kernel K2
+(ops/recurrent_cuda.py); the optional residual add sits outside the
+recurrence, so both settings take the kernel.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,22 +37,39 @@ class APCEncoder(nn.Module):
             nn_core.init_rnn_(rnn, gen)
 
 
+def _stack(model: APCEncoder, x: Tensor, residual: bool,
+           h0: Optional[List[Tensor]] = None) -> Tuple[Tensor, List[Tensor]]:
+    """The GRU layers over x [B, T, in] from h0 (zeros when None) -> (the top
+    layer's states [B, T, H], each layer's last state [B, H])."""
+    n = len(model.rnns)
+    h_last = []
+    for i, rnn in enumerate(model.rnns):
+        y, h_t = recurrent_cuda.gru_layer(x, *rnn.layer(0), h0=None if h0 is None else h0[i])
+        h_last.append(h_t)
+        if i + 1 < n and residual and x.shape[-1] == y.shape[-1]:
+            y = y + x
+        x = y
+    return x, h_last
+
+
 def apply_apc(model: APCEncoder, mels: Tensor, residual: bool = False) -> Tensor:
     """[B, T, mel_dim] -> [B, T, hidden] top-layer GRU states.  The residual
     adds a layer's input when the widths match, except after the top layer.
     A CUDA tensor runs each layer in K2, which takes batch 1; a CPU tensor
     takes the plain loop at any batch."""
-    x = mels
-    n = len(model.rnns)
-    for i, rnn in enumerate(model.rnns):
-        y, _ = recurrent_cuda.gru_layer(x, *rnn.layer(0))
-        if i + 1 < n and residual and x.shape[-1] == y.shape[-1]:
-            y = y + x
-        x = y
-    return x
+    return _stack(model, mels, residual)[0]
 
 
 def encode_fast(model: APCEncoder, mels: Tensor, residual: bool = False) -> Tensor:
     """[T, mel] -> [T, H], the batch-1 inference path: the GRU kernel on a
     CUDA tensor, the plain loop on a CPU tensor."""
     return apply_apc(model, mels[None], residual=residual)[0]
+
+
+def encode_chunk(model: APCEncoder, mels: Tensor, h: List[Tensor],
+                 residual: bool = False) -> Tuple[Tensor, List[Tensor]]:
+    """A stream's chunk: [n, mel] and each layer's carried hidden state [H]
+    -> ([n, H], the new states); every layer in K2 on a CUDA tensor, from
+    the carried state."""
+    y, h_last = _stack(model, mels[None], residual, h)
+    return y[0], [h_t.reshape(-1) for h_t in h_last]

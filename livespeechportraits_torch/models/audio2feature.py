@@ -14,6 +14,8 @@ Parameter names follow the reference (``downsample.0``, ``LSTM.weight_ih_l0``,
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import torch
 from torch import nn
 
@@ -47,6 +49,21 @@ class Audio2Feature(nn.Module):
         nn_core.init_batchnorm_(self)
 
 
+def _downsample(model: Audio2Feature, pairs: Tensor) -> Tensor:
+    """[N, 2H] paired APC frames -> [N, H] (eval-mode BatchNorm)."""
+    d = model.downsample
+    y = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(pairs, d[0]), d[1]))
+    return nn_core.dense(y, d[3])
+
+
+def _fc(model: Audio2Feature, z: Tensor) -> Tensor:
+    """[N, lstm_hidden] -> [N, output_dim] (eval-mode BatchNorm)."""
+    f = model.fc
+    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[0]), f[1]))
+    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[3]), f[4]))
+    return nn_core.dense(z, f[6])
+
+
 def apply_audio2feature(model: Audio2Feature, audio_feats: Tensor) -> Tensor:
     """[B, 2T, H] APC features -> [B, T, output_dim] (eval-mode BatchNorm).
     Pairs of consecutive 120 Hz frames become one 2H vector per frame.  A
@@ -54,17 +71,23 @@ def apply_audio2feature(model: Audio2Feature, audio_feats: Tensor) -> Tensor:
     takes the plain loop at any batch."""
     B, T2, H = audio_feats.shape
     T = T2 // 2
-    d, f = model.downsample, model.fc
-    x = audio_feats.reshape(B * T, 2 * H)
-    y = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(x, d[0]), d[1]))
-    y = nn_core.dense(y, d[3]).reshape(B, T, H)
+    y = _downsample(model, audio_feats.reshape(B * T, 2 * H)).reshape(B, T, H)
     for k in range(model.LSTM.num_layers):
         y, _ = recurrent_cuda.lstm_layer(y, *model.LSTM.layer(k))
-    z = y.reshape(B * T, -1)
-    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[0]), f[1]))
-    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[3]), f[4]))
-    z = nn_core.dense(z, f[6])
-    return z.reshape(B, T, -1)
+    return _fc(model, y.reshape(B * T, -1)).reshape(B, T, -1)
+
+
+def apply_chunk(model: Audio2Feature, pairs: Tensor,
+                state: List[Tuple[Tensor, Tensor]]) -> Tuple[Tensor, List[Tuple[Tensor, Tensor]]]:
+    """A stream's chunk: [n, 2H] paired APC frames and each LSTM layer's
+    carried (h, c) [H] -> ([n, output_dim], the new states); every layer in
+    K3 on a CUDA tensor, from the carried state."""
+    y = _downsample(model, pairs)[None]
+    new_state = []
+    for k, (h, c) in enumerate(state):
+        y, (h, c) = recurrent_cuda.lstm_layer(y, *model.LSTM.layer(k), state=(h, c))
+        new_state.append((h.reshape(-1), c.reshape(-1)))
+    return _fc(model, y[0]), new_state
 
 
 def generate_sequence(model: Audio2Feature, audio_feats: Tensor,

@@ -49,25 +49,27 @@ def _mix64(z: np.ndarray) -> np.ndarray:
     return z ^ (z >> np.uint64(31))
 
 
-def step_uniforms(seed: int, n: int, width: int) -> np.ndarray:
-    """[n, width] float64 uniforms in (0, 1).  Row i is a hash of (seed, i,
-    column) alone - a counter-based generator - so the draws of decode step
-    i do not depend on how many steps are drawn."""
+def step_uniforms(seed: int, n: int, width: int, start: int = 0) -> np.ndarray:
+    """[n, width] float64 uniforms in (0, 1) of the steps start .. start+n-1.
+    Row i is a hash of (seed, start + i, column) alone - a counter-based
+    generator - so the draws of decode step i do not depend on how many
+    steps are drawn, or from where."""
     key = _mix64(np.array([seed % 2**64], np.uint64) + np.uint64(0x9E3779B97F4A7C15))
-    ctr = (np.arange(n, dtype=np.uint64)[:, None] * np.uint64(width)
+    ctr = (np.arange(start, start + n, dtype=np.uint64)[:, None] * np.uint64(width)
            + np.arange(width, dtype=np.uint64)[None, :])
     bits = _mix64(_mix64(ctr ^ key) + key)
     return ((bits >> np.uint64(11)).astype(np.float64) + 0.5) * 2.0 ** -53
 
 
-def draw_noise(n: int, ncenter: int, ndim: int, seed: int):
-    """(gumbel [n, ncenter], eps [n, ndim]) float32 on the CPU for n decode
-    steps.  Step i's Gumbel and normal draws come together from one row of
+def draw_noise(n: int, ncenter: int, ndim: int, seed: int, start: int = 0):
+    """(gumbel [n, ncenter], eps [n, ndim]) float32 on the CPU for the n
+    decode steps from ``start`` (a stream draws its chunks so).  Step i's
+    Gumbel and normal draws come together from one row of
     ``step_uniforms(seed, ...)``, so they depend only on (seed, i), as
     JAX's fold_in(key, i) draws do: a clip and its bucket-padded copy share
     the draws of every frame they share, on any device."""
     pairs = -(-ndim // 2)
-    u = step_uniforms(seed, n, ncenter + 2 * pairs)
+    u = step_uniforms(seed, n, ncenter + 2 * pairs, start)
     gumbel = -np.log(-np.log(u[:, :ncenter]))
     u1, u2 = u[:, ncenter::2], u[:, ncenter + 1::2]  # Box-Muller pairs
     r = np.sqrt(-2.0 * np.log(u1))

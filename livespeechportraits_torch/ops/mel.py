@@ -70,30 +70,43 @@ def _reflect_index(p: np.ndarray, n: int) -> np.ndarray:
     return np.where(p >= n, 2 * (n - 1) - p, p)
 
 
-def _mel_sequence_impl(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
-    """[N] audio -> [n_frames, 80] normalised log-mel, on audio's device."""
+def mel_frames(audio: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
+    """The normalised log-mel frames [len(starts), 80] whose clips begin at
+    ``starts`` (sample indices into ``audio``, on audio's device); each clip
+    reads samples [start, start + 266), so ``audio`` must hold them."""
     sr = SAMPLE_RATE
     n_fft, n_mels = 512, 80
     win_length = sr // FPS  # 266
-    step = sr * 0.5 / FPS  # 133.333... (fractional hop, floor per frame)
     pad = (n_fft - sr // MEL_RATE) // 2  # 189
     dev = audio.device
 
-    starts = np.floor(np.arange(n_frames) * step).astype(np.int64)
     col = _reflect_index(np.arange(n_fft) - pad, win_length)
-    idx = torch.as_tensor(starts[:, None] + col[None, :], device=dev)
+    idx = torch.as_tensor(np.asarray(starts, np.int64)[:, None] + col[None, :], device=dev)
 
     window = np.zeros(n_fft, dtype=np.float32)
     lpad = (n_fft - win_length) // 2
     window[lpad:lpad + win_length] = _hann_periodic(win_length)
 
-    audio_padded = torch.cat([audio.float(), audio.new_zeros(win_length, dtype=torch.float32)])
-    frames = audio_padded[idx] * torch.as_tensor(window, device=dev)  # [n_frames, n_fft]
+    frames = audio.float()[idx] * torch.as_tensor(window, device=dev)  # [n, n_fft]
     mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()
     basis = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, 90.0, 7600.0), device=dev)
     melspec = mag @ basis.t()
     log_mel = torch.log(torch.clamp(melspec, min=1e-5))
     return (log_mel - LOG_MEL_MIN) / -LOG_MEL_MIN
+
+
+def frame_starts(first: int, stop: int) -> np.ndarray:
+    """The first sample of mel frames first .. stop-1 (a fractional hop of
+    133.33 samples, floored per frame)."""
+    return np.floor(np.arange(first, stop) * (SAMPLE_RATE * 0.5 / FPS)).astype(np.int64)
+
+
+def _mel_sequence_impl(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """[N] audio -> [n_frames, 80] normalised log-mel, on audio's device;
+    clips past the end of the audio read zeros."""
+    padded = torch.cat([audio.float(),
+                        audio.new_zeros(SAMPLE_RATE // FPS, dtype=torch.float32)])
+    return mel_frames(padded, frame_starts(0, n_frames))
 
 
 def compute_mel_sequence(audio, device: torch.device | str = "cuda") -> torch.Tensor:

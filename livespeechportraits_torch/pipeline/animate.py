@@ -2,9 +2,10 @@
 
 Counterpart of ``livespeechportraits_tpu/pipeline/animate.py``: the staged
 ``compute_motion`` with ``valid_frames`` bucketing (without ``fused``),
-``_jit_post`` as a plain function, ``render_frames`` with the exact ``rgb``
-and the ``yuv420`` transfers, ``build_render_inputs`` and ``animate``.
-Stages:
+``_jit_post`` as a plain function, ``render_frames`` with every transfer
+(``rgb``, ``yuv420`` and the ``jpeg``, ``jpeg4`` and ``pack4e`` codes of
+``pipeline/compress.py``, pack4e with its prefix fetch),
+``build_render_inputs`` and ``animate``.  Stages:
 
     1. mel + APC features  (ops/mel.py, models/apc.py: GRU kernel K2)
     2. LLE manifold projection (ops/manifold.py)
@@ -12,11 +13,13 @@ Stages:
     4. Audio2Headpose decode (models/audio2headpose.py)
     5. post-processing: smoothing, AMP, projection (_post)
     6. rendering: kernel K1 (landmarks -> the U-Net's input) + Feature2Face
-       U-Net (the int8 convs on kernel K4), frames batched
+       U-Net (the int8 convs on kernel K4), frames batched, then the
+       transfer's encoder on the device and its decoder on the host
 
 Every stage runs on the device of the models.  ``stage_ms`` holds host
 wall-clock per stage; with ``profile=True`` each stage ends in
-``torch.cuda.synchronize()`` so the attribution is true.
+``torch.cuda.synchronize()`` so the attribution is true.  The streaming
+path (``pipeline/streaming.py``) renders through the same ``FrameLink``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from livespeechportraits_torch.models import audio2headpose as a2h_model
 from livespeechportraits_torch.models import feature2face as f2f_model
 from livespeechportraits_torch.ops import (geometry, manifold, mel, rasterize_cuda,
                                            smoothing)
+from livespeechportraits_torch.pipeline import compress
 from livespeechportraits_torch.pipeline.assets import PersonAssets, PersonModels
 
 Tensor = torch.Tensor
@@ -50,6 +54,8 @@ class AnimateResult:
     nframe: int
     # Host wall-clock per stage (device-true only with profile=True).
     stage_ms: Dict[str, float] = field(default_factory=dict)
+    # The frames' transfer to the host: bytes fetched, pack4e refetches.
+    link: Dict[str, int] = field(default_factory=dict)
 
 
 def _sync(device: torch.device) -> None:
@@ -61,14 +67,117 @@ def _device_of(models: PersonModels) -> torch.device:
     return next(models.apc.parameters()).device
 
 
-TRANSFERS = ("rgb", "yuv420")
+TRANSFERS = ("rgb", "yuv420", "jpeg", "jpeg4", "pack4e")
 
 
 def _check_transfer(transfer: str) -> None:
     if transfer not in TRANSFERS:
-        raise NotImplementedError(
-            f"transfer {transfer!r} is not ported: the port has {TRANSFERS}; the pack4e, "
-            "jpeg and jpeg4 coders are ROADMAP item 12")
+        raise ValueError(f"unknown transfer {transfer!r}; choose one of {TRANSFERS}")
+
+
+# Process-level pack4e prefix sizes, keyed by (H, W, render batch): the last
+# decoded batch's coded bytes times P4E_MARGIN.  Content is temporally stable
+# within a subject, and a stale value costs one over- or under-fetch: the
+# stream delimits itself, and a prefix that proves short is fetched whole.
+_P4E_NEED: Dict[Tuple[int, int, int], int] = {}
+P4E_BUCKETS = 32  # prefix sizes snap to this many linear steps of the cap
+P4E_MARGIN = 1.15
+
+
+@dataclass
+class SentBatch:
+    """One rendered batch on its way to the host: the host tensor (pinned
+    memory on the card), the event of its copy, and for pack4e the whole
+    device stream, kept until the batch is decoded in case the prefix
+    proves short."""
+
+    host: Tensor
+    copied: Optional["torch.cuda.Event"]
+    stream: Optional[Tensor] = None
+
+
+class FrameLink:
+    """The frames' way from the renderer to the host under one transfer.
+
+    ``send`` encodes a rendered batch on its device and queues its copy to
+    pinned host memory behind it (on the CPU the tensor is the host copy);
+    ``receive`` waits for that copy and decodes it to uint8 RGB on the host.  rgb fetches uint8 RGB; yuv420 the planar 4:2:0 bytes; jpeg and
+    jpeg4 their codes; pack4e a prefix of its stream, sized from the last
+    decoded batch's coded bytes (the object's own, seeded from
+    ``_P4E_NEED``) and snapped to ``P4E_BUCKETS`` steps of the cap.  A
+    render loop sends in order and receives in the same order; ``send`` and
+    ``receive`` may run on two threads."""
+
+    def __init__(self, transfer: str, H: int, W: int, batch: int):
+        _check_transfer(transfer)
+        self.transfer, self.H, self.W, self.batch = transfer, H, W, batch
+        self.fetch_bytes = 0  # the sending thread's count
+        self.refetch_bytes = 0  # the receiving thread's count
+        self.refetches = 0
+        if transfer == "pack4e":
+            self.cap = batch * compress.p4e_bytes_per_frame_cap(H, W)
+            self.need = _P4E_NEED.get((H, W, batch), self.cap)
+
+    def _prefix(self) -> int:
+        step = -(-self.cap // P4E_BUCKETS)
+        want = max(1, min(self.need, self.cap))
+        return min(self.cap, -(-want // step) * step)
+
+    def send(self, img: Tensor) -> SentBatch:
+        """img [batch, H, W, 3] in [-1, 1] (the generator's output)."""
+        stream = None
+        if self.transfer == "rgb":
+            out = f2f_model.to_uint8(img)
+        elif self.transfer == "yuv420":
+            out = rgb_to_yuv420_packed(img)
+        elif self.transfer == "jpeg":
+            out = compress.encode_rgb_frames(img)
+        elif self.transfer == "jpeg4":
+            out = compress.encode_rgb_frames_p4(img)
+        else:
+            stream, _ = compress.encode_rgb_frames_p4e(img)
+            out = stream[:self._prefix()]
+        copied = None
+        if out.device.type == "cuda":
+            # the copy to pinned memory queues behind the batch, so the host
+            # decodes the previous batch while the device renders this one
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+            out = host
+        self.fetch_bytes += out.numel() * out.element_size()
+        return SentBatch(out, copied, stream)
+
+    def receive(self, sent: SentBatch) -> Tensor:
+        """The batch's frames [batch, H, W, 3] uint8 on the CPU."""
+        if sent.copied is not None:
+            sent.copied.synchronize()
+        H, W = self.H, self.W
+        if self.transfer == "rgb":
+            return sent.host
+        if self.transfer == "yuv420":
+            return compress.i420_to_rgb(sent.host, H, W)
+        if self.transfer == "jpeg":
+            return torch.from_numpy(compress.decode_to_rgb(sent.host.numpy(), H, W))
+        if self.transfer == "jpeg4":
+            return torch.from_numpy(compress.decode_to_rgb_p4(sent.host.numpy(), H, W))
+        try:
+            rgb, consumed = compress.decode_to_rgb_p4e(sent.host.numpy(), self.batch, H, W,
+                                                       return_consumed=True)
+        except IndexError:  # the prefix was short: fetch the whole stream
+            full = sent.stream.cpu()
+            self.refetches += 1
+            self.refetch_bytes += full.numel()
+            rgb, consumed = compress.decode_to_rgb_p4e(full.numpy(), self.batch, H, W,
+                                                       return_consumed=True)
+        self.need = int(consumed * P4E_MARGIN)
+        _P4E_NEED[(H, W, self.batch)] = self.need
+        return torch.from_numpy(rgb)
+
+    def stats(self) -> Dict[str, int]:
+        return {"fetch_bytes": self.fetch_bytes + self.refetch_bytes,
+                "p4e_refetches": self.refetches}
 
 
 @torch.no_grad()
@@ -225,19 +334,22 @@ def compute_dtype(cfg: PersonConfig) -> torch.dtype:
 def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                   landmarks2d: Tensor, shoulders2d: Tensor, render_batch: int = 8,
                   keep_feature_maps: bool = False,
-                  stage_ms: Optional[Dict[str, float]] = None, transfer: str = "rgb"):
+                  stage_ms: Optional[Dict[str, float]] = None, transfer: str = "rgb",
+                  link: Optional[Dict[str, int]] = None):
     """Stage 6: rasterise + U-Net, ``render_batch`` frames at a time.
     Returns (frames [N, H, W, 3] uint8, edge maps [N, H, W] uint8 or None).
 
-    transfer='rgb' (exact) fetches uint8 RGB; 'yuv420' packs each batch on
-    the device as planar 4:2:0 in one contiguous uint8 buffer (half the
-    bytes) and converts back to RGB on the host (i420_to_rgb).  On the card
-    each batch is fetched into pinned memory behind its render, and the host
-    converts it while the device renders the next batch: ``render_device``
-    then covers the device work and the overlapped host work, ``render``
-    the last batch's conversion.  A batch's U-Net input is one K1 launch
-    (rasterize_cuda.render_input) and no host round trip, so the host
-    queues a batch while the device still renders the one before."""
+    transfer (see FrameLink): 'rgb' (exact) fetches uint8 RGB; 'yuv420'
+    packs each batch on the device as planar 4:2:0 (half the bytes) and
+    converts back on the host; 'jpeg', 'jpeg4' and 'pack4e' encode a
+    JPEG-class code on the device (pipeline/compress.py), which the native
+    codec decodes.  On the card each batch is fetched into pinned memory
+    behind its render, and the host decodes it while the device renders the
+    next batch: ``render_device`` then covers the device work and the
+    overlapped host work, ``render`` the last batch's decode.  A batch's
+    U-Net input is one K1 launch (rasterize_cuda.render_input) and no host
+    round trip, so the host queues a batch while the device still renders
+    the one before.  ``link`` receives FrameLink.stats()."""
     _check_transfer(transfer)
     sm = stage_ms if stage_ms is not None else {}
     dev = landmarks2d.device
@@ -248,40 +360,27 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     # a no-op for a generator already cast (serve.Predictor casts once)
     net = f2f_model.cast_generator(models.feature2face, compute_dtype(cfg))
     cand_stack = _cand_stack(assets, H, dev, compute_dtype(cfg))
+    frame_link = FrameLink(transfer, H, W, render_batch)
 
     pad_to = -(-nframe // render_batch) * render_batch
     lm = torch.cat([landmarks2d, landmarks2d[-1:].expand(pad_to - nframe, 73, 2)])
     sh = torch.cat([shoulders2d,
                     shoulders2d[-1:].expand(pad_to - nframe, *shoulders2d.shape[1:])])
-    encode = rgb_to_yuv420_packed if transfer == "yuv420" else f2f_model.to_uint8
     frames = torch.empty(pad_to, H, W, 3, dtype=torch.uint8)
     maps: List[Tensor] = []
-    pending = None  # the previous batch: (first frame, host tensor, its copy's event)
+    pending = None  # the previous batch: (first frame, SentBatch)
 
     def finish(batch) -> None:
-        start, host, copied = batch
-        if copied is not None:
-            copied.synchronize()
-        frames[start:start + render_batch] = (i420_to_rgb(host, H, W)
-                                              if transfer == "yuv420" else host)
+        start, sent = batch
+        frames[start:start + render_batch] = frame_link.receive(sent)
 
     for start in range(0, pad_to, render_batch):
         inp = rasterize_cuda.render_input(lm[start:start + render_batch],
                                           sh[start:start + render_batch], cand_stack, (H, W))
-        out = encode(f2f_model.apply_generator(net, inp))
-        copied = None
-        if dev.type == "cuda":
-            # the copy to pinned memory queues behind the batch, so the host
-            # converts the previous batch while the device renders this one;
-            # two pinned buffers live at a time and the allocator reuses them
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record()
-            out = host
+        sent = frame_link.send(f2f_model.apply_generator(net, inp))
         if pending is not None:
             finish(pending)
-        pending = (start, out, copied)
+        pending = (start, sent)
         if keep_feature_maps:
             maps.append(inp[..., 0].float())
     _sync(dev)
@@ -289,6 +388,8 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     finish(pending)
     frames_u8 = frames[:nframe].numpy()
     sm["render"] = (time.perf_counter() - t0) * 1e3 - sm["render_device"]
+    if link is not None:
+        link.update(frame_link.stats())
     fmap_u8 = None
     if keep_feature_maps:
         fmap_u8 = (torch.cat(maps)[:nframe] * 255).to(torch.uint8).cpu().numpy()
@@ -331,67 +432,26 @@ def rgb_to_yuv420_packed(img: Tensor) -> Tensor:
     return torch.cat([to_u8(y), to_u8(down2(u)), to_u8(down2(v))], dim=1)
 
 
-def yuv420_unpack(packed: np.ndarray, h: int, w: int):
-    """[B, h*w*3/2] packed planes -> (Y [B,h,w], U, V [B,h/2,w/2])."""
-    B = packed.shape[0]
-    y = packed[:, : h * w].reshape(B, h, w)
-    q = (h // 2) * (w // 2)
-    u = packed[:, h * w : h * w + q].reshape(B, h // 2, w // 2)
-    v = packed[:, h * w + q :].reshape(B, h // 2, w // 2)
-    return y, u, v
-
-
-def yuv420_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray) -> np.ndarray:
-    """Host inverse of the yuv420 pack ([B,H,W] + 2x [B,H/2,W/2] uint8 ->
-    [B,H,W,3] uint8; nearest chroma upsampling)."""
-    yf = y.astype(np.float32)
-    uf = np.repeat(np.repeat(u.astype(np.float32) - 128.0, 2, axis=1), 2, axis=2)
-    vf = np.repeat(np.repeat(v.astype(np.float32) - 128.0, 2, axis=1), 2, axis=2)
-    r = yf + 1.402 * vf
-    g = yf - 0.344136 * uf - 0.714136 * vf
-    b = yf + 1.772 * uf
-    return np.clip(np.stack([r, g, b], axis=-1) + 0.5, 0, 255).astype(np.uint8)
-
-
-def i420_to_rgb(packed: Tensor, h: int, w: int) -> Tensor:
-    """[B, h*w*3/2] packed uint8 -> [B, h, w, 3] uint8 RGB on the CPU, in
-    torch with yuv420_to_rgb's operation order (JAX's compress.i420_to_rgb).
-    The chroma terms are computed at chroma resolution and broadcast over
-    each 2x2 block: nearest upsampling commutes with them exactly."""
-    y, u, v = yuv420_unpack(packed.cpu(), h, w)
-    B = y.shape[0]
-    uf, vf = u.float() - 128.0, v.float() - 128.0
-
-    def up(c):  # [B, h/2, w/2] -> broadcastable over [B, h/2, 2, w/2, 2]
-        return c.view(B, h // 2, 1, w // 2, 1)
-
-    yf = y.float().view(B, h // 2, 2, w // 2, 2)
-    r = yf + up(1.402 * vf)
-    g = yf - up(0.344136 * uf) - up(0.714136 * vf)
-    b = yf + up(1.772 * uf)
-    rgb = torch.stack([r, g, b], dim=-1).add_(0.5).clamp_(0, 255)
-    return rgb.to(torch.uint8).view(B, h, w, 3)
-
-
 def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio: np.ndarray,
             seed: int = 0, render_batch: int = 8, keep_feature_maps: bool = False,
             profile: bool = False,
             headpose_noise: Optional[Tuple[Tensor, Tensor]] = None,
             transfer: str = "rgb", valid_frames: Optional[int] = None) -> AnimateResult:
     """audio [-1, 1] float32 at 16 kHz -> frames at 60 FPS, on the models'
-    device.  transfer: 'rgb' (exact) or 'yuv420' (see render_frames).
+    device.  transfer: one of TRANSFERS (see render_frames).
     valid_frames: the unpadded audio's frame count when ``audio`` is
     bucket-padded (see compute_motion); the result then equals the unpadded
     run's, trimmed to valid_frames - frame_future frames."""
     _check_transfer(transfer)
     stage_ms: Dict[str, float] = {}
+    link: Dict[str, int] = {}
     landmarks2d, shoulders2d, head, final, nframe = compute_motion(
         cfg, assets, models, audio, seed=seed, stage_ms=stage_ms, profile=profile,
         headpose_noise=headpose_noise, valid_frames=valid_frames)
     frames, fmaps = render_frames(cfg, assets, models, landmarks2d[:nframe],
                                   shoulders2d[:nframe], render_batch=render_batch,
                                   keep_feature_maps=keep_feature_maps, stage_ms=stage_ms,
-                                  transfer=transfer)
+                                  transfer=transfer, link=link)
     return AnimateResult(
         frames=frames,
         feature_maps=fmaps,
@@ -400,4 +460,5 @@ def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio
         pts3d=final[:nframe].cpu().numpy(),
         nframe=nframe,
         stage_ms=stage_ms,
+        link=link,
     )

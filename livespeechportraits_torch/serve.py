@@ -5,8 +5,9 @@ Counterpart of ``livespeechportraits_tpu/serve.py``: ``setup()`` builds the
 synthetic subject (or boots the four models from a serving artifact),
 optionally int8-quantizes the renderer with calibrated static activation
 scales, and casts the renderer to its compute dtype once; ``predict()`` caps
-the audio, pads it to a length bucket, runs ``animate()`` with the yuv420
-transfer and muxes a video.
+the audio, pads it to a length bucket, runs ``animate()`` with any transfer
+(yuv420 by default) and muxes a video; ``stream()`` pushes the audio through
+a ``StreamingAnimator`` and yields the frames as they are determined.
 
 Bucketing does not change a result: every stage before post-processing is
 prefix-causal over the zero-padded audio, the head-pose noise of frame i
@@ -34,6 +35,7 @@ from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.pipeline import animate as animate_mod
 from livespeechportraits_torch.pipeline import assets as assets_mod
 from livespeechportraits_torch.pipeline import video as video_mod
+from livespeechportraits_torch.pipeline.streaming import StreamingAnimator
 
 
 @dataclass
@@ -43,6 +45,7 @@ class PredictResult:
     wall_s: float
     stage_ms: dict
     frames: Optional[np.ndarray] = None  # [nframe, H, W, 3] uint8
+    link: Optional[dict] = None  # the transfer's bytes fetched and pack4e refetches
 
 
 class Predictor:
@@ -159,7 +162,28 @@ class Predictor:
             out_path = os.path.join(self.results_dir, f"{name}.avi")
             video_mod.write_video(frames, out_path, true_audio)
         return PredictResult(video_path=out_path, nframe=len(frames), wall_s=wall,
-                             stage_ms=result.stage_ms, frames=frames)
+                             stage_ms=result.stage_ms, frames=frames, link=result.link)
 
-    def stream(self, *args, **kwargs):
-        raise NotImplementedError("Predictor.stream is not ported (ROADMAP item 13: streaming)")
+    def stream(self, driving_audio: str | np.ndarray, seed: int = 0, render_batch: int = 8,
+               push_samples: int = 1600, pipeline_depth: int = 1, transfer: str = "rgb",
+               smooth_latency_cap: Optional[int] = None):
+        """Incremental serving: yields [n, H, W, 3] uint8 frame batches as
+        they are determined, while the audio is still being consumed.
+
+        Pushes ``push_samples`` (default 100 ms) of audio at a time through a
+        StreamingAnimator: the offline pipeline's frames, the first after
+        the algorithmic latency (``latency_frames``, or less with
+        smooth_latency_cap) rather than after the whole clip renders."""
+        if self._cfg is None:
+            raise RuntimeError("call setup() first")
+        if isinstance(driving_audio, str):
+            audio = video_mod.load_wav(driving_audio)
+        else:
+            audio = np.asarray(driving_audio, np.float32)
+        audio = audio[: int(self.max_audio_seconds * 16000)]
+        st = StreamingAnimator(self._cfg, self._assets, self._models, seed=seed,
+                               render_batch=render_batch, pipeline_depth=pipeline_depth,
+                               transfer=transfer, smooth_latency_cap=smooth_latency_cap)
+        # a consumer that abandons this generator (a client gone) closes
+        # run()'s too, which releases the stream's decode thread
+        yield from st.run(audio, push_samples)

@@ -9,8 +9,10 @@ that takes a wav upload and returns the rendered video.
          http://localhost:8080/animate -o out.avi
 
 POST /animate returns the .avi with X-Frames and X-Wall-Seconds headers;
-GET /healthz returns the status; POST /stream answers 501 (streaming is
-ROADMAP item 13).  Writing the .avi needs cv2.
+POST /stream[?latency_cap=N] returns the frames as a live multipart MJPEG
+stream (multipart/x-mixed-replace) while the clip is still being generated;
+GET /healthz returns the status.  Writing the .avi and the JPEG parts needs
+cv2: without it /animate and /stream answer 500.
 """
 
 from __future__ import annotations
@@ -21,16 +23,21 @@ import json
 import os
 import tempfile
 import threading
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
 
+import numpy as np
 from scipy.io import wavfile
 
+from livespeechportraits_torch.pipeline import video as video_mod
 from livespeechportraits_torch.serve import Predictor
 
 
 def make_handler(predictor: Predictor):
     # One request renders at a time (one device, one in-order stream); the
-    # lock serialises /animate while /healthz answers on its own thread.
+    # lock serialises /animate and /stream while /healthz answers on its own
+    # thread.
     device_lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
@@ -53,25 +60,82 @@ def make_handler(predictor: Predictor):
                     "max_audio_seconds": predictor.max_audio_seconds}
             self._send(200, json.dumps(info).encode(), "application/json")
 
-        def do_POST(self):
-            path = self.path.split("?")[0]
-            if path == "/stream":
-                self._send(501, b"/stream is not ported (ROADMAP item 13: streaming)",
-                           "text/plain")
-                return
-            if path != "/animate":
-                self._send(404, b"not found", "text/plain")
-                return
+        def _read_wav(self):
+            """The request's body, validated as a wav; None after answering
+            400."""
             length = int(self.headers.get("Content-Length", 0))
             if length <= 0:
                 self._send(400, b"empty body", "text/plain")
-                return
+                return None
             payload = self.rfile.read(length)
             try:
-                wavfile.read(io.BytesIO(payload))  # validate before rendering
-                with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as f:
-                    f.write(payload)
-                    wav_path = f.name
+                wavfile.read(io.BytesIO(payload))
+            except Exception as e:  # a boundary: report the failure to the client
+                self._send(400, f"error: {e}".encode(), "text/plain")
+                return None
+            return payload
+
+        def _stream(self, wav_path: str) -> None:
+            """The frames leave as JPEG parts of a multipart stream while the
+            clip is still being generated: the first after the pipeline's
+            latency (cut to N frames by ?latency_cap=N).  The device lock is
+            held only while the generator advances, so a slow client stalls
+            no one else, and a dead one times out after 60 s.  Frames cross
+            from the device as yuv420: the JPEG re-encode subsamples chroma
+            anyway.  The end is the closing boundary and the connection's
+            close (no Content-Length)."""
+            qs = parse_qs(urlparse(self.path).query)
+            cap = int(qs["latency_cap"][0]) if qs.get("latency_cap") else None
+            gen = predictor.stream(wav_path, transfer="yuv420", smooth_latency_cap=cap)
+            try:
+                try:
+                    with device_lock:
+                        batch = next(gen, None)
+                except Exception as e:  # a boundary: nothing is sent yet
+                    self._send(500, f"error: {e}".encode(), "text/plain")
+                    return
+                self.connection.settimeout(60.0)
+                self.send_response(200)
+                self.send_header("Content-Type", "multipart/x-mixed-replace; boundary=frame")
+                self.end_headers()
+                while batch is not None:
+                    for frame in batch:
+                        ok, jpg = video_mod.cv2.imencode(
+                            ".jpg", np.ascontiguousarray(frame[..., ::-1]))  # RGB -> BGR
+                        if not ok:
+                            raise RuntimeError("JPEG encoding failed")
+                        part = jpg.tobytes()
+                        self.wfile.write(b"--frame\r\nContent-Type: image/jpeg\r\n"
+                                         + f"Content-Length: {len(part)}\r\n\r\n".encode()
+                                         + part + b"\r\n")
+                    with device_lock:
+                        batch = next(gen, None)
+                self.wfile.write(b"--frame--\r\n")
+            finally:
+                gen.close()  # releases the stream's threads if it ended early
+
+        def do_POST(self):
+            path = self.path.split("?")[0]
+            if path not in ("/animate", "/stream"):
+                self._send(404, b"not found", "text/plain")
+                return
+            if path == "/stream" and video_mod.cv2 is None:
+                self._send(500, b"/stream encodes JPEG parts with cv2 (opencv-python), "
+                                b"which is not importable here", "text/plain")
+                return
+            payload = self._read_wav()
+            if payload is None:
+                return
+            with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as f:
+                f.write(payload)
+                wav_path = f.name
+            try:
+                if path == "/stream":
+                    try:
+                        self._stream(wav_path)
+                    except Exception:  # a boundary: the headers are out; log it
+                        traceback.print_exc()
+                    return
                 try:
                     with device_lock:
                         result = predictor.predict(wav_path)
@@ -79,11 +143,11 @@ def make_handler(predictor: Predictor):
                         # the shared results directory
                         with open(result.video_path, "rb") as f:
                             body = f.read()
-                finally:
-                    os.unlink(wav_path)
-            except Exception as e:  # a boundary: report the failure to the client
-                self._send(400, f"error: {e}".encode(), "text/plain")
-                return
+                except Exception as e:  # a boundary: report the failure to the client
+                    self._send(400, f"error: {e}".encode(), "text/plain")
+                    return
+            finally:
+                os.unlink(wav_path)
             self.send_response(200)
             self.send_header("Content-Type", "video/x-msvideo")
             self.send_header("Content-Length", str(len(body)))
@@ -103,7 +167,7 @@ def serve_forever(person_id: str = "Synthetic", port: int = 8080, image_size: in
                     quantize=quantize, artifact=artifact or None)
     server = ThreadingHTTPServer(("0.0.0.0", port), make_handler(predictor))
     print(f"serving '{person_id}' on :{port} on {predictor.device} "
-          "(POST /animate, GET /healthz)")
+          "(POST /animate, POST /stream, GET /healthz)")
     try:
         server.serve_forever()  # until shutdown() or KeyboardInterrupt
     finally:

@@ -333,3 +333,118 @@ def test_small_slice_gpu_matches_cpu(cuda_device):
     assert out.frames.shape == ref.frames.shape == (45, 64, 64, 3)
     assert np.abs(out.landmarks - ref.landmarks).max() <= 1e-3
     assert np.abs(out.frames.astype(int) - ref.frames.astype(int)).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# The live path and the frame coders
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [1, 31, 32, 63, 64])
+@pytest.mark.parametrize("gates,H,I", [(3, 512, 80), (4, 256, 512)])
+def test_recurrence_wrappers_at_streaming_chunks(cuda_device, gates, H, I, T):
+    """K2 / K3 through the wrappers a stream calls, at its chunk lengths,
+    from a carried nonzero state: against the plain layer, and two chunks
+    carried one into the next against one run over both."""
+    rng = np.random.default_rng(T + gates)
+    bound = 1 / np.sqrt(H)
+    w = [torch.tensor(rng.uniform(-bound, bound, s), dtype=torch.float32, device=cuda_device)
+         for s in ((gates * H, I), (gates * H, H), (gates * H,), (gates * H,))]
+    x = torch.tensor(rng.standard_normal((1, 2 * T, I)), dtype=torch.float32,
+                     device=cuda_device)
+    h0 = torch.tensor(0.5 * rng.standard_normal(H), dtype=torch.float32, device=cuda_device)
+    c0 = torch.tensor(0.5 * rng.standard_normal(H), dtype=torch.float32, device=cuda_device)
+    before = recurrent_cuda.GRU_LAUNCHES + recurrent_cuda.LSTM_LAUNCHES
+    if gates == 3:
+        ref, ref_h = nn_core.gru_layer(x, *w, h0)
+        y1, h1 = recurrent_cuda.gru_layer(x[:, :T], *w, h0=h0)
+        y2, h2 = recurrent_cuda.gru_layer(x[:, T:], *w, h0=h1.reshape(H))
+        states = [(h2, ref_h)]
+    else:
+        ref, (ref_h, ref_c) = nn_core.lstm_layer(x, *w, (h0[None], c0[None]))
+        y1, (h1, c1) = recurrent_cuda.lstm_layer(x[:, :T], *w, state=(h0, c0))
+        y2, (h2, c2) = recurrent_cuda.lstm_layer(x[:, T:], *w, state=(h1, c1))
+        states = [(h2, ref_h), (c2, ref_c)]
+    torch.cuda.synchronize()
+    assert recurrent_cuda.GRU_LAUNCHES + recurrent_cuda.LSTM_LAUNCHES == before + 2
+    assert (torch.cat([y1, y2], 1) - ref).abs().max().item() <= 1e-5  # f32, order only
+    for got, want in states:
+        assert (got.reshape(H) - want.reshape(H)).abs().max().item() <= 1e-5
+
+
+def test_coders_on_the_card_match_their_cpu_run(cuda_device):
+    """The jpeg, jpeg4 and pack4e encoders on the card against the same
+    frames on the CPU (TF32 off): at least 99.99 % of the bytes equal
+    (a DCT coefficient at a rounding edge may round the other way) and the
+    decoded frames within one level."""
+    from livespeechportraits_torch.pipeline import compress
+
+    rng = np.random.default_rng(0)
+    img = np.tanh(rng.standard_normal((4, 128, 128, 3)).cumsum(axis=2) / 8).astype(np.float32)
+    x = torch.tensor(img)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for enc, dec in ((compress.encode_rgb_frames, compress.decode_to_rgb),
+                     (compress.encode_rgb_frames_p4, compress.decode_to_rgb_p4)):
+        cpu, gpu = enc(x).numpy(), enc(x.to(cuda_device)).cpu().numpy()
+        assert (cpu == gpu).mean() >= 0.9999
+        d = np.abs(dec(cpu, 128, 128).astype(int) - dec(gpu, 128, 128).astype(int))
+        assert d.max() <= 1
+    flat, total = compress.encode_rgb_frames_p4e(x)
+    gflat, gtotal = compress.encode_rgb_frames_p4e(x.to(cuda_device))
+    assert gflat.shape == flat.shape and gflat.dtype == torch.uint8
+    n, gn = int(total), int(gtotal)
+    same = (flat.numpy() == gflat.cpu().numpy()).mean()
+    assert same >= 0.9999 or n != gn  # one flipped coefficient shifts the bytes after it
+    a = compress.decode_to_rgb_p4e(flat.numpy()[:n], 4, 128, 128)
+    b = compress.decode_to_rgb_p4e(gflat.cpu().numpy()[:gn], 4, 128, 128)
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            compress.encode_rgb_frames_p4e(x.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_pack4e_prefix_fetch_on_the_card(cuda_device, monkeypatch):
+    """render_frames on the card with pack4e: the frames of jpeg4; with the
+    learned size forced to nothing, every batch after the first two is
+    fetched again whole, with the same frames."""
+    cfg = torch_config(small_person_config(image_size=64, precision="bfloat16"))
+    person, models = assets.make_synthetic_person(cfg, image_size=64, device=cuda_device)
+    lm, sh, _, _, n = animate.compute_motion(cfg, person, models, video.make_test_tone(1.0))
+    ref, _ = animate.render_frames(cfg, person, models, lm[:n], sh[:n], transfer="jpeg4")
+    monkeypatch.setattr(animate, "_P4E_NEED", {})
+    monkeypatch.setattr(animate, "P4E_MARGIN", 1e-9)
+    link = {}
+    frames, _ = animate.render_frames(cfg, person, models, lm[:n], sh[:n], transfer="pack4e",
+                                      link=link)
+    np.testing.assert_array_equal(frames, ref)
+    assert link["p4e_refetches"] == -(-n // 8) - 2
+
+
+def test_small_stream_on_the_card(cuda_device):
+    """The live path on the card at test widths: every kernel of the path
+    launches during the stream, and the frames match the card's offline
+    pipeline within the CPU test's bound."""
+    cfg = torch_config(small_person_config(image_size=64))
+    person, models = assets.make_synthetic_person(cfg, image_size=64, device=cuda_device)
+    from livespeechportraits_torch.pipeline import streaming
+
+    audio = video.make_test_tone(1.2)
+    offline = animate.animate(cfg, person, models, audio, seed=5, render_batch=4)
+    counts = (rasterize_cuda.LAUNCHES, recurrent_cuda.GRU_LAUNCHES,
+              recurrent_cuda.LSTM_LAUNCHES)
+    st = streaming.StreamingAnimator(cfg, person, models, seed=5, chunk=16, render_batch=4,
+                                     transfer="pack4e", pipeline_depth=1)
+    outs = [st.push_audio(audio[lo:lo + 1600]) for lo in range(0, len(audio), 1600)]
+    outs.append(st.flush())
+    frames = np.concatenate(outs)
+    after = (rasterize_cuda.LAUNCHES, recurrent_cuda.GRU_LAUNCHES,
+             recurrent_cuda.LSTM_LAUNCHES)
+    assert all(a > b for a, b in zip(after, counts))
+    ref = animate.animate(cfg, person, models, audio, seed=5, render_batch=4,
+                          transfer="jpeg4").frames
+    assert frames.shape == offline.frames.shape
+    d = np.abs(frames.astype(int) - ref.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01

@@ -24,7 +24,7 @@ from livespeechportraits_tpu.pipeline import compress as jcompress
 from livespeechportraits_torch import serve, server
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.ops import gmm
-from livespeechportraits_torch.pipeline import animate, assets, video
+from livespeechportraits_torch.pipeline import animate, assets, compress, video
 from livespeechportraits_torch.utils.convert import params_from_jax, params_to_jax
 from torch_parity import jax_headpose_noise, small_person_config, to_np, torch_config
 
@@ -106,8 +106,8 @@ def test_valid_frames_guard():
     person, models = assets.make_synthetic_person(cfg, image_size=32, device="cpu")
     with pytest.raises(ValueError, match="must exceed the head-pose lookahead"):
         animate.compute_motion(cfg, person, models, _chirp(1.0), valid_frames=15)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        animate.animate(cfg, person, models, _chirp(0.5), transfer="pack4e")
+    with pytest.raises(ValueError, match="unknown transfer 'bmp'"):
+        animate.animate(cfg, person, models, _chirp(0.5), transfer="bmp")
 
 
 def test_bucketed_int8_yuv420_animate_matches_jax(jax_person):
@@ -155,11 +155,11 @@ def test_yuv420_unpack_matches_jax():
     bitwise."""
     packed = np.random.default_rng(1).integers(0, 256, (2, 8 * 12 * 3 // 2), dtype=np.uint8)
     ref = janimate.yuv420_to_rgb(*janimate.yuv420_unpack(packed, 8, 12))
-    planes = animate.yuv420_unpack(packed, 8, 12)
+    planes = compress.yuv420_unpack(packed, 8, 12)
     for a, b in zip(planes, janimate.yuv420_unpack(packed, 8, 12)):
         np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(animate.yuv420_to_rgb(*planes), ref)
-    np.testing.assert_array_equal(animate.i420_to_rgb(torch.tensor(packed), 8, 12).numpy(), ref)
+    np.testing.assert_array_equal(compress.yuv420_to_rgb(*planes), ref)
+    np.testing.assert_array_equal(compress.i420_to_rgb(torch.tensor(packed), 8, 12).numpy(), ref)
     np.testing.assert_array_equal(jcompress.i420_to_rgb(packed, 8, 12), ref)
 
 
@@ -274,8 +274,8 @@ def test_predictor_refuses_what_is_not_ported(predictor, tmp_path):
         p.setup(f2f_ckpt="ckpt")
     with pytest.raises(ValueError, match="shadow"):
         p.setup(artifact=predictor.artifact, a2h_ckpt="ckpt")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p.stream(_chirp(0.5))
+    with pytest.raises(RuntimeError, match="setup"):
+        next(p.stream(_chirp(0.5)))
 
 
 @pytest.fixture(scope="module")
@@ -324,7 +324,7 @@ def test_server_animate_returns_a_video(server_port, tmp_path):
 
 
 @pytest.mark.parametrize("path,data,code", [("/animate", b"not audio", 400),
-                                            ("/nope", b"x", 404), ("/stream", b"x", 501)])
+                                            ("/nope", b"x", 404), ("/stream", b"x", 400)])
 def test_server_errors(server_port, path, data, code):
     req = urllib.request.Request(f"http://127.0.0.1:{server_port}{path}", data=data,
                                  method="POST")
