@@ -78,15 +78,38 @@ Phases, each printing one line; any failure raises and exits non-zero:
    of equal quantized coefficients; the decoded frames within one level).
 7. the motion half, one f32 render input (K1 against its twin, bitwise) and
    one f32 frame on the GPU against the CPU, TF32 off.
-8. the kernels' JSON line (each with its bound: the larger of the bytes it
+8. onboard: a subject with no released data, at full width.  8a: two raw
+   clips at 512^2 (synth_subject.write_raw_clip: clip1 600 frames with a
+   face, clip2 480 without), K1's f32-plane entry once a 32-frame batch (19
+   launches), one batch bitwise against the plain twin on the card, its
+   device time beside the bound, the first stored frame against the
+   stylised edge map.  8b: build_person_pack with the default APC at random
+   init (seed 0, bank_stride 1): 3 K2 launches a clip, the 2160-row bank
+   within RNN_TOL of a pack built with the plain recurrence on the card,
+   every other file equal.  8c: the pack served from its YAML and four
+   reference-format .pkl checkpoints (torch.save; the APC one with
+   "module." prefixes) by Predictor(device="cuda").setup(quantize=True),
+   3.0 s of tone: setup and first-request walls, stage_ms, fps, launches a
+   request; its frames against a Predictor of the same seed-0 state dicts
+   built in memory (the YAML without checkpoints), within the bucketing
+   share.  8d: the same subject with the 'small' U-Net, bf16 (int8
+   refused): its render input bitwise against the twin, the render's device
+   ms a 16-frame batch beside the 'normal' ResUNet's (bf16 and int8), and
+   cuDNN's channel-padding kernels in a traced forward.  8e: the same
+   subject with the Audio2Feature GMM head (3 components, int8 renderer):
+   the head's pre-decode output, K3 against the plain LSTM, within RNN_TOL.
+9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
-   time, and its launches in 6e's yuv420 stream as stream_launches), then
-   {"ok": true, "device": {...}} as the last line.
+   time, its launches in 6e's yuv420 stream as stream_launches and on the
+   onboard path as onboard_launches; K1's onboard_entry is the f32 plane at
+   32 x 512^2), then {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
+import copy
+import io
 import json
 import math
 import os
@@ -1173,6 +1196,299 @@ def check_coders(pq, dev) -> None:
                 raise AssertionError(f"coders {name}: native against numpy {twin}")
 
 
+class plain_recurrences:
+    """Within the block the models' GRU and LSTM layers run nn_core's plain
+    loop instead of K2 / K3 (on any device), for the onboard phase's
+    whole-path comparisons; the plain loop counts no launch."""
+
+    def __enter__(self):
+        from livespeechportraits_torch.models import nn_core
+        from livespeechportraits_torch.ops import recurrent_cuda
+
+        self.orig = recurrent_cuda.gru_layer, recurrent_cuda.lstm_layer
+        recurrent_cuda.gru_layer, recurrent_cuda.lstm_layer = (nn_core.gru_layer,
+                                                               nn_core.lstm_layer)
+        return self
+
+    def __exit__(self, *exc):
+        from livespeechportraits_torch.ops import recurrent_cuda
+
+        recurrent_cuda.gru_layer, recurrent_cuda.lstm_layer = self.orig
+
+
+def _pack_files(root: str) -> dict:
+    """{relative path: bytes} of a built pack's own files (the clips'
+    directories left out)."""
+    out = {}
+    for dirpath, dirs, files in os.walk(root):
+        rel = os.path.relpath(dirpath, root)
+        if rel != "." and rel != "candidates":
+            dirs[:] = []
+            continue
+        for f in files:
+            with open(os.path.join(dirpath, f), "rb") as fh:
+                out[os.path.normpath(os.path.join(rel, f))] = fh.read()
+    return out
+
+
+def _save_subject(models, root: str, cfg_dir: str, size: str, loss: str = "L2",
+                  ncenter: int = 1) -> None:
+    """<cfg_dir>/NewFace.yaml naming the pack at ``root`` and the four
+    models saved as reference-format .pkl files with torch.save (the APC
+    one with DataParallel "module." prefixes); models None leaves the
+    checkpoints out (load_person_models' seed-0 random init)."""
+    import yaml
+
+    from livespeechportraits_torch.pipeline import build_person
+
+    os.makedirs(cfg_dir, exist_ok=True)
+    path = os.path.join(cfg_dir, "NewFace.yaml")
+    build_person.write_person_yaml(path, root, size=size)
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    mp = doc["model_params"]
+    mp["Audio2Mouth"].update(loss=loss, gmm_ncenter=ncenter)
+    if models is not None:
+        for key, name in (("APC", "apc"), ("Audio2Mouth", "audio2feature"),
+                          ("Headpose", "audio2headpose"), ("Image2Image", "feature2face")):
+            sd = getattr(models, name).state_dict()
+            if name == "apc":
+                sd = {"module." + k: v for k, v in sd.items()}
+            mp[key]["ckp_path"] = os.path.join(cfg_dir, f"{name}.pkl")
+            torch.save(sd, mp[key]["ckp_path"])
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+
+
+def _serve_subject(dev, cfg_dir: str, what: str, quantize: bool, audio) -> tuple:
+    """Predictor(device).setup('NewFace') then one predict of ``audio``:
+    (the Predictor, the result, {"setup_s", "first_predict_s"}, the
+    launches of setup and of the request).  Checks the frames and each
+    kernel's launches a request."""
+    from livespeechportraits_torch import serve
+    from livespeechportraits_torch.ops import recurrent_cuda
+
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = serve.Predictor(device=dev, results_dir=os.path.join(cfg_dir, "out"))
+    p.setup("NewFace", config_dir=cfg_dir, quantize=quantize)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = launch_counts()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = p.predict(audio, write_video=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    plans = dict(recurrent_cuda.PLAN_LAUNCHES)
+    n = int(len(audio) / 16000 * 60) - 15
+    f = res.frames
+    log(f"onboard_{what}", setup_s=f"{setup_s:.3f}", first_predict_s=f"{first_s:.3f}",
+        nframe=res.nframe, fps=f"{res.nframe / res.wall_s:.2f}",
+        setup_launches=json.dumps(setup_launches), launches=json.dumps(launches),
+        rnn_plans=json.dumps(plans),
+        stage_ms=json.dumps({k: round(v, 3) for k, v in res.stage_ms.items()}))
+    if res.nframe != n or f.shape != (n, 512, 512, 3) or f.dtype != np.uint8 \
+            or f.min() == f.max():
+        raise AssertionError(f"onboard {what}: frames {f.shape} {f.dtype}, want {n}")
+    want = {"K1": math.ceil(n / 16), "K2": 3, "K3": 3}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"onboard {what}: launches {launches}, want {want}")
+    k4_ok = launches["K4"] >= 44 * want["K1"] if quantize else launches["K4"] == 0
+    if not k4_ok:
+        raise AssertionError(f"onboard {what}: {launches['K4']} K4 launches")
+    check_rnn_plans(launches, plans)
+    return p, res, {"setup_s": setup_s, "first_predict_s": first_s}, setup_launches, launches
+
+
+def check_onboard(dev, tmp: str) -> tuple:
+    """Phase 8: subject onboarding at full width on the card.  Returns (each
+    kernel's launches on the onboard path, K1's f32-plane row at the
+    onboarding batch).  Raises on any failed check."""
+    import shutil
+
+    from PIL import Image
+
+    from livespeechportraits_torch.config import PersonConfig, replace
+    from livespeechportraits_torch.models import apc as apc_model
+    from livespeechportraits_torch.models import audio2feature as a2f_model
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.ops import manifold, mel, rasterize, rasterize_cuda
+    from livespeechportraits_torch.pipeline import (animate, assets, build_person,
+                                                    synth_subject, video)
+    from livespeechportraits_torch.utils import h5vlen
+
+    total = {k: 0 for k in ("K1", "K2", "K3", "K4")}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    # 8a. the raw clips: clip1 600 frames with a face, clip2 480 without
+    root = os.path.join(tmp, "NewFace")
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt = synth_subject.write_raw_clip(root, "clip1", 600, seed=0, image_size=512, device=dev)
+    synth_subject.write_raw_clip(root, "clip2", 480, seed=1, image_size=512, with_face=False,
+                                 device=dev)
+    clips_s = time.perf_counter() - t0
+    counts = launch_counts()
+    add(counts)
+    if counts != {"K1": math.ceil(600 / 32), "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"onboard clips: launches {counts}, want K1 {math.ceil(600 / 32)}")
+    # K1's f32 plane at the clips' batch: the first batch's table, bitwise
+    # against the plain twin on the card, timed beside the bound
+    lm = torch.as_tensor(gt["landmarks2d"][:32], device=dev)
+    sh = torch.as_tensor(gt["shoulders"], device=dev)[None].expand(32, -1, -1)
+    table = rasterize.segment_table(lm, sh)
+    edges = rasterize_cuda.rasterize_segments(table, 512, 512)
+    plain = rasterize.rasterize_segments(table, 512, 512)
+    mismatched = int((edges != plain).sum().item())
+    plane = {"frames": 32, "size": 512, "segments": table.shape[1], "launches": counts["K1"],
+             "device_ms": graph_ms(lambda: rasterize_cuda.rasterize_segments(table, 512, 512)),
+             "ms": cuda_ms(lambda: rasterize_cuda.rasterize_segments(table, 512, 512), reps=20),
+             "plain_ms": cuda_ms(lambda: rasterize.rasterize_segments(table, 512, 512), reps=2,
+                                 warmup=1),
+             "max_abs_err": float((edges - plain).abs().max().item())}
+    plane["bound_ms"], plane["bound_by"] = bound(table.numel() * 4 + edges.numel() * 4, 0, "f32")
+    plane["share"] = plane["bound_ms"] / plane["device_ms"]
+    # the clip's first stored frame against the stylised plain edge map
+    first = np.asarray(Image.open(io.BytesIO(h5vlen.read(
+        os.path.join(root, "clip1", "clip1.h5"), "clip1", [0])[0])))
+    db = psnr(first, synth_subject.stylise_edges(plain[:1].cpu().numpy())[0])
+    log("onboard_clips", seconds=f"{clips_s:.3f}", frames="600 + 480", launches=json.dumps(counts),
+        k1_mismatched=mismatched, first_frame_psnr_db=f"{db:.2f}",
+        k1_f32_plane=json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
+                                 for k, v in plane.items()}))
+    if mismatched or not db >= 35.0:
+        raise AssertionError(f"onboard clips: {mismatched} edge pixels differ from the twin, "
+                             f"first frame {db:.2f} dB")
+
+    # 8b. the pack: the default APC at random init (seed 0) on the card
+    cfg = PersonConfig()
+    models0 = assets.init_models(cfg, 0)
+    apc_dev = copy.deepcopy(models0.apc).to(dev)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manifest = build_person.build_person_pack(root, ["clip1", "clip2"], apc=apc_dev,
+                                              image_size=512, bank_stride=1)
+    build_s = time.perf_counter() - t0
+    counts = launch_counts()
+    add(counts)
+    k2_ms = 0.0
+    for name in ("clip1", "clip2"):
+        mel80 = mel.compute_mel_sequence(
+            video.load_wav(os.path.join(root, name, name + ".wav")), device=dev)
+        k2_ms += cuda_ms(lambda: apc_model.encode_fast(apc_dev, mel80), reps=3, warmup=1)
+    # the same pack built with the plain recurrence on the card
+    plain_root = os.path.join(tmp, "plain", "NewFace")
+    for name in ("clip1", "clip2"):
+        shutil.copytree(os.path.join(root, name), os.path.join(plain_root, name))
+    with plain_recurrences():
+        build_person.build_person_pack(plain_root, ["clip1", "clip2"], apc=apc_dev,
+                                       image_size=512, bank_stride=1)
+    ours, theirs = _pack_files(root), _pack_files(plain_root)
+    bank = np.load(os.path.join(root, "APC_feature_base.npy"))
+    bank_err = float(np.abs(bank - np.load(os.path.join(plain_root,
+                                                         "APC_feature_base.npy"))).max())
+    ours["NewFace.yaml"] = ours["NewFace.yaml"].replace(root.encode(), plain_root.encode())
+    differ = sorted(k for k in ours if k != "APC_feature_base.npy"
+                    and ours[k] != theirs.get(k))
+    log("onboard_pack", seconds=f"{build_s:.3f}", k2_ms=f"{k2_ms:.4f}",
+        launches=json.dumps(counts), bank_rows=bank.shape[0], bank_max_abs_err=f"{bank_err:.3e}",
+        tol=RNN_TOL, files=len(ours), files_differing=json.dumps(differ),
+        manifest=json.dumps(manifest))
+    if counts != {"K1": 0, "K2": 6, "K3": 0, "K4": 0} or bank.shape != (2160, 512):
+        raise AssertionError(f"onboard pack: launches {counts}, bank {bank.shape}")
+    if not bank_err <= RNN_TOL or differ or sorted(ours) != sorted(theirs):
+        raise AssertionError(f"onboard pack: bank error {bank_err}, files differing {differ}")
+
+    # 8c. the built subject served from its YAML and .pkl checkpoints, int8;
+    # against the same seed-0 state dicts built in memory (no checkpoint:
+    # load_person_models' random init)
+    tone = video.make_test_tone(3.0)
+    _save_subject(models0, root, os.path.join(tmp, "cfg_pkl"), "normal")
+    _save_subject(None, root, os.path.join(tmp, "cfg_mem"), "normal")
+    pq, res, walls, setup_counts, counts = _serve_subject(dev, os.path.join(tmp, "cfg_pkl"),
+                                                          "serve", True, tone)
+    add(setup_counts)
+    add(counts)
+    pm, ref, *_ = _serve_subject(dev, os.path.join(tmp, "cfg_mem"), "serve_in_memory", True,
+                                 tone)
+    d = np.abs(res.frames.astype(int) - ref.frames.astype(int))
+    within = float((d <= 1).mean())
+    log("onboard_serve_vs_in_memory", frame_max_levels=int(d.max()),
+        frames_within_1=f"{within:.6f}", share_tol=BUCKET_FRAME_SHARE, **walls)
+    if not within >= BUCKET_FRAME_SHARE:
+        raise AssertionError("onboard: the checkpoint-loaded subject's frames differ from the "
+                             "in-memory models'")
+
+    # 8d. the 'small' U-Net (bf16; int8 refused)
+    cfg_small = replace(cfg, feature2face=replace(cfg.feature2face, size="small"))
+    _save_subject(assets.init_models(cfg_small, 0), root, os.path.join(tmp, "cfg_small"),
+                  "small")
+    ps, res, walls, setup_counts, counts = _serve_subject(dev, os.path.join(tmp, "cfg_small"),
+                                                          "small", False, tone)
+    add(setup_counts)
+    add(counts)
+    try:
+        _serve_subject(dev, os.path.join(tmp, "cfg_small"), "small_int8", True, tone)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("onboard: a 'small' subject was served int8")
+    # one render batch's input (K1 render_input) against the plain twin
+    lm, sh, *_ = animate.compute_motion(ps._cfg, ps._assets, ps._models, tone)
+    sh = animate._shift_shoulders(ps._assets, sh)
+    cand = animate._cand_stack(ps._assets, 512, dev, torch.bfloat16)
+    inp = rasterize_cuda.render_input(lm[:16], sh[:16], cand, (512, 512))
+    inp_equal = torch.equal(inp, rasterize.render_input(lm[:16], sh[:16], cand, (512, 512)))
+    # the render's device time a 16-frame batch: 'small' bf16, 'normal' bf16
+    # and the 'normal' int8 of 8c, on the same input
+    normal16 = f2f.cast_generator(models0.feature2face.to(dev), torch.bfloat16)
+    nets = {"small_bf16": ps._models.feature2face, "normal_bf16": normal16,
+            "normal_int8": pq._models.feature2face}
+    with torch.no_grad():
+        batch_ms = {k: cuda_ms(lambda: f2f.apply_generator(net, inp), reps=5)
+                    for k, net in nets.items()}
+        pads = {}
+        for k in ("small_bf16", "normal_bf16"):
+            events, _, _ = trace(lambda: f2f.apply_generator(nets[k], inp))
+            pads[k] = sum("AddPadding" in e.name for e in events) if events else None
+    log("onboard_small", render_input_bitwise=inp_equal, int8_refused=repr(refused[:60]),
+        render_batch_device_ms=json.dumps({k: round(v, 4) for k, v in batch_ms.items()}),
+        cudnn_padding_kernels=json.dumps(pads), **walls)
+    if not inp_equal:
+        raise AssertionError("onboard small: the render input differs from the plain twin")
+
+    # 8e. the Audio2Feature GMM head (3 components), int8 renderer
+    cfg_gmm = replace(cfg, audio2feature=replace(cfg.audio2feature, loss="GMM", gmm_ncenter=3))
+    _save_subject(assets.init_models(cfg_gmm, 0), root, os.path.join(tmp, "cfg_gmm"), "normal",
+                  "GMM", 3)
+    pg, res, walls, setup_counts, counts = _serve_subject(dev, os.path.join(tmp, "cfg_gmm"),
+                                                          "gmm", True, tone)
+    add(setup_counts)
+    add(counts)
+    # the head's pre-decode output, K3 against the plain LSTM on the card
+    with torch.no_grad():
+        feats = apc_model.encode_fast(pg._models.apc, mel.compute_mel_sequence(tone, device=dev))
+        feats = manifold.lle_project(feats, pg._assets.tensor("apc_feature_base", dev))
+        block = a2f_model.apply_audio2feature(pg._models.audio2feature, feats[None])
+        with plain_recurrences():
+            block_plain = a2f_model.apply_audio2feature(pg._models.audio2feature, feats[None])
+    head_err = float((block - block_plain).abs().max().item())
+    log("onboard_gmm", head_width=block.shape[-1], head_max_abs_err=f"{head_err:.3e}",
+        tol=RNN_TOL, **walls)
+    if block.shape[-1] != 151 * 3 or not head_err <= RNN_TOL:
+        raise AssertionError(f"onboard gmm: head {tuple(block.shape)} error {head_err}")
+    log("onboard_launches", **{k: v for k, v in total.items()})
+    return total, plane
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1370,7 +1686,14 @@ def main() -> int:
         raise AssertionError(f"frame differs by {frame_err} > {FRAME_TOL} or the render "
                              "inputs differ")
 
-    # 8. results
+    # 8. onboarding: clips -> pack -> a served subject and its variants
+    with tempfile.TemporaryDirectory() as tmp:
+        onboard, plane = check_onboard(dev, tmp)
+    for entry, k in zip(kernels, ("K1", "K2", "K3", "K4")):
+        entry["onboard_launches"] = onboard[k]
+    kernels[0]["onboard_entry"] = plane
+
+    # 9. results
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

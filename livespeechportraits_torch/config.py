@@ -172,7 +172,9 @@ class PersonConfig:
 
 
 def person_config_from_dict(cfg: dict, name: str = "") -> PersonConfig:
-    """A PersonConfig from a reference-format YAML dict."""
+    """A PersonConfig from a reference-format YAML dict.  Beyond the
+    reference's keys, Audio2Mouth may name ``loss: GMM`` and
+    ``gmm_ncenter``: the head of its checkpoint."""
     mp = cfg.get("model_params", {})
     dp = cfg.get("dataset_params", {})
 
@@ -193,6 +195,10 @@ def person_config_from_dict(cfg: dict, name: str = "") -> PersonConfig:
     a2f = Audio2FeatureConfig(
         apc_hidden_size=apc.hidden_size,
         ckpt_path=str(a2m.get("ckp_path", "")),
+        # the head a subject's checkpoint was trained with; the reference's
+        # YAMLs (and the JAX package) know only the L2 head
+        loss=str(a2m.get("loss", "L2")),
+        gmm_ncenter=int(a2m.get("gmm_ncenter", 1)),
         smooth_sigma=float(a2m.get("smooth", 1.5)),
         amp_method=str(amp[0]),
         amp_params=tuple(float(x) for x in amp[1:]),

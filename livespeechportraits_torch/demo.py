@@ -7,16 +7,18 @@ Runs audio -> frames at 60 FPS on one device (``--device``, default
 pushed 100 ms at a time, frames as they are determined), with any
 ``--transfer``; prints the per-stage ms and the frame rate, and writes
 ``<results_dir>/<id>/<audio name>/<audio name>.avi`` when cv2 is importable,
-otherwise ``frames.npy`` plus the ``.wav`` there.  Only the synthetic person
-is ported: it fabricates an asset pack and random-init models, so no data
-or checkpoint is needed.  A missing audio file falls back to a 3 s test tone.
+otherwise ``frames.npy`` plus the ``.wav`` there.  ``--id Synthetic`` (or an
+id whose ``<config_dir>/<id>.yaml`` names no data root) fabricates an asset
+pack and random-init models, so no data or checkpoint is needed; any other
+id reads the subject its YAML points at (a pack made by
+``python -m livespeechportraits_torch.tools.build_person``) with its
+checkpoints.  A missing audio file falls back to a 3 s test tone.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import time
 from os.path import join
@@ -26,8 +28,11 @@ import numpy as np
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--id", default="Synthetic", choices=["Synthetic"],
-                        help="person id (only the synthetic person is ported)")
+    parser.add_argument("--id", default="Synthetic",
+                        help="person id: <config_dir>/<id>.yaml names its data and "
+                             "checkpoints; 'Synthetic' needs neither")
+    parser.add_argument("--config_dir", default="./config",
+                        help="directory of the per-person YAML files")
     parser.add_argument("--driving_audio", default="./data/input/00083.wav")
     parser.add_argument("--results_dir", default="./results")
     parser.add_argument("--seed", type=int, default=0)
@@ -52,7 +57,7 @@ def main(argv=None) -> None:
 
     import torch
 
-    from livespeechportraits_torch.config import PersonConfig, replace
+    from livespeechportraits_torch.config import PersonConfig, load_person_config
     from livespeechportraits_torch.pipeline import animate as animate_mod
     from livespeechportraits_torch.pipeline import assets as assets_mod
     from livespeechportraits_torch.pipeline import video as video_mod
@@ -60,13 +65,13 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda was asked for but torch sees no CUDA device")
-    cfg = PersonConfig(name=args.id)
-    if args.image_size:
-        if args.image_size & (args.image_size - 1):
-            raise SystemExit(f"--image_size {args.image_size} must be a power of two")
-        n_down = min(8, int(math.log2(args.image_size)))
-        cfg = replace(cfg, feature2face=replace(
-            cfg.feature2face, load_size=args.image_size, n_downsample=n_down))
+    if args.image_size & (args.image_size - 1):
+        raise SystemExit(f"--image_size {args.image_size} must be a power of two")
+    cfg_path = join(args.config_dir, args.id + ".yaml")
+    cfg = (load_person_config(cfg_path, name=args.id) if os.path.exists(cfg_path)
+           else PersonConfig(name=args.id))
+    cfg, person_assets, person_models = assets_mod.load_subject(
+        cfg, args.image_size or None, device=device)
 
     if os.path.exists(args.driving_audio):
         audio = video_mod.load_wav(args.driving_audio)
@@ -80,8 +85,6 @@ def main(argv=None) -> None:
         raise SystemExit(f"driving audio too short: {len(audio) / 16000:.2f}s; needs > "
                          f"{min_seconds:.2f}s")
 
-    person_assets, person_models = assets_mod.make_synthetic_person(
-        cfg, image_size=cfg.feature2face.load_size, device=device)
     print(f"Animating {len(audio) / 16000:.2f}s of audio for '{args.id}' on {device} ...")
     t0 = time.perf_counter()
     if args.streaming:

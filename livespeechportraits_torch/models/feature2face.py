@@ -1,15 +1,18 @@
-"""Feature2Face generator: the ResUNet renderer ('normal' and 'large').
+"""Feature2Face generator: the ResUNet renderer ('normal' and 'large') and
+the pix2pix U-Net ('small').
 
 Counterpart of the generator path of ``livespeechportraits_tpu/models/
-feature2face.py`` (``_resblock``, ``_resunet_stage``, ``apply_generator``) and
-its int8 inference transforms (``quantize_generator``, ``fold_bn_generator``,
-``calibrate_generator``).
+feature2face.py`` (``_resblock``, ``_resunet_stage``, ``_unet_stage``,
+``apply_generator``) and its int8 inference transforms
+(``quantize_generator``, ``fold_bn_generator``, ``calibrate_generator``,
+which refuse 'small' as JAX does).
 The modules mirror the reference's nested ``nn.Sequential`` so that its
 state-dict keys (``netG.model.model.0.weight`` ...) load unchanged; the
 forward walks each Sequential with the nn_core functions.  The public
 ``apply_generator`` keeps JAX's NHWC layout; inside, activations are NCHW in
 ``channels_last`` memory.  ``n_res`` residual blocks per stage: 1 is
-'normal', 2 is 'large'.
+'normal', 2 is 'large'.  The 'small' U-Net (k=4 stride-2 convs down,
+ConvTranspose up, BatchNorm, tanh) keeps the reference's own nesting.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from livespeechportraits_torch.config import Feature2FaceConfig
@@ -102,15 +106,93 @@ class ResUnetGenerator(nn.Module):
         self.model = ResUnetBlock(output_nc, ngf, input_nc, n_res, block, outermost=True)
 
 
+class UnetBlock(nn.Module):
+    """One stage of the 'small' pix2pix U-Net, in the reference's Sequential
+    layout (so its state-dict keys load unchanged):
+
+        outermost: [down, sub, ReLU, upT, Tanh]
+        innermost: [LeakyReLU, down, ReLU, upT, BN]
+        middle:    [LeakyReLU, down, BN, sub, ReLU, upT, BN]
+
+    down is a k=4 stride-2 conv without bias, upT a k=4 stride-2
+    ConvTranspose (with a bias only in the outermost stage).  A
+    non-outermost stage returns cat([input, output]) over channels, the
+    input taken before its LeakyReLU, as in JAX."""
+
+    def __init__(self, outer_nc: int, inner_nc: int, input_nc: Optional[int],
+                 submodule: Optional["UnetBlock"] = None, outermost: bool = False):
+        super().__init__()
+        innermost = submodule is None
+        self.outermost = outermost
+        input_nc = outer_nc if input_nc is None else input_nc
+        down = nn.Conv2d(input_nc, inner_nc, 4, stride=2, padding=1, bias=False)
+        up = nn.ConvTranspose2d(inner_nc if innermost else 2 * inner_nc, outer_nc, 4,
+                                stride=2, padding=1, bias=outermost)
+        if outermost:
+            layers = [down, submodule, nn.ReLU(), up, nn.Tanh()]
+        elif innermost:
+            layers = [nn.LeakyReLU(0.2), down, nn.ReLU(), up, nn.BatchNorm2d(outer_nc)]
+        else:
+            layers = [nn.LeakyReLU(0.2), down, nn.BatchNorm2d(inner_nc), submodule, nn.ReLU(),
+                      up, nn.BatchNorm2d(outer_nc)]
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = x
+        for m in self.model:
+            if isinstance(m, nn.Conv2d):
+                y = F.conv2d(y, _narrow_input(m.weight, y.shape[1]), stride=2, padding=1)
+            elif isinstance(m, nn.ConvTranspose2d):
+                y = F.conv_transpose2d(y, m.weight, m.bias, stride=2, padding=1)
+            elif isinstance(m, nn.BatchNorm2d):
+                y = nn_core.batchnorm(y, m)
+            elif isinstance(m, nn.LeakyReLU):
+                y = nn_core.leaky_relu(y, 0.2)
+            elif isinstance(m, nn.ReLU):
+                y = torch.relu(y)
+            elif isinstance(m, UnetBlock):
+                y = m(y)
+            # Tanh: apply_generator applies it in f32
+        return y if self.outermost else torch.cat([x, y], dim=1)
+
+
+def _narrow_input(w: Tensor, channels: int) -> Tensor:
+    """The first ``channels`` input planes of a conv weight.  The 'small'
+    U-Net was built for 23 input channels (the reference's ``input_nc``)
+    while the renderer's input stage (kernel K1's render_input) draws 13:
+    the edge map and the four candidates fill the first 13, and the other 10
+    count as zero, which is the weight narrowed to its first 13 planes.
+    cuDNN then runs a 13-channel bf16 NHWC conv and pads the channels itself,
+    as for the ResUNet's first layer: a traced 16-frame forward at 512^2
+    shows its padding kernels in both (chip_smoke.py, onboard_small)."""
+    return w if w.shape[1] == channels else w[:, :channels]
+
+
+class UnetGenerator(nn.Module):
+    def __init__(self, input_nc: int, output_nc: int, num_downs: int, ngf: int):
+        super().__init__()
+        if num_downs < 5:
+            raise ValueError(f"the U-Net needs num_downs >= 5, got {num_downs}")
+        block = UnetBlock(ngf * 8, ngf * 8, None)
+        for _ in range(num_downs - 5):
+            block = UnetBlock(ngf * 8, ngf * 8, None, block)
+        block = UnetBlock(ngf * 4, ngf * 8, None, block)
+        block = UnetBlock(ngf * 2, ngf * 4, None, block)
+        block = UnetBlock(ngf, ngf * 2, None, block)
+        self.model = UnetBlock(output_nc, ngf, input_nc, block, outermost=True)
+
+
 class Feature2FaceG(nn.Module):
     def __init__(self, cfg: Feature2FaceConfig):
         super().__init__()
-        if cfg.size not in N_RES:
-            raise NotImplementedError(f"generator size {cfg.size!r}: only the ResUNet "
-                                      "('normal', 'large') is ported")
         self.size = cfg.size
-        self.netG = ResUnetGenerator(cfg.input_nc, cfg.output_nc, cfg.n_downsample, cfg.ngf,
-                                     N_RES[cfg.size])
+        if cfg.size == "small":
+            self.netG = UnetGenerator(cfg.input_nc, cfg.output_nc, cfg.n_downsample, cfg.ngf)
+        elif cfg.size in N_RES:
+            self.netG = ResUnetGenerator(cfg.input_nc, cfg.output_nc, cfg.n_downsample,
+                                         cfg.ngf, N_RES[cfg.size])
+        else:
+            raise ValueError(f"unknown generator size {cfg.size!r}")
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """normal(0, 0.02) convs and N(1, 0.02) BatchNorm scales, the JAX
@@ -134,7 +216,8 @@ def apply_generator(model: Feature2FaceG, x: Tensor) -> Tensor:
     """x [B, H, W, input_nc] (NHWC) -> [B, H, W, 3] in [-1, 1], f32.
 
     Computes in the model's dtype (see cast_generator); the tanh runs in
-    f32."""
+    f32.  The 'small' U-Net also takes the renderer's 13 channels (see
+    _narrow_input)."""
     dtype = next(model.parameters()).dtype
     x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
     y = model.netG.model(x)
@@ -176,10 +259,21 @@ def int8_conv_shapes(cfg: Feature2FaceConfig) -> list:
     return stage(0, cfg.load_size)
 
 
+# JAX's refusals of the 'small' U-Net (feature2face.py:349-353, 511-514, 632-635)
+_SMALL_REFUSED = {
+    "quantize": "int8 quantization targets the ResUNet variants ('normal'/'large'); the "
+                "legacy pix2pix 'small' U-Net upsamples with ConvTranspose layers that keep "
+                "the float path",
+    "calibrate": "int8 calibration targets the ResUNet variants; quantize the generator "
+                 "first (quantize_generator)",
+    "fold_bn": "BN folding targets the ResUNet variants; the 'small' U-Net applies BN "
+               "after ConvTranspose upsampling, left unfolded",
+}
+
+
 def _resunet_only(model: Feature2FaceG, what: str) -> None:
     if model.size not in N_RES:
-        raise NotImplementedError(f"{what} targets the ResUNet variants ('normal'/'large'), "
-                                  f"not {model.size!r}")
+        raise NotImplementedError(_SMALL_REFUSED[what])
 
 
 def _stages(model: Feature2FaceG) -> Iterator[ResUnetBlock]:
@@ -194,7 +288,7 @@ def quantize_generator(model: Feature2FaceG) -> Feature2FaceG:
     """Every conv but the outermost stage's down (13 -> ngf) and up (-> 3)
     convs becomes an int8 QConv2d with per-output-channel weight scales;
     the outermost stage's residual blocks are quantized too."""
-    _resunet_only(model, "int8 quantization")
+    _resunet_only(model, "quantize")
     q = copy.deepcopy(model)
     for stage in _stages(q):
         seq = stage.model
@@ -230,7 +324,7 @@ def _fold_pair(conv, bn: nn.BatchNorm2d, eps: float) -> None:
 def fold_bn_generator(model: Feature2FaceG, eps: float = 1e-5) -> Feature2FaceG:
     """Eval-only: fold every conv -> BN pair into the conv, on a float or an
     int8 model (for an int8 conv the fold lands on w_scale)."""
-    _resunet_only(model, "BN folding")
+    _resunet_only(model, "fold_bn")
     q = copy.deepcopy(model)
     for m in q.modules():
         if isinstance(m, ResnetBlock):
@@ -282,7 +376,7 @@ def calibrate_generator(model: Feature2FaceG, inputs,
     ``inputs`` (one [B, H, W, input_nc] batch or a list), record each
     quantized conv's input amax in call order, and store x_scale =
     max-over-batches(amax) / 127 (f32) on each of them (JAX's margin 1)."""
-    _resunet_only(model, "int8 calibration")
+    _resunet_only(model, "calibrate")
     batches = inputs if isinstance(inputs, (list, tuple)) else [inputs]
     net = model if compute_dtype is None else cast_generator(model, compute_dtype)
     amax = None

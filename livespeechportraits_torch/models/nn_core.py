@@ -260,10 +260,11 @@ class RNNWeights(nn.Module):
 
 @torch.no_grad()
 def init_normal_(module: nn.Module, gen: torch.Generator, gain: float = 0.02) -> None:
-    """normal(0, gain) weights and zero biases for every Linear / Conv in
-    ``module`` (nn_core.dense_init / conv*_init), in registration order."""
+    """normal(0, gain) weights and zero biases for every Linear / Conv /
+    ConvTranspose in ``module`` (nn_core.dense_init / conv*_init), in
+    registration order."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * gain)
             if m.bias is not None:
                 m.bias.zero_()

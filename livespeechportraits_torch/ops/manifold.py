@@ -1,8 +1,10 @@
 """Manifold projection: KNN + locally-linear-embedding reconstruction.
 
 Counterpart of ``livespeechportraits_tpu/ops/manifold.py`` (``knn_indices``,
-``solve_lle_weights``, ``lle_project``).  KNN is one distance matmul and
-``topk``; the LLE weights are one batched solve of [T, K-1, K-1] systems.
+``knn_chunked``, ``solve_lle_weights``, ``lle_project``).  KNN is one
+distance matmul and ``topk`` (``knn_chunked`` streams a bank too large for
+one [T, N] matrix); the LLE weights are one batched solve of [T, K-1, K-1]
+systems.
 """
 
 from __future__ import annotations
@@ -22,6 +24,29 @@ def knn_indices(feats: Tensor, feat_database: Tensor, K: int = 10) -> Tensor:
     b_norm = (feat_database * feat_database).sum(-1)
     dist = q_norm + b_norm[None, :] - 2.0 * (feats @ feat_database.t())
     return torch.topk(-dist, K, dim=-1).indices
+
+
+def knn_chunked(feats: Tensor, feat_database: Tensor, K: int = 10,
+                chunk: int = 16384) -> Tensor:
+    """knn_indices over a bank read ``chunk`` rows at a time with a running
+    top-k, so the distances held at once are [T, chunk + K], not [T, N].
+    The running best starts as K sentinels at +inf distance (index 0), which
+    the first K real rows displace; K = min(K, N) as in knn_indices, whose
+    indices it returns."""
+    T, N = feats.shape[0], feat_database.shape[0]
+    K = min(K, N)
+    q_norm = (feats * feats).sum(-1, keepdim=True)
+    best_neg = feats.new_full((T, K), -float("inf"))
+    best_idx = torch.zeros(T, K, dtype=torch.int64, device=feats.device)
+    for base in range(0, N, chunk):
+        rows = feat_database[base:base + chunk]
+        dist = q_norm + (rows * rows).sum(-1)[None, :] - 2.0 * (feats @ rows.t())
+        idx = torch.arange(base, base + rows.shape[0], device=feats.device)
+        cand_neg = torch.cat([best_neg, -dist], dim=1)
+        cand_idx = torch.cat([best_idx, idx[None].expand(T, -1)], dim=1)
+        best_neg, pos = torch.topk(cand_neg, K, dim=-1)
+        best_idx = torch.gather(cand_idx, 1, pos)
+    return best_idx
 
 
 def solve_lle_weights(feats: Tensor, neighbors: Tensor) -> Tuple[Tensor, Tensor]:

@@ -230,7 +230,8 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
 
     t0 = time.perf_counter()
     pred_feat = a2f_model.generate_sequence(models.audio2feature, feats,
-                                            frame_future=cfg.audio2feature.frame_future)
+                                            frame_future=cfg.audio2feature.frame_future,
+                                            seed=seed)
     if profile:
         _sync(dev)
     sm["audio2mouth"] = (time.perf_counter() - t0) * 1e3

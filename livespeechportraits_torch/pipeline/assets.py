@@ -1,8 +1,11 @@
 """Per-person asset packs and the four models, on PyTorch.
 
 Counterpart of ``livespeechportraits_tpu/pipeline/assets.py``
-(``PersonAssets``, ``PersonModels``, ``make_synthetic_person``,
-``quantize_person_models`` and the serving artifact).  The asset
+(``PersonAssets``, ``PersonModels``, ``load_person``, ``load_person_models``,
+``make_synthetic_person``, ``quantize_person_models`` and the serving
+artifact).  ``load_subject`` is the choice between a reference-format
+subject directory and the synthetic subject that the JAX package's
+``serve.py`` and ``demo.py`` each make.  The asset
 arrays stay numpy; ``PersonAssets.tensor`` uploads one to a device once and
 caches it.  ``make_synthetic_person`` builds the same numpy asset pack as the
 JAX package, bit for bit (same ``default_rng`` draws in the same order); its
@@ -13,6 +16,8 @@ so they are not the JAX package's weights - ``from_jax`` loads those.
 from __future__ import annotations
 
 import json
+import math
+import os
 import types
 import zlib
 from dataclasses import dataclass, replace
@@ -22,12 +27,14 @@ import numpy as np
 import torch
 
 from livespeechportraits_torch.config import EYE_BROW_INDICES, PersonConfig
+from livespeechportraits_torch.config import replace as replace_cfg
 from livespeechportraits_torch.models.apc import APCEncoder
 from livespeechportraits_torch.models.audio2feature import Audio2Feature
 from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models.feature2face import Feature2FaceG
-from livespeechportraits_torch.utils.convert import params_from_jax, params_to_jax
+from livespeechportraits_torch.utils.convert import (load_state_dict, params_from_jax,
+                                                     params_to_jax)
 
 MODEL_FIELDS = ("apc", "audio2feature", "audio2headpose", "feature2face")
 
@@ -113,6 +120,112 @@ def from_jax(cfg: PersonConfig, models_np: Any, device: torch.device | str = "cu
             f2f.conform_to_state_dict(models.feature2face, sd)
         getattr(models, name).load_state_dict(sd, strict=True)
     return models.to(device)
+
+
+def load_person(cfg: PersonConfig, data_root: Optional[str] = None,
+                image_size: Optional[int] = None) -> PersonAssets:
+    """Read a reference-format subject directory (the reference's
+    demo.py:80-108; JAX assets.load_person): mean and tracked 3D landmarks,
+    the fit track's translations, the four candidate images, the shoulders,
+    the camera, the APC feature bank and id_scale.mat's scale (1.0 when the
+    file is absent).
+
+    image_size: the render size.  The candidates of a pack are normalised to
+    512 px (change_paras); a pack built from clips of image_size px has them
+    512 / image_size times larger, and every such k-th pixel is kept.  None
+    keeps them as they are, as JAX does."""
+    from PIL import Image
+
+    root = data_root or cfg.data_root
+    mean_pts3d = np.load(os.path.join(root, "mean_pts3d.npy"))
+    fit_data = np.load(cfg.fit_data_path or os.path.join(root, "3d_fit_data.npz"))
+    tracked = np.load(cfg.pts3d_path
+                      or os.path.join(root, "tracked3D_normalized_pts_fix_contour.npy"))
+    pts3d = tracked - mean_pts3d
+    trans = fit_data["trans"][:, :, 0].astype(np.float32)
+
+    cands = []
+    for j in range(4):
+        with Image.open(os.path.join(root, "candidates", f"normalized_full_{j}.jpg")) as im:
+            img = np.asarray(im).astype(np.float32)
+        cands.append((img / 255.0 - 0.5) / 0.5)
+    candidate_images = np.stack(cands)
+    if image_size is not None and candidate_images.shape[1] != image_size:
+        k = candidate_images.shape[1] // image_size
+        if k * image_size != candidate_images.shape[1] or candidate_images.shape[2] % image_size:
+            raise ValueError(f"candidates of {candidate_images.shape[1:3]} px do not reduce "
+                             f"to {image_size} px by a whole stride")
+        candidate_images = np.ascontiguousarray(candidate_images[:, ::k, ::k])
+
+    try:
+        import scipy.io as sio
+
+        scale = float(sio.loadmat(os.path.join(root, "id_scale.mat"))["scale"][0, 0])
+    except FileNotFoundError:
+        scale = 1.0
+
+    return PersonAssets(
+        mean_pts3d=mean_pts3d.astype(np.float32),
+        std_mean_pts3d=tracked.mean(axis=0).astype(np.float32),
+        mean_translation=trans.mean(axis=0),
+        candidate_eye_brow=pts3d[10:, list(EYE_BROW_INDICES)].astype(np.float32),
+        candidate_images=candidate_images,
+        shoulders=np.load(os.path.join(root, "normalized_shoulder_points.npy")
+                          ).astype(np.float32),
+        shoulder3D=np.load(os.path.join(root, "shoulder_points3D.npy"))[1].astype(np.float32),
+        ref_trans=trans[1],
+        camera_intrinsic=np.load(os.path.join(root, "camera_intrinsic.npy")
+                                 ).astype(np.float32),
+        apc_feature_base=np.load(os.path.join(root, "APC_feature_base.npy")
+                                 ).astype(np.float32),
+        scale=scale,
+    )
+
+
+def load_person_models(cfg: PersonConfig, device: torch.device | str = "cuda"
+                       ) -> PersonModels:
+    """The subject's four models from its reference .pkl checkpoints (the
+    reference's demo.py:144-171), each loaded with strict=True.  A stage
+    whose ``ckpt_path`` is empty keeps its random init (seed 0), with a
+    printed note, as a pack built by pipeline/build_person.py has no
+    checkpoints; a path that fails to load raises."""
+    models = init_models(cfg, 0)
+    paths = {"apc": (cfg.apc.ckpt_path, "APC"),
+             "audio2feature": (cfg.audio2feature.ckpt_path, "Audio2Feature"),
+             "audio2headpose": (cfg.audio2headpose.ckpt_path, "Audio2Headpose"),
+             "feature2face": (cfg.feature2face.ckpt_path, "Feature2Face")}
+    missing = [what for path, what in paths.values() if not path]
+    if missing:
+        print(f"no torch checkpoint configured for {', '.join(missing)}; "
+              "random-init (override with --apc_ckpt/--a2f_ckpt/--a2h_ckpt/"
+              "--f2f_ckpt trainer checkpoints)")
+    for name, (path, _) in paths.items():
+        if path:
+            getattr(models, name).load_state_dict(load_state_dict(path), strict=True)
+    return models.to(device)
+
+
+def load_subject(cfg: PersonConfig, image_size: Optional[int] = 512, skip_models: bool = False,
+                 device: torch.device | str = "cuda"
+                 ) -> Tuple[PersonConfig, PersonAssets, Optional[PersonModels]]:
+    """(cfg, assets, models) of the subject ``cfg`` describes, chosen as the
+    JAX package's serve.py:96-117 and demo.py:123-138 choose: 'Synthetic',
+    or a config without a data_root, is the synthetic subject; any other is
+    read from its data_root (load_person) with the models of its
+    checkpoints (load_person_models).  image_size sets the render size (and
+    the U-Net's depth, down to 1 px) of either; None keeps the config's.
+    skip_models returns no models (the caller loads a serving artifact)."""
+    if image_size:
+        n_down = min(8, int(math.log2(image_size)))
+        cfg = replace_cfg(cfg, feature2face=replace_cfg(cfg.feature2face, load_size=image_size,
+                                                        n_downsample=n_down))
+    size = cfg.feature2face.load_size
+    if cfg.name == "Synthetic" or not cfg.data_root:
+        person, models = make_synthetic_person(cfg, image_size=size, skip_models=skip_models,
+                                               device=device)
+        return cfg, person, models
+    person = load_person(cfg, image_size=size)
+    return cfg, person, None if skip_models else load_person_models(cfg, device)
 
 
 def quantize_person_models(models: PersonModels, fold_bn: bool = True,

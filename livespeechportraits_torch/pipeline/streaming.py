@@ -332,6 +332,8 @@ class StreamingAnimator:
                 pairs = torch.cat([pairs, last.expand(tile_rows, -1)])
             out, self._lstm = a2f_model.apply_chunk(self.models.audio2feature,
                                                     pairs.reshape(n, -1), self._lstm)
+            # a GMM head decodes row j with the draws of offline row j
+            out = a2f_model.decode(self.cfg.audio2feature, out, seed=self.seed, start=done)
             self._a2f_raw.append(out.cpu())
             done += n
             self._retire_feats()

@@ -1,8 +1,10 @@
 """Serving wrapper of the PyTorch port: a Predictor that loads a subject
 once and answers many requests.
 
-Counterpart of ``livespeechportraits_tpu/serve.py``: ``setup()`` builds the
-synthetic subject (or boots the four models from a serving artifact),
+Counterpart of ``livespeechportraits_tpu/serve.py``: ``setup()`` loads a
+reference-format subject (``<config_dir>/<id>.yaml`` naming its data_root and
+checkpoints) or builds the synthetic one, or boots the four models from a
+serving artifact,
 optionally int8-quantizes the renderer with calibrated static activation
 scales, and casts the renderer to its compute dtype once; ``predict()`` caps
 the audio, pads it to a length bucket, runs ``animate()`` with any transfer
@@ -19,7 +21,6 @@ algorithm for another row count, so they agree within rounding.
 
 from __future__ import annotations
 
-import math
 import os
 import shutil
 import tempfile
@@ -30,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from livespeechportraits_torch.config import PersonConfig, load_person_config, replace
+from livespeechportraits_torch.config import PersonConfig, load_person_config
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.pipeline import animate as animate_mod
 from livespeechportraits_torch.pipeline import assets as assets_mod
@@ -71,7 +72,10 @@ class Predictor:
               image_size: int = 512, quantize: bool = False, calibrate: bool = True,
               artifact: Optional[str] = None, f2f_ckpt: str = "", a2f_ckpt: str = "",
               a2h_ckpt: str = "", apc_ckpt: str = "", data_parallel: bool = False) -> None:
-        """Build the subject and its models once.
+        """Load the subject and its models once (assets.load_subject): a
+        subject whose <config_dir>/<id>.yaml names a data_root is read from
+        it, with its checkpoints; 'Synthetic' is fabricated.  image_size sets
+        the render size of either.
 
         quantize=True int8-quantizes the renderer (BN folded into the
         convs); with calibrate, static activation scales are measured in
@@ -93,14 +97,10 @@ class Predictor:
         cfg_path = os.path.join(config_dir, person_id + ".yaml")
         cfg = (load_person_config(cfg_path, name=person_id) if os.path.exists(cfg_path)
                else PersonConfig(name=person_id))
-        if person_id != "Synthetic" and cfg.data_root:
-            raise NotImplementedError(f"subject {person_id!r} needs load_person, which is not "
-                                      "ported; only the synthetic subject is")
-        n_down = min(8, int(math.log2(image_size)))
-        cfg = replace(cfg, feature2face=replace(cfg.feature2face, load_size=image_size,
-                                                n_downsample=n_down))
-        person, models = assets_mod.make_synthetic_person(
-            cfg, image_size=image_size, skip_models=boot_artifact, device=self.device)
+        # the synthetic subject, or a reference-format one from its data_root
+        # (with an existing artifact its checkpoints are not read)
+        cfg, person, models = assets_mod.load_subject(cfg, image_size, skip_models=boot_artifact,
+                                                      device=self.device)
         if boot_artifact:
             models = assets_mod.load_models_artifact(artifact, cfg, self.device)
         else:

@@ -8,6 +8,7 @@ reference's released ``.pkl`` checkpoints.  Layout maps:
     JAX dense   [in, out]          -> Linear [out, in]
     JAX conv1d  [k, in, out]       -> Conv1d [out, in, k]
     JAX conv2d  [kh, kw, in, out]  -> Conv2d [out, in, kh, kw]
+    JAX conv_transpose2d [kh, kw, in, out] -> ConvTranspose2d [in, out, kh, kw]
     JAX RNN     [in, G*H]          -> weight_*_l{k} [G*H, in]
     JAX int8 conv2d {w_q [kh, kw, in, out] int8, w_scale, b?, x_scale?}
                                    -> QConv2d {w_q [out, in, kh, kw], ...}
@@ -35,6 +36,24 @@ from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
 StateDict = Dict[str, torch.Tensor]
 
 
+def load_state_dict(path: str) -> StateDict:
+    """A reference-format torch checkpoint (.pkl / .model) as {name: tensor}
+    on the CPU: a saved module is unwrapped to its state_dict(), the
+    DataParallel "module." prefixes are stripped and non-tensor entries
+    dropped (the JAX package's torch_convert.load_state_dict_numpy, keeping
+    tensors).  Only tensors and containers are unpickled (weights_only)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    out: StateDict = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if isinstance(v, torch.Tensor):
+            out[k] = v.detach()
+    return out
+
+
 def _t(x) -> torch.Tensor:
     return torch.tensor(np.asarray(x, dtype=np.float32))
 
@@ -60,6 +79,12 @@ def _conv2d(p, out: StateDict, name: str) -> None:
                 out[f"{name}.{k}"] = _t(p[k])
         return
     out[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+    if "b" in p:
+        out[f"{name}.bias"] = _t(p["b"])
+
+
+def _conv_transpose2d(p, out: StateDict, name: str) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(2, 3, 0, 1))
     if "b" in p:
         out[f"{name}.bias"] = _t(p["b"])
 
@@ -130,6 +155,27 @@ def _res_stage(p, out: StateDict, block: str) -> None:
             idx += 1
 
 
+def _unet_stage(p, out: StateDict, block: str) -> None:
+    """One 'small' U-Net stage; child layout of the reference's Sequential:
+    outermost [down, sub, relu, upT, tanh], innermost [lrelu, down, relu,
+    upT, bn], middle [lrelu, down, bn, sub, relu, upT, bn]."""
+    seq = f"{block}.model"
+    if "up_bn" not in p:  # outermost
+        _conv2d(p["down"], out, f"{seq}.0")
+        _unet_stage(p["sub"], out, f"{seq}.1")
+        _conv_transpose2d(p["up"], out, f"{seq}.3")
+    elif "sub" not in p:  # innermost
+        _conv2d(p["down"], out, f"{seq}.1")
+        _conv_transpose2d(p["up"], out, f"{seq}.3")
+        _batchnorm(p["up_bn"], out, f"{seq}.4")
+    else:
+        _conv2d(p["down"], out, f"{seq}.1")
+        _batchnorm(p["down_bn"], out, f"{seq}.2")
+        _unet_stage(p["sub"], out, f"{seq}.3")
+        _conv_transpose2d(p["up"], out, f"{seq}.5")
+        _batchnorm(p["up_bn"], out, f"{seq}.6")
+
+
 def params_from_jax(tree: Dict[str, Any]) -> StateDict:
     """Convert one model's JAX pytree (APC, Audio2Feature, Audio2Headpose or
     the Feature2Face generator, told apart by their top-level keys) into the
@@ -155,9 +201,12 @@ def params_from_jax(tree: Dict[str, Any]) -> StateDict:
         _linear(tree["down2"], out, "audio_downsample.3")
         _wavenet(tree["wavenet"], out, "WaveNet")
     elif "net" in tree:  # Feature2Face generator
-        if tree.get("size") not in ("normal", "large"):
-            raise NotImplementedError(f"generator size {tree.get('size')!r} is not ported")
-        _res_stage(tree["net"], out, "netG.model")
+        if tree.get("size") == "small":
+            _unet_stage(tree["net"], out, "netG.model")
+        elif tree.get("size") in ("normal", "large"):
+            _res_stage(tree["net"], out, "netG.model")
+        else:
+            raise ValueError(f"unknown generator size {tree.get('size')!r}")
     else:
         raise ValueError(f"unrecognised parameter tree with keys {sorted(tree)}")
     return out
@@ -253,6 +302,22 @@ def _res_stage_to(sd: StateDict, stage: f2f.ResUnetBlock, block: str) -> Dict[st
     return p
 
 
+def _unet_stage_to(sd: StateDict, stage: f2f.UnetBlock, block: str) -> Dict[str, Any]:
+    """Inverse of _unet_stage, walking the stage's Sequential."""
+    p: Dict[str, Any] = {}
+    for i, m in enumerate(stage.model):
+        name = f"{block}.model.{i}"
+        if isinstance(m, nn.Conv2d):
+            p["down"] = _weight_to(sd, name, 2, 3, 1, 0)
+        elif isinstance(m, nn.ConvTranspose2d):
+            p["up"] = _weight_to(sd, name, 2, 3, 0, 1)
+        elif isinstance(m, nn.BatchNorm2d):
+            p["up_bn" if "up" in p else "down_bn"] = _batchnorm_to(sd, name)
+        elif isinstance(m, f2f.UnetBlock):
+            p["sub"] = _unet_stage_to(sd, m, name)
+    return p
+
+
 def params_to_jax(model: nn.Module) -> Dict[str, Any]:
     """One of the port's four models as the JAX package's parameter tree
     (the inverse of params_from_jax)."""
@@ -273,5 +338,6 @@ def params_to_jax(model: nn.Module) -> Dict[str, Any]:
                 "down2": _linear_to(sd, "audio_downsample.3"),
                 "wavenet": _wavenet_to(sd, "WaveNet", len(model.WaveNet.residual_blocks))}
     if isinstance(model, f2f.Feature2FaceG):
-        return {"net": _res_stage_to(sd, model.netG.model, "netG.model"), "size": model.size}
+        walk = _unet_stage_to if model.size == "small" else _res_stage_to
+        return {"net": walk(sd, model.netG.model, "netG.model"), "size": model.size}
     raise TypeError(f"no JAX tree for {type(model).__name__}")

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from livespeechportraits_torch.config import Feature2FaceConfig
+from livespeechportraits_torch.config import Feature2FaceConfig, replace
 from livespeechportraits_torch.models import feature2face, nn_core
 from livespeechportraits_torch.ops import q8conv_cuda, rasterize, rasterize_cuda, recurrent_cuda
 from livespeechportraits_torch.pipeline import animate, assets, video
@@ -448,3 +448,108 @@ def test_small_stream_on_the_card(cuda_device):
     assert frames.shape == offline.frames.shape
     d = np.abs(frames.astype(int) - ref.astype(int))
     assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def test_f32_plane_at_the_onboarding_batch(cuda_device, tmp_path):
+    """K1's f32-plane entry on a 32-frame batch of a synthetic subject's
+    landmarks at 512^2, bitwise against its twin; write_raw_clip on the card
+    launches it once a batch of 32, and its landmarks and stored frames
+    equal the CPU's (landmarks within 1e-4 px)."""
+    from livespeechportraits_torch.pipeline import synth_subject
+    from livespeechportraits_torch.utils import h5vlen
+
+    n = 40
+    pts = synth_subject.subject_pts3d(n)
+    rot, trans = synth_subject.subject_headpose(n)
+    lm = torch.as_tensor(synth_subject.project_clip(pts, rot, trans, 512, cuda_device),
+                         device=cuda_device)
+    sh = torch.as_tensor(synth_subject.default_shoulders(512), device=cuda_device)
+    table = rasterize.segment_table(lm[:32], sh[None].expand(32, -1, -1))
+    out = rasterize_cuda.rasterize_segments(table, 512, 512)
+    assert torch.equal(out, rasterize.rasterize_segments(table, 512, 512))
+    before = rasterize_cuda.LAUNCHES
+    gt = synth_subject.write_raw_clip(str(tmp_path / "card"), "c", n, image_size=64,
+                                      device=cuda_device)
+    assert rasterize_cuda.LAUNCHES == before + 2
+    ref = synth_subject.write_raw_clip(str(tmp_path / "cpu"), "c", n, image_size=64,
+                                       device="cpu")
+    np.testing.assert_allclose(gt["landmarks2d"], ref["landmarks2d"], atol=1e-4)
+    assert h5vlen.read(str(tmp_path / "card" / "c" / "c.h5"), "c") == \
+        h5vlen.read(str(tmp_path / "cpu" / "c" / "c.h5"), "c")
+
+
+def test_k2_over_a_whole_clip(cuda_device):
+    """The APC stack over a whole clip's mel (T = 1000 rows) on K2, within
+    1e-5 of the plain layer on the card, layer by layer; and
+    compute_apc_features on the card within 1e-4 of the CPU's."""
+    from livespeechportraits_torch.config import APCConfig
+    from livespeechportraits_torch.models.apc import APCEncoder
+    from livespeechportraits_torch.ops import mel
+    from livespeechportraits_torch.pipeline import synth_subject
+    from livespeechportraits_torch.train import data_io
+
+    enc = APCEncoder(APCConfig()).eval().requires_grad_(False)
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    audio = synth_subject.make_audio(synth_subject.envelope(500))
+    cpu = data_io.compute_apc_features(audio, enc)
+    enc.to(cuda_device)
+    x = mel.compute_mel_sequence(audio, device=cuda_device)[None]
+    assert x.shape[1] == 998  # 133333 samples: 499 frames
+    before = recurrent_cuda.GRU_LAUNCHES
+    with torch.no_grad():
+        for rnn in enc.rnns:
+            y, h = recurrent_cuda.gru_layer(x, *rnn.layer(0))
+            y_ref, h_ref = nn_core.gru_layer(x, *rnn.layer(0))
+            assert (y - y_ref).abs().max().item() <= 1e-5
+            x = y_ref
+        card = data_io.compute_apc_features(audio, enc)
+    assert recurrent_cuda.GRU_LAUNCHES == before + 6
+    assert np.abs(card - cpu).max() <= 1e-4
+
+
+def test_gmm_head_on_the_card_matches_cpu(cuda_device):
+    """The Audio2Feature GMM head (3 components, full width) on the card: its
+    raw block within 1e-5 of the CPU's (K3 against the plain LSTM), and the
+    decoded means pick the same components."""
+    from livespeechportraits_torch.config import Audio2FeatureConfig
+    from livespeechportraits_torch.models import audio2feature
+
+    cfg = Audio2FeatureConfig(loss="GMM", gmm_ncenter=3)
+    model = audio2feature.Audio2Feature(cfg).eval().requires_grad_(False)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    feats = torch.tensor(np.random.default_rng(0).standard_normal((400, 512)),
+                         dtype=torch.float32)
+    with torch.no_grad():
+        ref = audio2feature.generate_sequence(model, feats, seed=3)
+        ref_block = audio2feature.apply_audio2feature(model, feats[None])
+        model.to(cuda_device)
+        before = recurrent_cuda.LSTM_LAUNCHES
+        block = audio2feature.apply_audio2feature(model, feats[None].to(cuda_device))
+        out = audio2feature.generate_sequence(model, feats.to(cuda_device), seed=3)
+    assert recurrent_cuda.LSTM_LAUNCHES == before + 6
+    assert block.shape == (1, 200, 151 * 3)
+    assert (block.cpu() - ref_block).abs().max().item() <= 1e-5
+    assert (out.cpu() - ref).abs().max().item() <= 1e-5
+
+
+def test_small_unet_renders_from_one_k1_launch_a_batch(cuda_device):
+    """A subject with the 'small' U-Net renders on the card from one K1
+    render_input launch a batch, and its f32 frames agree with the CPU's."""
+    cfg = torch_config(small_person_config(image_size=64))
+    cfg = replace(cfg, feature2face=Feature2FaceConfig(size="small", ngf=8, n_downsample=6,
+                                                       load_size=64, precision="float32"))
+    person, models = assets.make_synthetic_person(cfg, image_size=64, device="cpu")
+    lm, sh, *_ = animate.compute_motion(cfg, person, models, video.make_test_tone(0.6))
+    ref, _ = animate.render_frames(cfg, person, models, lm, sh, render_batch=4)
+    models.to(cuda_device)
+    before = rasterize_cuda.LAUNCHES
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out, _ = animate.render_frames(cfg, person, models, lm.to(cuda_device),
+                                       sh.to(cuda_device), render_batch=4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    assert rasterize_cuda.LAUNCHES == before + -(-lm.shape[0] // 4)
+    d = np.abs(out.astype(int) - ref.astype(int))
+    assert d.max() <= 1
