@@ -98,12 +98,28 @@ Phases, each printing one line; any failure raises and exits non-zero:
    cuDNN's channel-padding kernels in a traced forward.  8e: the same
    subject with the Audio2Feature GMM head (3 components, int8 renderer):
    the head's pre-decode output, K3 against the plain LSTM, within RNN_TOL.
+10. train: the four trainers at full width through trainer.train_* on the
+   synthetic samplers, batch 8, each validated every epoch: APC (3 x GRU
+   80 -> 512 + head, windows of 480) and Audio2Feature (3 x LSTM 256,
+   sequence 240) and Audio2Headpose (WaveNet 7 x 2, time frame 240) two
+   epochs each, finite losses and every model moved; Feature2Face ('normal'
+   ResUNet, ngf 64, 8 downsamplings, D num_D 2) at 512^2 in bf16 for three
+   epochs, each batch's edge maps from one K1 launch (the counts set to 0
+   just before: K1 once a step and once a validation batch, no other
+   kernel), the step's ms (CUDA events), peak memory, L1 on a fixed batch
+   lower after than before; K1 on that batch's landmarks bitwise against its
+   plain twin, its device ms beside the bound and its share of a step; one
+   more step unprofiled and traced (busy share, top kernels); then a
+   Predictor booted from the four checkpoints (ckpt_best preferred) serves a
+   3.0 s request.
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
    time, its launches in 6e's yuv420 stream as stream_launches and on the
    onboard path as onboard_launches; K1's onboard_entry is the f32 plane at
-   32 x 512^2), then {"ok": true, "device": {...}} as the last line.
+   32 x 512^2, its train_launches those of phase 10's Feature2Face run and
+   its train_entry the f32 plane at the training batch, 8 x 512^2), then
+   {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
@@ -1489,6 +1505,205 @@ def check_onboard(dev, tmp: str) -> tuple:
     return total, plane
 
 
+def _logged(root: str, name: str, key: str) -> list:
+    """The values of key in a trainer run's scalars.csv (under each header
+    that names it)."""
+    import csv
+
+    vals, header = [], None
+    with open(os.path.join(root, name, "scalars.csv")) as f:
+        for row in csv.reader(f):
+            if row[0] == "step":
+                header = row
+            elif key in header:
+                vals.append(float(row[header.index(key)]))
+    return vals
+
+
+def check_training(dev, tmp: str) -> tuple:
+    """Phase 10: the four trainers at full width on the card, through
+    trainer.train_* on the synthetic samplers, then a Predictor serving what
+    they wrote.  Returns (each kernel's launches in the Feature2Face run, K1's
+    row at the training batch).  Raises on any failed check."""
+    from livespeechportraits_torch.config import (APCConfig, Audio2FeatureConfig,
+                                                  Audio2HeadposeConfig, Feature2FaceConfig)
+    from livespeechportraits_torch.models import apc as apc_model
+    from livespeechportraits_torch.models import audio2feature as a2f_model
+    from livespeechportraits_torch.models import audio2headpose as a2h_model
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.ops import rasterize, rasterize_cuda
+    from livespeechportraits_torch.pipeline import video
+    from livespeechportraits_torch.serve import Predictor
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import datasets, steps, trainer
+    from livespeechportraits_torch.utils import checkpoint as ckpt
+
+    # the library's defaults, as a user's run has them (phase 7 turned TF32
+    # off): cuDNN's f32 convolutions (the discriminator's) in TF32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def loop(name: str, decay: int = 1) -> "trainer.TrainLoopConfig":
+        return trainer.TrainLoopConfig(n_epochs=1, n_epochs_decay=decay, lr=1e-4, batch_size=8,
+                                       print_freq=1, checkpoints_dir=tmp, name=name,
+                                       device="cuda")
+
+    def changed(model, before: dict) -> bool:
+        return any(not torch.equal(v.cpu(), before[k]) for k, v in model.state_dict().items())
+
+    def single(name: str, model, run, key: str) -> None:
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(model)
+        wall = time.perf_counter() - t0
+        losses = _logged(tmp, name, key)
+        ms = res.step_ms
+        log(f"train_{name}", steps=len(ms), wall_s=f"{wall:.3f}",
+            step_ms_median=f"{float(np.median(ms)):.3f}", step_ms_first=f"{ms[0]:.3f}",
+            step_ms=json.dumps([round(t, 3) for t in ms]), loss_first=f"{losses[0]:.5f}",
+            loss_last=f"{losses[-1]:.5f}", best_val=res.best_val,
+            launches=json.dumps(launch_counts()))
+        if not (losses and np.isfinite(losses).all() and changed(model, before)
+                and res.best_val is not None and np.isfinite(res.best_val)):
+            raise AssertionError(f"train {name}: losses {losses[:3]}..., or no parameter moved")
+
+    # 10a-c: APC (3 x GRU 80 -> 512 + head, windows of 480), Audio2Feature
+    # (3 x LSTM H=256, sequence 240), Audio2Headpose (WaveNet 7 x 2, time
+    # frame 240), batch 8, two epochs each, validated each epoch
+    mels = cli.synthetic_mels(4, 2400)
+    single("apc", trainer._init(apc_model.APCPretrain(APCConfig())),
+           lambda m: trainer.train_apc(
+               APCConfig(), loop("apc"), datasets.MelWindowSampler(mels[1:], 480, 240),
+               datasets.MelWindowSampler(mels[:1], 480), init=m), "loss")
+    a2f_sampler = datasets.AudioVisualSampler(cli.synthetic_clips(2, 1400), seq_len=240,
+                                              frame_jump_stride=40, device_audio=True)
+    single("audio2feature", trainer._init(a2f_model.Audio2Feature(Audio2FeatureConfig())),
+           lambda m: trainer.train_audio2feature(Audio2FeatureConfig(), loop("audio2feature"),
+                                                 a2f_sampler, a2f_sampler, init=m), "loss")
+    a2h_cfg = Audio2HeadposeConfig()
+    a2h_sampler = datasets.AudioVisualSampler(
+        cli.synthetic_clips(2, 1800), task="audio2headpose", target_length=240,
+        receptive_field=a2h_cfg.wavenet.receptive_field, frame_future=a2h_cfg.frame_future,
+        frame_jump_stride=50, device_audio=True)
+    single("audio2headpose", trainer._init(a2h_model.Audio2Headpose(a2h_cfg)),
+           lambda m: trainer.train_audio2headpose(a2h_cfg, loop("audio2headpose"), a2h_sampler,
+                                                  a2h_sampler, init=m), "loss")
+
+    # 10d: Feature2Face at 512^2, B = 8, bf16, the edge maps drawn by K1, three
+    # epochs validated each epoch
+    cfg = Feature2FaceConfig()
+    t0 = time.perf_counter()
+    sampler = cli.synthetic_face_data(80, 512)
+    data_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(0)
+    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
+    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen)
+    g_before = copy.deepcopy(g).to(dev)
+    fixed = next(sampler.batches(8, np.random.default_rng(1), shuffle=False))
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.train_feature2face(cfg, loop("feature2face", decay=2), sampler, sampler,
+                                     init_g=g, init_d=d)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = res.step_ms
+    val_batches = 3 * math.ceil(len(sampler) / 8)
+    losses = {k: _logged(tmp, "feature2face", k) for k in ("loss_D", "loss_G", "L1")}
+    # L1 of the training-mode forward on one fixed batch, before and after
+    move = trainer._Mover(dev)
+    batch = move(fixed)
+    inp, tgt = steps.f2f_g_input(batch), steps.f2f_target(batch)
+
+    def l1(model) -> float:
+        with torch.no_grad():
+            fake = steps._g_forward(copy.deepcopy(model), inp, True, torch.bfloat16)
+        return float((fake - tgt).abs().mean().item())
+
+    l1_before, l1_after = l1(g_before), l1(res.models["G"])
+    # K1 on the training batch's landmarks, bitwise against its plain twin
+    lm = torch.as_tensor(fixed["landmarks"], device=dev)
+    sh = torch.as_tensor(fixed["shoulders"], device=dev)
+    table = rasterize.segment_table(lm, sh)
+    edges = rasterize_cuda.rasterize_segments(table, 512, 512)
+    plain = rasterize.rasterize_segments(table, 512, 512)
+    mismatched = int((edges != plain).sum().item())
+    k1 = {"frames": 8, "size": 512, "segments": table.shape[1], "train_launches": counts["K1"],
+          "device_ms": graph_ms(lambda: rasterize_cuda.rasterize_segments(table, 512, 512)),
+          "ms": cuda_ms(lambda: rasterize_cuda.rasterize_segments(table, 512, 512), reps=20),
+          "plain_ms": cuda_ms(lambda: rasterize.rasterize_segments(table, 512, 512), reps=2,
+                              warmup=1),
+          "max_abs_err": float((edges - plain).abs().max().item()),
+          "lit": int(plain.sum().item())}
+    k1["bound_ms"], k1["bound_by"] = bound(table.numel() * 4 + edges.numel() * 4, 0, "f32")
+    k1["share"] = k1["bound_ms"] / k1["device_ms"]
+    k1["step_share"] = k1["device_ms"] / float(np.median(ms))
+    log("train_feature2face", size=512, batch=8, precision=cfg.precision, steps=len(ms),
+        data_s=f"{data_s:.3f}", wall_s=f"{wall:.3f}",
+        step_ms_median=f"{float(np.median(ms)):.3f}", step_ms_first=f"{ms[0]:.3f}",
+        step_ms=json.dumps([round(t, 3) for t in ms]), peak_gib=f"{peak_gib:.3f}",
+        loss_D=json.dumps([round(v, 4) for v in losses["loss_D"]]),
+        loss_G=json.dumps([round(v, 4) for v in losses["loss_G"]]),
+        l1_fixed_before=f"{l1_before:.5f}", l1_fixed_after=f"{l1_after:.5f}",
+        best_val_l1=res.best_val, launches=json.dumps(counts), val_batches=val_batches,
+        k1_mismatched=mismatched, k1=json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
+                                                 for k, v in k1.items()}))
+    if counts != {"K1": len(ms) + val_batches, "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"train feature2face: launches {counts}, want K1 one a step "
+                             f"({len(ms)}) and one a validation batch ({val_batches})")
+    if not all(np.isfinite(v).all() and v for v in losses.values()):
+        raise AssertionError(f"train feature2face: losses {losses}")
+    if mismatched or not l1_after < l1_before:
+        raise AssertionError(f"train feature2face: K1 {mismatched} pixels off, L1 {l1_before} "
+                             f"-> {l1_after}")
+    # one more D + G step on the fixed batch, unprofiled then traced: the
+    # step's wall, the device's busy share and the kernels that take most
+    g_t, d_t = res.models["G"], res.models["D"]
+
+    def gan_step():
+        steps.f2f_d_step(cfg, g_t, d_t, res.optimizers["D"], batch, torch.bfloat16)
+        steps.f2f_g_step(cfg, g_t, d_t, res.optimizers["G"], batch, None, torch.bfloat16)
+
+    gan_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gan_step()
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) * 1e3
+    events, traced_wall, _ = trace(gan_step)
+    busy = busy_ms(events)
+    log("train_profile", step_wall_ms=f"{step_wall:.3f}", traced_wall_ms=f"{traced_wall:.3f}",
+        device_busy_ms=f"{busy:.3f}", busy_share=f"{busy / step_wall:.4f}",
+        device_events=len(events), top=json.dumps(top_kernels(events, 8)))
+
+    # 10e: a Predictor serving the four checkpoints, one 3.0 s request
+    ckpts = {f"{s}_ckpt": os.path.join(tmp, task, "ckpt") for s, task in
+             (("f2f", "feature2face"), ("a2f", "audio2feature"), ("a2h", "audio2headpose"),
+              ("apc", "apc"))}
+    p = Predictor(device="cuda", results_dir=os.path.join(tmp, "serve"))
+    t0 = time.perf_counter()
+    p.setup("Synthetic", image_size=512, **ckpts)
+    setup_s = time.perf_counter() - t0
+    # the served Audio2Feature holds the run's best-validation epoch
+    trained = ckpt.load_checkpoint(ckpt.prefer_best(ckpts["a2f_ckpt"]))["models"]["params"]
+    same = all(torch.equal(v.cpu(), trained[k])
+               for k, v in p._models.audio2feature.state_dict().items())
+    t0 = time.perf_counter()
+    out = p.predict(video.make_test_tone(3.0), write_video=False)
+    req_s = time.perf_counter() - t0
+    frames = out.frames
+    log("train_serve", setup_s=f"{setup_s:.3f}", request_s=f"{req_s:.3f}", frames=frames.shape,
+        fps=f"{out.nframe / req_s:.2f}", a2f_weights_from_ckpt_best=same,
+        pixel_std=f"{frames.std():.4f}")
+    if frames.shape != (165, 512, 512, 3) or frames.min() == frames.max() or not same:
+        raise AssertionError(f"train serve: frames {frames.shape}, weights served {same}")
+    return counts, k1
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1692,6 +1907,13 @@ def main() -> int:
     for entry, k in zip(kernels, ("K1", "K2", "K3", "K4")):
         entry["onboard_launches"] = onboard[k]
     kernels[0]["onboard_entry"] = plane
+
+    # 10. training: the four trainers at full width, then a Predictor
+    # serving their checkpoints
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts, train_entry = check_training(dev, tmp)
+    kernels[0]["train_launches"] = train_counts["K1"]
+    kernels[0]["train_entry"] = train_entry
 
     # 9. results
     print(smi)

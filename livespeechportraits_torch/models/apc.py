@@ -2,7 +2,9 @@
 single-layer GRUs, 80 mel -> hidden -> hidden.
 
 Counterpart of ``livespeechportraits_tpu/models/apc.py`` (``apply_apc``,
-``encode_fast``) and of the streaming path's chunked GRU (``encode_chunk``).
+``encode_fast``, and the pretraining head: ``init_apc_pretrain``,
+``apply_apc_pretrain``) and of the streaming path's chunked GRU
+(``encode_chunk``).
 Parameter names follow the reference's ``rnns.{i}.weight_ih_l0`` layout.
 On the card every layer's time loop runs in the GRU kernel K2
 (ops/recurrent_cuda.py); the optional residual add sits outside the
@@ -11,6 +13,7 @@ recurrence, so both settings take the kernel.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -37,14 +40,41 @@ class APCEncoder(nn.Module):
             nn_core.init_rnn_(rnn, gen)
 
 
+class APCPretrain(nn.Module):
+    """The encoder and a linear head that predicts the log-mel frame
+    ``time_shift`` steps ahead from each GRU state: the self-supervised
+    pretraining model (JAX init_apc_pretrain).  Serving keeps ``encoder``."""
+
+    def __init__(self, cfg: APCConfig):
+        super().__init__()
+        self.encoder = APCEncoder(cfg)
+        self.head = nn.Linear(cfg.hidden_size, cfg.mel_dim)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """The encoder's RNN init, then a xavier-normal (gain 1) head."""
+        self.encoder.reset_parameters(gen)
+        out_dim, in_dim = self.head.weight.shape
+        std = math.sqrt(2.0 / (in_dim + out_dim))
+        self.head.weight.copy_(torch.randn(self.head.weight.shape, generator=gen) * std)
+        self.head.bias.zero_()
+
+
 def _stack(model: APCEncoder, x: Tensor, residual: bool,
-           h0: Optional[List[Tensor]] = None) -> Tuple[Tensor, List[Tensor]]:
+           h0: Optional[List[Tensor]] = None, batched: bool = False
+           ) -> Tuple[Tensor, List[Tensor]]:
     """The GRU layers over x [B, T, in] from h0 (zeros when None) -> (the top
-    layer's states [B, T, H], each layer's last state [B, H])."""
+    layer's states [B, T, H], each layer's last state [B, H]).  batched:
+    torch's differentiable RNN operator at any batch (training), from zero
+    state."""
     n = len(model.rnns)
     h_last = []
     for i, rnn in enumerate(model.rnns):
-        y, h_t = recurrent_cuda.gru_layer(x, *rnn.layer(0), h0=None if h0 is None else h0[i])
+        if batched:
+            y, h_t = nn_core.gru_batched(x, *rnn.layer(0))
+        else:
+            y, h_t = recurrent_cuda.gru_layer(x, *rnn.layer(0),
+                                              h0=None if h0 is None else h0[i])
         h_last.append(h_t)
         if i + 1 < n and residual and x.shape[-1] == y.shape[-1]:
             y = y + x
@@ -73,3 +103,11 @@ def encode_chunk(model: APCEncoder, mels: Tensor, h: List[Tensor],
     the carried state."""
     y, h_last = _stack(model, mels[None], residual, h)
     return y[0], [h_t.reshape(-1) for h_t in h_last]
+
+
+def apply_apc_pretrain(model: APCPretrain, mels: Tensor, residual: bool = False) -> Tensor:
+    """[B, T, mel] -> [B, T, mel] predicted future frames (row t predicts
+    input row t + time_shift; the loss aligns them), through the batched,
+    differentiable recurrence."""
+    h = _stack(model.encoder, mels, residual, batched=True)[0]
+    return nn_core.dense(h, model.head)

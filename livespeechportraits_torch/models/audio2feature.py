@@ -68,33 +68,43 @@ class Audio2Feature(nn.Module):
         nn_core.init_batchnorm_(self)
 
 
-def _downsample(model: Audio2Feature, pairs: Tensor) -> Tensor:
-    """[N, 2H] paired APC frames -> [N, H] (eval-mode BatchNorm)."""
+def _downsample(model: Audio2Feature, pairs: Tensor, training: bool = False) -> Tensor:
+    """[N, 2H] paired APC frames -> [N, H] (BatchNorm in eval mode unless
+    training)."""
     d = model.downsample
-    y = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(pairs, d[0]), d[1]))
+    y = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(pairs, d[0]), d[1],
+                                             training=training))
     return nn_core.dense(y, d[3])
 
 
-def _fc(model: Audio2Feature, z: Tensor) -> Tensor:
-    """[N, lstm_hidden] -> [N, output_dim] (eval-mode BatchNorm)."""
+def _fc(model: Audio2Feature, z: Tensor, training: bool = False) -> Tensor:
+    """[N, lstm_hidden] -> [N, output_dim] (BatchNorm as _downsample)."""
     f = model.fc
-    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[0]), f[1]))
-    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[3]), f[4]))
+    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[0]), f[1], training=training))
+    z = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(z, f[3]), f[4], training=training))
     return nn_core.dense(z, f[6])
 
 
-def apply_audio2feature(model: Audio2Feature, audio_feats: Tensor) -> Tensor:
-    """[B, 2T, H] APC features -> [B, T, head_dim] (eval-mode BatchNorm): the
-    head's raw output, the GMM block undecoded.
-    Pairs of consecutive 120 Hz frames become one 2H vector per frame.  A
-    CUDA tensor runs each LSTM layer in K3, which takes batch 1; a CPU tensor
-    takes the plain loop at any batch."""
+def apply_audio2feature(model: Audio2Feature, audio_feats: Tensor, training: bool = False,
+                        batched: bool = False) -> Tensor:
+    """[B, 2T, H] APC features -> [B, T, head_dim]: the head's raw output,
+    the GMM block undecoded.
+    Pairs of consecutive 120 Hz frames become one 2H vector per frame; the
+    BatchNorms run over the [B*T, C] rows.  Inference: a CUDA tensor runs
+    each LSTM layer in K3, which takes batch 1; a CPU tensor takes the plain
+    loop at any batch.  batched: the trainers' forward, each LSTM layer
+    through torch's differentiable RNN operator at any batch, and with
+    training the BatchNorms normalise with batch statistics and update their
+    running stats (JAX apply_audio2feature(training=True))."""
     B, T2, H = audio_feats.shape
     T = T2 // 2
-    y = _downsample(model, audio_feats.reshape(B * T, 2 * H)).reshape(B, T, H)
+    y = _downsample(model, audio_feats.reshape(B * T, 2 * H), training).reshape(B, T, H)
     for k in range(model.LSTM.num_layers):
-        y, _ = recurrent_cuda.lstm_layer(y, *model.LSTM.layer(k))
-    return _fc(model, y.reshape(B * T, -1)).reshape(B, T, -1)
+        if batched:
+            y, _ = nn_core.lstm_batched(y, *model.LSTM.layer(k))
+        else:
+            y, _ = recurrent_cuda.lstm_layer(y, *model.LSTM.layer(k))
+    return _fc(model, y.reshape(B * T, -1), training).reshape(B, T, -1)
 
 
 def apply_chunk(model: Audio2Feature, pairs: Tensor,

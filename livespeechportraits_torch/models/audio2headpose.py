@@ -1,7 +1,8 @@
 """Audio2Headpose: autoregressive conditional WaveNet + GMM head pose.
 
 Counterpart of ``livespeechportraits_tpu/models/audio2headpose.py``
-(``_audio_downsample``, ``_decode_scan``, ``generate_sequence``).  The decode
+(``_audio_downsample``, ``apply_audio2headpose``, ``_decode_scan``,
+``generate_sequence``).  The decode
 primes the WaveNet ring buffers on R-1 warm-up frames, hoists every layer's
 audio projection over all frames into one matmul each, then steps frame by
 frame: stream_step, then one GMM sample that becomes the next input.
@@ -45,12 +46,28 @@ class Audio2Headpose(nn.Module):
         nn_core.init_batchnorm_(self)
 
 
-def _audio_downsample(model: Audio2Headpose, audio: Tensor) -> Tensor:
-    """[B, T, 2H] paired APC frames -> [B, T, H] conditioning (eval BN)."""
+def _audio_downsample(model: Audio2Headpose, audio: Tensor, training: bool = False) -> Tensor:
+    """[B, T, 2H] paired APC frames -> [B, T, H] conditioning (BatchNorm over
+    the [B*T, C] rows, in eval mode unless training)."""
     B, T, D = audio.shape
     d = model.audio_downsample
-    x = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(audio.reshape(B * T, D), d[0]), d[1]))
+    x = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(audio.reshape(B * T, D), d[0]), d[1],
+                                             training=training))
     return nn_core.dense(x, d[3]).reshape(B, T, -1)
+
+
+def apply_audio2headpose(model: Audio2Headpose, history: Tensor, audio_feats: Tensor,
+                         output_length: Optional[int] = None, training: bool = False,
+                         dropout_keep: Optional[Tensor] = None) -> Tensor:
+    """The training / batch forward (JAX apply_audio2headpose): history [B,
+    L, 12] pose + velocity and audio_feats [B, L, 2H] paired APC frames ->
+    [B, output_length, gmm_output_dim] GMM parameters of the trailing
+    output_length frames.  training: batch-statistic BatchNorm, running
+    stats updated; dropout_keep: the WaveNet's input dropout mask [B, 1, 12]
+    (wavenet.dropout_keep)."""
+    cond = _audio_downsample(model, audio_feats, training)
+    return wavenet.forward(model.WaveNet, history, cond, output_length=output_length,
+                           dropout_keep=dropout_keep)
 
 
 def _decode_scan(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_ds: Tensor,

@@ -42,11 +42,12 @@ class ResnetBlock(nn.Module):
             nn.Conv2d(ch, ch, 3, padding=1, bias=False), nn.BatchNorm2d(ch), nn.ReLU(),
             nn.Conv2d(ch, ch, 3, padding=1, bias=False), nn.BatchNorm2d(ch))
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         b = self.block
         # conv2d runs nn.Conv2d or an int8 QConv2d alike
-        y = torch.relu(nn_core.batchnorm(nn_core.conv2d(x, b[0], padding=1), b[1]))
-        y = nn_core.batchnorm(nn_core.conv2d(y, b[3], padding=1), b[4])
+        y = torch.relu(nn_core.batchnorm(nn_core.conv2d(x, b[0], padding=1), b[1],
+                                         training=training))
+        y = nn_core.batchnorm(nn_core.conv2d(y, b[3], padding=1), b[4], training=training)
         return torch.relu(x + y)
 
 
@@ -76,19 +77,19 @@ class ResUnetBlock(nn.Module):
             layers += [ResnetBlock(outer_nc) for _ in range(n_res)]
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         y = x
         for m in self.model:
             if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
                 y = nn_core.conv2d(y, m, stride=m.stride[0], padding=m.padding[0])
             elif isinstance(m, nn.BatchNorm2d):
-                y = nn_core.batchnorm(y, m)
+                y = nn_core.batchnorm(y, m, training=training)
             elif isinstance(m, nn.ReLU):
                 y = torch.relu(y)
             elif isinstance(m, nn.Upsample):
                 y = nn_core.upsample_nearest_2x(y)
             else:  # ResnetBlock or the inner ResUnetBlock
-                y = m(y)
+                y = m(y, training)
         return y if self.outermost else torch.cat([x, y], dim=1)
 
 
@@ -137,7 +138,7 @@ class UnetBlock(nn.Module):
                       up, nn.BatchNorm2d(outer_nc)]
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False) -> Tensor:
         y = x
         for m in self.model:
             if isinstance(m, nn.Conv2d):
@@ -145,13 +146,13 @@ class UnetBlock(nn.Module):
             elif isinstance(m, nn.ConvTranspose2d):
                 y = F.conv_transpose2d(y, m.weight, m.bias, stride=2, padding=1)
             elif isinstance(m, nn.BatchNorm2d):
-                y = nn_core.batchnorm(y, m)
+                y = nn_core.batchnorm(y, m, training=training)
             elif isinstance(m, nn.LeakyReLU):
                 y = nn_core.leaky_relu(y, 0.2)
             elif isinstance(m, nn.ReLU):
                 y = torch.relu(y)
             elif isinstance(m, UnetBlock):
-                y = m(y)
+                y = m(y, training)
             # Tanh: apply_generator applies it in f32
         return y if self.outermost else torch.cat([x, y], dim=1)
 
@@ -212,15 +213,17 @@ def cast_generator(model: Feature2FaceG, dtype: torch.dtype) -> Feature2FaceG:
     return copy.deepcopy(model).to(dtype=dtype, memory_format=torch.channels_last)
 
 
-def apply_generator(model: Feature2FaceG, x: Tensor) -> Tensor:
+def apply_generator(model: Feature2FaceG, x: Tensor, training: bool = False) -> Tensor:
     """x [B, H, W, input_nc] (NHWC) -> [B, H, W, 3] in [-1, 1], f32.
 
-    Computes in the model's dtype (see cast_generator); the tanh runs in
-    f32.  The 'small' U-Net also takes the renderer's 13 channels (see
-    _narrow_input)."""
+    Computes in the model's dtype (see cast_generator), or in bf16 under
+    torch.autocast (training); the tanh runs in f32.  training=True
+    normalises every BatchNorm with the batch's statistics and updates the
+    running stats.  The 'small' U-Net also takes the renderer's 13 channels
+    (see _narrow_input)."""
     dtype = next(model.parameters()).dtype
     x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
-    y = model.netG.model(x)
+    y = model.netG.model(x, training)
     return torch.tanh(y.float()).permute(0, 2, 3, 1)
 
 
@@ -408,3 +411,74 @@ def conform_to_state_dict(model: Feature2FaceG, sd) -> None:
                     w_q, torch.zeros(w_q.shape[0]), child.stride[0], child.padding[0]))
             elif f"{key}.bias" in sd and child.bias is None:
                 child.bias = nn.Parameter(torch.zeros(child.out_channels), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Multiscale PatchGAN discriminator (init_discriminator / apply_discriminator,
+# feature2face.py:820-877 of the JAX package), the training-only half of the
+# GAN.
+# ---------------------------------------------------------------------------
+
+
+class Feature2FaceD(nn.Module):
+    """``num_D`` PatchGANs in the reference's MultiscaleDiscriminator layout
+    (``getIntermFeat``): scale i, layer j is ``scale{i}_layer{j}``, a
+    Sequential of a k=4 conv with a bias, then BatchNorm on the interior
+    layers, then LeakyReLU(0.2) on all but the last.  Layers 0 .. n_layers-1
+    have stride 2, the last two stride 1, all padding 2.  Its input is the G
+    input with the frame beside it (input_nc + 3 channels).  The reference
+    runs scale num_D-1 at full resolution (its forward walks the scales
+    from the last), so scale num_D-1-k sees the input pooled k times."""
+
+    def __init__(self, cfg: Feature2FaceConfig):
+        super().__init__()
+        self.num_D, self.n_layers = cfg.num_D, cfg.n_layers_D
+        n = cfg.n_layers_D
+        widths = ([cfg.input_nc + 3] + [min(cfg.ndf * 2 ** j, 512) for j in range(n + 1)]
+                  + [1])
+        for i in range(cfg.num_D):
+            for j in range(n + 2):
+                layers = [nn.Conv2d(widths[j], widths[j + 1], 4, stride=2 if j < n else 1,
+                                    padding=2)]
+                if 0 < j <= n:
+                    layers.append(nn.BatchNorm2d(widths[j + 1]))
+                if j <= n:
+                    layers.append(nn.LeakyReLU(0.2))
+                setattr(self, f"scale{i}_layer{j}", nn.Sequential(*layers))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """normal(0, 0.02) convs, zero biases, N(1, 0.02) BatchNorm scales."""
+        nn_core.init_normal_(self, gen)
+        nn_core.init_batchnorm_(self, gen)
+
+    def scale_layers(self, k: int) -> list:
+        """The layers that see the input pooled k times, first to last."""
+        i = self.num_D - 1 - k
+        return [getattr(self, f"scale{i}_layer{j}") for j in range(self.n_layers + 2)]
+
+
+def apply_discriminator(model: Feature2FaceD, x: Tensor, training: bool = False,
+                        update_stats: bool = True) -> list:
+    """x [B, H, W, input_nc + 3] (NHWC) -> one list a scale, full resolution
+    first, of every layer's output [B, h, w, C] (NHWC views), the final
+    logits last: the features of the feature-matching loss.  Between scales
+    the input is average-pooled (3, stride 2, pad 1, padding not counted).
+    training=True normalises with batch statistics, and updates the running
+    stats unless update_stats is False."""
+    dtype = next(model.parameters()).dtype
+    inp = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+    results = []
+    for k in range(model.num_D):
+        feats, y = [], inp
+        for seq in model.scale_layers(k):
+            conv = seq[0]
+            y = F.conv2d(y, conv.weight, conv.bias, stride=conv.stride, padding=2)
+            if len(seq) > 1 and isinstance(seq[1], nn.BatchNorm2d):
+                y = nn_core.batchnorm(y, seq[1], training=training, update_stats=update_stats)
+            if isinstance(seq[-1], nn.LeakyReLU):
+                y = nn_core.leaky_relu(y, 0.2)
+            feats.append(y.permute(0, 2, 3, 1))
+        results.append(feats)
+        if k + 1 < model.num_D:
+            inp = F.avg_pool2d(inp, 3, stride=2, padding=1, count_include_pad=False)
+    return results

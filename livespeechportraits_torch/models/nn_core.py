@@ -7,13 +7,16 @@ are NCHW / NCW inside the networks.
 
 ``gru_layer`` and ``lstm_layer`` are the plain PyTorch twins of the CUDA
 recurrence kernels (``ops/recurrent_cuda.py``): a Python loop over time with
-the input projection hoisted out of it, as in JAX.
+the input projection hoisted out of it, as in JAX.  ``gru_batched`` and
+``lstm_batched`` are the trainers' recurrences (torch's RNN operator), and
+``batchnorm`` has the training mode the trainers use.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 from typing import Optional, Tuple, Union
 
 import torch
@@ -165,9 +168,23 @@ def conv2d_q8(x: Tensor, layer: QConv2d, stride: int, padding: int) -> Tensor:
     return q8conv_cuda.conv_q8(x, r, layer.w_q, stride, padding, scale, layer.b)
 
 
-def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5) -> Tensor:
-    """Eval-mode BatchNorm over channel axis 1, with the running stats:
-    (x - mean) * rsqrt(var + eps) * scale + bias, in x's dtype."""
+def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
+              training: bool = False, update_stats: bool = True) -> Tensor:
+    """BatchNorm over channel axis 1.
+
+    Eval mode (the default) uses the running stats: (x - mean) * rsqrt(var +
+    eps) * scale + bias, in x's dtype.  Training mode normalises with the
+    batch's own statistics over every axis but the channel axis (two passes:
+    the mean, then the biased variance about it) and, with update_stats,
+    moves the running stats as torch does: momentum 0.1, the biased batch
+    mean and the unbiased batch variance (JAX's nn_core.batchnorm with
+    BN_ONEPASS off; the one-pass variance, clamped at 0, is not copied).
+    update_stats=False leaves them as they are (the discriminator's second
+    forward of a step, whose statistics JAX discards)."""
+    if training:
+        return F.batch_norm(x, bn.running_mean if update_stats else None,
+                            bn.running_var if update_stats else None, bn.weight, bn.bias,
+                            training=True, momentum=0.1, eps=eps)
     shape = (1, -1) + (1,) * (x.dim() - 2)
     mean = bn.running_mean.to(x.dtype).view(shape)
     var = bn.running_var.to(x.dtype).view(shape)
@@ -227,6 +244,41 @@ def lstm_layer(x: Tensor, w_ih: Tensor, w_hh: Tensor, b_ih: Tensor, b_hh: Tensor
         h = o * torch.tanh(c)
         ys.append(h)
     return torch.stack(ys, dim=1) if ys else x.new_zeros(B, 0, H), (h, c)
+
+
+def gru_batched(x: Tensor, w_ih: Tensor, w_hh: Tensor, b_ih: Tensor, b_hh: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+    """GRU over [B, T, I] at any batch -> ([B, T, H], h_T [B, H]), from zero
+    state, through torch's own RNN operator (cuDNN on the card) and
+    differentiable: what the trainers run (JAX trains with
+    nn_core.gru_layer's lax.scan, outside any Pallas kernel).  K2 stays the
+    batch-1 inference kernel."""
+    h0 = x.new_zeros(1, x.shape[0], w_hh.shape[1])
+    with _packed_weights_warning_off():
+        y, h = torch._VF.gru(x, h0, [w_ih, w_hh, b_ih, b_hh], True, 1, 0.0,
+                             torch.is_grad_enabled(), False, True)
+    return y, h[0]
+
+
+def lstm_batched(x: Tensor, w_ih: Tensor, w_hh: Tensor, b_ih: Tensor, b_hh: Tensor
+                 ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    """LSTM over [B, T, I] at any batch -> ([B, T, H], (h_T, c_T)), from zero
+    state, as gru_batched (K3 stays the batch-1 inference kernel)."""
+    z = x.new_zeros(1, x.shape[0], w_hh.shape[1])
+    with _packed_weights_warning_off():
+        y, h, c = torch._VF.lstm(x, (z, z), [w_ih, w_hh, b_ih, b_hh], True, 1, 0.0,
+                                 torch.is_grad_enabled(), False, True)
+    return y, (h[0], c[0])
+
+
+@contextlib.contextmanager
+def _packed_weights_warning_off():
+    """cuDNN warns that the layer's four weights are not one packed buffer:
+    they are separate parameters (the reference's key names), so it packs a
+    copy each call, one layer's weights (a few MB)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        yield
 
 
 class RNNWeights(nn.Module):

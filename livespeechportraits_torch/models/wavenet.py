@@ -60,12 +60,26 @@ def _activation(cfg: WaveNetConfig, x: Tensor) -> Tensor:
     return nn_core.leaky_relu(x, 0.2)
 
 
+def dropout_keep(gen: torch.Generator, batch: int, channels: int,
+                 device: torch.device | str) -> Tensor:
+    """A channel-dropout keep mask [B, 1, C], p = 0.5, drawn on the CPU from
+    ``gen`` (so a seed gives the same masks on any device) and moved to
+    ``device``.  JAX draws its mask from a key; the two are not the same
+    numbers."""
+    return (torch.rand(batch, 1, channels, generator=gen) < 0.5).to(device)
+
+
 def forward(net: WaveNet, x: Tensor, cond: Optional[Tensor] = None,
-            return_layer_inputs: bool = False):
+            return_layer_inputs: bool = False, output_length: Optional[int] = None,
+            dropout_keep: Optional[Tensor] = None):
     """Whole-window forward: x [B, T, input_channels], cond [B, T, cond_ch]
     -> [B, T, output_channels] (and each gated layer's trunk input,
-    [B, T, residual_channels], when asked)."""
+    [B, T, residual_channels], when asked).  output_length keeps the trailing
+    frames; dropout_keep [B, 1, input_channels] is the input's channel
+    dropout in training (kept channels scaled by 2, p = 0.5)."""
     cfg = net.cfg
+    if dropout_keep is not None:
+        x = torch.where(dropout_keep, x / 0.5, torch.zeros((), dtype=x.dtype, device=x.device))
     if cond is None and cfg.cond:
         raise ValueError("cfg.cond=True but no conditioning was passed")
     h = x.transpose(1, 2)
@@ -88,6 +102,8 @@ def forward(net: WaveNet, x: Tensor, cond: Optional[Tensor] = None,
         skip = skip + nn_core.conv1d(z, blk.skip_conv)
     out = nn_core.conv1d(_activation(cfg, skip), net.end_conv_1)
     out = nn_core.conv1d(_activation(cfg, out), net.end_conv_2).transpose(1, 2)
+    if output_length is not None:
+        out = out[:, -output_length:]
     if return_layer_inputs:
         return out, layer_inputs
     return out

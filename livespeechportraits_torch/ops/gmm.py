@@ -1,6 +1,7 @@
-"""Diagonal-GMM sampling with the noise passed in.
+"""Diagonal-GMM sampling with the noise passed in, and the GMM loss.
 
-Counterpart of ``livespeechportraits_tpu/ops/gmm.py::sample_gmm``.  JAX draws
+Counterpart of ``livespeechportraits_tpu/ops/gmm.py`` (``sample_gmm``,
+``gmm_log_loss``).  JAX draws
 the noise inside the sampler from a key; PyTorch's generators cannot give
 the same numbers, so here the caller hands in the standard Gumbel draws that
 pick the component and the standard normal draws of the sample.  Feeding
@@ -12,10 +13,30 @@ means (ncenter*ndim), -log sigma (ncenter*ndim)].
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def gmm_log_loss(output: Tensor, target: Tensor, ncenter: int, ndim: int,
+                 sigma_min: float = 0.03) -> Tensor:
+    """Mean negative log-likelihood of a diagonal GMM, as the reference's
+    GMMLogLoss: output [b, T, (2*ndim+1)*ncenter], target [b, T, ndim]; the
+    mean over b, T, the components and the dims of each component's NLL
+    (the weight logits do not enter), sigma clamped at sigma_min."""
+    b, T, _ = target.shape
+    mus = output[:, :, ncenter:ncenter + ncenter * ndim].reshape(b, T, ncenter, ndim)
+    neg_log_sigma = output[:, :, ncenter + ncenter * ndim:].reshape(b, T, ncenter, ndim)
+    # sigma >= sigma_min  <=>  -log sigma <= log(1 / sigma_min)
+    neg_log_sigma = torch.clamp(neg_log_sigma, max=math.log(1.0 / sigma_min))
+    diff = target[:, :, None, :] - mus
+    nll = _HALF_LOG_2PI - neg_log_sigma + 0.5 * (diff * torch.exp(neg_log_sigma)) ** 2
+    return nll.mean()
 
 
 def sample_gmm(gmm_params: Tensor, ncenter: int, ndim: int, gumbel: Tensor, eps: Tensor,

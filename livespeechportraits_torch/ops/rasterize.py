@@ -6,7 +6,9 @@ polylines, and a pixel lights up when its distance to any segment is
 <= 1.5 px.  ``rasterize_segments`` and ``render_input`` are the plain twins
 of the two entry points of the CUDA kernel K1 (``ops/rasterize_cuda.py``);
 every elementwise op rounds on its own, which is what the kernel reproduces
-bit for bit.
+bit for bit.  ``rasterize_feature_map_host`` and ``facial_weight_mask`` are
+the port's copies of JAX's host (cv2) drawers, which the training samplers
+use.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 Tensor = torch.Tensor
 
 # Facial part polylines (datasets/face_dataset.py:34-42 of the reference).
+MOUTH_OUTER: Tuple[int, ...] = (46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 46)
 PART_LIST: Tuple[Tuple[Tuple[int, ...], ...], ...] = (
     (tuple(range(0, 15)),),  # contour
     ((15, 16, 17, 18, 18, 19, 20, 15),),  # right eyebrow
@@ -115,3 +118,49 @@ def render_input(landmarks: Tensor, shoulders: Optional[Tensor], cand: Tensor,
     edge = rasterize_feature_maps(landmarks, shoulders, size)
     inp = torch.cat([edge[..., None], cand.float().expand(edge.shape[0], h, w, 12)], dim=-1)
     return inp.to(cand.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Host (cv2) drawers, copies of JAX ops/rasterize.py's
+# ---------------------------------------------------------------------------
+
+
+def rasterize_feature_map_host(landmarks: np.ndarray, shoulders: Optional[np.ndarray] = None,
+                               size: Tuple[int, int] = (512, 512)) -> np.ndarray:
+    """One frame drawn with cv2.line, thickness 2 (the reference's
+    FaceDataset.draw_face_feature_maps): [H, W] uint8 in {0, 255}; size is
+    cv2's (w, h).  Without cv2, the plain rasteriser."""
+    w, h = size
+    try:
+        import cv2
+    except ImportError:  # pragma: no cover
+        on = rasterize_feature_maps(torch.as_tensor(landmarks)[None],
+                                    None if shoulders is None
+                                    else torch.as_tensor(shoulders)[None], (h, w))[0]
+        return (on.numpy() * 255).astype(np.uint8)
+    img = np.zeros((h, w), np.uint8)
+    pairs = [(landmarks, _FACE_SEGMENTS)]
+    if shoulders is not None:
+        pairs.append((shoulders, shoulder_segments(shoulders.shape[0])))
+    for pts, segs in pairs:
+        for a, b in segs:
+            img = cv2.line(img, tuple(int(v) for v in pts[a]), tuple(int(v) for v in pts[b]),
+                           255, 2)
+    return img
+
+
+def facial_weight_mask(points: np.ndarray, h: int = 512, w: int = 512) -> np.ndarray:
+    """The mouth region's training weight mask [h, w, 1] float32: the outer
+    mouth polygon filled, dilated by a 45x45 box (without cv2: the polygon's
+    box grown by 22 px, [h, w])."""
+    poly = np.int32(points[list(MOUTH_OUTER)])
+    try:
+        import cv2
+    except ImportError:  # pragma: no cover
+        x0, y0 = poly.min(axis=0) - 22
+        x1, y1 = poly.max(axis=0) + 22
+        out = np.zeros((h, w), np.float32)
+        out[max(y0, 0):max(y1, 0), max(x0, 0):max(x1, 0)] = 1.0
+        return out
+    mask = cv2.fillPoly(np.zeros((h, w, 1), np.float32), [poly], (255, 0, 0))
+    return (cv2.dilate(mask, np.ones((45, 45))) / 255.0).astype(np.float32)

@@ -2,8 +2,8 @@
 
 Counterpart of ``livespeechportraits_tpu/pipeline/assets.py``
 (``PersonAssets``, ``PersonModels``, ``load_person``, ``load_person_models``,
-``make_synthetic_person``, ``quantize_person_models`` and the serving
-artifact).  ``load_subject`` is the choice between a reference-format
+``load_trained_person_models``, ``make_synthetic_person``,
+``quantize_person_models`` and the serving artifact).  ``load_subject`` is the choice between a reference-format
 subject directory and the synthetic subject that the JAX package's
 ``serve.py`` and ``demo.py`` each make.  The asset
 arrays stay numpy; ``PersonAssets.tensor`` uploads one to a device once and
@@ -203,6 +203,43 @@ def load_person_models(cfg: PersonConfig, device: torch.device | str = "cuda"
         if path:
             getattr(models, name).load_state_dict(load_state_dict(path), strict=True)
     return models.to(device)
+
+
+def load_trained_person_models(cfg: PersonConfig, base: PersonModels, f2f_ckpt: str = "",
+                               a2f_ckpt: str = "", a2h_ckpt: str = "", apc_ckpt: str = "",
+                               step: Optional[int] = None) -> PersonModels:
+    """``base`` with the stages the port's trainers wrote swapped in, each
+    loaded with strict=True (a checkpoint of another architecture raises).
+    Each ``*_ckpt`` is a trainer run's ``<checkpoints_dir>/<name>/ckpt``;
+    ``step`` picks an epoch there, else the run's ``ckpt_best`` is read when
+    it kept one, else its latest epoch.  From a Feature2Face checkpoint the
+    generator is kept, from an APC one the encoder (the LLE bank of the
+    subject must come from the same encoder).  The modules land on base's
+    device, in eval mode, without gradients."""
+    from livespeechportraits_torch.utils import checkpoint as ckpt
+
+    def read(path: str) -> dict:
+        if step is None:
+            path = ckpt.prefer_best(path)
+        return ckpt.load_checkpoint(path, step)["models"]
+
+    def swap(name: str, sd: dict) -> None:
+        module = getattr(base, name)
+        dev = next(module.parameters()).device
+        module.load_state_dict(sd, strict=True)
+        module.to(dev)
+
+    if f2f_ckpt:
+        swap("feature2face", read(f2f_ckpt)["G"])
+    if a2f_ckpt:
+        swap("audio2feature", read(a2f_ckpt)["params"])
+    if a2h_ckpt:
+        swap("audio2headpose", read(a2h_ckpt)["params"])
+    if apc_ckpt:
+        sd = read(apc_ckpt)["params"]
+        swap("apc", {k[len("encoder."):]: v for k, v in sd.items()
+                     if k.startswith("encoder.")})
+    return base
 
 
 def load_subject(cfg: PersonConfig, image_size: Optional[int] = 512, skip_models: bool = False,

@@ -82,7 +82,12 @@ class Predictor:
         the compute dtype on the renderer inputs of a 1 s test tone.
         artifact: a serving-model .npz (the JAX package's format).  If it
         exists the four models load from it and quantize/calibrate are
-        ignored; otherwise the models built here are written to it."""
+        ignored; otherwise the models built here are written to it.
+        f2f_ckpt, a2f_ckpt, a2h_ckpt, apc_ckpt: the port trainer's
+        checkpoint directories (``<checkpoints_dir>/<name>/ckpt``; its
+        ``ckpt_best`` is preferred), each replacing its stage
+        (assets.load_trained_person_models); the config must describe the
+        architecture they were trained at."""
         if data_parallel:
             raise NotImplementedError("data_parallel is not ported (ROADMAP item 16)")
         ckpts = f2f_ckpt or a2f_ckpt or a2h_ckpt or apc_ckpt
@@ -91,9 +96,6 @@ class Predictor:
             # never serve stale artifact weights over a freshly named checkpoint
             raise ValueError(f"artifact {artifact!r} already exists and would shadow the "
                              "*_ckpt weights; delete it or drop the ckpt args")
-        if ckpts:
-            raise NotImplementedError("the *_ckpt trainer checkpoints are not ported "
-                                      "(ROADMAP item 15)")
         cfg_path = os.path.join(config_dir, person_id + ".yaml")
         cfg = (load_person_config(cfg_path, name=person_id) if os.path.exists(cfg_path)
                else PersonConfig(name=person_id))
@@ -104,6 +106,12 @@ class Predictor:
         if boot_artifact:
             models = assets_mod.load_models_artifact(artifact, cfg, self.device)
         else:
+            if ckpts:
+                # the port trainer's checkpoints replace their stages before
+                # quantization and before the artifact is written
+                models = assets_mod.load_trained_person_models(
+                    cfg, models, f2f_ckpt=f2f_ckpt, a2f_ckpt=a2f_ckpt, a2h_ckpt=a2h_ckpt,
+                    apc_ckpt=apc_ckpt)
             if quantize:
                 calib = calib_dtype = None
                 if calibrate:

@@ -161,10 +161,12 @@ def make_handler(predictor: Predictor):
 
 def serve_forever(person_id: str = "Synthetic", port: int = 8080, image_size: int = 512,
                   config_dir: str = "./config", max_audio_seconds: float = 10.0,
-                  quantize: bool = False, artifact: str = "") -> None:
+                  quantize: bool = False, artifact: str = "", **ckpts: str) -> None:
+    """ckpts: f2f_ckpt, a2f_ckpt, a2h_ckpt, apc_ckpt, the port trainer's
+    checkpoint directories (Predictor.setup)."""
     predictor = Predictor(max_audio_seconds=max_audio_seconds)
     predictor.setup(person_id, config_dir=config_dir, image_size=image_size,
-                    quantize=quantize, artifact=artifact or None)
+                    quantize=quantize, artifact=artifact or None, **ckpts)
     server = ThreadingHTTPServer(("0.0.0.0", port), make_handler(predictor))
     print(f"serving '{person_id}' on :{port} on {predictor.device} "
           "(POST /animate, POST /stream, GET /healthz)")
@@ -187,9 +189,14 @@ def main(argv=None) -> None:
     p.add_argument("--artifact", default="",
                    help="serving-model .npz: load the models from it if it exists, else "
                         "build them (honouring --quantize) and save them to it")
+    for stage in ("f2f", "a2f", "a2h", "apc"):
+        p.add_argument(f"--{stage}_ckpt", default="",
+                       help=f"serve the {stage} stage from a trainer run's ckpt directory "
+                            "(python -m livespeechportraits_torch.train)")
     args = p.parse_args(argv)
     serve_forever(args.id, args.port, args.image_size, args.config_dir, args.max_audio_seconds,
-                  quantize=args.quantize, artifact=args.artifact)
+                  quantize=args.quantize, artifact=args.artifact, f2f_ckpt=args.f2f_ckpt,
+                  a2f_ckpt=args.a2f_ckpt, a2h_ckpt=args.a2h_ckpt, apc_ckpt=args.apc_ckpt)
 
 
 if __name__ == "__main__":

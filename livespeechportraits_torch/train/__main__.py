@@ -1,0 +1,214 @@
+"""Training CLI of the PyTorch port, the counterpart of the JAX package's
+root ``train.py``:
+
+    python -m livespeechportraits_torch.train --task apc            --synthetic
+    python -m livespeechportraits_torch.train --task audio2feature  --synthetic
+    python -m livespeechportraits_torch.train --task audio2headpose --synthetic
+    python -m livespeechportraits_torch.train --task feature2face   --synthetic
+
+It trains on the card at the default full width; ``--device cpu`` trains on
+the CPU (a small --image_size / window keeps that short).  ``--synthetic``
+fabricates the data (``synthetic_clips``, ``synthetic_face_data``,
+``synthetic_mels``, the port's copies of train.py's).  Feature2Face draws
+each batch's edge maps on the device (K1 on the card), so
+``--device_rasterize`` is the port's default.  Each run writes
+``<checkpoints_dir>/<name>/ckpt/<epoch>.pt`` (and ``ckpt_best``), which
+``serve.Predictor.setup(f2f_ckpt=..., a2f_ckpt=..., a2h_ckpt=...,
+apc_ckpt=...)`` serves.  The JAX flags of the parts not ported yet raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+
+def synthetic_clips(n_clips: int, frames: int, feat_dim: int = 512):
+    """Training clips with random audio features and smooth random head
+    motion (the JAX train.py's, draw for draw)."""
+    from livespeechportraits_torch.train import datasets
+
+    rng = np.random.default_rng(0)
+    clips = []
+    for _ in range(n_clips):
+        t = np.arange(frames)
+        pose = np.stack([5 * np.sin(t / (13 + 3 * i)) for i in range(3)] +
+                        [0.02 * np.cos(t / (17 + 2 * i)) for i in range(3)], axis=1)
+        clips.append(datasets.make_clip(
+            audio_features=rng.normal(0, 1, (2 * frames, feat_dim)).astype(np.float32),
+            pts3d=rng.normal(0, 0.01, (frames, 73, 3)).astype(np.float32),
+            rot_angles=pose[:, :3].astype(np.float32) + np.array([170.0, 0, 0], np.float32),
+            trans=pose[:, 3:].astype(np.float32),
+        ))
+    return clips
+
+
+def synthetic_face_data(n_frames: int, H: int, device_rasterize: bool = True):
+    """Renderer data with a learnable mapping: landmarks of a 73-point face
+    in smooth sway with the mouth opening and closing, and as the target the
+    stylised rendering of those landmarks' edge map (edge glow over a
+    vignette).  The JAX train.py's, frame for frame."""
+    from livespeechportraits_torch.config import MOUTH_INDICES
+    from livespeechportraits_torch.ops import rasterize
+    from livespeechportraits_torch.pipeline.assets import _synthetic_face_landmarks
+    from livespeechportraits_torch.pipeline.synth_subject import stylise_edges
+    from livespeechportraits_torch.train import datasets
+
+    pts = _synthetic_face_landmarks()
+    f = H * 2.4
+    t = np.arange(n_frames, dtype=np.float32)
+    sway = np.stack([0.02 * np.sin(t / 11.0), 0.015 * np.cos(t / 17.0), np.zeros_like(t)],
+                    axis=1)
+    mouth_open = 0.5 + 0.5 * np.sin(t / 3.0)
+    mouth = np.asarray(MOUTH_INDICES)
+    xs = np.linspace(H * 0.2, H * 0.8, 9, dtype=np.float32)
+    shoulders = np.concatenate([np.stack([xs, np.full(9, H * 0.8)], 1),
+                                np.stack([xs, np.full(9, H * 0.8 + 14)], 1)]).astype(np.float32)
+    lms, edges = [], []
+    for i in range(n_frames):
+        p = pts + sway[i]
+        p[mouth, 1] = -0.05 + (pts[mouth, 1] + 0.05) * (1.0 + 1.5 * mouth_open[i]) + sway[i, 1]
+        X = p + np.array([0.0, 0.05, 1.0], np.float32)
+        lm = np.stack([f * X[:, 0] / X[:, 2] + H / 2, f * X[:, 1] / X[:, 2] + H / 2],
+                      axis=1).astype(np.float32)
+        lms.append(lm)
+        edges.append(rasterize.rasterize_feature_map_host(lm, shoulders, (H, H)))
+    images = stylise_edges(np.stack(edges).astype(np.float32) / 255.0)
+    cand = np.repeat(((images[0].astype(np.float32) / 255.0 - 0.5) / 0.5)[None], 4, 0)
+    return datasets.FaceFrameSampler(images, np.stack(lms), shoulders, cand, load_size=H,
+                                     device_rasterize=device_rasterize)
+
+
+def synthetic_mels(n_utts: int, frames: int, mel_dim: int = 80):
+    """Log-mel sequences with a predictable future: smooth wandering formant
+    tracks plus a little noise (the JAX train.py's, draw for draw)."""
+    rng = np.random.default_rng(0)
+    t = np.arange(frames, dtype=np.float32)[:, None]
+    bins = np.arange(mel_dim, dtype=np.float32)[None, :]
+    utts = []
+    for _ in range(n_utts):
+        m = np.zeros((frames, mel_dim), np.float32)
+        for _ in range(4):
+            centre = (mel_dim / 2) * (1 + np.sin(t / rng.uniform(40, 120) + rng.uniform(0, 6)))
+            width = rng.uniform(3, 8)
+            m += np.exp(-((bins - centre) ** 2) / (2 * width * width))
+        m += rng.normal(0, 0.02, m.shape)
+        utts.append(np.clip(m, 0.0, 1.0).astype(np.float32))
+    return utts
+
+
+# The JAX flags whose parts are not ported, and the ROADMAP item each waits for.
+_NOT_PORTED = {
+    "data_parallel": "data parallel training (ROADMAP item 16)",
+    "zero1": "ZeRO-1 (ROADMAP item 16)",
+    "fused_step": "the fused GAN step (ROADMAP item 15)",
+    "remat": "rematerialisation (ROADMAP item 15)",
+    "qat": "quantization-aware training (ROADMAP item 15)",
+    "qat_int8": "quantization-aware training on K4 (ROADMAP item 15)",
+    "qat_d": "the discriminator on K4 (ROADMAP item 15)",
+    "vgg_microbatch": "the chunked VGG loss (ROADMAP item 15)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m livespeechportraits_torch.train",
+                                description="Train one model of the PyTorch port")
+    p.add_argument("--task", required=True,
+                   choices=["apc", "audio2feature", "audio2headpose", "feature2face"])
+    p.add_argument("--name", default=None)
+    p.add_argument("--checkpoints_dir", default="./checkpoints")
+    p.add_argument("--synthetic", action="store_true", help="train on fabricated data")
+    p.add_argument("--dataroot", default="", help="subject data root (real data: not ported)")
+    p.add_argument("--clip_names", default="", help="clip names under --dataroot")
+    p.add_argument("--apc_ckpt", default="", help="APC encoder for real-data features")
+    p.add_argument("--mel_window", type=int, default=480,
+                   help="apc: training window length in 120 Hz mel frames")
+    p.add_argument("--print_freq", type=int, default=10)
+    p.add_argument("--n_epochs", type=int, default=2)
+    p.add_argument("--n_epochs_decay", type=int, default=2)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--continue_train", action="store_true")
+    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--zero1", action="store_true")
+    p.add_argument("--smooth_loss", type=float, default=0.0)
+    p.add_argument("--loss", default="L2", choices=["L2", "GMM"],
+                   help="audio2feature loss: MSE or the GMM NLL")
+    p.add_argument("--TTUR", action="store_true")
+    p.add_argument("--fused_step", action="store_true")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--qat", action="store_true")
+    p.add_argument("--qat_int8", action="store_true")
+    p.add_argument("--qat_d", action="store_true")
+    p.add_argument("--vgg", default="none",
+                   help="feature2face perceptual/style loss: 'none', 'random' (a seeded "
+                        "random VGG19) or a torchvision VGG19 .npz (losses.load_vgg19_npz)")
+    p.add_argument("--vgg_microbatch", type=int, default=0)
+    p.add_argument("--device_rasterize", action="store_true",
+                   help="feature2face: edge maps drawn on the device (the port's default)")
+    p.add_argument("--image_size", type=int, default=512)
+    p.add_argument("--sequence_length", type=int, default=240)
+    p.add_argument("--time_frame_length", type=int, default=240)
+    p.add_argument("--no_save_best", action="store_true",
+                   help="do not keep <name>/ckpt_best (the lowest-validation epoch)")
+    p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag}: {what} is not ported")
+    if not args.synthetic:
+        raise NotImplementedError("training on a subject's clips (--dataroot, --clip_names, "
+                                  "--apc_ckpt) is not ported (ROADMAP item 15); use --synthetic")
+
+    from livespeechportraits_torch.config import (APCConfig, Audio2FeatureConfig,
+                                                  Audio2HeadposeConfig, Feature2FaceConfig)
+    from livespeechportraits_torch.train import datasets, trainer
+
+    loop = trainer.TrainLoopConfig(
+        n_epochs=args.n_epochs, n_epochs_decay=args.n_epochs_decay, lr=args.lr,
+        batch_size=args.batch_size, print_freq=args.print_freq,
+        checkpoints_dir=args.checkpoints_dir, name=args.name or args.task,
+        continue_train=args.continue_train, smooth_loss=args.smooth_loss, ttur=args.TTUR,
+        save_best=not args.no_save_best, device=args.device)
+    if args.task == "apc":
+        mels = synthetic_mels(4, 2400)
+        n_val = max(1, len(mels) // 8)
+        sampler = datasets.MelWindowSampler(mels[n_val:], window=args.mel_window,
+                                            stride=args.mel_window // 2)
+        val_sampler = datasets.MelWindowSampler(mels[:n_val], window=args.mel_window)
+        trainer.train_apc(APCConfig(), loop, sampler, val_sampler)
+    elif args.task == "audio2feature":
+        sampler = datasets.AudioVisualSampler(
+            synthetic_clips(2, 1400), task="audio2feature", seq_len=args.sequence_length,
+            frame_jump_stride=4, device_audio=True)
+        trainer.train_audio2feature(Audio2FeatureConfig(loss=args.loss), loop, sampler)
+    elif args.task == "audio2headpose":
+        cfg = Audio2HeadposeConfig()
+        sampler = datasets.AudioVisualSampler(
+            synthetic_clips(2, 1800), task="audio2headpose",
+            target_length=args.time_frame_length, receptive_field=cfg.wavenet.receptive_field,
+            frame_future=cfg.frame_future, device_audio=True)
+        trainer.train_audio2headpose(cfg, loop, sampler)
+    else:
+        from livespeechportraits_torch.models import losses
+
+        cfg = Feature2FaceConfig(load_size=args.image_size,
+                                 n_downsample=min(8, int(np.log2(args.image_size))))
+        vgg = None
+        if args.vgg == "random":
+            vgg = losses.init_vgg19(0)
+        elif args.vgg != "none":
+            vgg = losses.load_vgg19_npz(args.vgg)
+        trainer.train_feature2face(cfg, loop, synthetic_face_data(80, args.image_size),
+                                   vgg=vgg)
+    print("training done")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,47 @@
+"""Optimizer state of the trainers.
+
+Counterpart of ``livespeechportraits_tpu/train/state.py``.  JAX keeps
+(params, opt_state, step) pytrees and splices the training forward's
+BatchNorm running stats back into the params after each update
+(``merge_bn_stats``); here the parameters live in ``nn.Module``s, the
+running stats in their buffers (updated in place by the training forward),
+and the Adam moments in a ``torch.optim.Adam``.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def adam(params: Iterable[Tensor], lr: float, b1: float = 0.9, b2: float = 0.99,
+         eps: float = 1e-8) -> torch.optim.Adam:
+    """optax.adam's update (eps outside the square root, no weight decay):
+    betas (0.9, 0.99) for the audio models, (0.5, 0.999) or TTUR's (0, 0.9)
+    for the GAN."""
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """The epoch's learning rate on every parameter group."""
+    for group in opt.param_groups:
+        group["lr"] = float(lr)
+
+
+def apply_gradients(opt: torch.optim.Optimizer, params: Sequence[Tensor], loss: Tensor) -> None:
+    """One optimizer step on d loss / d params (torch.autograd.grad: no other
+    tensor in the graph, the other network of a GAN step included, gets a
+    gradient).  A parameter the loss does not reach (the WaveNet's last
+    residual conv) gets a zero gradient, as in JAX."""
+    for p, g in zip(params, gradients(loss, params)):
+        p.grad = g
+    opt.step()
+
+
+def gradients(loss: Tensor, params: Sequence[Tensor]) -> Sequence[Tensor]:
+    """d loss / d params, zeros where the loss does not reach a parameter."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]

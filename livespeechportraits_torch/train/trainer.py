@@ -1,0 +1,393 @@
+"""The four trainers: APC pretraining, Audio2Feature, Audio2Headpose and the
+Feature2Face GAN.
+
+Counterpart of ``livespeechportraits_tpu/train/trainer.py`` (less the data
+parallel mesh, ZeRO-1 and the fused GAN step): epochs over a host sampler
+whose batches a background thread moves to the device, one optimizer step a
+batch, the schedule's learning rate set each epoch, a scalar log, validation
+on its own generator (seed + 7919, so it neither sees nor advances the
+training stream), per-epoch checkpoints and ``<name>/ckpt_best``, the
+lowest-validation epoch, which the serving loader prefers.
+
+Beyond JAX: a checkpoint carries the best validation mean so far (JAX
+restarts it on resume, ADVICE.md) and the sampler's and dropout's generator
+states, so a resumed run repeats the uninterrupted one; ``ckpt_best`` keeps
+one epoch (JAX never prunes it).
+
+The trainers run on ``loop.device``, the card unless the caller asks for the
+CPU; without a card they raise.  On the card the Feature2Face generator
+computes in cfg.precision (bf16 under torch.autocast), and with
+``device_rasterize`` each batch's edge maps come from one launch of the
+rasteriser kernel K1 (``rasterize_cuda.rasterize_segments``) on the segment
+table built on the device from the batch's landmarks and shoulders.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from livespeechportraits_torch.config import (APCConfig, Audio2FeatureConfig,
+                                              Audio2HeadposeConfig, Feature2FaceConfig)
+from livespeechportraits_torch.models import apc as apc_model
+from livespeechportraits_torch.models import audio2feature as a2f_model
+from livespeechportraits_torch.models import audio2headpose as a2h_model
+from livespeechportraits_torch.models import feature2face as f2f_model
+from livespeechportraits_torch.models import losses, wavenet
+from livespeechportraits_torch.ops import rasterize, rasterize_cuda
+from livespeechportraits_torch.train import prefetch as prefetch_mod
+from livespeechportraits_torch.train import schedulers, state, steps
+from livespeechportraits_torch.utils import checkpoint as ckpt
+from livespeechportraits_torch.utils.visualizer import Visualizer
+
+Tensor = torch.Tensor
+VAL_SEED_OFFSET = 7919
+
+
+@dataclass
+class TrainLoopConfig:
+    n_epochs: int = 10
+    n_epochs_decay: int = 10
+    lr: float = 1e-4
+    lr_policy: str = "linear"
+    batch_size: int = 32
+    print_freq: int = 10
+    save_epoch_freq: int = 1
+    validate_epoch: int = 1
+    seed: int = 0
+    checkpoints_dir: str = "./checkpoints"
+    name: str = "experiment"
+    continue_train: bool = False
+    smooth_loss: float = 0.0
+    ttur: bool = False
+    prefetch: int = 2  # background batch queue depth (0 = synchronous)
+    save_best: bool = True  # keep <name>/ckpt_best, the lowest-validation epoch
+    device: str = "cuda"
+
+
+@dataclass
+class TrainResult:
+    """The trained modules and optimizers (``"params"``, or ``"G"`` and
+    ``"D"``), the epochs done, the best validation mean and each step's
+    milliseconds (CUDA events on the card, the host clock on the CPU)."""
+
+    models: Dict[str, nn.Module]
+    optimizers: Dict[str, torch.optim.Optimizer]
+    epochs: int
+    best_val: Optional[float]
+    step_ms: List[float] = field(default_factory=list)
+
+
+def _device(loop: TrainLoopConfig) -> torch.device:
+    dev = torch.device(loop.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {loop.device!r} was asked for but torch sees no CUDA "
+                           "device; pass device='cpu' to train on the CPU")
+    return dev
+
+
+class _StepTimer:
+    """Each step's time: CUDA events around it on the card (read once, after
+    the run), the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.marks: list = []
+
+    def start(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def stop(self, t0) -> None:
+        self.marks.append((t0, self.start()))
+
+    def ms(self) -> List[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.marks]
+        return [(b - a) * 1e3 for a, b in self.marks]
+
+
+class _Mover:
+    """Host batches (numpy) -> tensors on the device.  A candidate stack
+    with leading dim 1 is the subject's, shared by every batch: it is moved
+    once and reused, keyed on the array it views."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self._cand: dict = {}
+
+    def __call__(self, batch: dict) -> Dict[str, Tensor]:
+        out = {}
+        for k, v in batch.items():
+            if k == "cand_image" and v.ndim == 4 and v.shape[0] == 1:
+                base = v.base if isinstance(v.base, np.ndarray) else v
+                ent = self._cand.get(id(base))
+                if ent is None or ent[0] is not base:
+                    ent = self._cand[id(base)] = (base, torch.from_numpy(
+                        np.ascontiguousarray(v)).to(self.dev))
+                out[k] = ent[1]
+            else:
+                out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.dev)
+        return device_rasterize_batch(out)
+
+
+def device_rasterize_batch(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """A batch with raw ``landmarks`` [B, 73, 2] and ``shoulders`` [B, S, 2]
+    (FaceFrameSampler(device_rasterize=True)) gets its ``feature_map`` [B,
+    H, W, 1] f32: the segment table built on the batch's device, then one
+    rasterize_segments call, which on the card is one launch of K1 (errors
+    propagate) and on the CPU its plain twin.  Other batches pass as they
+    are."""
+    if "landmarks" not in batch:
+        return batch
+    batch = dict(batch)
+    lm, sh = batch.pop("landmarks"), batch.pop("shoulders")
+    H, W = batch["tgt_image"].shape[1:3]
+    table = rasterize.segment_table(lm, sh)
+    batch["feature_map"] = rasterize_cuda.rasterize_segments(table, H, W)[..., None]
+    return batch
+
+
+def _batch_iter(sampler, loop: TrainLoopConfig, rng: np.random.Generator, move: _Mover):
+    it = sampler.batches(loop.batch_size, rng)
+    if loop.prefetch > 0:
+        return prefetch_mod.prefetch(it, loop.prefetch, move)
+    return map(move, it)
+
+
+def _val_batches(val_sampler, loop: TrainLoopConfig, move: _Mover):
+    rng_val = np.random.default_rng(loop.seed + VAL_SEED_OFFSET)
+    for b in val_sampler.batches(loop.batch_size, rng_val, shuffle=False, drop_last=False):
+        yield move(b)
+
+
+def _audio_bank(sampler, dev: torch.device):
+    """The sampler's resident audio feature bank on the device, once, and
+    its window length (AudioVisualSampler(device_audio=True))."""
+    bank = getattr(sampler, "audio_bank", None) if sampler is not None else None
+    if bank is None:
+        return None, None
+    return torch.from_numpy(bank).to(dev), sampler.audio_rows
+
+
+def _rng_state(rng: np.random.Generator, gen: torch.Generator) -> dict:
+    return {"numpy": rng.bit_generator.state, "torch": gen.get_state()}
+
+
+def _set_rng_state(st: dict, rng: np.random.Generator, gen: torch.Generator) -> None:
+    rng.bit_generator.state = st["numpy"]
+    gen.set_state(st["torch"])
+
+
+def _schedule_state(schedules: dict) -> dict:
+    return {k: s.state_dict() for k, s in schedules.items() if hasattr(s, "state_dict")}
+
+
+class _Run:
+    """What the two kinds of trainer share: the device, the log, the
+    checkpoint directories, resume and the epoch's generators."""
+
+    def __init__(self, loop: TrainLoopConfig, models: Dict[str, nn.Module],
+                 optimizers: Dict[str, torch.optim.Optimizer], schedules: dict):
+        self.loop, self.models, self.optimizers, self.schedules = loop, models, optimizers, schedules
+        self.vis = Visualizer(loop.checkpoints_dir, loop.name)
+        self.ckpt_dir = f"{loop.checkpoints_dir}/{loop.name}/ckpt"
+        self.rng = np.random.default_rng(loop.seed)
+        self.gen = torch.Generator().manual_seed(loop.seed)
+        self.start_epoch, self.best_val, self.it = 0, None, 0
+        if loop.continue_train and ckpt.latest_step(self.ckpt_dir) is not None:
+            st = ckpt.restore(ckpt.load_checkpoint(self.ckpt_dir), models, optimizers)
+            for k, s in st["schedules"].items():
+                schedules[k].load_state_dict(s)
+            _set_rng_state(st["rng"], self.rng, self.gen)
+            self.start_epoch, self.best_val = st["epoch"], st["best_val"]
+            print(f"resumed from epoch {self.start_epoch}")
+
+    def epochs(self):
+        return range(self.start_epoch, self.loop.n_epochs + self.loop.n_epochs_decay)
+
+    def log_step(self, epoch: int, metrics: dict, lr: Optional[float], t0: float, n: int):
+        self.it += 1
+        if self.it % self.loop.print_freq == 0:
+            m = {k: v.item() for k, v in metrics.items()}
+            if lr is not None:
+                m["lr"] = lr
+            self.vis.plot_current_errors(m, self.it)
+            self.vis.print_current_errors(epoch, self.it, m, (time.time() - t0) / max(n, 1))
+
+    def validated(self, epoch: int, metrics: Dict[str, float], key: str) -> None:
+        """Log the epoch's validation means, feed metrics[key] to plateau
+        schedules, and keep the epoch of its lowest value in ckpt_best (one
+        file)."""
+        self.vis.plot_current_errors(metrics, self.it)
+        val_mean = metrics[key]
+        for s in self.schedules.values():
+            if hasattr(s, "update"):
+                s.update(val_mean)
+        if self.loop.save_best and (self.best_val is None or val_mean < self.best_val):
+            self.best_val = val_mean
+            self._save(f"{self.ckpt_dir}_best", epoch + 1, keep_only=True)
+
+    def end_epoch(self, epoch: int) -> None:
+        if (epoch + 1) % self.loop.save_epoch_freq == 0:
+            self._save(self.ckpt_dir, epoch + 1)
+
+    def _save(self, directory: str, epoch: int, keep_only: bool = False) -> None:
+        ckpt.save_checkpoint(directory, epoch, self.models, self.optimizers,
+                             _schedule_state(self.schedules), self.best_val,
+                             rng=_rng_state(self.rng, self.gen), keep_only=keep_only)
+
+    def result(self, timer: _StepTimer) -> TrainResult:
+        epochs = max(self.start_epoch, self.loop.n_epochs + self.loop.n_epochs_decay)
+        return TrainResult(self.models, self.optimizers, epochs, self.best_val, timer.ms())
+
+
+def _train_single_state(loop: TrainLoopConfig, sampler, val_sampler, model: nn.Module, *,
+                        loss_fn: Callable, val_fn: Callable, val_key: str) -> TrainResult:
+    """The loop of the APC, A2F and A2H trainers: Adam (0.9, 0.99) on the
+    schedule, one step a batch.  loss_fn(model, batch, bank, rows, gen) ->
+    (loss, metrics); val_fn(model, batch, bank, rows) -> loss."""
+    dev = _device(loop)
+    model.to(dev)
+    schedule = schedulers.make_schedule(loop.lr_policy, loop.lr, loop.n_epochs,
+                                        loop.n_epochs_decay)
+    opt = state.adam(model.parameters(), loop.lr, 0.9, 0.99)
+    run = _Run(loop, {"params": model}, {"params": opt}, {"params": schedule})
+    params = list(model.parameters())
+    move = _Mover(dev)
+    bank, rows = _audio_bank(sampler, dev)
+    val_bank, val_rows = _audio_bank(val_sampler, dev)
+    timer = _StepTimer(dev)
+    for epoch in run.epochs():
+        lr = schedule(epoch)
+        state.set_lr(opt, lr)
+        t0, n = time.time(), 0
+        for batch in _batch_iter(sampler, loop, run.rng, move):
+            ts = timer.start()
+            loss, metrics = loss_fn(model, batch, bank, rows, run.gen)
+            state.apply_gradients(opt, params, loss)
+            timer.stop(ts)
+            n += 1
+            run.log_step(epoch, metrics, lr, t0, n)
+        if val_sampler is not None and (epoch + 1) % loop.validate_epoch == 0:
+            with torch.no_grad():
+                vs = [float(val_fn(model, b, val_bank, val_rows))
+                      for b in _val_batches(val_sampler, loop, move)]
+            if vs:  # a validation set smaller than the batch logs nothing
+                run.validated(epoch, {val_key: float(np.mean(vs))}, val_key)
+        run.end_epoch(epoch)
+    return run.result(timer)
+
+
+def train_apc(cfg: APCConfig, loop: TrainLoopConfig, sampler, val_sampler=None,
+              init: Optional[apc_model.APCPretrain] = None) -> TrainResult:
+    """APC pretraining (L1 future-mel prediction) on MelWindowSampler
+    batches.  The checkpoint holds the encoder and the head; serving and
+    feature extraction keep the encoder (assets.load_trained_person_models)."""
+    model = init if init is not None else _init(apc_model.APCPretrain(cfg), loop.seed)
+    return _train_single_state(
+        loop, sampler, val_sampler, model,
+        loss_fn=lambda m, b, bank, rows, gen: _with_metrics(steps.apc_loss(cfg, m, b)),
+        val_fn=lambda m, b, bank, rows: steps.apc_loss(cfg, m, b), val_key="val_l1")
+
+
+def train_audio2feature(cfg: Audio2FeatureConfig, loop: TrainLoopConfig, sampler,
+                        val_sampler=None, init: Optional[a2f_model.Audio2Feature] = None
+                        ) -> TrainResult:
+    model = init if init is not None else _init(a2f_model.Audio2Feature(cfg), loop.seed)
+    return _train_single_state(
+        loop, sampler, val_sampler, model,
+        loss_fn=lambda m, b, bank, rows, gen: _with_metrics(
+            steps.a2f_loss(cfg, m, b, audio_bank=bank, audio_rows=rows)),
+        val_fn=lambda m, b, bank, rows: steps.a2f_loss(cfg, m, b, training=False,
+                                                       audio_bank=bank, audio_rows=rows),
+        val_key="val_loss")
+
+
+def train_audio2headpose(cfg: Audio2HeadposeConfig, loop: TrainLoopConfig, sampler,
+                         val_sampler=None, init: Optional[a2h_model.Audio2Headpose] = None
+                         ) -> TrainResult:
+    """GMM NLL (+ loop.smooth_loss x the smoothness term); each step draws
+    the WaveNet's input-dropout mask from the trainer's torch.Generator."""
+    model = init if init is not None else _init(a2h_model.Audio2Headpose(cfg), loop.seed)
+
+    def loss_fn(m, b, bank, rows, gen):
+        keep = wavenet.dropout_keep(gen, b["history"].shape[0], b["history"].shape[2],
+                                    b["history"].device)
+        return steps.a2h_loss(cfg, m, b, dropout_keep=keep, smooth_loss_weight=loop.smooth_loss,
+                              audio_bank=bank, audio_rows=rows)
+
+    return _train_single_state(
+        loop, sampler, val_sampler, model, loss_fn=loss_fn,
+        val_fn=lambda m, b, bank, rows: steps.a2h_loss(cfg, m, b, training=False,
+                                                       audio_bank=bank, audio_rows=rows)[0],
+        val_key="val_gmm_nll")
+
+
+def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
+                       val_sampler=None, vgg: Optional[losses.VGG19] = None,
+                       init_g: Optional[f2f_model.Feature2FaceG] = None,
+                       init_d: Optional[f2f_model.Feature2FaceD] = None) -> TrainResult:
+    """The GAN trainer: each batch a D step with the pre-update G, then a G
+    step with the updated D (steps.f2f_d_step / f2f_g_step); Adam (0.5,
+    0.999), or TTUR's (0, 0.9) at lr / 2 for G and lr x 2 for D.  Each epoch
+    validates the eval-mode G (val_L1, val_PSNR), and ckpt_best keeps the
+    lowest val_L1."""
+    dev = _device(loop)
+    gen = torch.Generator().manual_seed(loop.seed)
+    g = init_g if init_g is not None else _init(f2f_model.Feature2FaceG(cfg), gen=gen)
+    d = init_d if init_d is not None else _init(f2f_model.Feature2FaceD(cfg), gen=gen)
+    g.to(dev)
+    d.to(dev)
+    (lr_g, bg), (lr_d, bd) = steps.ttur_learning_rates(loop.lr, loop.ttur)
+    schedules = {"G": schedulers.make_schedule(loop.lr_policy, lr_g, loop.n_epochs,
+                                               loop.n_epochs_decay),
+                 "D": schedulers.make_schedule(loop.lr_policy, lr_d, loop.n_epochs,
+                                               loop.n_epochs_decay)}
+    opts = {"G": state.adam(g.parameters(), lr_g, *bg), "D": state.adam(d.parameters(), lr_d, *bd)}
+    compute_dtype = (torch.bfloat16 if cfg.precision == "bfloat16" and dev.type == "cuda"
+                     else None)
+    if vgg is not None:
+        vgg.to(dev)
+    run = _Run(loop, {"G": g, "D": d}, opts, schedules)
+    move = _Mover(dev)
+    timer = _StepTimer(dev)
+    for epoch in run.epochs():
+        for k, s in schedules.items():
+            state.set_lr(opts[k], s(epoch))
+        t0, n = time.time(), 0
+        for batch in _batch_iter(sampler, loop, run.rng, move):
+            ts = timer.start()
+            d_metrics = steps.f2f_d_step(cfg, g, d, opts["D"], batch, compute_dtype)
+            g_metrics = steps.f2f_g_step(cfg, g, d, opts["G"], batch, vgg, compute_dtype)
+            timer.stop(ts)
+            n += 1
+            run.log_step(epoch, d_metrics | g_metrics, None, t0, n)
+        if val_sampler is not None and (epoch + 1) % loop.validate_epoch == 0:
+            vals = [steps.f2f_validate(g, b, compute_dtype)[1]
+                    for b in _val_batches(val_sampler, loop, move)]
+            if vals:
+                vm = {k: float(np.mean([float(v[k]) for v in vals])) for k in vals[0]}
+                run.vis.print_current_errors(epoch, run.it, vm)
+                run.validated(epoch, vm, "val_L1")
+        run.end_epoch(epoch)
+    return run.result(timer)
+
+
+def _with_metrics(loss: Tensor):
+    return loss, {"loss": loss}
+
+
+def _init(model: nn.Module, seed: int = 0, gen: Optional[torch.Generator] = None) -> nn.Module:
+    """Random init at the JAX init's scales, drawn on the CPU."""
+    model.reset_parameters(gen if gen is not None else torch.Generator().manual_seed(seed))
+    return model

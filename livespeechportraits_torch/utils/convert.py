@@ -13,8 +13,12 @@ reference's released ``.pkl`` checkpoints.  Layout maps:
     JAX int8 conv2d {w_q [kh, kw, in, out] int8, w_scale, b?, x_scale?}
                                    -> QConv2d {w_q [out, in, kh, kw], ...}
 
-``params_to_jax`` is the inverse, for the four models; its leaves are
-numpy arrays (int8 weights stay int8, float leaves become float32).
+The trainers' two extra trees convert too: the APC pretraining tree
+({"encoder", "head"} -> ``encoder.rnns.*``, ``head.*``) and the
+Feature2Face discriminator ({"scales"} -> the reference's
+``scale{i}_layer{j}.{0,1}`` keys, JAX's scale k being the reference's
+scale num_D-1-k).  ``params_to_jax`` is the inverse, for these six
+models; its leaves are numpy arrays (int8 weights stay int8, float leaves become float32).
 Leaves may be numpy arrays or anything ``np.asarray`` accepts; this module
 imports no JAX.
 """
@@ -29,7 +33,7 @@ from torch import nn
 
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models import nn_core
-from livespeechportraits_torch.models.apc import APCEncoder
+from livespeechportraits_torch.models.apc import APCEncoder, APCPretrain
 from livespeechportraits_torch.models.audio2feature import Audio2Feature
 from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
 
@@ -177,13 +181,25 @@ def _unet_stage(p, out: StateDict, block: str) -> None:
 
 
 def params_from_jax(tree: Dict[str, Any]) -> StateDict:
-    """Convert one model's JAX pytree (APC, Audio2Feature, Audio2Headpose or
-    the Feature2Face generator, told apart by their top-level keys) into the
-    port's state dict."""
+    """Convert one model's JAX pytree (APC, its pretraining tree,
+    Audio2Feature, Audio2Headpose, the Feature2Face generator or its
+    discriminator, told apart by their top-level keys) into the port's state
+    dict."""
     out: StateDict = {}
     if "layers" in tree:  # APC encoder
         for i, layer in enumerate(tree["layers"]):
             _rnn(layer, out, f"rnns.{i}")
+    elif "encoder" in tree:  # APC with its pretraining head
+        out.update({f"encoder.{k}": v for k, v in params_from_jax(tree["encoder"]).items()})
+        _linear(tree["head"], out, "head")
+    elif "scales" in tree:  # Feature2Face discriminator
+        n = len(tree["scales"])
+        for k, scale in enumerate(tree["scales"]):
+            for j, layer in enumerate(scale["layers"]):
+                name = f"scale{n - 1 - k}_layer{j}"
+                _conv2d(layer["conv"], out, f"{name}.0")
+                if "bn" in layer:
+                    _batchnorm(layer["bn"], out, f"{name}.1")
     elif "lstm" in tree:  # Audio2Feature (LSTM decoder)
         _linear(tree["down1"], out, "downsample.0")
         _batchnorm(tree["down_bn"], out, "downsample.1")
@@ -319,11 +335,25 @@ def _unet_stage_to(sd: StateDict, stage: f2f.UnetBlock, block: str) -> Dict[str,
 
 
 def params_to_jax(model: nn.Module) -> Dict[str, Any]:
-    """One of the port's four models as the JAX package's parameter tree
+    """One of the port's six models as the JAX package's parameter tree
     (the inverse of params_from_jax)."""
     sd = model.state_dict()
     if isinstance(model, APCEncoder):
         return {"layers": [_rnn_to(sd, f"rnns.{i}") for i in range(len(model.rnns))]}
+    if isinstance(model, APCPretrain):
+        return {"encoder": params_to_jax(model.encoder), "head": _linear_to(sd, "head")}
+    if isinstance(model, f2f.Feature2FaceD):
+        scales = []
+        for k in range(model.num_D):
+            layers = []
+            for j in range(model.n_layers + 2):
+                name = f"scale{model.num_D - 1 - k}_layer{j}"
+                layer = {"conv": _conv2d_to(sd, f"{name}.0")}
+                if f"{name}.1.running_mean" in sd:
+                    layer["bn"] = _batchnorm_to(sd, f"{name}.1")
+                layers.append(layer)
+            scales.append({"layers": layers})
+        return {"scales": scales}
     if isinstance(model, Audio2Feature):
         return {"down1": _linear_to(sd, "downsample.0"),
                 "down_bn": _batchnorm_to(sd, "downsample.1"),

@@ -553,3 +553,37 @@ def test_small_unet_renders_from_one_k1_launch_a_batch(cuda_device):
     assert rasterize_cuda.LAUNCHES == before + -(-lm.shape[0] // 4)
     d = np.abs(out.astype(int) - ref.astype(int))
     assert d.max() <= 1
+
+
+def test_k1_at_the_training_batch(cuda_device, tmp_path):
+    """The Feature2Face trainer's input stage on the card: one synthetic
+    512^2 batch of 8 (FaceFrameSampler(device_rasterize=True)) gets its edge
+    maps from one K1 launch, bitwise equal to the plain rasteriser on the
+    same segment table; then a small GAN run (64^2, bf16) on the card
+    launches K1 once a step and once a validation batch, with finite
+    losses."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import trainer
+
+    sampler = cli.synthetic_face_data(24, 512)
+    host = next(sampler.batches(8, np.random.default_rng(0)))
+    before = rasterize_cuda.LAUNCHES
+    batch = trainer._Mover(cuda_device)(host)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.LAUNCHES == before + 1
+    assert batch["feature_map"].shape == (8, 512, 512, 1) and batch["feature_map"].is_cuda
+    table = rasterize.segment_table(torch.as_tensor(host["landmarks"], device=cuda_device),
+                                    torch.as_tensor(host["shoulders"], device=cuda_device))
+    assert table.shape == (8, 88, 4)
+    assert torch.equal(batch["feature_map"][..., 0], rasterize.rasterize_segments(table, 512, 512))
+
+    small = cli.synthetic_face_data(70, 64)
+    cfg = Feature2FaceConfig(ngf=8, n_downsample=6, load_size=64, ndf=8)
+    loop = trainer.TrainLoopConfig(n_epochs=1, n_epochs_decay=0, batch_size=4, print_freq=1,
+                                   checkpoints_dir=str(tmp_path), name="f2f")
+    before = rasterize_cuda.LAUNCHES
+    res = trainer.train_feature2face(cfg, loop, small, small)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.LAUNCHES - before == len(res.step_ms) + -(-len(small) // 4)
+    assert np.isfinite(res.best_val) and all(np.isfinite(res.step_ms))
