@@ -112,13 +112,38 @@ Phases, each printing one line; any failure raises and exits non-zero:
    more step unprofiled and traced (busy share, top kernels); then a
    Predictor booted from the four checkpoints (ckpt_best preferred) serves a
    3.0 s request.
+11. quantization-aware training at full width.  11a: K4's 4x4 taps at the
+   six interior conv shapes of the discriminator (512^2, B = 8, f32 in,
+   padding 2, strides 2 and 1, outputs 129^2 .. 34^2) against the plain
+   twin, bitwise in the fused f32 and int32 modes, device ms beside the
+   bound, the plain twin's ms and the bf16 and f32 cuDNN convs as
+   yardsticks.  11b: an fq8 conv (64 -> 64 on 256^2, B = 8, bf16 under
+   autocast) against the deployed bf16 QConv2d: one K4 launch, bitwise.
+   11c: train_feature2face with qat_int8 and qat_d on the synthetic data
+   (two epochs of two steps, validated each epoch; the counts set to 0
+   just before: K4 112 a step, 88 G + 24 D, and 44 a validation batch; K1
+   once a step and a validation batch), a --qat run (no K4), then one GAN
+   step in each mode (float, qat, qat_int8, qat_int8 + qat_d; qat and
+   qat_int8 again with cuDNN's TF32 off, the emulation in full f32) on one batch:
+   ms (CUDA events), peak memory, K4 launches a step, and K4's device time
+   in a traced qat_int8 + qat_d step; then a Predictor serves the QAT
+   checkpoint (int8 renderer), one 3.0 s request.  11d: the real-data path
+   (check_real_data): synth_subject clips, build_person_pack, the CLI's
+   --task apc / audio2feature / audio2headpose / feature2face with
+   --dataroot, prepare_clip's K2 launches (3, then a cache hit), K1 once a
+   GAN step, each trainer's step ms, a Predictor serving the four
+   checkpoints.
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
    time, its launches in 6e's yuv420 stream as stream_launches and on the
    onboard path as onboard_launches; K1's onboard_entry is the f32 plane at
    32 x 512^2, its train_launches those of phase 10's Feature2Face run and
-   its train_entry the f32 plane at the training batch, 8 x 512^2), then
+   its train_entry the f32 plane at the training batch, 8 x 512^2, its
+   real_data_train_launches those of 11d's GAN run; K2's
+   real_data_prepare_clip_launches; K4's d_shapes the six discriminator
+   shapes of 11a, its train_launches those of 11c's QAT run and its
+   gan_step_by_mode each mode's step), then
    {"ok": true, "device": {...}} as the last line.
 """
 
@@ -668,28 +693,30 @@ def check_render_trace(device, host, batches: int, where: str) -> dict:
 
 
 def k4_bound(B: int, size: int, cin: int, cout: int, stride: int, in_bytes: int,
-             out_bytes: int):
+             out_bytes: int, ksize: int = 3, pad: int = 1):
     """K4's bound at one shape: the input read once, the weights, the output
-    written once; 2 * M * Cout * 9 * Cin int8 operations."""
-    ho = (size - 1) // stride + 1
+    written once; 2 * M * Cout * ksize^2 * Cin int8 operations."""
+    ho = (size + 2 * pad - ksize) // stride + 1
     m = B * ho * ho
-    nbytes = B * size * size * cin * in_bytes + cout * 9 * cin + m * cout * out_bytes
-    return bound(nbytes, 2 * m * cout * 9 * cin, "int8")
+    taps = ksize * ksize
+    nbytes = B * size * size * cin * in_bytes + cout * taps * cin + m * cout * out_bytes
+    return bound(nbytes, 2 * m * cout * taps * cin, "int8")
 
 
-def k4_inputs(B: int, size: int, cin: int, cout: int, dev, seed: int):
-    """A bf16 activation on a 1/8 grid (randn * 12) with r = 4 (s_x = 0.25):
+def k4_inputs(B: int, size: int, cin: int, cout: int, dev, seed: int, ksize: int = 3,
+              dtype=torch.bfloat16):
+    """An activation on a 1/8 grid (randn * 12) with r = 4 (s_x = 0.25):
     every odd multiple of 1/8 lands on x * r = k + 0.5, and ~1 % of the
-    values land past +-127; int8 weights, a bf16 scale and bias."""
+    values land past +-127; int8 weights, a scale and bias of x's dtype."""
     cl = torch.channels_last
     g = torch.Generator().manual_seed(seed)
     x = torch.round(torch.randn(B, cin, size, size, generator=g) * 96) / 8
-    x = x.to(dev, torch.bfloat16).contiguous(memory_format=cl)
-    w = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8)
+    x = x.to(dev, dtype).contiguous(memory_format=cl)
+    w = torch.randint(-127, 128, (cout, cin, ksize, ksize), generator=g, dtype=torch.int8)
     w = w.to(dev).contiguous(memory_format=cl)
-    r = torch.reciprocal(torch.tensor(0.25)).to(dev, torch.bfloat16)
-    scale = (torch.rand(cout, generator=g) * 1e-5).to(dev, torch.bfloat16)
-    bias = torch.randn(cout, generator=g).to(dev, torch.bfloat16)
+    r = torch.reciprocal(torch.tensor(0.25)).to(dev, dtype)
+    scale = (torch.rand(cout, generator=g) * 1e-5).to(dev, dtype)
+    bias = torch.randn(cout, generator=g).to(dev, dtype)
     return x, w, r, scale, bias
 
 
@@ -1524,7 +1551,8 @@ def check_training(dev, tmp: str) -> tuple:
     """Phase 10: the four trainers at full width on the card, through
     trainer.train_* on the synthetic samplers, then a Predictor serving what
     they wrote.  Returns (each kernel's launches in the Feature2Face run, K1's
-    row at the training batch).  Raises on any failed check."""
+    row at the training batch, the synthetic face sampler).  Raises on any
+    failed check."""
     from livespeechportraits_torch.config import (APCConfig, Audio2FeatureConfig,
                                                   Audio2HeadposeConfig, Feature2FaceConfig)
     from livespeechportraits_torch.models import apc as apc_model
@@ -1701,7 +1729,358 @@ def check_training(dev, tmp: str) -> tuple:
         pixel_std=f"{frames.std():.4f}")
     if frames.shape != (165, 512, 512, 3) or frames.min() == frames.max() or not same:
         raise AssertionError(f"train serve: frames {frames.shape}, weights served {same}")
-    return counts, k1
+    return counts, k1, sampler
+
+
+# The discriminator's interior convs at 512^2 (num_D 2, n_layers_D 3, ndf
+# 64): (name, input size, Cin, Cout, stride); 4x4, padding 2
+D_SHAPES = (("scale 0 layer 1", 257, 64, 128, 2), ("scale 0 layer 2", 129, 128, 256, 2),
+            ("scale 0 layer 3", 65, 256, 512, 1), ("scale 1 layer 1", 129, 64, 128, 2),
+            ("scale 1 layer 2", 65, 128, 256, 2), ("scale 1 layer 3", 33, 256, 512, 1))
+
+
+def check_k4_discriminator(dev, B: int = 8) -> list:
+    """K4's 4x4 taps at the six D shapes, B = 8, f32 in (the discriminator's
+    dtype): the fused f32 mode and the int32 mode bitwise against the twins;
+    device ms (CUDA-graph replay) beside the bound, ms a call, the plain
+    twin's ms, and the cuDNN conv of the same shape in bf16 and in f32
+    (TF32, what the float discriminator runs) as yardsticks."""
+    from livespeechportraits_torch.ops import q8conv_cuda as q8
+
+    F = torch.nn.functional
+    rows = []
+    for i, (name, size, cin, cout, stride) in enumerate(D_SHAPES):
+        x, w, r, scale, bias = k4_inputs(B, size, cin, cout, dev, 500 + i, ksize=4,
+                                         dtype=torch.float32)
+        fn = lambda: q8.conv_q8(x, r, w, stride, 2, scale, bias)  # noqa: E731
+        got = fn()
+        ref = q8.conv_q8_plain(x, r, w, stride, 2, scale, bias)
+        x_q = q8.quantize_plain(x, r)
+        int_diff = int((q8.conv_s8(x_q, w, stride, 2) != q8.conv_s8_plain(x_q, w, stride, 2)
+                        ).sum().item())
+        diff = int((got != ref).sum().item())
+        err = (got - ref).abs().max().item()
+        dev_ms = graph_ms(fn)
+        ms = cuda_ms(fn, reps=20)
+        plain_ms = cuda_ms(lambda: q8.conv_q8_plain(x, r, w, stride, 2, scale, bias), reps=1,
+                           warmup=1)
+        wf = w.float().contiguous(memory_format=torch.channels_last)
+        xb, wb = x.to(torch.bfloat16), wf.to(torch.bfloat16)
+        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=stride, padding=2), reps=20)
+        f32_ms = cuda_ms(lambda: F.conv2d(x, wf, stride=stride, padding=2), reps=20)
+        bound_ms, bound_by = k4_bound(B, size, cin, cout, stride, 4, 4, ksize=4, pad=2)
+        row = {"case": name, "input": f"{B}x{cin}x{size}x{size}", "cout": cout,
+               "stride": stride, "output": got.shape[2], "mismatched": diff,
+               "int32_mismatched": int_diff, "max_abs_err": err, "device_ms": dev_ms, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "share": bound_ms / dev_ms, "split_k": q8.split_k(got.numel() // cout, cout, cin,
+                                                                 False, 4)[1],
+               "library_ms": None, "bf16_conv_ms_cudnn_other_function": bf16_ms,
+               "f32_conv_ms_cudnn_tf32_other_function": f32_ms}
+        log("K4_D", **{k: (f"{v:.4f}" if isinstance(v, float) else repr(v) if k == "case" else v)
+                       for k, v in row.items()})
+        if diff or int_diff:
+            raise AssertionError(f"K4 at D {name}: {diff} f32 and {int_diff} int32 values "
+                                 "differ from the plain twin")
+        rows.append(row)
+    total = sum(r["device_ms"] for r in rows)
+    log("K4_D_forward", B=B, convs=len(rows), device_ms=f"{total:.4f}",
+        bound_ms=f"{sum(r['bound_ms'] for r in rows):.4f}")
+    return rows
+
+
+def check_fq8_layer(dev) -> None:
+    """A QAT fq8 conv on a 256^2 layer (64 -> 64, B = 8, bf16 under
+    autocast, the f32 master weights) against the deployed bf16 QConv2d of
+    the same weights: one K4 launch, bitwise."""
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import q8conv_cuda
+
+    g = torch.Generator().manual_seed(11)
+    conv = torch.nn.Conv2d(64, 64, 3, padding=1, bias=False)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * 0.05)
+    conv = conv.to(dev)
+    layer = nn_core.fake_quant_conv(conv, int8_forward=True)
+    deployed = nn_core.QConv2d.from_conv(conv).to(torch.bfloat16)
+    deployed.w_q = deployed.w_q.contiguous(memory_format=torch.channels_last)
+    x = torch.randn(8, 64, 256, 256, generator=g).to(dev, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = q8conv_cuda.LAUNCHES
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        y = nn_core.conv2d(x, layer, 1, 1)
+    launches = q8conv_cuda.LAUNCHES - before
+    with torch.no_grad():
+        ref = nn_core.conv2d(x, deployed, 1, 1)
+    diff = int((y != ref).sum().item())
+    log("fq8_layer", shape="8x64x256^2 -> 64", dtype=y.dtype, k4_launches=launches,
+        mismatched=diff)
+    if diff or launches != 1 or y.dtype != torch.bfloat16:
+        raise AssertionError(f"fq8 layer: {diff} values differ from the deployed QConv2d, "
+                             f"{launches} K4 launches")
+
+
+QAT_MODES = {"float": {}, "qat": {"qat": True}, "qat_int8": {"qat_int8": True},
+             "qat_int8_qat_d": {"qat_int8": True, "qat_d": True},
+             # cuDNN runs an f32 conv in TF32 by default: these two time the
+             # QAT emulation and the STE backward in full f32 (the whole step
+             # with torch.backends.cudnn.allow_tf32 off)
+             "qat_tf32_off": {"qat": True, "tf32": False},
+             "qat_int8_tf32_off": {"qat_int8": True, "tf32": False}}
+
+
+def time_gan_modes(dev, batch, steps: int = 10) -> dict:
+    """One D + G step at 512^2, B = 8, in each QAT mode, on the same batch
+    and the same seed-0 models: CUDA events around each of `steps` steps
+    after two warm-up steps, peak memory (absolute, and above what was
+    allocated before the mode's models were built), and K4's launches a
+    step.  Then one --qat_int8 --qat_d step traced: K4's device time against
+    the step's."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.ops import q8conv_cuda
+    from livespeechportraits_torch.train import state, steps as tsteps, trainer
+
+    cfg = Feature2FaceConfig()
+    out = {}
+    for mode, kw in QAT_MODES.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator().manual_seed(0)
+        g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
+        d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+        if kw:
+            g = f2f.qat_generator(g, int8_forward=kw.get("qat_int8", False))
+        g = g.to(dev)
+        opt_g = state.adam(g.parameters(), 1e-4, 0.5, 0.999)
+        opt_d = state.adam(d.parameters(), 1e-4, 0.5, 0.999)
+        qat_d = kw.get("qat_d", False)
+        torch.backends.cudnn.allow_tf32 = kw.get("tf32", True)
+
+        def step():
+            tsteps.f2f_d_step(cfg, g, d, opt_d, batch, torch.bfloat16, qat_d)
+            tsteps.f2f_g_step(cfg, g, d, opt_g, batch, None, torch.bfloat16, qat_d)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        before = q8conv_cuda.LAUNCHES
+        ms = []
+        for _ in range(steps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            ms.append((a, b))
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in ms]
+        out[mode] = {"step_ms_median": float(np.median(ms)), "step_ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "step_peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                     "k4_launches_a_step": (q8conv_cuda.LAUNCHES - before) / steps}
+        if mode == "qat_int8_qat_d":
+            events, traced_wall, _ = trace(step)
+            k4_ms, k4_n = kernel_device_total(events, SYMBOLS["K4"])
+            busy = busy_ms(events)
+            out[mode].update(traced_wall_ms=traced_wall, device_busy_ms=busy,
+                             device_events=len(events), k4_device_ms=k4_ms if events else None,
+                             k4_kernels=k4_n,
+                             k4_share=(k4_ms / out[mode]["step_ms_median"]) if events else None,
+                             top=top_kernels(events, 8))
+        log("train_qat_mode", mode=mode, **{k: (f"{v:.3f}" if isinstance(v, float)
+                                               else json.dumps(v) if isinstance(v, list)
+                                               else v)
+                                            for k, v in out[mode].items() if k != "step_ms"},
+            step_ms=json.dumps([round(t, 3) for t in ms]))
+        del g, d, opt_g, opt_d
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    want = {"float": 0, "qat": 0, "qat_int8": 88, "qat_int8_qat_d": 112, "qat_tf32_off": 0,
+            "qat_int8_tf32_off": 88}
+    got = {k: v["k4_launches_a_step"] for k, v in out.items()}
+    if got != want:
+        raise AssertionError(f"K4 launches a GAN step by mode: {got}, want {want}")
+    return out
+
+
+def check_qat(dev, tmp: str, sampler) -> dict:
+    """Phase 11a-c: quantization-aware training at full width on the card.
+    Returns K4's figures for the kernels line (the D shapes, the training
+    run's launches, the GAN step by mode)."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.pipeline import video
+    from livespeechportraits_torch.serve import Predictor
+    from livespeechportraits_torch.train import trainer
+    from livespeechportraits_torch.utils import checkpoint as ckpt
+
+    d_rows = check_k4_discriminator(dev)
+    check_fq8_layer(dev)
+
+    # 11c: train_feature2face with --qat_int8 --qat_d, two epochs of two
+    # steps, validated each epoch (three batches), K1 and K4 counted
+    cfg = Feature2FaceConfig()
+    loop = trainer.TrainLoopConfig(n_epochs=1, n_epochs_decay=1, lr=1e-4, batch_size=8,
+                                   print_freq=1, checkpoints_dir=tmp, name="f2f_qat8",
+                                   device="cuda", qat_int8=True, qat_d=True)
+    gen = torch.Generator().manual_seed(0)
+    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
+    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen)
+    before = {k: v.clone() for k, v in g.state_dict().items()}
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.train_feature2face(cfg, loop, sampler, sampler, init_g=g, init_d=d)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_steps, val = len(res.step_ms), 2 * math.ceil(len(sampler) / 8)
+    losses = {k: _logged(tmp, "f2f_qat8", k) for k in ("loss_D", "loss_G")}
+    moved = any(not torch.equal(v.cpu(), before[k])
+                for k, v in res.models["G"].state_dict().items())
+    mode = ckpt.qat_mode(ckpt.load_checkpoint(os.path.join(tmp, "f2f_qat8", "ckpt")))
+    log("train_qat_int8", steps=n_steps, val_batches=val, wall_s=f"{wall:.3f}",
+        step_ms_median=f"{float(np.median(res.step_ms)):.3f}",
+        step_ms=json.dumps([round(t, 3) for t in res.step_ms]), launches=json.dumps(counts),
+        k4_a_step=112, k4_a_val_batch=44, ckpt_qat_mode=mode,
+        loss_G=json.dumps([round(v, 4) for v in losses["loss_G"]]), params_moved=moved)
+    want = {"K1": n_steps + val, "K2": 0, "K3": 0, "K4": 112 * n_steps + 44 * val}
+    if counts != want:
+        raise AssertionError(f"QAT training launches {counts}, want {want}")
+    if not (all(np.isfinite(v).all() and v for v in losses.values()) and moved
+            and mode == "fq8"):
+        raise AssertionError(f"QAT training: losses {losses}, moved {moved}, mode {mode}")
+
+    # the --qat (f32 emulation) run: one epoch, no K4
+    zero_launch_counts()
+    res_fq = trainer.train_feature2face(
+        cfg, trainer.TrainLoopConfig(n_epochs=1, n_epochs_decay=0, lr=1e-4, batch_size=8,
+                                     print_freq=1, checkpoints_dir=tmp, name="f2f_qat",
+                                     device="cuda", qat=True), sampler)
+    counts_fq = launch_counts()
+    log("train_qat_fq", steps=len(res_fq.step_ms),
+        step_ms=json.dumps([round(t, 3) for t in res_fq.step_ms]), launches=json.dumps(counts_fq))
+    if counts_fq["K4"] or f2f.qat_tag_mode(res_fq.models["G"]) != "fq":
+        raise AssertionError(f"--qat run: launches {counts_fq}")
+
+    # each mode's step time and memory on one batch, the runs above freed
+    del res, res_fq, g, d
+    torch.cuda.empty_cache()
+    batch = trainer._Mover(dev)(next(sampler.batches(8, np.random.default_rng(1),
+                                                     shuffle=False)))
+    modes = time_gan_modes(dev, batch)
+
+    # a Predictor serving the QAT checkpoint (int8 renderer), one 3.0 s request
+    p = Predictor(device="cuda", results_dir=os.path.join(tmp, "serve_qat"))
+    t0 = time.perf_counter()
+    p.setup("Synthetic", image_size=512, quantize=True,
+            f2f_ckpt=os.path.join(tmp, "f2f_qat8", "ckpt"))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = p.predict(video.make_test_tone(3.0), write_video=False)
+    req_s = time.perf_counter() - t0
+    frames = out.frames
+    log("serve_qat", setup_s=f"{setup_s:.3f}", request_s=f"{req_s:.3f}", frames=frames.shape,
+        pixel_std=f"{frames.std():.4f}",
+        tagged=f2f.is_qat_generator(p._models.feature2face))
+    if (frames.shape != (165, 512, 512, 3) or frames.min() == frames.max()
+            or f2f.is_qat_generator(p._models.feature2face)):
+        raise AssertionError(f"QAT serve: frames {frames.shape}")
+    return {"d_shapes": d_rows, "train_launches": counts["K4"], "train_steps": n_steps,
+            "train_val_batches": val, "gan_step_by_mode": modes}
+
+
+def check_real_data(dev, tmp: str) -> dict:
+    """Phase 11d: training on a subject's clips at full width, through the
+    CLI's real-data path.  A synth_subject root with c0 (1800 frames of
+    motion, no frame store) and c1 (260 frames with a face, 512^2), the
+    subject's mean_pts3d.npy and candidates from build_person_pack (copied
+    into c1, as the reference keeps them per clip); --task apc on c0,c1;
+    prepare_clip of c0 with that encoder (K2 on the card, counted, cached);
+    --task audio2feature / audio2headpose on c0 (the cache read: no K2) and
+    --task feature2face on c1 (K1 once a step).  APC holds out c1 (one
+    480-row window) and trains on c0's 13 windows at batch 4 (every clip
+    must hold a window).  Then a Predictor from the
+    four checkpoints serves one 3.0 s request.  Returns the launches and
+    walls."""
+    import shutil
+
+    from livespeechportraits_torch.config import APCConfig
+    from livespeechportraits_torch.models import apc as apc_model
+    from livespeechportraits_torch.pipeline import build_person, synth_subject, video
+    from livespeechportraits_torch.serve import Predictor
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import data_io
+
+    root, out = os.path.join(tmp, "Person"), os.path.join(tmp, "ck")
+    t0 = time.perf_counter()
+    synth_subject.write_raw_clip(root, "c0", 1800, seed=0, with_face=False, device="cuda")
+    synth_subject.write_raw_clip(root, "c1", 260, seed=1, device="cuda")
+    build_person.build_person_pack(root, ["c0", "c1"], apc=None)
+    shutil.copytree(os.path.join(root, "candidates"), os.path.join(root, "c1", "candidates"))
+    clips_s = time.perf_counter() - t0
+    common = ["--device", "cuda", "--n_epochs", "1", "--n_epochs_decay", "0",
+              "--checkpoints_dir", out, "--print_freq", "1", "--dataroot", root]
+    walls, launches = {}, {}
+
+    step_ms = {}
+
+    def run(task: str, extra: list) -> None:
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = cli.main(["--task", task] + common + extra)
+        walls[task] = time.perf_counter() - t
+        launches[task] = launch_counts()
+        step_ms[task] = float(np.median(res.step_ms))
+
+    run("apc", ["--clip_names", "c1,c0", "--batch_size", "4"])
+    apc_dir = os.path.join(out, "apc", "ckpt")
+    enc = apc_model.load_pretrained_encoder(apc_dir, APCConfig(), device="cuda")
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clip = data_io.prepare_clip(os.path.join(root, "c0"), "c0", enc, APCConfig())
+    prep_s = time.perf_counter() - t0
+    prep = launch_counts()
+    run("audio2feature", ["--clip_names", "c0", "--apc_ckpt", apc_dir])
+    run("audio2headpose", ["--clip_names", "c0", "--apc_ckpt", apc_dir])
+    run("feature2face", ["--clip_names", "c1"])
+    losses = {t: _logged(out, t, "loss_G" if t == "feature2face" else "loss")
+              for t in walls}
+    f2f_steps = len(losses["feature2face"])
+    log("real_data", clips_s=f"{clips_s:.3f}", prepare_clip_s=f"{prep_s:.3f}",
+        prepare_clip_frames=clip.n_frames, prepare_clip_launches=json.dumps(prep),
+        walls=json.dumps({k: round(v, 3) for k, v in walls.items()}),
+        step_ms_median=json.dumps({k: round(v, 3) for k, v in step_ms.items()}),
+        launches=json.dumps(launches),
+        steps=json.dumps({t: len(v) for t, v in losses.items()}),
+        loss_first_last=json.dumps({t: [round(v[0], 4), round(v[-1], 4)]
+                                    for t, v in losses.items()}))
+    if prep["K2"] != 3 or launches["audio2feature"]["K2"] or launches["audio2headpose"]["K2"]:
+        raise AssertionError(f"prepare_clip: K2 {prep}, then {launches} (the cache unread)")
+    if launches["feature2face"]["K1"] != f2f_steps or not f2f_steps:
+        raise AssertionError(f"real-data GAN: K1 {launches['feature2face']}, {f2f_steps} steps")
+    if not all(v and np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"real-data training: losses {losses}")
+
+    ckpts = {f"{s}_ckpt": os.path.join(out, task, "ckpt") for s, task in
+             (("f2f", "feature2face"), ("a2f", "audio2feature"), ("a2h", "audio2headpose"),
+              ("apc", "apc"))}
+    p = Predictor(device="cuda", results_dir=os.path.join(tmp, "serve_real"))
+    t0 = time.perf_counter()
+    p.setup("Synthetic", image_size=512, quantize=True, **ckpts)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = p.predict(video.make_test_tone(3.0), write_video=False)
+    req_s = time.perf_counter() - t0
+    log("real_data_serve", setup_s=f"{setup_s:.3f}", request_s=f"{req_s:.3f}",
+        frames=res.frames.shape, pixel_std=f"{res.frames.std():.4f}")
+    if res.frames.shape != (165, 512, 512, 3) or res.frames.min() == res.frames.max():
+        raise AssertionError(f"real-data serve: frames {res.frames.shape}")
+    return {"prepare_clip_K2": prep["K2"], "train_K1": launches["feature2face"]["K1"],
+            "prepare_clip_s": prep_s, "step_ms_median": step_ms}
 
 
 def main() -> int:
@@ -1861,7 +2240,7 @@ def main() -> int:
     k4 = check_q8conv(dev)
     for B in (16, 8):  # the serving render batch and the stream's
         check_k4_forward(dev, B)
-    kernels.append({"name": "K4 q8conv (int8 3x3 conv)", "route": "cuda",
+    kernels.append({"name": "K4 q8conv (int8 3x3 and 4x4 conv)", "route": "cuda",
                     "source": "livespeechportraits_torch/csrc/q8conv.cu",
                     "replaces": "livespeechportraits_tpu/models/nn_core.py:241", **k4})
 
@@ -1911,9 +2290,19 @@ def main() -> int:
     # 10. training: the four trainers at full width, then a Predictor
     # serving their checkpoints
     with tempfile.TemporaryDirectory() as tmp:
-        train_counts, train_entry = check_training(dev, tmp)
+        train_counts, train_entry, face_sampler = check_training(dev, tmp)
     kernels[0]["train_launches"] = train_counts["K1"]
     kernels[0]["train_entry"] = train_entry
+
+    # 11. quantization-aware training (K4's 4x4 taps), then training on a
+    # subject's clips
+    with tempfile.TemporaryDirectory() as tmp:
+        qat = check_qat(dev, tmp, face_sampler)
+    kernels[3].update(qat)
+    with tempfile.TemporaryDirectory() as tmp:
+        real = check_real_data(dev, tmp)
+    kernels[0]["real_data_train_launches"] = real["train_K1"]
+    kernels[1]["real_data_prepare_clip_launches"] = real["prepare_clip_K2"]
 
     # 9. results
     print(smi)

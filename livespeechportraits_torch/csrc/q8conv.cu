@@ -1,5 +1,6 @@
-// K4: the int8 3x3 convolution of the int8 renderer, with the activation
-// quantize folded in, on Hopper's wgmma.
+// K4: the int8 3x3 (and 4x4) convolution of the int8 renderer and of
+// quantization-aware training, with the activation quantize folded in, on
+// Hopper's wgmma.
 //
 // Replaces _conv2d_q8 of livespeechportraits_tpu/models/nn_core.py: the
 // activation quantize (x_q = clip(round(x * r), -127, 127), r = 1/s_x in the
@@ -7,14 +8,19 @@
 // the TPU; not a Pallas kernel) and the rescale acc.to(dt) * scale + b.  Every
 // interior conv of the int8 renderer runs here: 44 per 'normal' ResUNet
 // forward, 256^2 down to 2^2, 64 to 1024 input and 64 to 512 output channels.
-// PyTorch has no int8 convolution on CUDA.
+// Quantization-aware training runs the same 3x3 convs in every training
+// forward (_conv2d_fakequant_int8 of the JAX package), and the 4x4 interior
+// convs of the multiscale discriminator (qat_discriminator: padding 2,
+// stride 2 and 1, 64 to 256 input channels, odd output sizes such as 129^2
+// and 66^2) in f32.  PyTorch has no int8 convolution on CUDA.
 //
 // GEMM view, activations and weights both channels-last (NHWC / OHWI):
 //     out[m, n] = sum_k A[m, k] * Wt[n, k],   m = (b, oy, ox), n = cout,
-//     k = (kh*3 + kw) * Cin + ci,            A[m, k] = q(x[b, oy*s-p+kh, ox*s-p+kw, ci])
-// with q(0) = 0 outside the image.  The int32 sums are exact
-// (|acc| <= 127^2 * 9 * Cin < 2^31), so they equal the plain twin's float64
-// conv in any summation order, split-K included.
+//     k = (kh*KS + kw) * Cin + ci,           A[m, k] = q(x[b, oy*s-p+kh, ox*s-p+kw, ci])
+// with q(0) = 0 outside the image and KS the kernel size (3 or 4).  The int32
+// sums are exact (|acc| <= 127^2 * 16 * Cin < 2^31 for Cin <= 8,000), so they
+// equal the plain twin's float64 conv in any summation order, split-K
+// included.
 //
 // What bounds it on the H100: a 'normal' forward at B=16 is ~2.6 int8 TOP and
 // each conv reads its bf16 input once and writes its bf16 output once; the
@@ -31,8 +37,9 @@
 //   Cout <= 64, else 128): two consumer warpgroups of 64 rows each issue
 //   wgmma m64nBNk32 s8 with int32 accumulators in registers; one producer
 //   warp feeds them through mbarrier rings.
-// - Weights, [Cout, 9*Cin] int8, arrive by TMA, one (tap, 64-channel slice)
-//   per stage, with the 64-byte swizzle that the wgmma B descriptor reads.
+// - Weights, [Cout, KS*KS*Cin] int8, arrive by TMA, one (tap, 64-channel
+//   slice) per stage, with the 64-byte swizzle that the wgmma B descriptor
+//   reads.
 // - The A operand comes from registers: consumers build wgmma's A fragment
 //   from int8 values in shared memory.  x * r is one float multiply rounded
 //   once to the activation dtype (__fmul_rn / bf16x2 multiply, no
@@ -63,7 +70,8 @@
 // tiles and A from shared memory with two taps in flight each left it
 // about where it was on the H100.
 //
-// The gather kernel (stride 2, and maps narrower than 16 or shorter than 8):
+// The gather kernel (stride 2, maps narrower than 16 or shorter than 8, and
+// every 4x4 conv; the kernel size is a launch parameter):
 // per (tap, slice) stage the producer warp gathers the 128 rows of A with
 // 16-byte cp.async (src-size 0 writes the zero padding) and
 // cp.async.mbarrier.arrive signals the stage; the consumers quantize the
@@ -146,8 +154,8 @@ struct Params {
   const void* r;      // [] reciprocal activation scale, TIn (fused only)
   const void* scale;  // [Cout] TIn (fused only)
   const void* bias;   // [Cout] TIn or null
-  int H, W, Cin, Cout, stride, pad, Ho, Wo, M;
-  int n_ci, n_iter, iters_per_split;  // K iterations: 9 taps x n_ci slices
+  int H, W, Cin, Cout, ks, stride, pad, Ho, Wo, M;
+  int n_ci, n_iter, iters_per_split;  // K iterations: ks * ks taps x n_ci slices
 };
 
 // The output pixel m of tile row rr: base + (rr / tw) * w + rr % tw (the
@@ -525,7 +533,7 @@ __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
       const int k = it - it0, s = k % S;
       mbar_wait(empty0 + 8 * s, ((k / S) & 1) ^ 1);
       const int tap = it / p.n_ci, ci0 = (it - tap * p.n_ci) * kBK;
-      const int kh = tap / 3, kw = tap - 3 * kh;
+      const int kh = tap / p.ks, kw = tap - p.ks * kh;
       if (lane == 0) {
         mbar_expect_tx(full0 + 8 * s, L::kBBytes);
         tma_load_2d(base + s * L::kBBytes, &wmap, tap * p.Cin + ci0, n0, full0 + 8 * s);
@@ -739,29 +747,31 @@ cudaError_t launch_bn(const CUtensorMap& wmap, const CUtensorMap* xmap, const Pa
 
 }  // namespace
 
-// x: [B, H, W, Cin] of in_kind (0 int8, 1 float32, 2 bfloat16); w: [Cout, 3, 3,
-// Cin] int8; out: [B, Ho, Wo, Cout], int32 for int8 input, else of the input
-// dtype with the quantize (r: [] reciprocal scale) and the rescale (scale
-// [Cout], bias [Cout] or null) fused.  iters_per_split > 0 splits the
-// 9 * ceil(Cin / 64) K iterations over `splits` = ceil(n_iter / iters_per_split)
-// blocks per tile, through workspace (int32 [splits, M, Cout]); the caller
-// sizes it with the same formula.  Stride 1 with padding 1 on a map with
-// W % 16 == 0 and H % 8 == 0 takes the halo kernel, which splits whole
-// slices: iters_per_split must then be a multiple of 9.
+// x: [B, H, W, Cin] of in_kind (0 int8, 1 float32, 2 bfloat16); w: [Cout, ks,
+// ks, Cin] int8, ks 3 or 4; out: [B, Ho, Wo, Cout], int32 for int8 input, else
+// of the input dtype with the quantize (r: [] reciprocal scale) and the
+// rescale (scale [Cout], bias [Cout] or null) fused.  iters_per_split > 0
+// splits the ks * ks * ceil(Cin / 64) K iterations over `splits` =
+// ceil(n_iter / iters_per_split) blocks per tile, through workspace (int32
+// [splits, M, Cout]); the caller sizes it with the same formula.  A 3x3 conv
+// of stride 1 with padding 1 on a map with W % 16 == 0 and H % 8 == 0 takes
+// the halo kernel, which splits whole slices: iters_per_split must then be a
+// multiple of 9.
 extern "C" int lsp_q8conv(const void* x, int in_kind, const int8_t* w, int B, int H, int W,
-                          int Cin, int Cout, int stride, int pad, int Ho, int Wo, void* out,
-                          const void* r, const void* scale, const void* bias, int* workspace,
-                          int iters_per_split, int splits, void* stream) {
+                          int Cin, int Cout, int ks, int stride, int pad, int Ho, int Wo,
+                          void* out, const void* r, const void* scale, const void* bias,
+                          int* workspace, int iters_per_split, int splits, void* stream) {
   if (Cin % 16 != 0 || Cin <= 0 || Cout <= 0 || stride < 1 || in_kind < 0 || in_kind > 2 ||
-      iters_per_split <= 0 || ((uintptr_t)x | (uintptr_t)w) % 16 != 0)
+      (ks != 3 && ks != 4) || pad < 0 || iters_per_split <= 0 ||
+      ((uintptr_t)x | (uintptr_t)w) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (in_kind != 0 && (r == nullptr || scale == nullptr)) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * Ho * Wo;
   if (M == 0) return (int)cudaSuccess;
   if (M > (1LL << 30)) return (int)cudaErrorInvalidValue;
-  const int n_ci = (Cin + kBK - 1) / kBK, n_iter = 9 * n_ci;
-  const bool halo = stride == 1 && pad == 1 && Ho == H && Wo == W && W % kHaloTW == 0 &&
-                    H % kHaloTR == 0;
+  const int n_ci = (Cin + kBK - 1) / kBK, n_iter = ks * ks * n_ci;
+  const bool halo = ks == 3 && stride == 1 && pad == 1 && Ho == H && Wo == W &&
+                    W % kHaloTW == 0 && H % kHaloTR == 0;
   if (splits != (n_iter + iters_per_split - 1) / iters_per_split ||
       (splits > 1 && workspace == nullptr) || (halo && iters_per_split % 9 != 0))
     return (int)cudaErrorInvalidValue;
@@ -770,8 +780,8 @@ extern "C" int lsp_q8conv(const void* x, int in_kind, const int8_t* w, int B, in
 
   const int bn = Cout <= 64 ? 64 : 128;
   CUtensorMap wmap;
-  const cuuint64_t dims[2] = {(cuuint64_t)9 * Cin, (cuuint64_t)Cout};
-  const cuuint64_t strides[1] = {(cuuint64_t)9 * Cin};
+  const cuuint64_t dims[2] = {(cuuint64_t)ks * ks * Cin, (cuuint64_t)Cout};
+  const cuuint64_t strides[1] = {(cuuint64_t)ks * ks * Cin};
   const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)bn};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims, strides, box,
@@ -803,7 +813,7 @@ extern "C" int lsp_q8conv(const void* x, int in_kind, const int8_t* w, int B, in
   p.r = r;
   p.scale = scale;
   p.bias = bias;
-  p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.stride = stride, p.pad = pad;
+  p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.ks = ks, p.stride = stride, p.pad = pad;
   p.Ho = Ho, p.Wo = Wo, p.M = (int)M;
   p.n_ci = n_ci, p.n_iter = n_iter, p.iters_per_split = iters_per_split;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((Cout + bn - 1) / bn),

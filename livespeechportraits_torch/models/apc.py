@@ -2,9 +2,9 @@
 single-layer GRUs, 80 mel -> hidden -> hidden.
 
 Counterpart of ``livespeechportraits_tpu/models/apc.py`` (``apply_apc``,
-``encode_fast``, and the pretraining head: ``init_apc_pretrain``,
-``apply_apc_pretrain``) and of the streaming path's chunked GRU
-(``encode_chunk``).
+``encode_fast``, the pretraining head: ``init_apc_pretrain``,
+``apply_apc_pretrain``, and ``load_pretrained_encoder``) and of the streaming
+path's chunked GRU (``encode_chunk``).
 Parameter names follow the reference's ``rnns.{i}.weight_ih_l0`` layout.
 On the card every layer's time loop runs in the GRU kernel K2
 (ops/recurrent_cuda.py); the optional residual add sits outside the
@@ -111,3 +111,19 @@ def apply_apc_pretrain(model: APCPretrain, mels: Tensor, residual: bool = False)
     differentiable recurrence."""
     h = _stack(model.encoder, mels, residual, batched=True)[0]
     return nn_core.dense(h, model.head)
+
+
+def load_pretrained_encoder(ckpt_dir: str, cfg: APCConfig,
+                            device: torch.device | str = "cuda") -> APCEncoder:
+    """The encoder half of a port ``--task apc`` run's checkpoint directory
+    (``<checkpoints_dir>/<name>/ckpt``; its ``ckpt_best`` when the run kept
+    one, else its latest step), on ``device`` in eval mode; the pretraining
+    head is dropped.  A reference ``.model`` file loads through
+    utils/convert.load_state_dict instead."""
+    from livespeechportraits_torch.utils import checkpoint as ckpt
+
+    sd = ckpt.load_checkpoint(ckpt.prefer_best(ckpt_dir))["models"]["params"]
+    enc = APCEncoder(cfg)
+    enc.load_state_dict({k[len("encoder."):]: v for k, v in sd.items()
+                         if k.startswith("encoder.")}, strict=True)
+    return enc.to(device).eval().requires_grad_(False)

@@ -5,7 +5,8 @@ Counterpart of the generator path of ``livespeechportraits_tpu/models/
 feature2face.py`` (``_resblock``, ``_resunet_stage``, ``_unet_stage``,
 ``apply_generator``) and its int8 inference transforms
 (``quantize_generator``, ``fold_bn_generator``, ``calibrate_generator``,
-which refuse 'small' as JAX does).
+which refuse 'small' as JAX does), and quantization-aware training's tags
+(``qat_generator``, ``strip_qat_generator``, ``qat_discriminator``).
 The modules mirror the reference's nested ``nn.Sequential`` so that its
 state-dict keys (``netG.model.model.0.weight`` ...) load unchanged; the
 forward walks each Sequential with the nn_core functions.  The public
@@ -287,20 +288,64 @@ def _stages(model: Feature2FaceG) -> Iterator[ResUnetBlock]:
         stage = next((m for m in stage.model if isinstance(m, ResUnetBlock)), None)
 
 
-def quantize_generator(model: Feature2FaceG) -> Feature2FaceG:
-    """Every conv but the outermost stage's down (13 -> ngf) and up (-> 3)
-    convs becomes an int8 QConv2d with per-output-channel weight scales;
-    the outermost stage's residual blocks are quantized too."""
-    _resunet_only(model, "quantize")
+def _replace_interior_convs(model: Feature2FaceG, fn) -> Feature2FaceG:
+    """A copy whose interior convs (every conv but the outermost stage's down
+    (13 -> ngf) and up (-> 3) convs; the outermost stage's residual blocks
+    included) are fn(conv): quantize_generator's subset, which qat_generator
+    tags."""
     q = copy.deepcopy(model)
     for stage in _stages(q):
         seq = stage.model
         for i, m in enumerate(seq):
             if isinstance(m, nn.Conv2d) and not stage.outermost:
-                seq[i] = nn_core.QConv2d.from_conv(m)
+                seq[i] = fn(m)
             elif isinstance(m, ResnetBlock):
-                m.block[0] = nn_core.QConv2d.from_conv(m.block[0])
-                m.block[3] = nn_core.QConv2d.from_conv(m.block[3])
+                m.block[0] = fn(m.block[0])
+                m.block[3] = fn(m.block[3])
+    return q
+
+
+def quantize_generator(model: Feature2FaceG) -> Feature2FaceG:
+    """Every interior conv becomes an int8 QConv2d with per-output-channel
+    weight scales.  A QAT-tagged model quantizes as its float twin does, and
+    a baked x_scale rides into the int8 layer."""
+    _resunet_only(model, "quantize")
+    return _replace_interior_convs(model, nn_core.QConv2d.from_conv)
+
+
+def qat_generator(model: Feature2FaceG, int8_forward: bool = False) -> Feature2FaceG:
+    """A copy tagged for quantization-aware fine-tuning: exactly the convs
+    quantize_generator quantizes become QATConv2d, "fq8" (their forward on
+    the int8 kernel K4, bit-identical to deployment) with int8_forward, else
+    "fq" (the f32 emulation); both with straight-through gradients.  The
+    model stays float and trainable, with the float model's state-dict keys;
+    it deploys through quantize_generator -> fold_bn_generator ->
+    calibrate_generator.  A conv already tagged raises (strip first)."""
+    if model.size not in N_RES:
+        raise NotImplementedError("QAT targets the ResUNet variants ('normal'/'large'), "
+                                  "matching quantize_generator")
+    return _replace_interior_convs(
+        model, lambda c: nn_core.fake_quant_conv(c, int8_forward=int8_forward))
+
+
+def qat_tag_mode(model: nn.Module) -> Optional[str]:
+    """The QAT tag a model's convs carry ("fq" or "fq8"), or None."""
+    return next((m.mode for m in model.modules() if isinstance(m, nn_core.QATConv2d)), None)
+
+
+def is_qat_generator(model: nn.Module) -> bool:
+    """True iff any conv of the model carries a QAT tag (either mode)."""
+    return qat_tag_mode(model) is not None
+
+
+def strip_qat_generator(model: Feature2FaceG) -> Feature2FaceG:
+    """A copy with every QAT tag removed: plain float convs, a baked x_scale
+    kept (quantize_generator carries it into the int8 layer)."""
+    q = copy.deepcopy(model)
+    for parent in list(q.modules()):
+        for name, child in list(parent.named_children()):
+            if isinstance(child, nn_core.QATConv2d):
+                setattr(parent, name, nn_core.strip_qat_conv(child))
     return q
 
 
@@ -356,16 +401,18 @@ def _convs_in_order(stage: ResUnetBlock) -> Iterator[nn.Module]:
 
 
 def _assign_x_scales(model: Feature2FaceG, scales: np.ndarray) -> None:
-    """Give the quantized convs, in consumption order, one scale each."""
+    """Give the quantized and the QAT-tagged convs, in consumption order, one
+    scale each."""
     it = iter(scales)
     for conv in _convs_in_order(model.netG.model):
-        if isinstance(conv, nn_core.QConv2d):
+        if isinstance(conv, (nn_core.QConv2d, nn_core.QATConv2d)):
             try:
                 s = next(it)
             except StopIteration:
                 raise RuntimeError("parameter walk visited more quantized convs than the "
                                    "forward recorded - forward/walk order mismatch") from None
-            conv.x_scale = torch.tensor(s, dtype=torch.float32, device=conv.w_scale.device)
+            dev = (conv.w_scale if isinstance(conv, nn_core.QConv2d) else conv.weight).device
+            conv.x_scale = torch.tensor(s, dtype=torch.float32, device=dev)
     leftovers = sum(1 for _ in it)
     if leftovers:
         raise RuntimeError(f"calibration recorded {leftovers} more conv activations than the "
@@ -375,10 +422,11 @@ def _assign_x_scales(model: Feature2FaceG, scales: np.ndarray) -> None:
 @torch.no_grad()
 def calibrate_generator(model: Feature2FaceG, inputs,
                         compute_dtype: Optional[torch.dtype] = None) -> Feature2FaceG:
-    """Static activation scales for an int8 model: run the forward on
-    ``inputs`` (one [B, H, W, input_nc] batch or a list), record each
-    quantized conv's input amax in call order, and store x_scale =
-    max-over-batches(amax) / 127 (f32) on each of them (JAX's margin 1)."""
+    """Static activation scales for an int8 or a QAT-tagged model: run the
+    forward on ``inputs`` (one [B, H, W, input_nc] batch or a list), record
+    each quantized or tagged conv's input amax in call order, and store
+    x_scale = max-over-batches(amax) / 127 (f32) on each of them (JAX's
+    margin 1)."""
     _resunet_only(model, "calibrate")
     batches = inputs if isinstance(inputs, (list, tuple)) else [inputs]
     net = model if compute_dtype is None else cast_generator(model, compute_dtype)
@@ -388,7 +436,8 @@ def calibrate_generator(model: Feature2FaceG, inputs,
             apply_generator(net, x)
         if not record:
             raise ValueError("calibration recorded no activations: the model has no "
-                             "quantized convs - run quantize_generator first")
+                             "quantized or QAT-tagged convs - run quantize_generator or "
+                             "qat_generator first")
         a = torch.stack(record).cpu().numpy()
         amax = a if amax is None else np.maximum(amax, a)
     out = copy.deepcopy(model)
@@ -464,7 +513,9 @@ def apply_discriminator(model: Feature2FaceD, x: Tensor, training: bool = False,
     logits last: the features of the feature-matching loss.  Between scales
     the input is average-pooled (3, stride 2, pad 1, padding not counted).
     training=True normalises with batch statistics, and updates the running
-    stats unless update_stats is False."""
+    stats unless update_stats is False.  Every conv goes through
+    nn_core.conv2d, so a qat_discriminator view runs its interior convs on
+    K4."""
     dtype = next(model.parameters()).dtype
     inp = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
     results = []
@@ -472,7 +523,7 @@ def apply_discriminator(model: Feature2FaceD, x: Tensor, training: bool = False,
         feats, y = [], inp
         for seq in model.scale_layers(k):
             conv = seq[0]
-            y = F.conv2d(y, conv.weight, conv.bias, stride=conv.stride, padding=2)
+            y = nn_core.conv2d(y, conv, stride=conv.stride[0], padding=conv.padding[0])
             if len(seq) > 1 and isinstance(seq[1], nn.BatchNorm2d):
                 y = nn_core.batchnorm(y, seq[1], training=training, update_stats=update_stats)
             if isinstance(seq[-1], nn.LeakyReLU):
@@ -482,3 +533,23 @@ def apply_discriminator(model: Feature2FaceD, x: Tensor, training: bool = False,
         if k + 1 < model.num_D:
             inp = F.avg_pool2d(inp, 3, stride=2, padding=1, count_include_pad=False)
     return results
+
+
+def qat_discriminator(model: Feature2FaceD, int8_forward: bool = True) -> Feature2FaceD:
+    """A view of ``model`` whose interior convs (layers 1 .. n_layers_D of
+    every scale) are QAT-tagged, "fq8" by default: their forward runs on the
+    int8 kernel K4 while every gradient, the one reaching the generator
+    through D included, is the straight-through float one.  Each scale's
+    first conv (the image pair) and its logits conv stay float.  The view
+    shares the model's parameters and BatchNorm modules, so it is made
+    inside each training step (JAX applies the tags there too) and the
+    checkpoints and optimizer state never see a tag."""
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    for i in range(model.num_D):
+        for j in range(1, model.n_layers + 1):
+            name = f"scale{i}_layer{j}"
+            seq = model._modules[name]
+            view._modules[name] = nn.Sequential(
+                nn_core.fake_quant_conv(seq[0], int8_forward=int8_forward), *seq[1:])
+    return view

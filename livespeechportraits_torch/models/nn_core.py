@@ -9,7 +9,10 @@ are NCHW / NCW inside the networks.
 recurrence kernels (``ops/recurrent_cuda.py``): a Python loop over time with
 the input projection hoisted out of it, as in JAX.  ``gru_batched`` and
 ``lstm_batched`` are the trainers' recurrences (torch's RNN operator), and
-``batchnorm`` has the training mode the trainers use.
+``batchnorm`` has the training mode the trainers use.  ``QATConv2d`` is a
+float conv tagged for quantization-aware training: ``"fq"`` emulates the
+int8 arithmetic in f32 (``conv2d_fakequant``), ``"fq8"`` runs it on the
+int8 kernel K4 with straight-through gradients (``conv2d_fakequant_int8``).
 """
 
 from __future__ import annotations
@@ -47,9 +50,15 @@ def conv1d(x: Tensor, layer: nn.Conv1d, dilation: int = 1,
 def conv2d(x: Tensor, layer: Union[nn.Conv2d, "QConv2d"], stride: int = 1,
            padding: int = 0) -> Tensor:
     """x: [N, C, H, W] -> [N, C', H', W']; symmetric integer zero padding.
-    A QConv2d layer runs the int8 convolution (conv2d_q8)."""
+    A QConv2d layer runs the int8 convolution (conv2d_q8); a QATConv2d the
+    int8 kernel with straight-through gradients ("fq8") or its f32
+    emulation ("fq")."""
     if isinstance(layer, QConv2d):
         return conv2d_q8(x, layer, stride, padding)
+    if isinstance(layer, QATConv2d):
+        if layer.mode == "fq8":
+            return conv2d_fakequant_int8(x, layer, stride, padding)
+        return conv2d_fakequant(x, layer, stride, padding)
     return F.conv2d(x, layer.weight, layer.bias, stride=stride, padding=padding)
 
 
@@ -94,9 +103,15 @@ class QConv2d(nn.Module):
 
     @classmethod
     def from_conv(cls, conv: nn.Conv2d) -> "QConv2d":
+        """The int8 layer of a float conv; a static activation scale the
+        conv carries (``x_scale``, calibrated on a QAT-tagged tree) rides
+        along, as JAX's quantize_conv carries it."""
         w_q, scale = quantize_weight_int8(conv.weight)
         b = None if conv.bias is None else conv.bias.detach().float().clone()
-        return cls(w_q, scale, conv.stride[0], conv.padding[0], b=b)
+        x_scale = getattr(conv, "x_scale", None)
+        if x_scale is not None:
+            x_scale = x_scale.detach().float().clone()
+        return cls(w_q, scale, conv.stride[0], conv.padding[0], b=b, x_scale=x_scale)
 
     def static_operands(self, dt: torch.dtype) -> Tuple[Tensor, Tensor]:
         """rescale_operands of the calibrated x_scale for activations of
@@ -121,11 +136,12 @@ class QConv2d(nn.Module):
 
 @contextlib.contextmanager
 def recording_amax(module: nn.Module):
-    """Calibration: within the block every QConv2d of ``module`` appends its
-    input's |x| max (f32) to the yielded list, in call order, and quantizes
-    with that amax."""
+    """Calibration: within the block every QConv2d and QATConv2d of
+    ``module`` appends its input's |x| max (f32) to the yielded list, in
+    call order, and quantizes with that amax (an "fq8" conv through the f32
+    emulation, as JAX's does)."""
     record: list = []
-    convs = [m for m in module.modules() if isinstance(m, QConv2d)]
+    convs = [m for m in module.modules() if isinstance(m, (QConv2d, QATConv2d))]
     for c in convs:
         c.amax_record = record
     try:
@@ -135,16 +151,19 @@ def recording_amax(module: nn.Module):
             c.amax_record = None
 
 
-def activation_scale(layer: QConv2d, x: Tensor) -> Tensor:
-    """s_x, the per-tensor activation scale (f32 scalar): the recorded amax
-    / 127 during calibration, the calibrated x_scale, or the dynamic amax /
-    127 (JAX's _quantize_activation)."""
+def activation_scale(layer: Union[QConv2d, "QATConv2d"], x: Tensor) -> Tensor:
+    """s_x, the per-tensor activation scale (f32 scalar) of an int8 or a
+    QAT-tagged conv: the recorded amax / 127 during calibration, the
+    calibrated x_scale (cast to x's dtype first, as the deployed model's
+    buffers are), or the dynamic amax / 127 (JAX's _quantize_activation).
+    Computed without gradient."""
+    x = x.detach()
     if layer.amax_record is not None:
         amax = x.abs().amax().float()
         layer.amax_record.append(amax)
         return torch.clamp(amax, min=1e-12) / 127.0
     if layer.x_scale is not None:
-        return layer.x_scale.float()
+        return layer.x_scale.detach().to(x.dtype).float()
     return torch.clamp(x.abs().amax().float(), min=1e-12) / 127.0
 
 
@@ -166,6 +185,184 @@ def conv2d_q8(x: Tensor, layer: QConv2d, stride: int, padding: int) -> Tensor:
     # a no-op for the renderer's activations; a 1-pixel-wide map may lose the format
     x = x.contiguous(memory_format=torch.channels_last)
     return q8conv_cuda.conv_q8(x, r, layer.w_q, stride, padding, scale, layer.b)
+
+
+# ---------------------------------------------------------------------------
+# Quantization-aware training (nn_core.fake_quant_conv / _round_ste /
+# _conv2d_fakequant / _q8_ste / _conv2d_fakequant_int8 of the JAX package)
+# ---------------------------------------------------------------------------
+
+QAT_MODES = ("fq", "fq8")
+
+
+class QATConv2d(nn.Conv2d):
+    """A float conv tagged for quantization-aware training.
+
+    ``mode`` "fq": the forward emulates the deployed int8 layer in f32
+    (conv2d_fakequant); "fq8": it runs the deployed arithmetic itself on
+    K4, with the emulation's straight-through gradients (conv2d_fakequant_int8).
+    The parameters stay ``weight`` and ``bias`` (f32 masters, trainable),
+    with an optional ``x_scale`` buffer (a static activation scale baked by
+    calibrate_generator), so state dicts and optimizer state keep the float
+    conv's keys; the tag itself is not state (a checkpoint names it,
+    utils/checkpoint's ``qat_mode``)."""
+
+    def __init__(self, *args, mode: str = "fq", **kwargs):
+        super().__init__(*args, **kwargs)
+        if mode not in QAT_MODES:
+            raise ValueError(f"QAT mode must be one of {QAT_MODES}, got {mode!r}")
+        self.mode = mode
+        self.register_buffer("x_scale", None)
+        self.amax_record: Optional[list] = None  # see recording_amax
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        if self.x_scale is None and prefix + "x_scale" in state_dict:
+            self.x_scale = torch.empty_like(state_dict[prefix + "x_scale"])
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def _shared_conv(cls, conv: nn.Conv2d, **kw) -> nn.Conv2d:
+    """A ``cls`` conv of conv's geometry holding conv's own Parameters (and
+    its x_scale, when it has one): no new weights are allocated."""
+    out = cls(conv.in_channels, conv.out_channels, conv.kernel_size, stride=conv.stride,
+              padding=conv.padding, dilation=conv.dilation, groups=conv.groups,
+              bias=conv.bias is not None, device="meta", **kw)
+    out.weight = conv.weight
+    if conv.bias is not None:
+        out.bias = conv.bias
+    x_scale = getattr(conv, "x_scale", None)
+    if x_scale is not None:
+        if isinstance(out, QATConv2d):
+            out.x_scale = x_scale
+        else:
+            out.register_buffer("x_scale", x_scale)
+    return out
+
+
+def fake_quant_conv(conv: nn.Conv2d, int8_forward: bool = False) -> QATConv2d:
+    """Tag a float conv for quantization-aware training: a QATConv2d of mode
+    "fq8" (int8_forward) or "fq" sharing conv's parameters.  Refuses an
+    int8 layer and a conv that already carries a tag (a double tag would
+    make the dispatch and qat_tag_mode disagree)."""
+    if isinstance(conv, QConv2d):
+        raise ValueError("fake_quant_conv expects a float conv (got int8)")
+    if isinstance(conv, QATConv2d):
+        raise ValueError("conv already carries a QAT tag; strip it first (a double tag "
+                         "would make the dispatch and qat_tag_mode disagree)")
+    return _shared_conv(QATConv2d, conv, mode="fq8" if int8_forward else "fq")
+
+
+def strip_qat_conv(conv: QATConv2d) -> nn.Conv2d:
+    """The plain float conv of a tagged one, sharing its parameters; a baked
+    ``x_scale`` stays as a buffer (QConv2d.from_conv carries it)."""
+    return _shared_conv(nn.Conv2d, conv)
+
+
+def _round_ste(v: Tensor) -> Tensor:
+    """round() that is the identity to the gradient (straight-through)."""
+    return v + (torch.round(v) - v).detach()
+
+
+def _clip127(v: Tensor) -> Tensor:
+    """clip(v, -127, 127) as JAX's jnp.clip computes it, min of max: at a
+    value exactly on the grid's edge the gradient splits in half, as it
+    does there (torch.clamp would pass it whole)."""
+    lim = v.new_tensor(127.0)
+    return torch.minimum(torch.maximum(v, -lim), lim)
+
+
+def conv2d_fakequant(x: Tensor, layer: QATConv2d, stride: int, padding: int) -> Tensor:
+    """The "fq" forward: y = conv(fq(x), fq(w)) + b in f32, fq snapping to the
+    int8 grid at the deployment scales (weights: per-output-channel amax /
+    127 of the f32 master weights; activations: the calibrated x_scale, else
+    the dynamic amax / 127), the scales stop-gradiented and the rounding
+    straight-through.  Autocast is off inside (under the trainer's bf16
+    autocast a bare conv would run in bf16); the result takes x's dtype.
+    On the card cuDNN runs this f32 conv, and its gradients, in TF32 while
+    torch.backends.cudnn.allow_tf32 is on (PyTorch's default), as it runs
+    the float discriminator's.  Calibration records the activation amax
+    here, for "fq8" convs too."""
+    dt = x.dtype if x.is_floating_point() else torch.float32
+    with torch.autocast(x.device.type, enabled=False):
+        w = layer.weight.float()
+        s_w = (torch.clamp(w.abs().amax(dim=(1, 2, 3), keepdim=True), min=1e-12)
+               / 127.0).detach()
+        w_fq = _clip127(_round_ste(w / s_w)) * s_w
+        xf = x.float()
+        s_x = activation_scale(layer, xf)
+        x_fq = _clip127(_round_ste(xf / s_x)) * s_x
+        y = F.conv2d(x_fq, w_fq, stride=stride, padding=padding)
+        if layer.bias is not None:
+            y = y + layer.bias.float().view(1, -1, 1, 1)
+    return y.to(dt)
+
+
+class _Q8STE(torch.autograd.Function):
+    """The deployed int8 conv forward (one K4 launch on the card) with the
+    float emulation's straight-through gradients: JAX's _q8_ste custom_vjp.
+
+    Forward, in x's dtype dt: (w_q, s_w) from the f32 master weights,
+    r = reciprocal(s_x).to(dt), scale = (s_w.to(dt).float() * s_x).to(dt),
+    y = conv_q8(x, r, w_q, scale, b.to(dt)): the deployed QConv2d's operands,
+    so the output equals its output bit for bit.  Backward: rebuild u =
+    round(x * r) in dt from the saved x and r, then the f32 gradients of
+    conv(clip(u) * s_x, w_q * s_w) with respect to x (masked where |u| >
+    127: the clip passes no gradient there) and w, the bias's, and none for
+    s_x.  Autocast is off inside both: it must neither recast K4's operands
+    nor run the backward's convolutions in bf16 (they run in TF32 on the
+    card while torch.backends.cudnn.allow_tf32 is on, as conv2d_fakequant's
+    do)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, x, w, s_x, bias, stride: int, padding: int):
+        dt = x.dtype
+        with torch.autocast(x.device.type, enabled=False):
+            w_q, s_w = quantize_weight_int8(w)
+            w_q = w_q.contiguous(memory_format=torch.channels_last)
+            r = torch.reciprocal(s_x).to(dt)
+            scale = (s_w.to(dt).float() * s_x).to(dt)
+            b = None if bias is None else bias.detach().to(dt)
+            y = q8conv_cuda.conv_q8(x.contiguous(memory_format=torch.channels_last), r, w_q,
+                                    stride, padding, scale, b)
+        ctx.save_for_backward(x, r, w_q, s_w, s_x)
+        ctx.conf = (stride, padding, w.shape, w.dtype, bias is not None)
+        return y
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        x, r, w_q, s_w, s_x = ctx.saved_tensors
+        stride, padding, w_shape, w_dtype, has_bias = ctx.conf
+        gx = gw = gb = None
+        with torch.autocast(x.device.type, enabled=False):
+            g = g.float()
+            u = torch.round(x * r)
+            if ctx.needs_input_grad[0]:
+                w_fq = w_q.float() * s_w.view(-1, 1, 1, 1)
+                gx = torch.nn.grad.conv2d_input(x.shape, w_fq, g, stride, padding)
+                gx = (gx * (u.abs() <= 127)).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                x_fq = torch.clamp(u, -127, 127).float() * s_x
+                gw = torch.nn.grad.conv2d_weight(x_fq, w_shape, g, stride, padding).to(w_dtype)
+            if has_bias and ctx.needs_input_grad[3]:
+                gb = g.sum(dim=(0, 2, 3))
+        return gx, gw, None, gb, None, None
+
+
+def conv2d_fakequant_int8(x: Tensor, layer: QATConv2d, stride: int, padding: int) -> Tensor:
+    """The "fq8" forward: the deployed int8 conv (K4 on the card, its plain
+    twin on the CPU) with straight-through gradients (_Q8STE).  The
+    activation scale is chosen as the deployed layer chooses it, in x's
+    dtype: the calibrated x_scale cast to dt, else the dynamic amax / 127.
+    During calibration the f32 emulation computes the layer and records its
+    amax (JAX's own rule)."""
+    if layer.amax_record is not None:
+        return conv2d_fakequant(x, layer, stride, padding)
+    if not x.is_floating_point():
+        x = x.float()
+    return _Q8STE.apply(x, layer.weight, activation_scale(layer, x), layer.bias, stride,
+                        padding)
 
 
 def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,

@@ -1,4 +1,4 @@
-"""The int8 3x3 convolution with the activation quantize folded in (K4).
+"""The int8 3x3 or 4x4 convolution with the activation quantize folded in (K4).
 
 Counterpart of ``livespeechportraits_tpu/models/nn_core.py::_conv2d_q8``
 given its activation scale s_x: ``conv_q8(x, r, w_q, stride, padding, scale,
@@ -9,12 +9,13 @@ bias)`` computes, with dt = x's dtype (bfloat16 or float32),
 
 in one CUDA kernel (``csrc/q8conv.cu``) that reads the activation once and
 quantizes it in registers; ``r`` is a device scalar, so nothing synchronises
-with the host.  ``conv_s8`` is the kernel's int8-in, int32-out mode: the
+with the host.  The renderer's convs are 3x3; the discriminator's interior
+convs, which quantization-aware training runs here too, are 4x4 (padding 2).  ``conv_s8`` is the kernel's int8-in, int32-out mode: the
 exact integer sums.  Tensors are NCHW in ``channels_last`` memory (the
 renderer's layout), so the kernel reads NHWC activations and OHWI weights.
 
 The plain twins: ``quantize_plain``, ``conv_s8_plain`` (a float64 conv on the
-integer values, exact since |acc| <= 127^2 * 9 * 1024 < 2^53) and
+integer values, exact since |acc| <= 127^2 * 16 * Cin < 2^53) and
 ``rescale_plain``, chained by ``conv_q8_plain``.  Dispatch is on the
 tensor's device: a CPU tensor takes the twin, a CUDA tensor the kernel,
 anything else raises.  ``LAUNCHES`` counts kernel launches.
@@ -39,6 +40,7 @@ BLOCK_M = 128  # output pixels per block (csrc/q8conv.cu kBM)
 BLOCK_K = 64  # input channels per K iteration (kBK)
 SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
 MIN_SPLIT_ITERS = 4  # K iterations per split, at least
+KERNEL_SIZES = (3, 4)  # square kernels the launch takes
 HALO_TW, HALO_TR = 16, 8  # the halo kernel's output patch (kHaloTW, kHaloTR)
 
 
@@ -49,8 +51,8 @@ def quantize_plain(x: Tensor, r: Tensor) -> Tensor:
 
 
 def conv_s8_plain(x_q: Tensor, w_q: Tensor, stride: int, padding: int = 1) -> Tensor:
-    """x_q [B, Cin, H, W] int8, w_q [Cout, Cin, 3, 3] int8 -> [B, Cout, Ho, Wo]
-    int32, by a float64 conv (exact on integers; the round before the cast
+    """x_q [B, Cin, H, W] int8, w_q [Cout, Cin, k, k] int8 (any square k) ->
+    [B, Cout, Ho, Wo] int32, by a float64 conv (exact on integers; the round before the cast
     is a no-op then, and guards the cast against a conv algorithm that is
     not)."""
     y = F.conv2d(x_q.double(), w_q.double(), stride=stride, padding=padding)
@@ -69,23 +71,27 @@ def conv_q8_plain(x: Tensor, r: Tensor, w_q: Tensor, stride: int, padding: int, 
     return rescale_plain(conv_s8_plain(quantize_plain(x, r), w_q, stride, padding), scale, bias)
 
 
-def uses_halo(H: int, W: int, stride: int, padding: int) -> bool:
+def uses_halo(H: int, W: int, stride: int, padding: int, ksize: int = 3) -> bool:
     """Whether csrc/q8conv.cu runs its halo kernel (8 x 16 output patches,
-    each 64-channel slice of the 10 x 18 input halo quantized once): stride
-    1 and padding 1 on a map with W % 16 == 0 and H % 8 == 0."""
-    return stride == 1 and padding == 1 and W % HALO_TW == 0 and H % HALO_TR == 0
+    each 64-channel slice of the 10 x 18 input halo quantized once): a 3x3
+    conv of stride 1 and padding 1 on a map with W % 16 == 0 and H % 8 == 0.
+    Every 4x4 conv takes the gather kernel."""
+    return (ksize == 3 and stride == 1 and padding == 1 and W % HALO_TW == 0
+            and H % HALO_TR == 0)
 
 
-def split_k(m: int, cout: int, cin: int, halo: bool = False) -> Tuple[int, int]:
+def split_k(m: int, cout: int, cin: int, halo: bool = False, ksize: int = 3
+            ) -> Tuple[int, int]:
     """(K iterations per split, splits) for an [m, cout] output with cin
-    input channels.  When the 128 x BN output tiles fall short of the SMs,
-    the 9 * ceil(cin / 64) K iterations are split so that about two blocks
-    run per SM, each with at least MIN_SPLIT_ITERS iterations; the halo
-    kernel splits whole 64-channel slices (9 iterations each)."""
+    input channels and a ksize x ksize kernel.  When the 128 x BN output
+    tiles fall short of the SMs, the ksize^2 * ceil(cin / 64) K iterations
+    are split so that about two blocks run per SM, each with at least
+    MIN_SPLIT_ITERS iterations; the halo kernel splits whole 64-channel
+    slices (9 iterations each)."""
     bn = 64 if cout <= 64 else 128
     tiles = math.ceil(m / BLOCK_M) * math.ceil(cout / bn)
     n_ci = math.ceil(cin / BLOCK_K)
-    n_iter = 9 * n_ci
+    n_iter = ksize * ksize * n_ci
     if tiles >= SMS:
         return n_iter, 1
     want = math.ceil(2 * SMS / tiles)
@@ -107,9 +113,10 @@ def _launch(x: Tensor, w_q: Tensor, stride: int, padding: int, out_dtype: torch.
     global LAUNCHES
     dev = x.device
     cl = torch.channels_last
-    if w_q.dtype != torch.int8 or w_q.dim() != 4 or tuple(w_q.shape[2:]) != (3, 3):
-        raise ValueError(f"w_q must be an int8 [O, C, 3, 3] tensor, got {tuple(w_q.shape)} "
-                         f"{w_q.dtype}")
+    if (w_q.dtype != torch.int8 or w_q.dim() != 4 or w_q.shape[2] != w_q.shape[3]
+            or w_q.shape[2] not in KERNEL_SIZES):
+        raise ValueError(f"w_q must be an int8 [O, C, k, k] tensor with k 3 or 4, got "
+                         f"{tuple(w_q.shape)} {w_q.dtype}")
     B, Cin, H, W = x.shape
     Cout = w_q.shape[0]
     if w_q.shape[1] != Cin:
@@ -127,10 +134,11 @@ def _launch(x: Tensor, w_q: Tensor, stride: int, padding: int, out_dtype: torch.
                               or tuple(t.shape) != (Cout,) or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous [{Cout}] {out_dtype} tensor on "
                              f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
-    Ho = (H + 2 * padding - 3) // stride + 1
-    Wo = (W + 2 * padding - 3) // stride + 1
+    ks = w_q.shape[2]
+    Ho = (H + 2 * padding - ks) // stride + 1
+    Wo = (W + 2 * padding - ks) // stride + 1
     out = torch.empty(B, Cout, Ho, Wo, device=dev, dtype=out_dtype, memory_format=cl)
-    per, splits = split_k(B * Ho * Wo, Cout, Cin, uses_halo(H, W, stride, padding))
+    per, splits = split_k(B * Ho * Wo, Cout, Cin, uses_halo(H, W, stride, padding, ks), ks)
     ws = (torch.empty(splits * B * Ho * Wo * Cout, device=dev, dtype=torch.int32)
           if splits > 1 else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -138,7 +146,7 @@ def _launch(x: Tensor, w_q: Tensor, stride: int, padding: int, out_dtype: torch.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lsp_q8conv(x.data_ptr(), _IN_KIND[x.dtype], w_q.data_ptr(), B, H, W, Cin, Cout,
-                             stride, padding, Ho, Wo, out.data_ptr(), ptr(r), ptr(scale),
+                             ks, stride, padding, Ho, Wo, out.data_ptr(), ptr(r), ptr(scale),
                              ptr(bias), ptr(ws), per, splits, stream)
     _build.check(err, "lsp_q8conv")
     LAUNCHES += 1

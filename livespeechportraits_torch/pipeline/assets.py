@@ -214,14 +214,20 @@ def load_trained_person_models(cfg: PersonConfig, base: PersonModels, f2f_ckpt: 
     ``step`` picks an epoch there, else the run's ``ckpt_best`` is read when
     it kept one, else its latest epoch.  From a Feature2Face checkpoint the
     generator is kept, from an APC one the encoder (the LLE bank of the
-    subject must come from the same encoder).  The modules land on base's
-    device, in eval mode, without gradients."""
+    subject must come from the same encoder).  A QAT generator (its file's
+    ``qat_mode``) loads through a tagged template and is stripped to the
+    plain float model (JAX assets.py:300-310), which serving quantizes,
+    folds and calibrates as any other.  The modules land on base's device,
+    in eval mode, without gradients."""
     from livespeechportraits_torch.utils import checkpoint as ckpt
 
-    def read(path: str) -> dict:
+    def read_state(path: str) -> dict:
         if step is None:
             path = ckpt.prefer_best(path)
-        return ckpt.load_checkpoint(path, step)["models"]
+        return ckpt.load_checkpoint(path, step)
+
+    def read(path: str) -> dict:
+        return read_state(path)["models"]
 
     def swap(name: str, sd: dict) -> None:
         module = getattr(base, name)
@@ -230,7 +236,14 @@ def load_trained_person_models(cfg: PersonConfig, base: PersonModels, f2f_ckpt: 
         module.to(dev)
 
     if f2f_ckpt:
-        swap("feature2face", read(f2f_ckpt)["G"])
+        st = read_state(f2f_ckpt)
+        mode = ckpt.qat_mode(st)
+        if mode is None:
+            swap("feature2face", st["models"]["G"])
+        else:
+            tagged = f2f.qat_generator(base.feature2face, int8_forward=mode == "fq8")
+            tagged.load_state_dict(st["models"]["G"], strict=True)
+            base.feature2face = f2f.strip_qat_generator(tagged)
     if a2f_ckpt:
         swap("audio2feature", read(a2f_ckpt)["params"])
     if a2h_ckpt:

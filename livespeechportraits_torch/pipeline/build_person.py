@@ -126,9 +126,7 @@ def build_person_pack(person_root: str, clip_names: Sequence[str],
     if apc is not None:
         feats = []
         for name in clip_names:
-            clip_root = os.path.join(person_root, name)
-            den = os.path.join(clip_root, name + "_denoise.wav")
-            wav = den if os.path.exists(den) else os.path.join(clip_root, name + ".wav")
+            wav = data_io.clip_wav_path(os.path.join(person_root, name), name)
             feats.append(data_io.compute_apc_features(video_mod.load_wav(wav), apc))
         bank = np.concatenate(feats)[::max(1, int(bank_stride))]
         np.save(os.path.join(person_root, "APC_feature_base.npy"), bank)

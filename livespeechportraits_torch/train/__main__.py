@@ -5,13 +5,22 @@ root ``train.py``:
     python -m livespeechportraits_torch.train --task audio2feature  --synthetic
     python -m livespeechportraits_torch.train --task audio2headpose --synthetic
     python -m livespeechportraits_torch.train --task feature2face   --synthetic
+    python -m livespeechportraits_torch.train --task feature2face   --synthetic --qat_int8 --qat_d
+    python -m livespeechportraits_torch.train --task apc --dataroot R --clip_names c0,c1
+    python -m livespeechportraits_torch.train --task audio2feature --dataroot R \
+        --clip_names c0 --apc_ckpt checkpoints/apc/ckpt
 
 It trains on the card at the default full width; ``--device cpu`` trains on
 the CPU (a small --image_size / window keeps that short).  ``--synthetic``
 fabricates the data (``synthetic_clips``, ``synthetic_face_data``,
-``synthetic_mels``, the port's copies of train.py's).  Feature2Face draws
-each batch's edge maps on the device (K1 on the card), so
-``--device_rasterize`` is the port's default.  Each run writes
+``synthetic_mels``, the port's copies of train.py's); without it the data
+are a subject's reference-layout clips under ``--dataroot`` (the mels of
+their wavs for APC, ``data_io.prepare_clip`` for the motion models, with
+the features of the ``--apc_ckpt`` encoder, ``data_io.load_face_clip`` for
+the renderer).  Feature2Face draws each batch's edge maps on the device (K1
+on the card), so ``--device_rasterize`` is the port's default; ``--qat``,
+``--qat_int8`` and ``--qat_d`` train it quantization-aware
+(trainer.TrainLoopConfig).  Each run writes
 ``<checkpoints_dir>/<name>/ckpt/<epoch>.pt`` (and ``ckpt_best``), which
 ``serve.Predictor.setup(f2f_ckpt=..., a2f_ckpt=..., a2h_ckpt=...,
 apc_ckpt=...)`` serves.  The JAX flags of the parts not ported yet raise
@@ -21,6 +30,7 @@ NotImplementedError naming their ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -105,9 +115,6 @@ _NOT_PORTED = {
     "zero1": "ZeRO-1 (ROADMAP item 16)",
     "fused_step": "the fused GAN step (ROADMAP item 15)",
     "remat": "rematerialisation (ROADMAP item 15)",
-    "qat": "quantization-aware training (ROADMAP item 15)",
-    "qat_int8": "quantization-aware training on K4 (ROADMAP item 15)",
-    "qat_d": "the discriminator on K4 (ROADMAP item 15)",
     "vgg_microbatch": "the chunked VGG loss (ROADMAP item 15)",
 }
 
@@ -120,9 +127,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--name", default=None)
     p.add_argument("--checkpoints_dir", default="./checkpoints")
     p.add_argument("--synthetic", action="store_true", help="train on fabricated data")
-    p.add_argument("--dataroot", default="", help="subject data root (real data: not ported)")
-    p.add_argument("--clip_names", default="", help="clip names under --dataroot")
-    p.add_argument("--apc_ckpt", default="", help="APC encoder for real-data features")
+    p.add_argument("--dataroot", default="",
+                   help="subject data root (reference layout: <root>/<clip>/...)")
+    p.add_argument("--clip_names", default="",
+                   help="comma-separated clip directory names under --dataroot")
+    p.add_argument("--apc_ckpt", default="",
+                   help="APC encoder for the clips' features: a reference .model file or "
+                        "a `--task apc` run's checkpoint directory")
     p.add_argument("--mel_window", type=int, default=480,
                    help="apc: training window length in 120 Hz mel frames")
     p.add_argument("--print_freq", type=int, default=10)
@@ -139,9 +150,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--TTUR", action="store_true")
     p.add_argument("--fused_step", action="store_true")
     p.add_argument("--remat", action="store_true")
-    p.add_argument("--qat", action="store_true")
-    p.add_argument("--qat_int8", action="store_true")
-    p.add_argument("--qat_d", action="store_true")
+    p.add_argument("--qat", action="store_true",
+                   help="feature2face: quantization-aware training, the generator's forward "
+                        "running the deployed int8 arithmetic (f32 emulation)")
+    p.add_argument("--qat_int8", action="store_true",
+                   help="feature2face: QAT with the generator's int8 convs on the int8 "
+                        "kernel (implies --qat)")
+    p.add_argument("--qat_d", action="store_true",
+                   help="feature2face: the discriminator's interior convs on the int8 "
+                        "kernel, straight-through gradients (checkpoints stay float)")
     p.add_argument("--vgg", default="none",
                    help="feature2face perceptual/style loss: 'none', 'random' (a seeded "
                         "random VGG19) or a torchvision VGG19 .npz (losses.load_vgg19_npz)")
@@ -157,14 +174,73 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> None:
+def _need_clips(args) -> list:
+    if not args.dataroot or not args.clip_names:
+        raise SystemExit("real-data training needs --dataroot and --clip_names "
+                         "(or use --synthetic)")
+    return args.clip_names.split(",")
+
+
+def _load_mels(args) -> list:
+    """120 Hz log-mel sequences of the clips' wavs (the denoised one first),
+    computed on --device."""
+    from livespeechportraits_torch.ops import mel as mel_ops
+    from livespeechportraits_torch.pipeline import video
+    from livespeechportraits_torch.train import data_io
+
+    mels = []
+    for name in _need_clips(args):
+        wav = video.load_wav(data_io.clip_wav_path(os.path.join(args.dataroot, name), name))
+        mels.append(mel_ops.compute_mel_sequence(wav, device=args.device).cpu().numpy())
+    return mels
+
+
+def _load_real_clips(args) -> list:
+    """The clips as ClipData (data_io.prepare_clip), their APC features from
+    the --apc_ckpt encoder (a `--task apc` run's directory or a reference
+    .model file; a seeded random encoder, with a warning, without one),
+    computed once on --device and cached beside each wav."""
+    from livespeechportraits_torch.config import APCConfig
+    from livespeechportraits_torch.models import apc as apc_model
+    from livespeechportraits_torch.train import data_io, trainer
+    from livespeechportraits_torch.utils import convert
+
+    names = _need_clips(args)
+    cfg = APCConfig()
+    if args.apc_ckpt and os.path.isdir(args.apc_ckpt):
+        enc = apc_model.load_pretrained_encoder(args.apc_ckpt, cfg, device=args.device)
+    else:
+        enc = apc_model.APCEncoder(cfg)
+        if args.apc_ckpt:
+            enc.load_state_dict(convert.load_state_dict(args.apc_ckpt), strict=True)
+        else:
+            print("WARNING: no --apc_ckpt; using random-init APC features "
+                  "(pretrain one: --task apc)")
+            trainer._init(enc, 0)
+        enc = enc.to(args.device).eval().requires_grad_(False)
+    return [data_io.prepare_clip(os.path.join(args.dataroot, n), n, enc, cfg) for n in names]
+
+
+def _load_real_face_data(args):
+    """The clips' renderer data (data_io.load_face_clip, frames decoded as
+    sampled), spanning every clip (datasets.ConcatFaceSampler), the edge
+    maps drawn on the device."""
+    from livespeechportraits_torch.train import data_io, datasets
+
+    samplers = [data_io.load_face_clip(os.path.join(args.dataroot, n), n,
+                                       load_size=args.image_size)
+                for n in _need_clips(args)]
+    for s in samplers:
+        s.device_rasterize = True
+    return samplers[0] if len(samplers) == 1 else datasets.ConcatFaceSampler(samplers)
+
+
+def main(argv=None):
+    """Train one task as the arguments say; returns its trainer.TrainResult."""
     args = build_parser().parse_args(argv)
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag}: {what} is not ported")
-    if not args.synthetic:
-        raise NotImplementedError("training on a subject's clips (--dataroot, --clip_names, "
-                                  "--apc_ckpt) is not ported (ROADMAP item 15); use --synthetic")
 
     from livespeechportraits_torch.config import (APCConfig, Audio2FeatureConfig,
                                                   Audio2HeadposeConfig, Feature2FaceConfig)
@@ -175,26 +251,32 @@ def main(argv=None) -> None:
         batch_size=args.batch_size, print_freq=args.print_freq,
         checkpoints_dir=args.checkpoints_dir, name=args.name or args.task,
         continue_train=args.continue_train, smooth_loss=args.smooth_loss, ttur=args.TTUR,
-        save_best=not args.no_save_best, device=args.device)
+        save_best=not args.no_save_best, device=args.device, qat=args.qat,
+        qat_int8=args.qat_int8, qat_d=args.qat_d)
+    trainer._device(loop)  # no card for a card's run: raise before reading any data
     if args.task == "apc":
-        mels = synthetic_mels(4, 2400)
-        n_val = max(1, len(mels) // 8)
-        sampler = datasets.MelWindowSampler(mels[n_val:], window=args.mel_window,
+        mels = synthetic_mels(4, 2400) if args.synthetic else _load_mels(args)
+        # one clip trains on itself, without validation; more hold out an eighth
+        n_val = max(1, len(mels) // 8) if len(mels) > 1 else 0
+        sampler = datasets.MelWindowSampler(mels[n_val:] or mels, window=args.mel_window,
                                             stride=args.mel_window // 2)
-        val_sampler = datasets.MelWindowSampler(mels[:n_val], window=args.mel_window)
-        trainer.train_apc(APCConfig(), loop, sampler, val_sampler)
+        val_sampler = (datasets.MelWindowSampler(mels[:n_val], window=args.mel_window)
+                       if n_val else None)
+        res = trainer.train_apc(APCConfig(), loop, sampler, val_sampler)
     elif args.task == "audio2feature":
+        clips = synthetic_clips(2, 1400) if args.synthetic else _load_real_clips(args)
         sampler = datasets.AudioVisualSampler(
-            synthetic_clips(2, 1400), task="audio2feature", seq_len=args.sequence_length,
+            clips, task="audio2feature", seq_len=args.sequence_length,
             frame_jump_stride=4, device_audio=True)
-        trainer.train_audio2feature(Audio2FeatureConfig(loss=args.loss), loop, sampler)
+        res = trainer.train_audio2feature(Audio2FeatureConfig(loss=args.loss), loop, sampler)
     elif args.task == "audio2headpose":
         cfg = Audio2HeadposeConfig()
+        clips = synthetic_clips(2, 1800) if args.synthetic else _load_real_clips(args)
         sampler = datasets.AudioVisualSampler(
-            synthetic_clips(2, 1800), task="audio2headpose",
+            clips, task="audio2headpose",
             target_length=args.time_frame_length, receptive_field=cfg.wavenet.receptive_field,
             frame_future=cfg.frame_future, device_audio=True)
-        trainer.train_audio2headpose(cfg, loop, sampler)
+        res = trainer.train_audio2headpose(cfg, loop, sampler)
     else:
         from livespeechportraits_torch.models import losses
 
@@ -205,9 +287,11 @@ def main(argv=None) -> None:
             vgg = losses.init_vgg19(0)
         elif args.vgg != "none":
             vgg = losses.load_vgg19_npz(args.vgg)
-        trainer.train_feature2face(cfg, loop, synthetic_face_data(80, args.image_size),
-                                   vgg=vgg)
+        sampler = (synthetic_face_data(80, args.image_size) if args.synthetic
+                   else _load_real_face_data(args))
+        res = trainer.train_feature2face(cfg, loop, sampler, vgg=vgg)
     print("training done")
+    return res
 
 
 if __name__ == "__main__":

@@ -17,6 +17,10 @@ Feature2Face keeps JAX's alternating semantics (steps.py:274-393 there):
 With ``compute_dtype`` the generator's forward runs under torch.autocast in
 that dtype (JAX casts the generator alone to its compute dtype); the
 discriminator, the losses, the parameters and Adam's moments stay f32.
+With ``qat_d`` both losses see D through ``f2f.qat_discriminator``, a view
+made inside the step that shares D's parameters: its interior convs run on
+the int8 kernel K4 with straight-through gradients (JAX steps.py:313-316),
+and neither the checkpoints nor the optimizer state see a tag.
 """
 
 from __future__ import annotations
@@ -158,9 +162,14 @@ def _g_forward(g: f2f.Feature2FaceG, inp: Tensor, training: bool,
         return f2f.apply_generator(g, inp, training=training)
 
 
+def _d_of(d: f2f.Feature2FaceD, qat_d: bool) -> f2f.Feature2FaceD:
+    return f2f.qat_discriminator(d) if qat_d else d
+
+
 def f2f_d_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
-               batch: Batch, compute_dtype: Optional[torch.dtype] = None
+               batch: Batch, compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False
                ) -> Tuple[Tensor, Metrics]:
+    d = _d_of(d, qat_d)
     inp = f2f_g_input(batch)
     with torch.no_grad():
         fake = _g_forward(g, inp, False, compute_dtype)
@@ -177,7 +186,9 @@ def f2f_d_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2Fac
 
 def f2f_g_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
                batch: Batch, vgg: Optional[losses.VGG19] = None,
-               compute_dtype: Optional[torch.dtype] = None) -> Tuple[Tensor, Metrics]:
+               compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False
+               ) -> Tuple[Tensor, Metrics]:
+    d = _d_of(d, qat_d)
     inp = f2f_g_input(batch)
     fake = _g_forward(g, inp, True, compute_dtype)
     tgt = f2f_target(batch)
@@ -200,16 +211,16 @@ def f2f_g_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2Fac
 
 def f2f_d_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
                opt_d: torch.optim.Optimizer, batch: Batch,
-               compute_dtype: Optional[torch.dtype] = None) -> Metrics:
-    loss, metrics = f2f_d_loss(cfg, g, d, batch, compute_dtype)
+               compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False) -> Metrics:
+    loss, metrics = f2f_d_loss(cfg, g, d, batch, compute_dtype, qat_d)
     state.apply_gradients(opt_d, list(d.parameters()), loss)
     return metrics
 
 
 def f2f_g_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
                opt_g: torch.optim.Optimizer, batch: Batch, vgg: Optional[losses.VGG19] = None,
-               compute_dtype: Optional[torch.dtype] = None) -> Metrics:
-    loss, metrics = f2f_g_loss(cfg, g, d, batch, vgg, compute_dtype)
+               compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False) -> Metrics:
+    loss, metrics = f2f_g_loss(cfg, g, d, batch, vgg, compute_dtype, qat_d)
     state.apply_gradients(opt_g, list(g.parameters()), loss)
     return metrics
 

@@ -20,11 +20,22 @@ computes in cfg.precision (bf16 under torch.autocast), and with
 ``device_rasterize`` each batch's edge maps come from one launch of the
 rasteriser kernel K1 (``rasterize_cuda.rasterize_segments``) on the segment
 table built on the device from the batch's landmarks and shoulders.
+
+Quantization-aware training (``qat``, ``qat_int8``, ``qat_d``): the
+generator is tagged (``f2f.qat_generator``) so that every forward, training
+and validation, runs the deployed int8 arithmetic, on K4 with ``qat_int8``;
+``qat_d`` runs the discriminator's interior convs on K4 too.  A checkpoint
+records the generator's tag (``qat_mode``), and a resume follows JAX's
+rules (trainer.py:416-460 there): a float checkpoint under QAT is tagged and
+restarts the generator's Adam moments; a checkpoint of the other QAT mode is
+retagged and keeps them; a tagged checkpoint with QAT off warns and trains
+on in float.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -68,6 +79,14 @@ class TrainLoopConfig:
     prefetch: int = 2  # background batch queue depth (0 = synchronous)
     save_best: bool = True  # keep <name>/ckpt_best, the lowest-validation epoch
     device: str = "cuda"
+    qat: bool = False  # quantization-aware G: train against the int8 arithmetic
+    qat_int8: bool = False  # QAT forward on the int8 kernel K4 (implies qat)
+    qat_d: bool = False  # D's interior convs on K4, straight-through gradients
+
+    @property
+    def qat_mode(self) -> Optional[str]:
+        """The generator's QAT tag this run trains with: "fq8", "fq" or None."""
+        return "fq8" if self.qat_int8 else "fq" if self.qat else None
 
 
 @dataclass
@@ -194,23 +213,43 @@ def _schedule_state(schedules: dict) -> dict:
 
 class _Run:
     """What the two kinds of trainer share: the device, the log, the
-    checkpoint directories, resume and the epoch's generators."""
+    checkpoint directories, resume and the epoch's generators.  qat_mode is
+    the generator's QAT tag (the GAN trainer's; None elsewhere)."""
 
     def __init__(self, loop: TrainLoopConfig, models: Dict[str, nn.Module],
-                 optimizers: Dict[str, torch.optim.Optimizer], schedules: dict):
+                 optimizers: Dict[str, torch.optim.Optimizer], schedules: dict,
+                 qat_mode: Optional[str] = None):
         self.loop, self.models, self.optimizers, self.schedules = loop, models, optimizers, schedules
+        self.qat_mode = qat_mode
         self.vis = Visualizer(loop.checkpoints_dir, loop.name)
         self.ckpt_dir = f"{loop.checkpoints_dir}/{loop.name}/ckpt"
         self.rng = np.random.default_rng(loop.seed)
         self.gen = torch.Generator().manual_seed(loop.seed)
         self.start_epoch, self.best_val, self.it = 0, None, 0
         if loop.continue_train and ckpt.latest_step(self.ckpt_dir) is not None:
-            st = ckpt.restore(ckpt.load_checkpoint(self.ckpt_dir), models, optimizers)
+            raw = ckpt.load_checkpoint(self.ckpt_dir)
+            st = ckpt.restore(raw, models, optimizers, fresh=self._resume_rule(raw))
             for k, s in st["schedules"].items():
                 schedules[k].load_state_dict(s)
             _set_rng_state(st["rng"], self.rng, self.gen)
             self.start_epoch, self.best_val = st["epoch"], st["best_val"]
             print(f"resumed from epoch {self.start_epoch}")
+
+    def _resume_rule(self, raw: dict) -> tuple:
+        """The optimizers a resume restarts: the generator's when QAT starts
+        from a float checkpoint.  The tag itself is not in the state dicts,
+        so a retag, or dropping the tags, loads them as they are."""
+        ck, mode = ckpt.qat_mode(raw), self.qat_mode
+        if mode is not None and ck is None:
+            print(f"QAT warm-start from float checkpoint (epoch {raw['epoch']}); "
+                  "optimizer moments reset")
+            return ("G",)
+        if ck is not None and mode is None:
+            warnings.warn("checkpoint carries QAT tags but qat=False; tags dropped, "
+                          "training continues in float")
+        elif ck != mode:
+            print(f"QAT checkpoint retagged {ck} -> {mode}")
+        return ()
 
     def epochs(self):
         return range(self.start_epoch, self.loop.n_epochs + self.loop.n_epochs_decay)
@@ -244,7 +283,8 @@ class _Run:
     def _save(self, directory: str, epoch: int, keep_only: bool = False) -> None:
         ckpt.save_checkpoint(directory, epoch, self.models, self.optimizers,
                              _schedule_state(self.schedules), self.best_val,
-                             rng=_rng_state(self.rng, self.gen), keep_only=keep_only)
+                             rng=_rng_state(self.rng, self.gen), keep_only=keep_only,
+                             qat_mode=self.qat_mode)
 
     def result(self, timer: _StepTimer) -> TrainResult:
         epochs = max(self.start_epoch, self.loop.n_epochs + self.loop.n_epochs_decay)
@@ -341,11 +381,19 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
     step with the updated D (steps.f2f_d_step / f2f_g_step); Adam (0.5,
     0.999), or TTUR's (0, 0.9) at lr / 2 for G and lr x 2 for D.  Each epoch
     validates the eval-mode G (val_L1, val_PSNR), and ckpt_best keeps the
-    lowest val_L1."""
+    lowest val_L1.  With loop.qat / qat_int8 the generator trained (and
+    returned) is a tagged copy of init_g, retagged when init_g carries the
+    other tag; loop.qat_d tags D's view in each step."""
     dev = _device(loop)
     gen = torch.Generator().manual_seed(loop.seed)
     g = init_g if init_g is not None else _init(f2f_model.Feature2FaceG(cfg), gen=gen)
     d = init_d if init_d is not None else _init(f2f_model.Feature2FaceD(cfg), gen=gen)
+    mode = loop.qat_mode
+    if mode is not None and f2f_model.qat_tag_mode(g) not in (None, mode):
+        g = f2f_model.strip_qat_generator(g)
+    if mode is not None and not f2f_model.is_qat_generator(g):
+        g = f2f_model.qat_generator(g, int8_forward=mode == "fq8")
+    mode = f2f_model.qat_tag_mode(g)  # an init_g tagged with QAT off keeps its tags
     g.to(dev)
     d.to(dev)
     (lr_g, bg), (lr_d, bd) = steps.ttur_learning_rates(loop.lr, loop.ttur)
@@ -358,7 +406,7 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
                      else None)
     if vgg is not None:
         vgg.to(dev)
-    run = _Run(loop, {"G": g, "D": d}, opts, schedules)
+    run = _Run(loop, {"G": g, "D": d}, opts, schedules, qat_mode=mode)
     move = _Mover(dev)
     timer = _StepTimer(dev)
     for epoch in run.epochs():
@@ -367,8 +415,9 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
         t0, n = time.time(), 0
         for batch in _batch_iter(sampler, loop, run.rng, move):
             ts = timer.start()
-            d_metrics = steps.f2f_d_step(cfg, g, d, opts["D"], batch, compute_dtype)
-            g_metrics = steps.f2f_g_step(cfg, g, d, opts["G"], batch, vgg, compute_dtype)
+            d_metrics = steps.f2f_d_step(cfg, g, d, opts["D"], batch, compute_dtype, loop.qat_d)
+            g_metrics = steps.f2f_g_step(cfg, g, d, opts["G"], batch, vgg, compute_dtype,
+                                         loop.qat_d)
             timer.stop(ts)
             n += 1
             run.log_step(epoch, d_metrics | g_metrics, None, t0, n)

@@ -10,6 +10,9 @@ card's machine has no orbax: ``<ckpt_dir>/<epoch>.pt`` holds a dict of
     epoch       int, the epochs done
     best_val    float or None, the best validation mean so far
     rng         the trainer's generator states ({} when not given)
+    qat_mode    None, "fq" or "fq8": the QAT tag of the generator's convs
+                (a tag is not part of a state dict); a file without the
+                entry reads as None
 
 ``restore`` loads it back into live modules and optimizers and refuses a
 file whose entries, or whose state dicts' keys, are not the caller's:
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -36,7 +39,7 @@ def save_checkpoint(ckpt_dir: str, epoch: int, models: Dict[str, nn.Module],
                     optimizers: Dict[str, torch.optim.Optimizer],
                     schedules: Optional[Dict[str, dict]] = None,
                     best_val: Optional[float] = None, rng: Optional[dict] = None,
-                    keep_only: bool = False) -> str:
+                    keep_only: bool = False, qat_mode: Optional[str] = None) -> str:
     """Write ``<ckpt_dir>/<epoch>.pt`` (through a temporary file, so a cut
     write leaves no file behind); keep_only removes the directory's other
     epochs (the best-validation directory keeps one)."""
@@ -45,7 +48,7 @@ def save_checkpoint(ckpt_dir: str, epoch: int, models: Dict[str, nn.Module],
     state = {"models": {k: m.state_dict() for k, m in models.items()},
              "optimizers": {k: o.state_dict() for k, o in optimizers.items()},
              "schedules": dict(schedules or {}), "epoch": int(epoch), "best_val": best_val,
-             "rng": dict(rng or {})}
+             "rng": dict(rng or {}), "qat_mode": qat_mode}
     torch.save(state, path + ".tmp")
     os.replace(path + ".tmp", path)
     if keep_only:
@@ -91,18 +94,26 @@ def _same_keys(what: str, want, got) -> None:
                          f"extra {extra[:5]} - architecture/config mismatch")
 
 
+def qat_mode(state: dict) -> Optional[str]:
+    """The generator's QAT tag a checkpoint dict records (None for a float
+    run, and for a file written before the entry existed)."""
+    return state.get("qat_mode")
+
+
 def restore(state: dict, models: Dict[str, nn.Module],
-            optimizers: Dict[str, torch.optim.Optimizer]) -> dict:
+            optimizers: Dict[str, torch.optim.Optimizer], fresh: Sequence[str] = ()) -> dict:
     """Load a checkpoint dict into ``models`` (strict: missing and extra
     parameters raise) and ``optimizers``; the file must name exactly these
-    models and optimizers.  Returns the dict (for epoch, schedules,
-    best_val, rng)."""
-    _same_keys("entries", {"models", "optimizers", "schedules", "epoch", "best_val", "rng"},
-               state)
+    models and optimizers.  The optimizers named in ``fresh`` keep their
+    fresh state (a QAT warm start restarts the generator's Adam moments).
+    Returns the dict (for epoch, schedules, best_val, rng)."""
+    entries = {"models", "optimizers", "schedules", "epoch", "best_val", "rng"}
+    _same_keys("entries", entries | ({"qat_mode"} & set(state)), state)
     _same_keys("models", models, state["models"])
     _same_keys("optimizers", optimizers, state["optimizers"])
     for k, m in models.items():
         m.load_state_dict(state["models"][k], strict=True)
     for k, o in optimizers.items():
-        o.load_state_dict(state["optimizers"][k])
+        if k not in fresh:
+            o.load_state_dict(state["optimizers"][k])
     return state

@@ -83,8 +83,9 @@ def _conv2d(p, out: StateDict, name: str) -> None:
                 out[f"{name}.{k}"] = _t(p[k])
         return
     out[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
-    if "b" in p:
-        out[f"{name}.bias"] = _t(p["b"])
+    for k, key in (("b", "bias"), ("x_scale", "x_scale")):  # x_scale: a calibrated QAT conv
+        if k in p:
+            out[f"{name}.{key}"] = _t(p[k])
 
 
 def _conv_transpose2d(p, out: StateDict, name: str) -> None:
@@ -256,7 +257,10 @@ def _conv1d_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
 
 def _conv2d_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
     if f"{name}.w_q" not in sd:
-        return _weight_to(sd, name, 2, 3, 1, 0)
+        p = _weight_to(sd, name, 2, 3, 1, 0)
+        if f"{name}.x_scale" in sd:
+            p["x_scale"] = _a(sd, f"{name}.x_scale")
+        return p
     p = {"w_q": _a(sd, f"{name}.w_q").transpose(2, 3, 1, 0),
          "w_scale": _a(sd, f"{name}.w_scale")}
     for k in ("b", "x_scale"):

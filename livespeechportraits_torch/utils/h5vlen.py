@@ -7,12 +7,15 @@ The card's machine has no h5py, so the port reads and writes that one layout
 itself, in HDF5's original file format (superblock 0, a symbol-table root
 group, version-1 object headers, a contiguous dataset, one global heap
 collection per element), which is what h5py writes by default and reads
-back.  ``write`` makes such a file; ``read`` reads that layout from any HDF5
-file of the original format (h5py's included).  Other layouts raise.
+back.  ``write`` makes such a file; ``Reader`` (and ``read``, ``length``)
+reads that layout from any HDF5 file of the original format (h5py's
+included), through a memory map, so a clip of many gigabytes is read a
+frame at a time.  Other layouts raise.
 """
 
 from __future__ import annotations
 
+import mmap
 import struct
 from typing import Dict, List, Optional, Sequence
 
@@ -170,49 +173,68 @@ class _File:
             nsym, = self.u("H", child + 6)
             for j in range(nsym):
                 name_off, obj = self.u("QQ", child + 8 + 40 * j)
-                end = self.b.index(b"\0", seg + name_off)
+                end = self.b.find(b"\0", seg + name_off)
                 out[self.b[seg + name_off:end].decode()] = obj
 
 
-def read(path: str, key: str, indices: Optional[Sequence[int]] = None) -> List[bytes]:
-    """The bytes of the given elements (all when None) of dataset ``key``, a
-    1-D vlen uint8 dataset with contiguous storage at the file's root."""
-    with open(path, "rb") as f:
-        h = _File(f.read())
-    links = h.links(h.u("Q", 64)[0])
-    if key not in links:
-        raise KeyError(f"{path} has no dataset {key!r} (it has {sorted(links)})")
-    msgs = {m[0]: m for m in h.messages(links[key])}
-    _, at, _ = msgs[0x0001]
-    version, rank = h.u("BB", at)
-    dims_at = at + (8 if version == 1 else 4)
-    if rank != 1:
-        raise ValueError(f"dataset {key!r} has rank {rank}, not 1")
-    n, = h.u("Q", dims_at)
-    _, at, _ = msgs[0x0003]
-    cls, size = h.b[at] & 0x0F, h.u("I", at + 4)[0]
-    base_cls, base_size = h.b[at + 8] & 0x0F, h.u("I", at + 12)[0]
-    if cls != 9 or (h.b[at + 1] & 0x0F) != 0 or base_cls != 0 or base_size != 1 or size != 16:
-        raise ValueError(f"dataset {key!r} is not a vlen uint8 sequence")
-    _, at, _ = msgs[0x0008]
-    version, layout = h.u("BB", at)
-    if version != 3 or layout != 1:
-        raise ValueError(f"dataset {key!r}: layout {version}/{layout} is not contiguous v3")
-    raw, = h.u("Q", at + 2)
-    out = []
-    for i in (range(n) if indices is None else indices):
+class Reader:
+    """Dataset ``key`` of the file at ``path``, a 1-D vlen uint8 dataset with
+    contiguous storage at the file's root, through a read-only memory map:
+    ``len(r)`` elements, ``r[i]`` the bytes of element i.  Reads from several
+    threads at once are safe."""
+
+    def __init__(self, path: str, key: str):
+        with open(path, "rb") as f:
+            self._map = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        h = self._file = _File(self._map)
+        links = h.links(h.u("Q", 64)[0])
+        if key not in links:
+            raise KeyError(f"{path} has no dataset {key!r} (it has {sorted(links)})")
+        msgs = {m[0]: m for m in h.messages(links[key])}
+        _, at, _ = msgs[0x0001]
+        version, rank = h.u("BB", at)
+        if rank != 1:
+            raise ValueError(f"dataset {key!r} has rank {rank}, not 1")
+        self._n, = h.u("Q", at + (8 if version == 1 else 4))
+        _, at, _ = msgs[0x0003]
+        cls, size = h.b[at] & 0x0F, h.u("I", at + 4)[0]
+        base_cls, base_size = h.b[at + 8] & 0x0F, h.u("I", at + 12)[0]
+        if cls != 9 or (h.b[at + 1] & 0x0F) != 0 or base_cls != 0 or base_size != 1 or size != 16:
+            raise ValueError(f"dataset {key!r} is not a vlen uint8 sequence")
+        _, at, _ = msgs[0x0008]
+        version, layout = h.u("BB", at)
+        if version != 3 or layout != 1:
+            raise ValueError(f"dataset {key!r}: layout {version}/{layout} is not contiguous v3")
+        self._raw, = h.u("Q", at + 2)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i: int) -> bytes:
         i = int(i)
-        if not 0 <= i < n:
-            raise IndexError(f"element {i} of a dataset of {n}")
-        length, coll, idx = h.u("IQI", raw + 16 * i)
-        out.append(h.heap_object(coll, idx)[:length])
-    return out
+        if not 0 <= i < self._n:
+            raise IndexError(f"element {i} of a dataset of {self._n}")
+        length, coll, idx = self._file.u("IQI", self._raw + 16 * i)
+        return self._file.heap_object(coll, idx)[:length]
+
+    def close(self) -> None:
+        self._map.close()
+
+
+def read(path: str, key: str, indices: Optional[Sequence[int]] = None) -> List[bytes]:
+    """The bytes of the given elements (all when None) of dataset ``key``
+    (see Reader)."""
+    r = Reader(path, key)
+    try:
+        return [r[i] for i in (range(len(r)) if indices is None else indices)]
+    finally:
+        r.close()
 
 
 def length(path: str, key: str) -> int:
     """The number of elements of dataset ``key``."""
-    with open(path, "rb") as f:
-        h = _File(f.read())
-    at = next(a for t, a, _ in h.messages(h.links(h.u("Q", 64)[0])[key]) if t == 0x0001)
-    version = h.b[at]
-    return h.u("Q", at + (8 if version == 1 else 4))[0]
+    r = Reader(path, key)
+    try:
+        return len(r)
+    finally:
+        r.close()

@@ -240,13 +240,13 @@ def test_recurrence_refuses_a_plan_that_does_not_fit(cuda_device):
     assert recurrent_cuda.GRU_LAUNCHES == before
 
 
-def _k4_inputs(B, cin, cout, h, w, dtype, device, seed):
+def _k4_inputs(B, cin, cout, h, w, dtype, device, seed, ksize=3):
     """A float activation on a 1/8 grid with r = 4: exact rounding ties and
     values past +-127; int8 weights, scale and bias of the activation dtype."""
     g = torch.Generator().manual_seed(seed)
     cl = torch.channels_last
     x = (torch.round(torch.randn(B, cin, h, w, generator=g) * 96) / 8).to(device, dtype)
-    wq = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, cin, ksize, ksize), generator=g, dtype=torch.int8)
     r = torch.tensor(4.0).to(device, dtype)
     scale = (torch.rand(cout, generator=g) * 1e-4).to(device, dtype)
     bias = torch.randn(cout, generator=g).to(device, dtype)
@@ -308,6 +308,78 @@ def test_q8conv_kernel_at_the_resunet_shapes(cuda_device, size, cin, cout, strid
                        q8conv_cuda.conv_s8_plain(x_q, w, stride))
     assert torch.equal(q8conv_cuda.conv_q8(x, r, w, stride, 1, scale, bias),
                        q8conv_cuda.conv_q8_plain(x, r, w, stride, 1, scale, bias))
+
+
+# The discriminator's interior convs at 512^2 (input size, Cin, Cout, stride),
+# both scales: 4x4, padding 2
+D_SHAPES = [(257, 64, 128, 2), (129, 128, 256, 2), (65, 256, 512, 1),
+            (129, 64, 128, 2), (65, 128, 256, 2), (33, 256, 512, 1)]
+
+
+@pytest.mark.parametrize("size,cin,cout,stride", D_SHAPES)
+def test_q8conv_kernel_at_the_discriminator_shapes(cuda_device, size, cin, cout, stride):
+    """K4's 4x4 taps (quantization-aware training's discriminator, f32) at
+    each interior conv shape, B=2: the int32 mode and the fused f32 and
+    bf16 modes against the twins, bit for bit."""
+    for dt in (torch.float32, torch.bfloat16):
+        x, w, r, scale, bias = _k4_inputs(2, cin, cout, size, size, dt, cuda_device,
+                                          size + cin, ksize=4)
+        assert torch.equal(q8conv_cuda.conv_q8(x, r, w, stride, 2, scale, bias),
+                           q8conv_cuda.conv_q8_plain(x, r, w, stride, 2, scale, bias))
+    x_q = q8conv_cuda.quantize_plain(x, r)
+    out = q8conv_cuda.conv_s8(x_q, w, stride, 2)
+    assert out.shape[2] == (size + 4 - 4) // stride + 1
+    assert torch.equal(out, q8conv_cuda.conv_s8_plain(x_q, w, stride, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fq8_conv_on_the_card_equals_the_deployed_layer(cuda_device, dtype):
+    """A QAT "fq8" conv launches K4 once a forward, its output the deployed
+    QConv2d's bit for bit (bf16: the deployed layer cast, the QAT weights the
+    f32 masters); its straight-through backward runs in f32 under bf16
+    autocast, as the trainer calls it."""
+    g = torch.Generator().manual_seed(3)
+    conv = torch.nn.Conv2d(64, 64, 3, padding=1, bias=False)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * 0.05)
+    conv = conv.to(cuda_device)
+    layer = nn_core.fake_quant_conv(conv, int8_forward=True)
+    deployed = nn_core.QConv2d.from_conv(conv).to(dtype)
+    deployed.w_q = deployed.w_q.contiguous(memory_format=torch.channels_last)
+    x = torch.randn(4, 64, 64, 64, generator=g).to(cuda_device, dtype)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    before = q8conv_cuda.LAUNCHES
+    with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == torch.bfloat16):
+        y = nn_core.conv2d(x, layer, 1, 1)
+    assert q8conv_cuda.LAUNCHES == before + 1 and y.dtype == dtype
+    with torch.no_grad():
+        assert torch.equal(y, nn_core.conv2d(x, deployed, 1, 1))
+    gx, gw = torch.autograd.grad(y.float().square().sum(), (x, conv.weight))
+    assert gx.dtype == dtype and gw.dtype == torch.float32
+    assert torch.isfinite(gw).all() and gw.abs().max() > 0
+
+
+def test_qat_gan_steps_on_the_card_launch_k4_for_every_tagged_conv(cuda_device, tmp_path):
+    """A --qat_int8 --qat_d GAN run (64^2, bf16 G, f32 D) launches K4 for
+    each tagged conv of each forward: two G forwards and four D forwards a
+    step, one G forward a validation batch; finite losses."""
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import trainer
+
+    cfg = Feature2FaceConfig(ngf=16, n_downsample=6, load_size=64, ndf=16)
+    n_g = sum(isinstance(m, nn_core.QATConv2d) for m in
+              feature2face.qat_generator(feature2face.Feature2FaceG(cfg)).modules())
+    n_d = cfg.num_D * cfg.n_layers_D
+    small = cli.synthetic_face_data(70, 64)
+    loop = trainer.TrainLoopConfig(n_epochs=1, n_epochs_decay=0, batch_size=4, print_freq=1,
+                                   checkpoints_dir=str(tmp_path), name="f2f", qat_int8=True,
+                                   qat_d=True)
+    before = q8conv_cuda.LAUNCHES
+    res = trainer.train_feature2face(cfg, loop, small, small)
+    torch.cuda.synchronize()
+    steps, val = len(res.step_ms), -(-len(small) // 4)
+    assert q8conv_cuda.LAUNCHES - before == steps * (2 * n_g + 4 * n_d) + val * n_g
+    assert np.isfinite(res.best_val) and all(np.isfinite(res.step_ms))
 
 
 def test_conv_q8_refuses_a_host_scale(cuda_device):

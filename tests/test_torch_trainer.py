@@ -2,13 +2,19 @@
 epochs, with a resume that repeats the uninterrupted run bit for bit; the
 checkpoint format; ckpt_best across a resume; TTUR; the GMM-loss
 Audio2Feature; device rasterisation through the plain rasteriser; the CLI;
-and a Predictor serving what the trainers wrote.  The counterpart of the
-JAX package's tests/test_trainer_loop.py and test_train.py."""
+and a Predictor serving what the trainers wrote.  Quantization-aware
+training: the QAT loops with a resume, JAX's three resume rules, the
+tag-free checkpoints of --qat_d, the CLI with each QAT flag and a
+Predictor serving its checkpoint; and the CLI on a synth_subject root
+(--dataroot, --clip_names, --apc_ckpt).  The counterpart of the JAX
+package's tests/test_trainer_loop.py, test_train.py and
+test_trained_serving.py."""
 
 from __future__ import annotations
 
 import csv
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -18,6 +24,8 @@ from livespeechportraits_torch import serve, server
 from livespeechportraits_torch.config import (APCConfig, Audio2FeatureConfig,
                                               Audio2HeadposeConfig, Feature2FaceConfig,
                                               WaveNetConfig)
+from livespeechportraits_torch.models import feature2face as f2f
+from livespeechportraits_torch.pipeline import build_person, synth_subject
 from livespeechportraits_torch.ops import rasterize as t_rasterize
 from livespeechportraits_torch.train import __main__ as cli
 from livespeechportraits_torch.train import datasets, trainer
@@ -286,14 +294,15 @@ def test_cli_trains_each_task_on_the_cpu(trained, task):
 
 
 def test_cli_refuses_what_is_not_ported():
-    for flag in ("--fused_step", "--remat", "--qat", "--qat_int8", "--qat_d", "--data_parallel",
-                 "--zero1"):
+    for flag in ("--fused_step", "--remat", "--data_parallel", "--zero1"):
         with pytest.raises(NotImplementedError, match="ROADMAP item 1[56]"):
             cli.main(["--task", "feature2face", "--synthetic", flag])
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         cli.main(["--task", "feature2face", "--synthetic", "--vgg_microbatch", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        cli.main(["--task", "audio2feature", "--dataroot", "d", "--clip_names", "c"])
+    # real data needs both --dataroot and --clip_names (JAX's message)
+    for args in (["--dataroot", "d"], ["--clip_names", "c"], []):
+        with pytest.raises(SystemExit, match="needs --dataroot and --clip_names"):
+            cli.main(["--task", "audio2feature", "--device", "cpu"] + args)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--task", "apc", "--synthetic"])
@@ -366,3 +375,192 @@ def test_prefetch_order_errors_and_release():
     assert next(it) == 0
     it.close()  # the consumer walks away with the queue full
     assert done.wait(timeout=10)
+
+
+# ---------------------------------------------------------------------------
+# quantization-aware training
+# ---------------------------------------------------------------------------
+
+QAT = {"qat": {"qat": True}, "qat_int8": {"qat_int8": True},
+       "qat_int8_d": {"qat_int8": True, "qat_d": True}}
+
+
+def _adam_steps(res: trainer.TrainResult, k: str) -> int:
+    return int(next(iter(res.optimizers[k].state_dict()["state"].values()))["step"])
+
+
+def _ckpt(tmp_path, name: str) -> dict:
+    return ckpt.load_checkpoint(str(tmp_path / name / "ckpt"))
+
+
+@pytest.mark.parametrize("mode", list(QAT))
+def test_qat_loop_and_resume_equal_the_uninterrupted_run(mode, tmp_path):
+    """A QAT run trains the tagged generator, its checkpoints record the tag
+    and keep a float run's keys (D's never tagged, --qat_d's view included),
+    and a resume repeats the uninterrupted run bit for bit."""
+    kw = QAT[mode]
+    want = "fq" if mode == "qat" else "fq8"
+    whole = _train("feature2face", tmp_path, "whole", 1, **kw)
+    assert f2f.qat_tag_mode(whole.models["G"]) == want
+    assert not f2f.is_qat_generator(whole.models["D"])
+    st = _ckpt(tmp_path, "whole")
+    cfg = CFGS["feature2face"]
+    assert st["qat_mode"] == want
+    assert st["models"]["G"].keys() == f2f.Feature2FaceG(cfg).state_dict().keys()
+    assert st["models"]["D"].keys() == f2f.Feature2FaceD(cfg).state_dict().keys()
+    first = _train("feature2face", tmp_path, "split", 0, **kw)
+    resumed = _train("feature2face", tmp_path, "split", 1, continue_train=True, **kw)
+    assert first.epochs == 1 and resumed.epochs == 2
+    _assert_same_state(whole, resumed)
+    if kw.get("qat_d"):  # D's interior convs ran quantized: D trained otherwise
+        plain_d = _train("feature2face", tmp_path, "plain_d", 1, qat_int8=True)
+        assert any(not torch.equal(v, plain_d.models["D"].state_dict()[n])
+                   for n, v in whole.models["D"].state_dict().items())
+
+
+def test_qat_warm_start_from_a_float_checkpoint_restarts_the_generators_moments(tmp_path):
+    """--qat --continue_train over a float checkpoint: the restored float
+    weights are tagged and trained with fresh Adam moments; D's moments go
+    on.  Two steps an epoch."""
+    float_run = _train("feature2face", tmp_path, "ws", 0)
+    assert _ckpt(tmp_path, "ws")["qat_mode"] is None
+    g_float = float_run.models["G"].state_dict()
+    # a resume with no epoch left: the tagged generator holds the float weights
+    restored = _train("feature2face", tmp_path, "ws", 0, continue_train=True, qat=True)
+    assert f2f.qat_tag_mode(restored.models["G"]) == "fq"
+    for n, v in restored.models["G"].state_dict().items():
+        assert torch.equal(v, g_float[n]), n
+    assert not restored.optimizers["G"].state_dict()["state"]
+    assert _adam_steps(restored, "D") == 2
+    res = _train("feature2face", tmp_path, "ws", 1, continue_train=True, qat=True)
+    assert f2f.qat_tag_mode(res.models["G"]) == "fq"
+    assert _adam_steps(res, "G") == 2 and _adam_steps(res, "D") == 4
+    assert _ckpt(tmp_path, "ws")["qat_mode"] == "fq"
+
+
+def test_qat_resume_in_the_other_mode_retags_and_keeps_the_moments(tmp_path):
+    """fq8 -> fq -> fq8: each resume retags the generator and its Adam
+    moments go on (the tag is not in the state dicts)."""
+    _train("feature2face", tmp_path, "rt", 0, qat_int8=True)
+    as_fq = _train("feature2face", tmp_path, "rt", 1, continue_train=True, qat=True)
+    assert f2f.qat_tag_mode(as_fq.models["G"]) == "fq" and _adam_steps(as_fq, "G") == 4
+    assert _ckpt(tmp_path, "rt")["qat_mode"] == "fq"
+    as_fq8 = _train("feature2face", tmp_path, "rt", 2, continue_train=True, qat_int8=True)
+    assert f2f.qat_tag_mode(as_fq8.models["G"]) == "fq8" and _adam_steps(as_fq8, "G") == 6
+    assert _ckpt(tmp_path, "rt")["qat_mode"] == "fq8"
+
+
+def test_a_qat_checkpoint_resumed_without_qat_warns_and_trains_in_float(tmp_path):
+    _train("feature2face", tmp_path, "off", 0, qat=True)
+    with pytest.warns(UserWarning, match="QAT tags but qat=False"):
+        res = _train("feature2face", tmp_path, "off", 1, continue_train=True)
+    assert not f2f.is_qat_generator(res.models["G"]) and _adam_steps(res, "G") == 4
+    assert _ckpt(tmp_path, "off")["qat_mode"] is None
+
+
+def test_a_checkpoint_without_the_qat_entry_reads_as_float(tmp_path):
+    """A file written before the qat_mode entry existed restores as a float
+    run's."""
+    _train("feature2face", tmp_path, "old", 0)
+    path = tmp_path / "old" / "ckpt" / "1.pt"
+    st = torch.load(path, weights_only=True)
+    del st["qat_mode"]
+    torch.save(st, path)
+    assert ckpt.qat_mode(ckpt.load_checkpoint(str(path.parent))) is None
+    res = _train("feature2face", tmp_path, "old", 1, continue_train=True, qat_int8=True)
+    assert _adam_steps(res, "G") == 2  # a float checkpoint under QAT: fresh moments
+
+
+QAT_CLI = {"qat": ["--qat"], "qat_int8": ["--qat_int8"], "qat_int8_d": ["--qat_int8", "--qat_d"]}
+
+
+@pytest.mark.parametrize("mode", list(QAT_CLI))
+def test_cli_trains_quantization_aware_and_a_predictor_serves_it(mode, tmp_path, monkeypatch):
+    """The CLI with each QAT flag at the default widths on 32^2 frames; the
+    Predictor loads the tagged checkpoint through a tagged template, strips
+    it and serves it, as a float renderer (--qat) or int8 (--qat_int8)."""
+    faces = cli.synthetic_face_data
+    monkeypatch.setattr(cli, "synthetic_face_data", lambda n, H: faces(min(n, 64), H))
+    cli.main(["--task", "feature2face", "--synthetic", "--device", "cpu", "--n_epochs", "1",
+              "--n_epochs_decay", "0", "--checkpoints_dir", str(tmp_path), "--print_freq", "1",
+              "--image_size", "32", "--batch_size", "4"] + QAT_CLI[mode])
+    ck = str(tmp_path / "feature2face" / "ckpt")
+    st = ckpt.load_checkpoint(ck)
+    assert st["qat_mode"] == ("fq" if mode == "qat" else "fq8")
+    quantize = mode != "qat"
+    p = serve.Predictor(max_audio_seconds=1.0, device="cpu", results_dir=str(tmp_path))
+    p.setup("Synthetic", image_size=32, f2f_ckpt=ck, quantize=quantize)
+    g = p._models.feature2face
+    assert not f2f.is_qat_generator(g)
+    if not quantize:
+        for k, v in g.state_dict().items():
+            assert torch.equal(v, st["models"]["G"][k].to(v.dtype)), k
+    t = np.arange(16000) / 16000.0
+    res = p.predict((0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32), write_video=False)
+    assert res.frames.shape == (45, 32, 32, 3) and res.frames.std() > 0
+
+
+# ---------------------------------------------------------------------------
+# training on a subject's clips
+# ---------------------------------------------------------------------------
+
+REAL_CLIPS = (("c0", 800, 0, False), ("c1", 80, 1, True))  # name, frames, seed, face
+
+
+@pytest.fixture(scope="module")
+def real_subject(tmp_path_factory):
+    """A synth_subject root at 32 px: c0, 800 frames of motion (no frame
+    store: what the motion models train on), c1, 80 frames with a face;
+    build_person_pack's mean_pts3d.npy and candidates, the candidates
+    copied into c1 as the reference keeps them per clip; then the four
+    trainers through the CLI on it at the default widths."""
+    base = tmp_path_factory.mktemp("real")
+    root, out = base / "Person", base / "ck"
+    for name, n, seed, face in REAL_CLIPS:
+        synth_subject.write_raw_clip(str(root), name, n, seed=seed, image_size=32,
+                                     with_face=face, device="cpu")
+    build_person.build_person_pack(str(root), ["c0", "c1"], apc=None, image_size=32)
+    shutil.copytree(root / "candidates", root / "c1" / "candidates")
+    common = ["--device", "cpu", "--n_epochs", "1", "--n_epochs_decay", "0",
+              "--checkpoints_dir", str(out), "--print_freq", "1", "--dataroot", str(root)]
+    apc_dir = str(out / "apc" / "ckpt")
+    for task, extra in (
+            ("apc", ["--clip_names", "c0,c1", "--mel_window", "60", "--batch_size", "4"]),
+            ("audio2feature", ["--clip_names", "c0", "--apc_ckpt", apc_dir,
+                               "--sequence_length", "32", "--batch_size", "64"]),
+            ("audio2headpose", ["--clip_names", "c0", "--apc_ckpt", apc_dir,
+                                "--time_frame_length", "8", "--batch_size", "16"]),
+            ("feature2face", ["--clip_names", "c1", "--image_size", "32",
+                              "--batch_size", "4", "--qat_int8"])):
+        cli.main(["--task", task] + common + extra)
+    return root, out
+
+
+@pytest.mark.parametrize("task", ["apc", "audio2feature", "audio2headpose", "feature2face"])
+def test_cli_trains_each_task_on_a_subjects_clips(real_subject, task):
+    root, out = real_subject
+    assert ckpt.latest_step(str(out / task / "ckpt")) == 1
+    losses = _val_column(out / task / "scalars.csv", "loss_G" if task == "feature2face" else
+                         "loss")
+    assert losses and all(np.isfinite(losses))
+    if task == "audio2feature":  # the features of the APC run's encoder, cached
+        from livespeechportraits_torch.models import apc as apc_model
+        from livespeechportraits_torch.train import data_io
+
+        enc = apc_model.load_pretrained_encoder(str(out / "apc" / "ckpt"), APCConfig(),
+                                                device="cpu")
+        cache = root / "c0" / f"c0_APC_feature_torch_{data_io._params_digest(enc)}.npy"
+        feats = np.load(cache)
+        assert feats.shape[1] == 512 and abs(feats.shape[0] - 2 * 800) <= 2  # 120 Hz rows
+
+
+def test_predictor_serves_the_four_checkpoints_trained_on_a_subject(real_subject, tmp_path):
+    _, out = real_subject
+    ckpts = {f"{s}_ckpt": str(out / task / "ckpt") for s, task in
+             (("f2f", "feature2face"), ("a2f", "audio2feature"), ("a2h", "audio2headpose"),
+              ("apc", "apc"))}
+    p = serve.Predictor(max_audio_seconds=1.0, device="cpu", results_dir=str(tmp_path))
+    p.setup("Synthetic", image_size=32, quantize=True, **ckpts)
+    t = np.arange(16000) / 16000.0
+    res = p.predict((0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32), write_video=False)
+    assert res.frames.shape == (45, 32, 32, 3) and res.frames.std() > 0
