@@ -105,9 +105,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
    epochs each, finite losses and every model moved; Feature2Face ('normal'
    ResUNet, ngf 64, 8 downsamplings, D num_D 2) at 512^2 in bf16 for three
    epochs, each batch's edge maps from one K1 launch (the counts set to 0
-   just before: K1 once a step and once a validation batch, no other
-   kernel), the step's ms (CUDA events), peak memory, L1 on a fixed batch
-   lower after than before; K1 on that batch's landmarks bitwise against its
+   just before: K1 once a step, once a validation batch and once for the
+   epoch panel's batch, no other kernel), the step's ms (CUDA events),
+   peak memory, L1 on a fixed batch lower after than before; K1 on that batch's landmarks bitwise against its
    plain twin, its device ms beside the bound and its share of a step; one
    more step unprofiled and traced (busy share, top kernels); then a
    Predictor booted from the four checkpoints (ckpt_best preferred) serves a
@@ -121,8 +121,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
    autocast) against the deployed bf16 QConv2d: one K4 launch, bitwise.
    11c: train_feature2face with qat_int8 and qat_d on the synthetic data
    (two epochs of two steps, validated each epoch; the counts set to 0
-   just before: K4 112 a step, 88 G + 24 D, and 44 a validation batch; K1
-   once a step and a validation batch), a --qat run (no K4), then one GAN
+   just before: K4 112 a step, 88 G + 24 D, 44 a validation batch and 44
+   an epoch panel; K1 once a step and a validation batch and once for the
+   panel's batch), a --qat run (no K4), then one GAN
    step in each mode (float, qat, qat_int8, qat_int8 + qat_d; qat and
    qat_int8 again with cuDNN's TF32 off, the emulation in full f32) on one batch:
    ms (CUDA events), peak memory, K4 launches a step, and K4's device time
@@ -131,8 +132,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
    (check_real_data): synth_subject clips, build_person_pack, the CLI's
    --task apc / audio2feature / audio2headpose / feature2face with
    --dataroot, prepare_clip's K2 launches (3, then a cache hit), K1 once a
-   GAN step, each trainer's step ms, a Predictor serving the four
-   checkpoints.
+   GAN step and once for the panel's batch, each trainer's step ms, a
+   Predictor serving the four checkpoints.
+12. the fused GAN step (steps.f2f_fused_step), rematerialisation and the
+   chunked VGG loss, then the whole from-scratch subject run.  12a: at a
+   reduced width (64^2, f32, TF32 off) the fused step's gradients against
+   its two-loss oracle; at full width (512^2, B = 8, bf16 G, f32 D with
+   TF32) remat=True and remat=2 against no remat (gradients, running
+   stats) and vgg_microbatch=2 against the unchunked VGG loss, each error
+   beside its tolerance.  12b: seven modes (the alternating pair, fused,
+   fused with remat=True, remat=2, the VGG loss unchunked and in chunks of
+   2, --qat_int8 --qat_d), ten steps each on one batch whose edge maps K1
+   draws each step: median step ms (CUDA events), peak memory, the busy
+   share (a traced step's device busy ms over the median), K1 / K4
+   launches a step (K4 56 a fused QAT
+   step; 100 with remat=True and 64 with remat=2, the recompute's), losses
+   finite and L1 falling.  12d: the Audio2Headpose LSTM variant's
+   generate_sequence_lstm on K3 against the CPU.  12c: tools/e2e_subject.py
+   at 512^2 cut in length (600 + 240 frames, two epochs a motion stage,
+   one of the renderer's fused step, 2 s scored): e2e_metrics.json and each
+   phase's wall, K1-K3 all launched (the float renderer: no K4).
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -143,7 +162,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
    real_data_train_launches those of 11d's GAN run; K2's
    real_data_prepare_clip_launches; K4's d_shapes the six discriminator
    shapes of 11a, its train_launches those of 11c's QAT run and its
-   gan_step_by_mode each mode's step), then
+   gan_step_by_mode each mode's step; phase 12's e2e_launches for each
+   kernel, K1's and K4's fused_step_launches by mode, K4's
+   fused_qat_remat_launches and K3's a2h_lstm_variant), then
    {"ok": true, "device": {...}} as the last line.
 """
 
@@ -1680,9 +1701,10 @@ def check_training(dev, tmp: str) -> tuple:
         best_val_l1=res.best_val, launches=json.dumps(counts), val_batches=val_batches,
         k1_mismatched=mismatched, k1=json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
                                                  for k, v in k1.items()}))
-    if counts != {"K1": len(ms) + val_batches, "K2": 0, "K3": 0, "K4": 0}:
+    if counts != {"K1": len(ms) + val_batches + 1, "K2": 0, "K3": 0, "K4": 0}:
         raise AssertionError(f"train feature2face: launches {counts}, want K1 one a step "
-                             f"({len(ms)}) and one a validation batch ({val_batches})")
+                             f"({len(ms)}), one a validation batch ({val_batches}) and one "
+                             "for the epoch panel's batch")
     if not all(np.isfinite(v).all() and v for v in losses.values()):
         raise AssertionError(f"train feature2face: losses {losses}")
     if mismatched or not l1_after < l1_before:
@@ -1854,12 +1876,12 @@ def time_gan_modes(dev, batch, steps: int = 10) -> dict:
         g = g.to(dev)
         opt_g = state.adam(g.parameters(), 1e-4, 0.5, 0.999)
         opt_d = state.adam(d.parameters(), 1e-4, 0.5, 0.999)
-        qat_d = kw.get("qat_d", False)
+        d_run = f2f.qat_discriminator(d) if kw.get("qat_d", False) else d
         torch.backends.cudnn.allow_tf32 = kw.get("tf32", True)
 
         def step():
-            tsteps.f2f_d_step(cfg, g, d, opt_d, batch, torch.bfloat16, qat_d)
-            tsteps.f2f_g_step(cfg, g, d, opt_g, batch, None, torch.bfloat16, qat_d)
+            tsteps.f2f_d_step(cfg, g, d_run, opt_d, batch, torch.bfloat16)
+            tsteps.f2f_g_step(cfg, g, d_run, opt_g, batch, None, torch.bfloat16)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1894,7 +1916,7 @@ def time_gan_modes(dev, batch, steps: int = 10) -> dict:
                                                else v)
                                             for k, v in out[mode].items() if k != "step_ms"},
             step_ms=json.dumps([round(t, 3) for t in ms]))
-        del g, d, opt_g, opt_d
+        del g, d, d_run, opt_g, opt_d
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
     want = {"float": 0, "qat": 0, "qat_int8": 88, "qat_int8_qat_d": 112, "qat_tf32_off": 0,
@@ -1945,7 +1967,10 @@ def check_qat(dev, tmp: str, sampler) -> dict:
         step_ms=json.dumps([round(t, 3) for t in res.step_ms]), launches=json.dumps(counts),
         k4_a_step=112, k4_a_val_batch=44, ckpt_qat_mode=mode,
         loss_G=json.dumps([round(v, 4) for v in losses["loss_G"]]), params_moved=moved)
-    want = {"K1": n_steps + val, "K2": 0, "K3": 0, "K4": 112 * n_steps + 44 * val}
+    # the epoch panel: its batch's edge maps once a run (K1), G's 44 tagged
+    # convs once an epoch (K4)
+    want = {"K1": n_steps + val + 1, "K2": 0, "K3": 0,
+            "K4": 112 * n_steps + 44 * val + 44 * 2}
     if counts != want:
         raise AssertionError(f"QAT training launches {counts}, want {want}")
     if not (all(np.isfinite(v).all() and v for v in losses.values()) and moved
@@ -1999,7 +2024,7 @@ def check_real_data(dev, tmp: str) -> dict:
     into c1, as the reference keeps them per clip); --task apc on c0,c1;
     prepare_clip of c0 with that encoder (K2 on the card, counted, cached);
     --task audio2feature / audio2headpose on c0 (the cache read: no K2) and
-    --task feature2face on c1 (K1 once a step).  APC holds out c1 (one
+    --task feature2face on c1 (K1 once a step, once for the panel's batch).  APC holds out c1 (one
     480-row window) and trains on c0's 13 windows at batch 4 (every clip
     must hold a window).  Then a Predictor from the
     four checkpoints serves one 3.0 s request.  Returns the launches and
@@ -2060,7 +2085,7 @@ def check_real_data(dev, tmp: str) -> dict:
                                     for t, v in losses.items()}))
     if prep["K2"] != 3 or launches["audio2feature"]["K2"] or launches["audio2headpose"]["K2"]:
         raise AssertionError(f"prepare_clip: K2 {prep}, then {launches} (the cache unread)")
-    if launches["feature2face"]["K1"] != f2f_steps or not f2f_steps:
+    if launches["feature2face"]["K1"] != f2f_steps + 1 or not f2f_steps:  # + the panel's batch
         raise AssertionError(f"real-data GAN: K1 {launches['feature2face']}, {f2f_steps} steps")
     if not all(v and np.isfinite(v).all() for v in losses.values()):
         raise AssertionError(f"real-data training: losses {losses}")
@@ -2081,6 +2106,358 @@ def check_real_data(dev, tmp: str) -> dict:
         raise AssertionError(f"real-data serve: frames {res.frames.shape}")
     return {"prepare_clip_K2": prep["K2"], "train_K1": launches["feature2face"]["K1"],
             "prepare_clip_s": prep_s, "step_ms_median": step_ms}
+
+
+# Phase 12's tolerances, about ten times the errors this phase measured on an
+# H100 80GB HBM3 at 700 W: the fused step against its oracle 3.1e-5, the
+# chunked VGG loss 9.1e-8 and its gradient 3.6e-4; remat was bitwise (the
+# recompute replays the same kernels), so its tolerance is f32 rounding.
+FUSED_GRAD_TOL = 4e-4  # fused step vs its two-loss oracle: |g - g_ref| / |g_ref| a tensor
+REMAT_GRAD_TOL = 1e-6  # remat vs no remat: max |g - g_ref| / max |g_ref| a tensor, bf16 G
+REMAT_STAT_TOL = 1e-6  # remat vs no remat: the running stats after the forwards, the same
+VGG_LOSS_RTOL = 1e-6  # vgg_microbatch=2 vs unchunked: the perceptual and style terms
+VGG_GRAD_TOL = 4e-3  # and d loss / d fake, |g - g_ref| / |g_ref| (TF32 convs)
+
+FUSED_MODES = {"pair": {"fused": False}, "fused": {}, "fused_remat": {"remat": True},
+               "fused_remat2": {"remat": 2}, "fused_vgg": {"vgg": True},
+               "fused_vgg_mb2": {"vgg": True, "vgg_microbatch": 2},
+               "fused_qat_int8_qat_d": {"qat_int8": True, "qat_d": True}}
+
+
+def _rel_norm(a, b) -> float:
+    return float((a.float() - b.float()).norm() / (b.float().norm() + 1e-30))
+
+
+def _rel_max(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-30))
+
+
+def _fused_grads(cfg, g, d, batch, vgg=None, compute_dtype=None, **kw):
+    """The fused step's two gradients (D's, then G's) and the running stats
+    after its forwards, on copies of g and d; and its metrics."""
+    from livespeechportraits_torch.train import steps as tsteps
+
+    g, d = copy.deepcopy(g), copy.deepcopy(d)
+    loss_d, loss_g, metrics = tsteps.f2f_fused_losses(cfg, g, d, batch, vgg, compute_dtype,
+                                                      **kw)
+    gd = torch.autograd.grad(loss_d, list(d.parameters()), retain_graph=True)
+    gg = torch.autograd.grad(loss_g, list(g.parameters()))
+    stats = [v.clone() for m in (g, d) for k, v in m.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))]
+    return list(gd) + list(gg), stats, metrics
+
+
+def _oracle_grads(cfg, g, d, batch):
+    """The fused step's declared semantics as two separate losses (JAX
+    tests/test_train.py:289): D's loss on a detached fake, G's loss with D's
+    real features detached, training-mode forwards at the same parameters."""
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.models import losses
+    from livespeechportraits_torch.train import steps as tsteps
+
+    g, d = copy.deepcopy(g), copy.deepcopy(d)
+    inp, tgt = tsteps.f2f_g_input(batch), tsteps.f2f_target(batch)
+    fake = f2f.apply_generator(copy.deepcopy(g), inp, training=True).detach()
+    pr = f2f.apply_discriminator(d, torch.cat([inp, tgt], -1), training=True)
+    pf = f2f.apply_discriminator(d, torch.cat([inp, fake], -1), training=True,
+                                 update_stats=False)
+    loss_d = (losses.gan_loss(pr, True, cfg.gan_mode) * 2.0
+              + losses.gan_loss(pf, False, cfg.gan_mode)) * 0.5
+    gd = torch.autograd.grad(loss_d, list(d.parameters()))
+    fake = f2f.apply_generator(g, inp, training=True)
+    pr = [[f.detach() for f in sc] for sc in f2f.apply_discriminator(
+        d, torch.cat([inp, tgt], -1), training=True, update_stats=False)]
+    pf = f2f.apply_discriminator(d, torch.cat([inp, fake], -1), training=True,
+                                 update_stats=False)
+    loss_g = (losses.gan_loss(pf, True, cfg.gan_mode, for_discriminator=False)
+              + torch.mean((fake - tgt).abs()) * cfg.lambda_L1
+              + losses.feature_matching_loss(pf, pr, cfg.num_D, cfg.n_layers_D,
+                                             cfg.lambda_feat))
+    gg = torch.autograd.grad(loss_g, list(g.parameters()))
+    return list(gd) + list(gg)
+
+
+def _raw_device_batch(sampler, dev, n: int = 8) -> dict:
+    """One sampler batch on the device with its landmarks and shoulders, the
+    edge maps not drawn yet (trainer.device_rasterize_batch draws them)."""
+    b = next(sampler.batches(n, np.random.default_rng(1), shuffle=False))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in b.items()}
+
+
+def check_fused_correctness(dev, raw) -> dict:
+    """12a.  At a reduced width (ngf 16, 6 downsamplings, 64^2, B = 4, f32,
+    TF32 off), the fused step's gradients against the two-loss oracle; at
+    full width (512^2, B = 8, bf16 G, f32 D, PyTorch's TF32 default),
+    remat=True and remat=2 against no remat (gradients and running stats),
+    and vgg_microbatch=2 against the unchunked VGG loss (the terms and
+    d loss / d fake).  Returns the errors."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.models import losses
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import trainer
+
+    out = {}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    small = Feature2FaceConfig(ngf=16, n_downsample=6, load_size=64, ndf=16,
+                               precision="float32")
+    gen = torch.Generator().manual_seed(0)
+    g = trainer._init(f2f.Feature2FaceG(small), gen=gen).to(dev)
+    d = trainer._init(f2f.Feature2FaceD(small), gen=gen).to(dev)
+    batch = trainer._Mover(dev)(next(cli.synthetic_face_data(70, 64).batches(
+        4, np.random.default_rng(0), shuffle=False)))
+    got, _, _ = _fused_grads(small, g, d, batch)
+    want = _oracle_grads(small, g, d, batch)
+    # a tensor is held to its own norm, or to 1e-3 of its network's largest
+    # where its true gradient is zero (D's conv biases before a training
+    # BatchNorm, which both sides hold as rounding noise)
+    n_d = len(list(d.parameters()))
+    for lo, hi in ((0, n_d), (n_d, len(want))):
+        floor = 1e-3 * max(float(b.norm()) for b in want[lo:hi])
+        out["fused_vs_oracle_err"] = max(
+            out.get("fused_vs_oracle_err", 0.0),
+            max(float((a - b).norm()) / max(float(b.norm()), floor)
+                for a, b in zip(got[lo:hi], want[lo:hi])))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    cfg = Feature2FaceConfig()
+    gen = torch.Generator().manual_seed(0)
+    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen).to(dev)
+    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+    batch = trainer.device_rasterize_batch(raw)
+    ref, ref_stats, _ = _fused_grads(cfg, g, d, batch, compute_dtype=torch.bfloat16)
+    for name, remat in (("remat", True), ("remat2", 2)):
+        got, stats, _ = _fused_grads(cfg, g, d, batch, compute_dtype=torch.bfloat16,
+                                     remat=remat)
+        out[f"{name}_grad_err"] = max(_rel_max(a, b) for a, b in zip(got, ref))
+        out[f"{name}_stat_err"] = max(_rel_max(a, b) for a, b in zip(stats, ref_stats))
+        del got, stats
+    del ref, ref_stats
+    torch.cuda.empty_cache()
+    vgg = losses.init_vgg19(0).to(dev)
+    fake = torch.tanh(torch.randn(8, 512, 512, 3, generator=torch.Generator().manual_seed(1))
+                      ).to(dev)
+    terms = []
+    for mb in (None, 2):
+        x = fake.clone().requires_grad_(True)
+        p, s_ = losses.vgg_style_loss(vgg, x, batch["tgt_image"].float() / 127.5 - 1.0,
+                                      microbatch=mb)
+        (gx,) = torch.autograd.grad(p + s_, x)
+        terms.append((p.item(), s_.item(), gx))
+    (p0, s0, g0), (p1, s1, g1) = terms
+    out["vgg_mb2_loss_err"] = max(abs(p1 - p0) / abs(p0), abs(s1 - s0) / abs(s0))
+    out["vgg_mb2_grad_err"] = _rel_norm(g1, g0)
+    log("fused_correctness", **{k: f"{v:.3e}" for k, v in out.items()},
+        tol=json.dumps({"fused_vs_oracle": FUSED_GRAD_TOL, "remat_grad": REMAT_GRAD_TOL,
+                        "remat_stat": REMAT_STAT_TOL, "vgg_loss": VGG_LOSS_RTOL,
+                        "vgg_grad": VGG_GRAD_TOL}))
+    limits = {"fused_vs_oracle_err": FUSED_GRAD_TOL, "remat_grad_err": REMAT_GRAD_TOL,
+              "remat2_grad_err": REMAT_GRAD_TOL, "remat_stat_err": REMAT_STAT_TOL,
+              "remat2_stat_err": REMAT_STAT_TOL, "vgg_mb2_loss_err": VGG_LOSS_RTOL,
+              "vgg_mb2_grad_err": VGG_GRAD_TOL}
+    bad = {k: out[k] for k in limits if not out[k] <= limits[k]}
+    if bad:
+        raise AssertionError(f"fused step checks over their tolerances: {bad}")
+    return out
+
+
+def time_fused_modes(dev, raw, steps: int = 10) -> dict:
+    """12b.  Each mode at full width (512^2, B = 8, bf16 G, f32 D with TF32,
+    seed-0 models, Adam at 2e-4): two warm-up steps, then `steps` steps on
+    the same device batch, each starting with its edge maps drawn by K1
+    (device_rasterize_batch): the median step ms (CUDA events), the peak
+    memory above what was allocated before the mode's models were built, K1's
+    and K4's launches a step, and one more step traced: its device busy ms
+    (the union of its kernels' intervals) over the unprofiled median is the
+    busy share.  Losses must be finite, and L1 lower at the end than at the
+    start."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.models import losses
+    from livespeechportraits_torch.train import state, steps as tsteps, trainer
+
+    cfg = Feature2FaceConfig()
+    vgg = losses.init_vgg19(0).to(dev)
+    out = {}
+    for mode, kw in FUSED_MODES.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator().manual_seed(0)
+        g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
+        d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+        if kw.get("qat_int8"):
+            g = f2f.qat_generator(g, int8_forward=True)
+        g = g.to(dev)
+        d_run = f2f.qat_discriminator(d) if kw.get("qat_d") else d
+        opt_g = state.adam(g.parameters(), 2e-4, 0.5, 0.999)
+        opt_d = state.adam(d.parameters(), 2e-4, 0.5, 0.999)
+        v = vgg if kw.get("vgg") else None
+        l1 = []
+
+        def step():
+            batch = trainer.device_rasterize_batch(raw)
+            if kw.get("fused", True):
+                m = tsteps.f2f_fused_step(cfg, g, d_run, opt_g, opt_d, batch, v, torch.bfloat16,
+                                          kw.get("remat", False),
+                                          vgg_microbatch=kw.get("vgg_microbatch"))
+            else:
+                m = tsteps.f2f_d_step(cfg, g, d_run, opt_d, batch, torch.bfloat16)
+                m |= tsteps.f2f_g_step(cfg, g, d_run, opt_g, batch, v, torch.bfloat16)
+            l1.append(m)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        before = launch_counts()
+        marks = []
+        for _ in range(steps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            marks.append((a, b))
+        torch.cuda.synchronize()
+        after = launch_counts()
+        ms = [a.elapsed_time(b) for a, b in marks]
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        events, wall, _ = trace(step)
+        busy = busy_ms(events)
+        k4_ms, _ = kernel_device_total(events, SYMBOLS["K4"])
+        metrics = [{k: t.item() for k, t in m.items()} for m in l1]
+        finite = all(np.isfinite(list(m.values())).all() for m in metrics)
+        l1s = [m["L1"] for m in metrics]
+        out[mode] = {"step_ms_median": float(np.median(ms)), "peak_gib": peak,
+                     "busy_share": (busy / float(np.median(ms))) if events else None,
+                     "device_busy_ms": busy if events else None, "traced_wall_ms": wall,
+                     "k1_a_step": (after["K1"] - before["K1"]) / steps,
+                     "k4_a_step": (after["K4"] - before["K4"]) / steps,
+                     "k4_device_ms": k4_ms if events else None,
+                     "l1_first": l1s[0], "l1_last": l1s[-1], "finite": finite}
+        log("fused_mode", mode=mode, **{k: (f"{x:.4f}" if isinstance(x, float) else x)
+                                        for k, x in out[mode].items()},
+            step_ms=json.dumps([round(t, 3) for t in ms]))
+        if not (finite and l1s[-1] < l1s[0]):
+            raise AssertionError(f"{mode}: losses not finite and falling: L1 {l1s}")
+        del g, d, d_run, opt_g, opt_d, l1
+    # K1 once a step; K4: the one G forward's 44 tagged convs and the two D
+    # forwards' 6 each
+    want_k1 = {m: 1.0 for m in FUSED_MODES}
+    want_k4 = {m: (56.0 if "qat" in m else 0.0) for m in FUSED_MODES}
+    got_k1 = {m: v["k1_a_step"] for m, v in out.items()}
+    got_k4 = {m: v["k4_a_step"] for m, v in out.items()}
+    if got_k1 != want_k1 or got_k4 != want_k4:
+        raise AssertionError(f"launches a step: K1 {got_k1}, K4 {got_k4}")
+    return out
+
+
+def check_fused_remat_k4(dev, raw) -> dict:
+    """12b, K4 in the recompute: one fused --qat_int8 --qat_d step's K4
+    launches with remat=True (the 44 tagged convs again) and remat=2 (the
+    outer two stages' 8), at full width."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.ops import q8conv_cuda
+    from livespeechportraits_torch.train import trainer
+
+    cfg = Feature2FaceConfig()
+    gen = torch.Generator().manual_seed(0)
+    g = f2f.qat_generator(trainer._init(f2f.Feature2FaceG(cfg), gen=gen),
+                          int8_forward=True).to(dev)
+    d = f2f.qat_discriminator(trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev))
+    batch = trainer.device_rasterize_batch(raw)
+    out = {}
+    for name, remat in (("none", False), ("remat", True), ("remat2", 2)):
+        before = q8conv_cuda.LAUNCHES
+        _fused_grads(cfg, g, d, batch, compute_dtype=torch.bfloat16, remat=remat)
+        torch.cuda.synchronize()
+        out[name] = q8conv_cuda.LAUNCHES - before
+    log("fused_qat_remat_k4", **out)
+    if out != {"none": 56, "remat": 100, "remat2": 64}:
+        raise AssertionError(f"K4 launches of a fused QAT step by remat: {out}")
+    return out
+
+
+def check_a2h_lstm_k3(dev) -> dict:
+    """12d.  The Audio2Headpose LSTM variant's generate_sequence_lstm on the
+    card (K3: 3 launches, H = 256, batch 1) against the same call on the CPU
+    (the plain loop), 3 s of features, sigma 0: the poses within RNN_TOL of
+    the largest."""
+    from livespeechportraits_torch.config import Audio2HeadposeConfig
+    from livespeechportraits_torch.models import audio2headpose as a2h
+    from livespeechportraits_torch.ops import recurrent_cuda
+
+    cfg = Audio2HeadposeConfig()
+    model = a2h.Audio2HeadposeLSTM(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.eval().requires_grad_(False)
+    feats = torch.randn(360, cfg.apc_hidden_size, generator=torch.Generator().manual_seed(2))
+    want = a2h.generate_sequence_lstm(model, feats, sigma_scale=0.0)
+    model.to(dev)
+    before = recurrent_cuda.LSTM_LAUNCHES
+    got = a2h.generate_sequence_lstm(model, feats.to(dev), sigma_scale=0.0)
+    torch.cuda.synchronize()
+    launches = recurrent_cuda.LSTM_LAUNCHES - before
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    log("a2h_lstm_k3", frames=tuple(got.shape), launches=launches, max_rel_err=f"{err:.3e}",
+        tol=RNN_TOL)
+    if launches != 3 or not err <= RNN_TOL:
+        raise AssertionError(f"A2H LSTM variant on K3: launches {launches}, error {err}")
+    return {"launches": launches, "max_rel_err": err}
+
+
+def check_e2e(dev, tmp: str) -> dict:
+    """12c.  tools/e2e_subject.py, every phase at 512^2 on the card, cut in
+    length: a 600-frame train clip and a 240-frame held-out clip, APC
+    windows of 120 rows (2 epochs), Audio2Feature sequences of 60 (2
+    epochs), Audio2Headpose targets of 16 (2 epochs, no validation: the
+    held-out clip is shorter than the WaveNet's 255-frame field), the tail
+    guard 60, the renderer 1 epoch of the fused step (B = 4, every 2nd
+    frame), eval on the first 2 s.  Prints e2e_metrics.json and each phase's
+    wall; K1-K4 counted over the whole run: K1, K2 and K3 must launch (the
+    run trains and serves the float bf16 renderer, as JAX's does, so K4
+    does not)."""
+    from livespeechportraits_torch.tools import e2e_subject as e2e
+
+    root = os.path.join(tmp, "E2ESynth")
+    args = ["--root", root, "--train_frames", "600", "--val_frames", "240",
+            "--apc_window", "120", "--apc_epochs", "2", "--a2f_seq_len", "60",
+            "--a2f_epochs", "2", "--a2h_target_length", "16", "--a2h_epochs", "2",
+            "--tail_margin", "60", "--f2f_epochs", "1", "--eval_seconds", "2",
+            "--phases", "clips,apc,pack,a2f,a2h,f2f,eval,rescore"]
+    zero_launch_counts()
+    res = e2e.main(args)
+    counts = launch_counts()
+    with open(os.path.join(root, "e2e_metrics.json")) as f:
+        metrics = json.load(f)
+    log("e2e_walls", **{k: f"{v:.3f}" for k, v in res["walls"].items()},
+        launches=json.dumps(counts))
+    print(json.dumps({"e2e_metrics": metrics}), flush=True)
+    arms = [metrics["trained"], metrics["random_init"]]
+    if (metrics["n_frames_scored"] != 105 or not all(
+            np.isfinite(v) for arm in arms for v in arm.values() if isinstance(v, float))
+            or not all(counts[k] for k in ("K1", "K2", "K3"))):
+        raise AssertionError(f"e2e run: metrics {metrics}, launches {counts}")
+    return {"walls": res["walls"], "launches": counts, "metrics": metrics}
+
+
+def check_fused(dev, tmp: str, sampler) -> dict:
+    """Phase 12: the fused GAN step, rematerialisation, the chunked VGG loss
+    and the whole from-scratch subject run."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    raw = _raw_device_batch(sampler, dev)
+    errors = check_fused_correctness(dev, raw)
+    modes = time_fused_modes(dev, raw)
+    remat_k4 = check_fused_remat_k4(dev, raw)
+    k3 = check_a2h_lstm_k3(dev)
+    torch.cuda.empty_cache()
+    e2e = check_e2e(dev, tmp)
+    return {"errors": errors, "modes": modes, "remat_k4": remat_k4, "a2h_lstm_k3": k3,
+            "e2e": e2e}
 
 
 def main() -> int:
@@ -2303,6 +2680,17 @@ def main() -> int:
         real = check_real_data(dev, tmp)
     kernels[0]["real_data_train_launches"] = real["train_K1"]
     kernels[1]["real_data_prepare_clip_launches"] = real["prepare_clip_K2"]
+
+    # 12. the fused GAN step, remat and the chunked VGG loss at full width,
+    # then the from-scratch subject run (tools/e2e_subject.py)
+    with tempfile.TemporaryDirectory() as tmp:
+        fused = check_fused(dev, tmp, face_sampler)
+    for entry, k in zip(kernels, ("K1", "K2", "K3", "K4")):
+        entry["e2e_launches"] = fused["e2e"]["launches"][k]
+    kernels[0]["fused_step_launches"] = {m: v["k1_a_step"] for m, v in fused["modes"].items()}
+    kernels[2]["a2h_lstm_variant"] = fused["a2h_lstm_k3"]
+    kernels[3]["fused_step_launches"] = {m: v["k4_a_step"] for m, v in fused["modes"].items()}
+    kernels[3]["fused_qat_remat_launches"] = fused["remat_k4"]
 
     # 9. results
     print(smi)

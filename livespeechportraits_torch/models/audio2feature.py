@@ -13,8 +13,14 @@ last projection packs [weight logits | means | -log sigma] of
 ``gmm_ncenter`` components (``head_dim``); inference decodes it to the
 chosen component's mean (``decode``).  Parameter names follow the reference
 (``downsample.0``, ``LSTM.weight_ih_l0``, ``fc.6``...).  On the card the LSTM
-layers run in kernel K3.  The WaveNet decoder has no inference caller in the
-JAX package and is not ported here (ROADMAP item 15, training).
+layers run in kernel K3.
+
+The WaveNet decoder variant (JAX audio2feature.py:107-141; the reference
+declares it but never defines its options) is ``Audio2FeatureWaveNet``: an
+unconditioned WaveNet (``a2f_wavenet_config``) reading the APC features as
+its input stream, applied by ``apply_audio2feature_wavenet``.  JAX keeps it
+in its model registry and neither trains nor serves it; so does the port
+(``models.REGISTRY``).
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from livespeechportraits_torch.config import Audio2FeatureConfig
-from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.config import Audio2FeatureConfig, WaveNetConfig
+from livespeechportraits_torch.models import nn_core, wavenet
 from livespeechportraits_torch.ops import gmm, recurrent_cuda
 
 Tensor = torch.Tensor
@@ -49,8 +55,9 @@ class Audio2Feature(nn.Module):
         super().__init__()
         if cfg.decoder != "lstm" or cfg.loss not in ("L2", "GMM"):
             raise NotImplementedError(
-                f"Audio2Feature decoder={cfg.decoder!r} loss={cfg.loss!r}: the LSTM decoder "
-                "with the L2 or GMM head is ported (the WaveNet decoder: ROADMAP item 15)")
+                f"Audio2Feature decoder={cfg.decoder!r} loss={cfg.loss!r}: this is the LSTM "
+                "decoder with the L2 or GMM head; the WaveNet decoder is "
+                "Audio2FeatureWaveNet, which the pipeline does not serve (nor does JAX's)")
         self.cfg = cfg
         H, L = cfg.apc_hidden_size, cfg.lstm_hidden_size
         self.downsample = nn.Sequential(nn.Linear(2 * H, H), nn.BatchNorm1d(H),
@@ -163,3 +170,39 @@ def generate_sequence(model: Audio2Feature, audio_feats: Tensor,
     if frame_future > 0:
         preds = preds[frame_future:]
     return preds[:T]
+
+
+# ---------------------------------------------------------------------------
+# The WaveNet decoder variant (JAX audio2feature.py:107-141)
+# ---------------------------------------------------------------------------
+
+
+def a2f_wavenet_config(cfg: Audio2FeatureConfig) -> WaveNetConfig:
+    """The variant's WaveNet: 7 layers x 2 blocks, 128 channels, 256 skip,
+    kernel 2, no conditioning, the APC features as input."""
+    return WaveNetConfig(residual_layers=7, residual_blocks=2, dilation_channels=128,
+                         residual_channels=128, skip_channels=256, kernel_size=2,
+                         use_bias=True, cond=False, cond_channels=0,
+                         input_channels=cfg.apc_hidden_size)
+
+
+class Audio2FeatureWaveNet(nn.Module):
+    """The WaveNet decoder: ``WaveNet.*`` keys, output_dim outputs a frame."""
+
+    def __init__(self, cfg: Audio2FeatureConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.WaveNet = wavenet.WaveNet(a2f_wavenet_config(cfg), cfg.output_dim)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.WaveNet.reset_parameters(gen)
+
+
+def apply_audio2feature_wavenet(model: Audio2FeatureWaveNet, audio_feats: Tensor,
+                                output_length: Optional[int] = None,
+                                dropout_keep: Optional[Tensor] = None) -> Tensor:
+    """[B, T, H] APC features -> [B, T (or output_length), output_dim];
+    dropout_keep is the input's channel-dropout mask in training
+    (wavenet.dropout_keep)."""
+    return wavenet.forward(model.WaveNet, audio_feats, None, output_length=output_length,
+                           dropout_keep=dropout_keep)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from livespeechportraits_torch.config import Feature2FaceConfig
 from livespeechportraits_torch.models import nn_core
@@ -43,13 +44,31 @@ class ResnetBlock(nn.Module):
             nn.Conv2d(ch, ch, 3, padding=1, bias=False), nn.BatchNorm2d(ch), nn.ReLU(),
             nn.Conv2d(ch, ch, 3, padding=1, bias=False), nn.BatchNorm2d(ch))
 
-    def forward(self, x: Tensor, training: bool = False) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False, update_stats: bool = True) -> Tensor:
         b = self.block
         # conv2d runs nn.Conv2d or an int8 QConv2d alike
         y = torch.relu(nn_core.batchnorm(nn_core.conv2d(x, b[0], padding=1), b[1],
-                                         training=training))
-        y = nn_core.batchnorm(nn_core.conv2d(y, b[3], padding=1), b[4], training=training)
+                                         training=training, update_stats=update_stats))
+        y = nn_core.batchnorm(nn_core.conv2d(y, b[3], padding=1), b[4], training=training,
+                              update_stats=update_stats)
         return torch.relu(x + y)
+
+
+def checkpointed(fn, x: Tensor, update_stats: bool = True) -> Tensor:
+    """fn(x, update_stats) under torch.utils.checkpoint (non-reentrant): its
+    activations are not kept, and the backward runs fn again.  Only the
+    first run may move the training BatchNorms' running stats: the
+    recompute normalises with the same batch statistics and passes
+    update_stats=False, so the stats move once a step, as without
+    rematerialisation.  The RNG and autocast states are replayed (the
+    default); the generator and the discriminator draw no random numbers."""
+    runs = []
+
+    def run(t: Tensor) -> Tensor:
+        runs.append(None)
+        return fn(t, update_stats and len(runs) == 1)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 class ResUnetBlock(nn.Module):
@@ -78,20 +97,46 @@ class ResUnetBlock(nn.Module):
             layers += [ResnetBlock(outer_nc) for _ in range(n_res)]
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x: Tensor, training: bool = False) -> Tensor:
-        y = x
-        for m in self.model:
+    def forward(self, x: Tensor, training: bool = False, update_stats: bool = True,
+                remat: int = 0, depth: int = 0) -> Tensor:
+        """remat: the number of outermost stages whose down half (down conv
+        .. res blocks) and up half (upsample .. res blocks) each run under
+        ``checkpointed``; depth is this stage's (0 = outermost).  The inner
+        stages keep their activations."""
+        layers = list(self.model)
+        cut = next(i for i, m in enumerate(layers) if isinstance(m, nn.Upsample))
+        inner = layers[cut - 1] if isinstance(layers[cut - 1], ResUnetBlock) else None
+        down, up = layers[:cut - 1 if inner is not None else cut], layers[cut:]
+
+        def half(seq):
+            return lambda t, upd: self._run(seq, t, training, upd)
+
+        if depth < remat:
+            y = checkpointed(half(down), x, update_stats)
+        else:
+            y = self._run(down, x, training, update_stats)
+        if inner is not None:
+            y = inner(y, training, update_stats, remat, depth + 1)
+        if depth < remat:
+            y = checkpointed(half(up), y, update_stats)
+        else:
+            y = self._run(up, y, training, update_stats)
+        return y if self.outermost else torch.cat([x, y], dim=1)
+
+    @staticmethod
+    def _run(layers, y: Tensor, training: bool, update_stats: bool) -> Tensor:
+        for m in layers:
             if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
                 y = nn_core.conv2d(y, m, stride=m.stride[0], padding=m.padding[0])
             elif isinstance(m, nn.BatchNorm2d):
-                y = nn_core.batchnorm(y, m, training=training)
+                y = nn_core.batchnorm(y, m, training=training, update_stats=update_stats)
             elif isinstance(m, nn.ReLU):
                 y = torch.relu(y)
             elif isinstance(m, nn.Upsample):
                 y = nn_core.upsample_nearest_2x(y)
-            else:  # ResnetBlock or the inner ResUnetBlock
-                y = m(y, training)
-        return y if self.outermost else torch.cat([x, y], dim=1)
+            else:  # ResnetBlock
+                y = m(y, training, update_stats)
+        return y
 
 
 class ResUnetGenerator(nn.Module):
@@ -139,7 +184,7 @@ class UnetBlock(nn.Module):
                       up, nn.BatchNorm2d(outer_nc)]
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x: Tensor, training: bool = False) -> Tensor:
+    def forward(self, x: Tensor, training: bool = False, update_stats: bool = True) -> Tensor:
         y = x
         for m in self.model:
             if isinstance(m, nn.Conv2d):
@@ -147,13 +192,13 @@ class UnetBlock(nn.Module):
             elif isinstance(m, nn.ConvTranspose2d):
                 y = F.conv_transpose2d(y, m.weight, m.bias, stride=2, padding=1)
             elif isinstance(m, nn.BatchNorm2d):
-                y = nn_core.batchnorm(y, m, training=training)
+                y = nn_core.batchnorm(y, m, training=training, update_stats=update_stats)
             elif isinstance(m, nn.LeakyReLU):
                 y = nn_core.leaky_relu(y, 0.2)
             elif isinstance(m, nn.ReLU):
                 y = torch.relu(y)
             elif isinstance(m, UnetBlock):
-                y = m(y, training)
+                y = m(y, training, update_stats)
             # Tanh: apply_generator applies it in f32
         return y if self.outermost else torch.cat([x, y], dim=1)
 
@@ -214,17 +259,34 @@ def cast_generator(model: Feature2FaceG, dtype: torch.dtype) -> Feature2FaceG:
     return copy.deepcopy(model).to(dtype=dtype, memory_format=torch.channels_last)
 
 
-def apply_generator(model: Feature2FaceG, x: Tensor, training: bool = False) -> Tensor:
+def apply_generator(model: Feature2FaceG, x: Tensor, training: bool = False,
+                    remat: bool | int = False) -> Tensor:
     """x [B, H, W, input_nc] (NHWC) -> [B, H, W, 3] in [-1, 1], f32.
 
     Computes in the model's dtype (see cast_generator), or in bf16 under
     torch.autocast (training); the tanh runs in f32.  training=True
     normalises every BatchNorm with the batch's statistics and updates the
     running stats.  The 'small' U-Net also takes the renderer's 13 channels
-    (see _narrow_input)."""
+    (see _narrow_input).
+
+    remat (JAX steps._remat_wrap): True recomputes the whole forward in the
+    backward (one ``checkpointed`` region); an int K >= 1 recomputes only
+    the outermost K ResUNet stages' halves, the high-resolution ones that
+    hold most of the activation bytes, and keeps the inner stages'
+    activations.  The result, the gradients and the running stats are those
+    of remat=False."""
     dtype = next(model.parameters()).dtype
     x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
-    y = model.netG.model(x, training)
+    net = model.netG.model
+    if remat is True:
+        y = checkpointed(lambda t, upd: net(t, training, upd), x)
+    elif remat:
+        if model.size not in N_RES:
+            raise NotImplementedError("remat=K names ResUNet stages; the 'small' U-Net "
+                                      "takes remat=True")
+        y = net(x, training, remat=int(remat))
+    else:
+        y = net(x, training)
     return torch.tanh(y.float()).permute(0, 2, 3, 1)
 
 

@@ -6,7 +6,8 @@ Counterpart of ``livespeechportraits_tpu/models/losses.py``: ``gan_loss``
 ``masked_l1_loss``, ``init_vgg19`` / ``load_vgg19_npz`` / ``vgg19_features``,
 ``gram_matrix`` (the per-sample [C, C] Gram averaged over the batch, JAX's
 documented divergence from the reference's cross-batch Gram) and
-``vgg_style_loss``.  Images and features keep JAX's NHWC layout at these
+``vgg_style_loss`` (with JAX's ``microbatch``: the tower chunked over the
+batch and recomputed in the backward).  Images and features keep JAX's NHWC layout at these
 functions.  The VGG19 has no pretrained weights here: ``init_vgg19`` draws a
 random one from a seed, ``load_vgg19_npz`` reads torchvision's weights
 exported to an .npz by the caller.
@@ -14,12 +15,13 @@ exported to an .npz by the caller.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 
@@ -170,17 +172,54 @@ def gram_matrix(feat: Tensor) -> Tensor:
 def vgg_style_loss(vgg: VGG19, x: Tensor, y: Tensor,
                    weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0, 1.0),
                    style_weights: Sequence[float] = (1.0, 1.0, 1.0, 1.0, 1.0),
-                   style: bool = True) -> Tuple[Tensor, Tensor]:
+                   style: bool = True, microbatch: Optional[int] = None
+                   ) -> Tuple[Tensor, Tensor]:
     """(perceptual, style): the weighted L1 between x's and y's taps, and the
     weighted MSE between their Gram matrices x 3e7; y is the detached
-    target."""
-    fx = vgg19_features(vgg, x)
-    fy = vgg19_features(vgg, y.detach())
-    p_loss = 0.0
+    target.
+
+    microbatch=m (JAX losses.py:195-270) bounds the tower's activation
+    memory to one m-sample chunk: each chunk's towers run under
+    torch.utils.checkpoint, so the backward recomputes them instead of
+    keeping them.  The chunks' per-slice L1 means and Gram matrices are
+    summed and divided by the number of chunks, as JAX's scan does, which
+    equals the unchunked loss (equal chunks).  m must divide the batch;
+    m >= B is the unchunked path."""
+    if microbatch is None or x.shape[0] <= microbatch:
+        p_loss, gx, gy = _vgg_chunk_stats(vgg, x, y.detach(), weights, style)
+        n = 1
+    else:
+        b = x.shape[0]
+        if b % microbatch:
+            raise ValueError(f"vgg microbatch {microbatch} must divide the batch ({b})")
+        n = b // microbatch
+        p_loss, gx, gy = 0.0, None, None
+        for xc, yc in zip(x.split(microbatch), y.detach().split(microbatch)):
+            p, cx, cy = checkpoint(_vgg_chunk_stats, vgg, xc, yc, weights, style,
+                                   use_reentrant=False)
+            p_loss = p_loss + p
+            gx = cx if gx is None else [a + c for a, c in zip(gx, cx)]
+            gy = cy if gy is None else [a + c for a, c in zip(gy, cy)]
+        p_loss = p_loss / n
     s_loss = 0.0
+    for i in range(len(gx)):
+        g = gx[i] / n - gy[i] / n if n > 1 else gx[i] - gy[i]
+        s_loss = s_loss + style_weights[i] * torch.mean(g ** 2) * 3e7
+    return p_loss, s_loss
+
+
+def _vgg_chunk_stats(vgg: VGG19, x: Tensor, y: Tensor, weights: Sequence[float],
+                     style: bool) -> Tuple[Tensor, List[Tensor], List[Tensor]]:
+    """One chunk's weighted perceptual L1 and, with style, each tap's Gram
+    matrix of x and of y (empty lists without)."""
+    fx = vgg19_features(vgg, x)
+    fy = vgg19_features(vgg, y)
+    p_loss = 0.0
+    gx: List[Tensor] = []
+    gy: List[Tensor] = []
     for i in range(len(fx)):
         p_loss = p_loss + weights[i] * torch.mean((fx[i] - fy[i]).abs())
         if style:
-            g = gram_matrix(fx[i]) - gram_matrix(fy[i])
-            s_loss = s_loss + style_weights[i] * torch.mean(g ** 2) * 3e7
-    return p_loss, s_loss
+            gx.append(gram_matrix(fx[i]))
+            gy.append(gram_matrix(fy[i]))
+    return p_loss, gx, gy

@@ -377,11 +377,16 @@ def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
     mean and the unbiased batch variance (JAX's nn_core.batchnorm with
     BN_ONEPASS off; the one-pass variance, clamped at 0, is not copied).
     update_stats=False leaves them as they are (the discriminator's second
-    forward of a step, whose statistics JAX discards)."""
+    forward of a step, whose statistics JAX discards, and a rematerialised
+    forward's recompute): the update lands on copies, so the operator and
+    the tensors it saves for the backward are those of update_stats=True,
+    as torch.utils.checkpoint's recompute requires."""
     if training:
-        return F.batch_norm(x, bn.running_mean if update_stats else None,
-                            bn.running_var if update_stats else None, bn.weight, bn.bias,
-                            training=True, momentum=0.1, eps=eps)
+        mean, var = bn.running_mean, bn.running_var
+        if not update_stats:
+            mean, var = mean.clone(), var.clone()
+        return F.batch_norm(x, mean, var, bn.weight, bn.bias, training=True, momentum=0.1,
+                            eps=eps)
     shape = (1, -1) + (1,) * (x.dim() - 2)
     mean = bn.running_mean.to(x.dtype).view(shape)
     var = bn.running_var.to(x.dtype).view(shape)

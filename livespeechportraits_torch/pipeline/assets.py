@@ -255,6 +255,26 @@ def load_trained_person_models(cfg: PersonConfig, base: PersonModels, f2f_ckpt: 
     return base
 
 
+def load_trained_discriminator(cfg: PersonConfig, f2f_ckpt: str,
+                               device: torch.device | str = "cuda") -> f2f.Feature2FaceD:
+    """The discriminator of a Feature2Face trainer run (``f2f_ckpt`` as in
+    load_trained_person_models; its ckpt_best when it kept one), loaded with
+    strict=True into cfg.feature2face's architecture, in eval mode on
+    ``device`` (JAX assets.py:335-369): the learned feature space of
+    utils/metrics.d_feature_distance."""
+    from livespeechportraits_torch.utils import checkpoint as ckpt
+
+    d = f2f.Feature2FaceD(cfg.feature2face)
+    try:
+        d.load_state_dict(ckpt.load_checkpoint(ckpt.prefer_best(f2f_ckpt))["models"]["D"],
+                          strict=True)
+    except RuntimeError as e:
+        raise ValueError("the discriminator checkpoint does not match the person config's "
+                         "architecture (ndf / num_D / n_layers_D); pass the config it was "
+                         f"trained with: {e}") from e
+    return d.to(device).eval().requires_grad_(False)
+
+
 def load_subject(cfg: PersonConfig, image_size: Optional[int] = 512, skip_models: bool = False,
                  device: torch.device | str = "cuda"
                  ) -> Tuple[PersonConfig, PersonAssets, Optional[PersonModels]]:

@@ -6,6 +6,8 @@ root ``train.py``:
     python -m livespeechportraits_torch.train --task audio2headpose --synthetic
     python -m livespeechportraits_torch.train --task feature2face   --synthetic
     python -m livespeechportraits_torch.train --task feature2face   --synthetic --qat_int8 --qat_d
+    python -m livespeechportraits_torch.train --task feature2face   --synthetic --fused_step \
+        --remat --vgg random --vgg_microbatch 2
     python -m livespeechportraits_torch.train --task apc --dataroot R --clip_names c0,c1
     python -m livespeechportraits_torch.train --task audio2feature --dataroot R \
         --clip_names c0 --apc_ckpt checkpoints/apc/ckpt
@@ -19,12 +21,14 @@ their wavs for APC, ``data_io.prepare_clip`` for the motion models, with
 the features of the ``--apc_ckpt`` encoder, ``data_io.load_face_clip`` for
 the renderer).  Feature2Face draws each batch's edge maps on the device (K1
 on the card), so ``--device_rasterize`` is the port's default; ``--qat``,
-``--qat_int8`` and ``--qat_d`` train it quantization-aware
-(trainer.TrainLoopConfig).  Each run writes
+``--qat_int8`` and ``--qat_d`` train it quantization-aware, ``--fused_step``
+with one step from shared forwards, ``--remat`` and ``--vgg_microbatch``
+with less activation memory (trainer.TrainLoopConfig).  Each run writes
 ``<checkpoints_dir>/<name>/ckpt/<epoch>.pt`` (and ``ckpt_best``), which
 ``serve.Predictor.setup(f2f_ckpt=..., a2f_ckpt=..., a2h_ckpt=...,
-apc_ckpt=...)`` serves.  The JAX flags of the parts not ported yet raise
-NotImplementedError naming their ROADMAP item.
+apc_ckpt=...)`` serves.  The JAX flags of the parts not ported yet
+(``--data_parallel``, ``--zero1``) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -113,9 +117,6 @@ def synthetic_mels(n_utts: int, frames: int, mel_dim: int = 80):
 _NOT_PORTED = {
     "data_parallel": "data parallel training (ROADMAP item 16)",
     "zero1": "ZeRO-1 (ROADMAP item 16)",
-    "fused_step": "the fused GAN step (ROADMAP item 15)",
-    "remat": "rematerialisation (ROADMAP item 15)",
-    "vgg_microbatch": "the chunked VGG loss (ROADMAP item 15)",
 }
 
 
@@ -148,8 +149,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--loss", default="L2", choices=["L2", "GMM"],
                    help="audio2feature loss: MSE or the GMM NLL")
     p.add_argument("--TTUR", action="store_true")
-    p.add_argument("--fused_step", action="store_true")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--fused_step", action="store_true",
+                   help="feature2face: one step updating D and G from one G forward and two "
+                        "D forwards (steps.f2f_fused_step)")
+    p.add_argument("--remat", action="store_true",
+                   help="feature2face: recompute the generator's forward in the backward "
+                        "(less activation memory, more time)")
     p.add_argument("--qat", action="store_true",
                    help="feature2face: quantization-aware training, the generator's forward "
                         "running the deployed int8 arithmetic (f32 emulation)")
@@ -162,7 +167,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vgg", default="none",
                    help="feature2face perceptual/style loss: 'none', 'random' (a seeded "
                         "random VGG19) or a torchvision VGG19 .npz (losses.load_vgg19_npz)")
-    p.add_argument("--vgg_microbatch", type=int, default=0)
+    p.add_argument("--vgg_microbatch", type=int, default=0,
+                   help="feature2face: run the VGG loss's tower in chunks of N samples, "
+                        "recomputed in the backward (0 = the whole batch at once)")
     p.add_argument("--device_rasterize", action="store_true",
                    help="feature2face: edge maps drawn on the device (the port's default)")
     p.add_argument("--image_size", type=int, default=512)
@@ -252,7 +259,8 @@ def main(argv=None):
         checkpoints_dir=args.checkpoints_dir, name=args.name or args.task,
         continue_train=args.continue_train, smooth_loss=args.smooth_loss, ttur=args.TTUR,
         save_best=not args.no_save_best, device=args.device, qat=args.qat,
-        qat_int8=args.qat_int8, qat_d=args.qat_d)
+        qat_int8=args.qat_int8, qat_d=args.qat_d, fused_step=args.fused_step,
+        remat=args.remat, vgg_microbatch=args.vgg_microbatch)
     trainer._device(loop)  # no card for a card's run: raise before reading any data
     if args.task == "apc":
         mels = synthetic_mels(4, 2400) if args.synthetic else _load_mels(args)

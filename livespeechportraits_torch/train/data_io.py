@@ -174,8 +174,8 @@ def make_change_paras_normalise(clip_root: str):
     return normalise
 
 
-def load_face_clip(clip_root: str, clip_name: str,
-                   load_size: int = 512) -> datasets.FaceFrameSampler:
+def load_face_clip(clip_root: str, clip_name: str, load_size: int = 512,
+                   frame_jump: int = 1) -> datasets.FaceFrameSampler:
     """A reference-format renderer-training clip as a FaceFrameSampler: the
     h5 frames (LazyH5Frames), tracked2D_normalized_pts_fix_contour.npy,
     normalized_shoulder_points.npy and candidates/normalized_full_{0..3}.jpg.
@@ -183,7 +183,7 @@ def load_face_clip(clip_root: str, clip_name: str,
     saved, and read back from the JPEG, so the first run trains on the
     pixels every later run (and serving) reads.  No training step uses the
     weight mask (the reference's MaskedL1 call is commented out), so the
-    sampler emits none."""
+    sampler emits none.  frame_jump samples every n-th frame."""
     from PIL import Image
 
     normalise = make_change_paras_normalise(clip_root)
@@ -201,4 +201,4 @@ def load_face_clip(clip_root: str, clip_name: str,
     return datasets.FaceFrameSampler(
         images=images, landmarks=landmarks.astype(np.float32),
         shoulders=shoulders.astype(np.float32), candidates=np.stack(cands),
-        load_size=load_size, emit_weight_mask=False)
+        load_size=load_size, frame_jump=frame_jump, emit_weight_mask=False)

@@ -41,7 +41,9 @@ def apply_gradients(opt: torch.optim.Optimizer, params: Sequence[Tensor], loss: 
     opt.step()
 
 
-def gradients(loss: Tensor, params: Sequence[Tensor]) -> Sequence[Tensor]:
-    """d loss / d params, zeros where the loss does not reach a parameter."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+def gradients(loss: Tensor, params: Sequence[Tensor],
+              retain_graph: bool = False) -> Sequence[Tensor]:
+    """d loss / d params, zeros where the loss does not reach a parameter;
+    retain_graph keeps the graph for another gradient of the same forward."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True, retain_graph=retain_graph)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]

@@ -1,12 +1,13 @@
 """The training steps and validators of the four trainers.
 
-Counterpart of ``livespeechportraits_tpu/train/steps.py`` (less the fused
-GAN step): each model's loss on one batch of tensors, and one optimizer
-step on it (``state.apply_gradients``).  JAX jits a pure step
-(state, batch) -> state; here a step updates the modules, their BatchNorm
-running stats and the optimizer in place.
+Counterpart of ``livespeechportraits_tpu/train/steps.py``: each model's
+loss on one batch of tensors, and one optimizer step on it
+(``state.apply_gradients``).  JAX jits a pure step (state, batch) -> state;
+here a step updates the modules, their BatchNorm running stats and the
+optimizer in place.
 
-Feature2Face keeps JAX's alternating semantics (steps.py:274-393 there):
+Feature2Face has JAX's two forms.  The alternating pair (steps.py:274-393
+there):
 - ``f2f_d_loss`` runs G in eval mode under no_grad (the fake is detached)
   and D in training mode, the running stats taken from the real pair's
   forward only; loss (2 real + fake) / 2;
@@ -14,18 +15,22 @@ Feature2Face keeps JAX's alternating semantics (steps.py:274-393 there):
   reaches G only; loss GAN + lambda_L1 L1 + VGG + style + feature matching;
 - the trainer calls ``f2f_d_step`` with the pre-update G, then
   ``f2f_g_step`` with the updated D.
+The fused step (``f2f_fused_step``, steps.py:396-528 there) shares one G
+forward and two D forwards, all in training mode, between both losses and
+takes both gradients at the pre-update parameters.
 With ``compute_dtype`` the generator's forward runs under torch.autocast in
 that dtype (JAX casts the generator alone to its compute dtype); the
 discriminator, the losses, the parameters and Adam's moments stay f32.
-With ``qat_d`` both losses see D through ``f2f.qat_discriminator``, a view
-made inside the step that shares D's parameters: its interior convs run on
-the int8 kernel K4 with straight-through gradients (JAX steps.py:313-316),
-and neither the checkpoints nor the optimizer state see a tag.
+``remat`` recomputes the generator's forward, or its outer stages, in the
+backward (f2f.apply_generator), ``vgg_microbatch`` chunks the VGG loss
+(losses.vgg_style_loss).  Under --qat_d the trainer hands these steps a
+discriminator tagged once (f2f.qat_discriminator), whose interior convs run
+on K4 with straight-through gradients.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -42,6 +47,7 @@ from livespeechportraits_torch.train import state
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
 Metrics = Dict[str, Tensor]
+Remat = Union[bool, int]
 
 
 def f2f_g_input(batch: Batch) -> Tensor:
@@ -154,22 +160,18 @@ def a2h_loss(cfg: Audio2HeadposeConfig, model: a2h.Audio2Headpose, batch: Batch,
 
 
 def _g_forward(g: f2f.Feature2FaceG, inp: Tensor, training: bool,
-               compute_dtype: Optional[torch.dtype]) -> Tensor:
+               compute_dtype: Optional[torch.dtype], remat: Remat = False) -> Tensor:
     """The generator's f32 output; with compute_dtype, its convolutions run
-    under torch.autocast in that dtype (the tanh in f32)."""
+    under torch.autocast in that dtype (the tanh in f32).  remat: see
+    f2f.apply_generator."""
     with torch.autocast(inp.device.type, dtype=compute_dtype or torch.bfloat16,
                         enabled=compute_dtype is not None):
-        return f2f.apply_generator(g, inp, training=training)
-
-
-def _d_of(d: f2f.Feature2FaceD, qat_d: bool) -> f2f.Feature2FaceD:
-    return f2f.qat_discriminator(d) if qat_d else d
+        return f2f.apply_generator(g, inp, training=training, remat=remat)
 
 
 def f2f_d_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
-               batch: Batch, compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False
+               batch: Batch, compute_dtype: Optional[torch.dtype] = None
                ) -> Tuple[Tensor, Metrics]:
-    d = _d_of(d, qat_d)
     inp = f2f_g_input(batch)
     with torch.no_grad():
         fake = _g_forward(g, inp, False, compute_dtype)
@@ -177,6 +179,10 @@ def f2f_d_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2Fac
     fake_pair = torch.cat([inp, fake], dim=-1)
     pred_real = f2f.apply_discriminator(d, real_pair, training=True)
     pred_fake = f2f.apply_discriminator(d, fake_pair, training=True, update_stats=False)
+    return _d_loss_terms(cfg, pred_real, pred_fake)
+
+
+def _d_loss_terms(cfg: Feature2FaceConfig, pred_real, pred_fake) -> Tuple[Tensor, Metrics]:
     # the real pair weighs twice (the reference's feature2face_model.py:166-171)
     loss_real = losses.gan_loss(pred_real, True, cfg.gan_mode) * 2.0
     loss_fake = losses.gan_loss(pred_fake, False, cfg.gan_mode)
@@ -186,21 +192,28 @@ def f2f_d_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2Fac
 
 def f2f_g_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
                batch: Batch, vgg: Optional[losses.VGG19] = None,
-               compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False
-               ) -> Tuple[Tensor, Metrics]:
-    d = _d_of(d, qat_d)
+               compute_dtype: Optional[torch.dtype] = None, remat: Remat = False,
+               vgg_microbatch: Optional[int] = None) -> Tuple[Tensor, Metrics]:
     inp = f2f_g_input(batch)
-    fake = _g_forward(g, inp, True, compute_dtype)
+    fake = _g_forward(g, inp, True, compute_dtype, remat)
     tgt = f2f_target(batch)
     with torch.no_grad():  # feature matching detaches the real features
         pred_real = f2f.apply_discriminator(d, torch.cat([inp, tgt], dim=-1))
     pred_fake = f2f.apply_discriminator(d, torch.cat([inp, fake], dim=-1))
+    return _g_loss_terms(cfg, fake, tgt, pred_fake, pred_real, vgg, vgg_microbatch)
+
+
+def _g_loss_terms(cfg: Feature2FaceConfig, fake: Tensor, tgt: Tensor, pred_fake, pred_real,
+                  vgg: Optional[losses.VGG19], vgg_microbatch: Optional[int]
+                  ) -> Tuple[Tensor, Metrics]:
+    """GAN + lambda_L1 L1 + VGG + style + feature matching against the
+    (detached) real features."""
     loss_gan = losses.gan_loss(pred_fake, True, cfg.gan_mode, for_discriminator=False)
     loss_l1 = torch.mean((fake - tgt).abs()) * cfg.lambda_L1
     zero = fake.new_zeros(())
     loss_vgg = loss_style = zero
     if vgg is not None:
-        p_loss, s_loss = losses.vgg_style_loss(vgg, fake, tgt)
+        p_loss, s_loss = losses.vgg_style_loss(vgg, fake, tgt, microbatch=vgg_microbatch)
         loss_vgg, loss_style = p_loss * cfg.lambda_feat, s_loss * cfg.lambda_feat
     loss_fm = losses.feature_matching_loss(pred_fake, pred_real, cfg.num_D, cfg.n_layers_D,
                                            cfg.lambda_feat)
@@ -211,18 +224,77 @@ def f2f_g_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2Fac
 
 def f2f_d_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
                opt_d: torch.optim.Optimizer, batch: Batch,
-               compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False) -> Metrics:
-    loss, metrics = f2f_d_loss(cfg, g, d, batch, compute_dtype, qat_d)
+               compute_dtype: Optional[torch.dtype] = None) -> Metrics:
+    loss, metrics = f2f_d_loss(cfg, g, d, batch, compute_dtype)
     state.apply_gradients(opt_d, list(d.parameters()), loss)
     return metrics
 
 
 def f2f_g_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
                opt_g: torch.optim.Optimizer, batch: Batch, vgg: Optional[losses.VGG19] = None,
-               compute_dtype: Optional[torch.dtype] = None, qat_d: bool = False) -> Metrics:
-    loss, metrics = f2f_g_loss(cfg, g, d, batch, vgg, compute_dtype, qat_d)
+               compute_dtype: Optional[torch.dtype] = None, remat: Remat = False,
+               vgg_microbatch: Optional[int] = None) -> Metrics:
+    loss, metrics = f2f_g_loss(cfg, g, d, batch, vgg, compute_dtype, remat, vgg_microbatch)
     state.apply_gradients(opt_g, list(g.parameters()), loss)
     return metrics
+
+
+def f2f_fused_losses(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
+                     batch: Batch, vgg: Optional[losses.VGG19] = None,
+                     compute_dtype: Optional[torch.dtype] = None, remat: Remat = False,
+                     remat_d: bool = False, vgg_microbatch: Optional[int] = None
+                     ) -> Tuple[Tensor, Tensor, Metrics]:
+    """(loss_D, loss_G, metrics) of the fused step's shared forwards (JAX
+    steps.py:396-528): one training-mode G forward, then D in training mode
+    on the real pair (its running stats move) and on the fake pair (batch
+    statistics, stats left as they are; the fake not detached).  loss_D is
+    JAX's (2 real + fake) / 2; loss_G is GAN + L1 + VGG / style (chunked by
+    vgg_microbatch) + feature matching against the real pair's (detached)
+    features.  remat_d runs each D tower under f2f.checkpointed."""
+    inp = f2f_g_input(batch)
+    tgt = f2f_target(batch)
+    fake = _g_forward(g, inp, True, compute_dtype, remat)
+
+    def d_tower(pair: Tensor, update_stats: bool):
+        if remat_d:
+            return f2f.checkpointed(
+                lambda t, upd: f2f.apply_discriminator(d, t, training=True, update_stats=upd),
+                pair, update_stats)
+        return f2f.apply_discriminator(d, pair, training=True, update_stats=update_stats)
+
+    pred_real = d_tower(torch.cat([inp, tgt], dim=-1), True)
+    pred_fake = d_tower(torch.cat([inp, fake], dim=-1), False)
+    loss_d, d_metrics = _d_loss_terms(cfg, pred_real, pred_fake)
+    loss_g, g_metrics = _g_loss_terms(cfg, fake, tgt, pred_fake, pred_real, vgg,
+                                      vgg_microbatch)
+    return loss_d, loss_g, g_metrics | d_metrics
+
+
+def f2f_fused_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
+                   opt_g: torch.optim.Optimizer, opt_d: torch.optim.Optimizer, batch: Batch,
+                   vgg: Optional[losses.VGG19] = None,
+                   compute_dtype: Optional[torch.dtype] = None, remat: Remat = False,
+                   remat_d: bool = False, vgg_microbatch: Optional[int] = None) -> Metrics:
+    """One GAN step that updates D and G from shared forwards: 1 G forward
+    and 2 D forwards, where the alternating pair runs 2 and 4.  D's
+    gradient is d loss_D / d D's parameters; G's is d loss_G / d G's
+    parameters, reaching G through the fake-pair D tower and the fake.
+    Both are taken at the pre-update parameters (simultaneous descent, JAX
+    steps.py:425-433), then both optimizers step.  Two torch.autograd.grad
+    calls, each toward one network's parameters, keep loss_G's gradient out
+    of D and loss_D's out of G; the first keeps the graph for the second.
+    The metrics come back detached: loss_D's graph keeps the real pair's D
+    tower, which the second gradient does not free."""
+    loss_d, loss_g, metrics = f2f_fused_losses(cfg, g, d, batch, vgg, compute_dtype, remat,
+                                               remat_d, vgg_microbatch)
+    d_params, g_params = list(d.parameters()), list(g.parameters())
+    d_grads = state.gradients(loss_d, d_params, retain_graph=True)
+    g_grads = state.gradients(loss_g, g_params)
+    for params, grads, opt in ((d_params, d_grads, opt_d), (g_params, g_grads, opt_g)):
+        for p, grad in zip(params, grads):
+            p.grad = grad
+        opt.step()
+    return {k: v.detach() for k, v in metrics.items()}
 
 
 @torch.no_grad()

@@ -2,7 +2,7 @@
 Feature2Face GAN.
 
 Counterpart of ``livespeechportraits_tpu/train/trainer.py`` (less the data
-parallel mesh, ZeRO-1 and the fused GAN step): epochs over a host sampler
+parallel mesh and ZeRO-1): epochs over a host sampler
 whose batches a background thread moves to the device, one optimizer step a
 batch, the schedule's learning rate set each epoch, a scalar log, validation
 on its own generator (seed + 7919, so it neither sees nor advances the
@@ -82,6 +82,9 @@ class TrainLoopConfig:
     qat: bool = False  # quantization-aware G: train against the int8 arithmetic
     qat_int8: bool = False  # QAT forward on the int8 kernel K4 (implies qat)
     qat_d: bool = False  # D's interior convs on K4, straight-through gradients
+    fused_step: bool = False  # one GAN step from shared forwards (steps.f2f_fused_step)
+    remat: bool | int = False  # recompute G's forward (True) or its outer K stages in backward
+    vgg_microbatch: int = 0  # chunk and recompute the VGG loss's tower (0 = unchunked)
 
     @property
     def qat_mode(self) -> Optional[str]:
@@ -378,12 +381,19 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
                        init_g: Optional[f2f_model.Feature2FaceG] = None,
                        init_d: Optional[f2f_model.Feature2FaceD] = None) -> TrainResult:
     """The GAN trainer: each batch a D step with the pre-update G, then a G
-    step with the updated D (steps.f2f_d_step / f2f_g_step); Adam (0.5,
-    0.999), or TTUR's (0, 0.9) at lr / 2 for G and lr x 2 for D.  Each epoch
-    validates the eval-mode G (val_L1, val_PSNR), and ckpt_best keeps the
-    lowest val_L1.  With loop.qat / qat_int8 the generator trained (and
-    returned) is a tagged copy of init_g, retagged when init_g carries the
-    other tag; loop.qat_d tags D's view in each step."""
+    step with the updated D (steps.f2f_d_step / f2f_g_step), or with
+    loop.fused_step one steps.f2f_fused_step; Adam (0.5, 0.999), or TTUR's
+    (0, 0.9) at lr / 2 for G and lr x 2 for D.  loop.remat and
+    loop.vgg_microbatch reach the generator's forward and the VGG loss.
+    Each epoch validates the eval-mode G (val_L1, val_PSNR), keeps the
+    lowest val_L1 in ckpt_best, and writes JAX's image panel (input edge
+    map | synthesized | target, from a fixed batch drawn once) to
+    ``<name>/web``.  With loop.qat / qat_int8
+    the generator trained (and returned) is a tagged copy of init_g,
+    retagged when init_g carries the other tag.  loop.qat_d tags D once
+    here (f2f.qat_discriminator, a view sharing D's parameters): the steps
+    see the tagged view, the checkpoints, the optimizer and the result the
+    float D."""
     dev = _device(loop)
     gen = torch.Generator().manual_seed(loop.seed)
     g = init_g if init_g is not None else _init(f2f_model.Feature2FaceG(cfg), gen=gen)
@@ -396,6 +406,7 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
     mode = f2f_model.qat_tag_mode(g)  # an init_g tagged with QAT off keeps its tags
     g.to(dev)
     d.to(dev)
+    d_run = f2f_model.qat_discriminator(d) if loop.qat_d else d
     (lr_g, bg), (lr_d, bd) = steps.ttur_learning_rates(loop.lr, loop.ttur)
     schedules = {"G": schedulers.make_schedule(loop.lr_policy, lr_g, loop.n_epochs,
                                                loop.n_epochs_decay),
@@ -406,8 +417,10 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
                      else None)
     if vgg is not None:
         vgg.to(dev)
+    vgg_mb = loop.vgg_microbatch or None
     run = _Run(loop, {"G": g, "D": d}, opts, schedules, qat_mode=mode)
     move = _Mover(dev)
+    panel = _panel_batch(sampler, loop, move)
     timer = _StepTimer(dev)
     for epoch in run.epochs():
         for k, s in schedules.items():
@@ -415,12 +428,17 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
         t0, n = time.time(), 0
         for batch in _batch_iter(sampler, loop, run.rng, move):
             ts = timer.start()
-            d_metrics = steps.f2f_d_step(cfg, g, d, opts["D"], batch, compute_dtype, loop.qat_d)
-            g_metrics = steps.f2f_g_step(cfg, g, d, opts["G"], batch, vgg, compute_dtype,
-                                         loop.qat_d)
+            if loop.fused_step:
+                metrics = steps.f2f_fused_step(cfg, g, d_run, opts["G"], opts["D"], batch, vgg,
+                                               compute_dtype, loop.remat,
+                                               vgg_microbatch=vgg_mb)
+            else:
+                metrics = steps.f2f_d_step(cfg, g, d_run, opts["D"], batch, compute_dtype)
+                metrics |= steps.f2f_g_step(cfg, g, d_run, opts["G"], batch, vgg,
+                                            compute_dtype, loop.remat, vgg_mb)
             timer.stop(ts)
             n += 1
-            run.log_step(epoch, d_metrics | g_metrics, None, t0, n)
+            run.log_step(epoch, metrics, None, t0, n)
         if val_sampler is not None and (epoch + 1) % loop.validate_epoch == 0:
             vals = [steps.f2f_validate(g, b, compute_dtype)[1]
                     for b in _val_batches(val_sampler, loop, move)]
@@ -428,8 +446,33 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
                 vm = {k: float(np.mean([float(v[k]) for v in vals])) for k in vals[0]}
                 run.vis.print_current_errors(epoch, run.it, vm)
                 run.validated(epoch, vm, "val_L1")
+        if panel is not None:
+            _display_panel(run.vis, g, panel, compute_dtype, epoch + 1, run.it)
         run.end_epoch(epoch)
     return run.result(timer)
+
+
+def _panel_batch(sampler, loop: TrainLoopConfig, move: _Mover) -> Optional[Dict[str, Tensor]]:
+    """The epoch panel's fixed batch (JAX trainer.py:425-433): the sampler's
+    first min(batch_size, 2) samples in order, drawn with seed + 1, so the
+    training stream is not advanced."""
+    rng = np.random.default_rng(loop.seed + 1)
+    b = next(iter(sampler.batches(min(loop.batch_size, 2, len(sampler)), rng, shuffle=False)),
+             None)
+    return None if b is None else move(b)
+
+
+def _display_panel(vis: Visualizer, g: nn.Module, batch: Dict[str, Tensor],
+                   compute_dtype: Optional[torch.dtype], epoch: int, it: int) -> None:
+    """JAX's epoch panel (trainer.py:506-517): the first sample's input edge
+    map, the eval-mode synthesized frame and the target, each in [-1, 1]."""
+    fake, _ = steps.f2f_validate(g, batch, compute_dtype)
+    fm = batch["feature_map"][0, ..., 0].float().cpu().numpy()
+    vis.display_current_results({
+        "input_feature_map": np.repeat((fm * 2.0 - 1.0)[..., None], 3, -1),
+        "synthesized": fake[0].float().cpu().numpy(),
+        "target": steps.f2f_target({"tgt_image": batch["tgt_image"][:1]})[0].float().cpu().numpy(),
+    }, epoch, it)
 
 
 def _with_metrics(loss: Tensor):

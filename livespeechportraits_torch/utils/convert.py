@@ -17,8 +17,11 @@ The trainers' two extra trees convert too: the APC pretraining tree
 ({"encoder", "head"} -> ``encoder.rnns.*``, ``head.*``) and the
 Feature2Face discriminator ({"scales"} -> the reference's
 ``scale{i}_layer{j}.{0,1}`` keys, JAX's scale k being the reference's
-scale num_D-1-k).  ``params_to_jax`` is the inverse, for these six
-models; its leaves are numpy arrays (int8 weights stay int8, float leaves become float32).
+scale num_D-1-k).  So do the two decoder variants: Audio2Feature's WaveNet
+({"wavenet"} alone -> ``WaveNet.*``) and the Audio2Headpose LSTM, whose tree
+has Audio2Feature's keys and converts through
+``audio2headpose_lstm_from_jax``.  ``params_to_jax`` is the inverse, for
+these eight models; its leaves are numpy arrays (int8 weights stay int8, float leaves become float32).
 Leaves may be numpy arrays or anything ``np.asarray`` accepts; this module
 imports no JAX.
 """
@@ -34,8 +37,8 @@ from torch import nn
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models import nn_core
 from livespeechportraits_torch.models.apc import APCEncoder, APCPretrain
-from livespeechportraits_torch.models.audio2feature import Audio2Feature
-from livespeechportraits_torch.models.audio2headpose import Audio2Headpose
+from livespeechportraits_torch.models.audio2feature import Audio2Feature, Audio2FeatureWaveNet
+from livespeechportraits_torch.models.audio2headpose import Audio2Headpose, Audio2HeadposeLSTM
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -202,16 +205,9 @@ def params_from_jax(tree: Dict[str, Any]) -> StateDict:
                 if "bn" in layer:
                     _batchnorm(layer["bn"], out, f"{name}.1")
     elif "lstm" in tree:  # Audio2Feature (LSTM decoder)
-        _linear(tree["down1"], out, "downsample.0")
-        _batchnorm(tree["down_bn"], out, "downsample.1")
-        _linear(tree["down2"], out, "downsample.3")
-        for i, layer in enumerate(tree["lstm"]):
-            _rnn(layer, out, "LSTM", i)
-        _linear(tree["fc1"], out, "fc.0")
-        _batchnorm(tree["fc1_bn"], out, "fc.1")
-        _linear(tree["fc2"], out, "fc.3")
-        _batchnorm(tree["fc2_bn"], out, "fc.4")
-        _linear(tree["fc3"], out, "fc.6")
+        _lstm_mlp(tree, out, "downsample")
+    elif "wavenet" in tree and "down1" not in tree:  # Audio2Feature's WaveNet decoder
+        _wavenet(tree["wavenet"], out, "WaveNet")
     elif "wavenet" in tree:  # Audio2Headpose (WaveNet decoder)
         _linear(tree["down1"], out, "audio_downsample.0")
         _batchnorm(tree["down_bn"], out, "audio_downsample.1")
@@ -226,6 +222,31 @@ def params_from_jax(tree: Dict[str, Any]) -> StateDict:
             raise ValueError(f"unknown generator size {tree.get('size')!r}")
     else:
         raise ValueError(f"unrecognised parameter tree with keys {sorted(tree)}")
+    return out
+
+
+def _lstm_mlp(tree: Dict[str, Any], out: StateDict, down: str) -> None:
+    """The audio MLP ``{down}.*``, the LSTM layers and the fc MLP that
+    Audio2Feature and the Audio2Headpose LSTM variant share."""
+    _linear(tree["down1"], out, f"{down}.0")
+    _batchnorm(tree["down_bn"], out, f"{down}.1")
+    _linear(tree["down2"], out, f"{down}.3")
+    for i, layer in enumerate(tree["lstm"]):
+        _rnn(layer, out, "LSTM", i)
+    _linear(tree["fc1"], out, "fc.0")
+    _batchnorm(tree["fc1_bn"], out, "fc.1")
+    _linear(tree["fc2"], out, "fc.3")
+    _batchnorm(tree["fc2_bn"], out, "fc.4")
+    _linear(tree["fc3"], out, "fc.6")
+
+
+def audio2headpose_lstm_from_jax(tree: Dict[str, Any]) -> StateDict:
+    """The Audio2Headpose LSTM variant's JAX tree (init_audio2headpose_lstm)
+    as the reference's state dict (``audio_downsample.*``, ``LSTM.*``,
+    ``fc.*``; JAX torch_convert.py:179).  Its tree has Audio2Feature's keys,
+    so params_from_jax cannot tell the two apart."""
+    out: StateDict = {}
+    _lstm_mlp(tree, out, "audio_downsample")
     return out
 
 
@@ -339,7 +360,7 @@ def _unet_stage_to(sd: StateDict, stage: f2f.UnetBlock, block: str) -> Dict[str,
 
 
 def params_to_jax(model: nn.Module) -> Dict[str, Any]:
-    """One of the port's six models as the JAX package's parameter tree
+    """One of the port's eight models as the JAX package's parameter tree
     (the inverse of params_from_jax)."""
     sd = model.state_dict()
     if isinstance(model, APCEncoder):
@@ -358,14 +379,17 @@ def params_to_jax(model: nn.Module) -> Dict[str, Any]:
                 layers.append(layer)
             scales.append({"layers": layers})
         return {"scales": scales}
-    if isinstance(model, Audio2Feature):
-        return {"down1": _linear_to(sd, "downsample.0"),
-                "down_bn": _batchnorm_to(sd, "downsample.1"),
-                "down2": _linear_to(sd, "downsample.3"),
+    if isinstance(model, (Audio2Feature, Audio2HeadposeLSTM)):
+        down = "downsample" if isinstance(model, Audio2Feature) else "audio_downsample"
+        return {"down1": _linear_to(sd, f"{down}.0"),
+                "down_bn": _batchnorm_to(sd, f"{down}.1"),
+                "down2": _linear_to(sd, f"{down}.3"),
                 "lstm": [_rnn_to(sd, "LSTM", i) for i in range(model.LSTM.num_layers)],
                 "fc1": _linear_to(sd, "fc.0"), "fc1_bn": _batchnorm_to(sd, "fc.1"),
                 "fc2": _linear_to(sd, "fc.3"), "fc2_bn": _batchnorm_to(sd, "fc.4"),
                 "fc3": _linear_to(sd, "fc.6")}
+    if isinstance(model, Audio2FeatureWaveNet):
+        return {"wavenet": _wavenet_to(sd, "WaveNet", len(model.WaveNet.residual_blocks))}
     if isinstance(model, Audio2Headpose):
         return {"down1": _linear_to(sd, "audio_downsample.0"),
                 "down_bn": _batchnorm_to(sd, "audio_downsample.1"),

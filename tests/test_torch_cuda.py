@@ -8,6 +8,8 @@ file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest``: tests/conftest.py configures JAX.)"""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -362,7 +364,8 @@ def test_fq8_conv_on_the_card_equals_the_deployed_layer(cuda_device, dtype):
 def test_qat_gan_steps_on_the_card_launch_k4_for_every_tagged_conv(cuda_device, tmp_path):
     """A --qat_int8 --qat_d GAN run (64^2, bf16 G, f32 D) launches K4 for
     each tagged conv of each forward: two G forwards and four D forwards a
-    step, one G forward a validation batch; finite losses."""
+    step, one G forward a validation batch and one for the epoch panel;
+    finite losses."""
     from livespeechportraits_torch.train import __main__ as cli
     from livespeechportraits_torch.train import trainer
 
@@ -378,8 +381,69 @@ def test_qat_gan_steps_on_the_card_launch_k4_for_every_tagged_conv(cuda_device, 
     res = trainer.train_feature2face(cfg, loop, small, small)
     torch.cuda.synchronize()
     steps, val = len(res.step_ms), -(-len(small) // 4)
-    assert q8conv_cuda.LAUNCHES - before == steps * (2 * n_g + 4 * n_d) + val * n_g
+    assert q8conv_cuda.LAUNCHES - before == steps * (2 * n_g + 4 * n_d) + (val + 1) * n_g
     assert np.isfinite(res.best_val) and all(np.isfinite(res.step_ms))
+
+
+def _recomputed_tagged_convs(g, remat) -> int:
+    """The QAT-tagged convs a rematerialised G forward runs again: all of
+    them for remat=True, those of the outer K stages' halves for K."""
+    if remat is True:
+        return sum(isinstance(m, nn_core.QATConv2d) for m in g.modules())
+    n = 0
+    for stage in list(feature2face._stages(g))[:int(remat)]:
+        for m in stage.model:
+            if not isinstance(m, feature2face.ResUnetBlock):
+                n += sum(isinstance(c, nn_core.QATConv2d) for c in m.modules())
+    return n
+
+
+@pytest.mark.parametrize("remat,remat_d", [(False, False), (True, False), (2, True)],
+                         ids=["plain", "remat", "remat2_d"])
+def test_fused_qat_step_on_the_card_runs_k4_in_the_recompute(cuda_device, remat, remat_d):
+    """One fused --qat_int8 --qat_d step (64^2, B = 4, bf16 G, f32 D): K4
+    launches once a tagged conv of the one G forward and the two D forwards,
+    and again for each tagged conv a checkpointed region recomputes (remat_d:
+    the real tower once, the fake tower in each of the two gradients); the
+    straight-through gradients and the running stats equal the plain step's
+    within 1e-2 of each tensor's largest value (bf16 G; cuDNN may pick
+    other algorithms in the recompute); the losses finite."""
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import steps, trainer
+
+    cfg = Feature2FaceConfig(ngf=16, n_downsample=6, load_size=64, ndf=16)
+    gen = torch.Generator().manual_seed(0)
+    g = feature2face.qat_generator(trainer._init(feature2face.Feature2FaceG(cfg), gen=gen),
+                                   int8_forward=True).to(cuda_device)
+    d = trainer._init(feature2face.Feature2FaceD(cfg), gen=gen).to(cuda_device)
+    n_g = sum(isinstance(m, nn_core.QATConv2d) for m in g.modules())
+    n_d = cfg.num_D * cfg.n_layers_D
+    batch = trainer._Mover(cuda_device)(next(cli.synthetic_face_data(64, 64).batches(
+        4, np.random.default_rng(0), shuffle=False)))
+
+    def grads(r, rd):
+        gg, dd = copy.deepcopy(g), copy.deepcopy(d)
+        before = q8conv_cuda.LAUNCHES
+        loss_d, loss_g, m = steps.f2f_fused_losses(cfg, gg, feature2face.qat_discriminator(dd),
+                                                   batch, None, torch.bfloat16, r, rd)
+        out = (list(torch.autograd.grad(loss_d, list(dd.parameters()), retain_graph=True))
+               + list(torch.autograd.grad(loss_g, list(gg.parameters()), allow_unused=True)))
+        torch.cuda.synchronize()
+        stats = [v for mod in (gg, dd) for k, v in mod.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))]
+        assert all(torch.isfinite(v).all() for v in m.values())
+        return out, stats, q8conv_cuda.LAUNCHES - before
+
+    ref, ref_stats, n_ref = grads(False, False)
+    got, stats, n = grads(remat, remat_d)
+    assert n_ref == n_g + 2 * n_d
+    extra = (_recomputed_tagged_convs(g, remat) if remat else 0) + (3 * n_d if remat_d else 0)
+    assert n == n_ref + extra, (n, n_ref, extra)
+    for a, b in zip(got + stats, ref + ref_stats):
+        if b is None:
+            assert a is None
+            continue
+        assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max()) + 1e-12
 
 
 def test_conv_q8_refuses_a_host_scale(cuda_device):
@@ -657,5 +721,6 @@ def test_k1_at_the_training_batch(cuda_device, tmp_path):
     before = rasterize_cuda.LAUNCHES
     res = trainer.train_feature2face(cfg, loop, small, small)
     torch.cuda.synchronize()
-    assert rasterize_cuda.LAUNCHES - before == len(res.step_ms) + -(-len(small) // 4)
+    # one a step, one a validation batch, one for the epoch panel's batch
+    assert rasterize_cuda.LAUNCHES - before == len(res.step_ms) + -(-len(small) // 4) + 1
     assert np.isfinite(res.best_val) and all(np.isfinite(res.step_ms))
