@@ -152,6 +152,26 @@ Phases, each printing one line; any failure raises and exits non-zero:
    at 512^2 cut in length (600 + 240 frames, two epochs a motion stage,
    one of the renderer's fused step, 2 s scored): e2e_metrics.json and each
    phase's wall, K1-K3 all launched (the float renderer: no K4).
+13. the demo's flags and data parallelism.  13a: the demo CLI as one
+   subprocess on the card (demo.main five times, 3 s of tone, 512^2,
+   'normal', render batch 16): --quantize --artifact --bucket_seconds 2
+   --save_intermediates 1 from scratch (writes the artifact) and again
+   (reads it: the same landmarks and jpgs), unbucketed from the artifact
+   (landmarks within the bucket tolerance), --quantize --no_calibrate
+   serving phase 10's four checkpoints from a save_input YAML (the
+   feature-map video), and the checkpoints with the existing artifact
+   (exits non-zero); the frame counts of the video, the jpgs and
+   landmarks.npy, each run's wall and fps and launches (K1 11, K2 3, K3 3,
+   K4 484 from the artifact).  13b: Predictor(data_parallel=True) against
+   False on a 3.0 s int8 request, bitwise; render_frames over [cuda:0,
+   cuda:0] against one device, within one level, K1 once a share,
+   render_device ms beside one device's.  13c: --data_parallel on one card
+   (a one-rank NCCL group): the fused GAN step at 512^2, B = 8, its losses
+   and gradients against no group, the step ms of each.  13d: two ranks on
+   the card (gloo on CUDA tensors), --zero1, the global batch of 8: the
+   ranks' parameters equal, ZeRO-1 bitwise against replicated Adam, each
+   rank's optimizer bytes about half, K1 once a rank, the reduced gradients
+   and losses against one process on the global batch.
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -164,7 +184,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
    shapes of 11a, its train_launches those of 11c's QAT run and its
    gan_step_by_mode each mode's step; phase 12's e2e_launches for each
    kernel, K1's and K4's fused_step_launches by mode, K4's
-   fused_qat_remat_launches and K3's a2h_lstm_variant), then
+   fused_qat_remat_launches and K3's a2h_lstm_variant; phase 13's
+   demo_launches for each kernel, K1's and K4's render_split_launches and
+   K1's dp_rank_step_launches), then
    {"ok": true, "device": {...}} as the last line.
 """
 
@@ -2460,6 +2482,418 @@ def check_fused(dev, tmp: str, sampler) -> dict:
             "e2e": e2e}
 
 
+# ---------------------------------------------------------------------------
+# 13. the demo's flags and data parallelism
+# ---------------------------------------------------------------------------
+
+# Stated tolerances of phase 13 (see PERF.md)
+DP_ONE_RANK_TOL = 1e-5  # 13c: a one-rank NCCL group against no group, |g - g_ref| / |g_ref|
+# 13d runs in float64: in f32 the GAN's gradients of a batch of 4 and of 8
+# differ by up to 7.5e-3 of a tensor's norm through rounding alone (the
+# training BatchNorms of the inner stages divide by small variances; 32^2 on
+# the CPU), which would hide a missing reduce's error as well as show it
+DP_TWO_RANK_TOL = 1e-7  # 13d: two ranks of B = 4 against one process of B = 8, float64
+# 13d: the ranks' mean loss against the one-process loss (the generator hands
+# its output back in f32, so L1 sums in f32: 3.0e-8 measured on the CPU)
+DP_LOSS_RTOL = 1e-6
+DP_ZERO_FLOOR = 1e-3  # a zero-true-gradient tensor: share of its network's largest norm
+SPLIT_LEVELS = 1  # 13b: the render split against one device (JAX tests/test_parallel.py:118-139)
+
+# 13a's runner, one subprocess on the card: each demo.main(argv) in
+# turn, its stdout kept, then a DEMO_RUN line (exit code, wall, the demo's
+# own fps line, each kernel's launches during the run)
+DEMO_RUNNER = r"""
+import contextlib, io, json, sys, time
+import torch
+from chip_smoke import launch_counts, zero_launch_counts
+from livespeechportraits_torch import demo
+for name, argv in json.loads(sys.argv[1]):
+    zero_launch_counts()
+    buf, code, t0 = io.StringIO(), 0, time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            demo.main(argv)
+        except SystemExit as e:
+            code, msg = (0, "") if e.code in (None, 0) else (1, str(e.code))
+            print(msg)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    out = buf.getvalue()
+    print(out, flush=True)
+    fps = [l for l in out.splitlines() if "fps end-to-end" in l]
+    print("DEMO_RUN " + json.dumps({"name": name, "exit": code, "wall_s": time.perf_counter() - t0,
+                                    "fps_line": fps[0] if fps else "", "launches": launch_counts(),
+                                    "tail": out.splitlines()[-1] if out else ""}), flush=True)
+"""
+
+
+def _video_frames(path: str) -> int:
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        return int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    finally:
+        cap.release()
+
+
+def check_demo_cli(tmp: str, train_dir: str) -> dict:
+    """13a.  The demo CLI on the card, as one subprocess running demo.main
+    five times on 3 s of tone at 512^2 ('normal', render batch 16): from
+    scratch with --quantize --artifact --bucket_seconds 2 (1 s buckets pad
+    nothing on 3 s) --save_intermediates 1 (writes the artifact); the same
+    command again (reads it); unbucketed from the artifact; --quantize
+    --no_calibrate serving phase 10's four checkpoints from a save_input
+    YAML (the feature-map video); the checkpoints with the existing artifact
+    (must exit non-zero).  Returns the launches of the artifact run."""
+    art = os.path.join(tmp, "serving_int8.npz")
+    cfg_dir = os.path.join(tmp, "cfg")
+    os.makedirs(cfg_dir)
+    with open(os.path.join(cfg_dir, "Synthetic.yaml"), "w") as f:
+        f.write("model_params:\n  Image2Image:\n    save_input: true\n")
+    ckpts = [a for s, task in (("f2f", "feature2face"), ("a2f", "audio2feature"),
+                               ("a2h", "audio2headpose"), ("apc", "apc"))
+             for a in (f"--{s}_ckpt", os.path.join(train_dir, task, "ckpt"))]
+
+    def argv(name, *flags):
+        return [name, ["--duration", "3", "--render_batch", "16", "--driving_audio", "missing.wav",
+                       "--results_dir", os.path.join(tmp, name), *flags]]
+
+    bucketed = ["--quantize", "--artifact", art, "--bucket_seconds", "2", "--save_intermediates",
+                "1"]
+    runs = [argv("scratch", *bucketed), argv("artifact", *bucketed),
+            argv("exact", "--artifact", art, "--save_intermediates", "1"),
+            argv("no_calibrate_ckpts", "--quantize", "--no_calibrate", "--config_dir", cfg_dir,
+                 *ckpts),
+            argv("ckpts_with_artifact", "--artifact", art, *ckpts[:2])]
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", DEMO_RUNNER, json.dumps(runs)], cwd=here,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=here))
+    done = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("DEMO_RUN "):
+            r = json.loads(line[len("DEMO_RUN "):])
+            done[r["name"]] = r
+    if proc.returncode != 0 or len(done) != len(runs):
+        raise AssertionError(f"demo runner rc {proc.returncode}: {proc.stdout[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    n = 165
+    out = {}
+    for name, r in done.items():
+        where = os.path.join(tmp, name, "Synthetic", "missing")
+        jpgs = [f for f in os.listdir(where) if f.startswith("pred_")] if os.path.isdir(where) \
+            else []
+        video = os.path.join(where, "missing.avi")
+        counts = {"video": _video_frames(video) if os.path.exists(video) else 0,
+                  "jpgs": len(jpgs)}
+        if os.path.exists(os.path.join(where, "landmarks.npy")):
+            counts["landmarks"] = len(np.load(os.path.join(where, "landmarks.npy")))
+        fmap = os.path.join(where, "missing_feature_maps.avi")
+        if os.path.exists(fmap):
+            counts["feature_map_video"] = _video_frames(fmap)
+        out[name] = {**r, "counts": counts}
+        log(f"demo_{name}", exit=r["exit"], wall_s=f"{r['wall_s']:.3f}",
+            fps_line=repr(r["fps_line"]), launches=json.dumps(r["launches"]),
+            counts=json.dumps(counts), tail=repr(r["tail"][:160]))
+
+    def files(name):
+        return os.path.join(tmp, name, "Synthetic", "missing")
+
+    lm = {k: np.load(os.path.join(files(k), "landmarks.npy")) for k in ("scratch", "artifact",
+                                                                         "exact")}
+    same_jpgs = all(open(os.path.join(files("scratch"), f), "rb").read()
+                    == open(os.path.join(files("artifact"), f), "rb").read()
+                    for f in (f"pred_{i}.jpg" for i in range(1, n + 1)))
+    bucket_px = float(np.abs(lm["artifact"] - lm["exact"]).max())
+    log("demo_checks", artifact_written=os.path.exists(art),
+        scratch_vs_artifact_landmarks_equal=np.array_equal(lm["scratch"], lm["artifact"]),
+        scratch_vs_artifact_jpgs_equal=same_jpgs, bucketed_vs_exact_px=f"{bucket_px:.3e}",
+        bucket_tol_px=BUCKET_LANDMARK_TOL_PX)
+    bad = []
+    for name in ("scratch", "artifact", "exact"):
+        c = out[name]["counts"]
+        if out[name]["exit"] or c != {"video": n, "jpgs": n, "landmarks": n}:
+            bad.append(f"{name}: exit {out[name]['exit']}, counts {c}")
+    k = out["artifact"]["launches"]
+    if k != {"K1": 11, "K2": 3, "K3": 3, "K4": 44 * 11}:
+        bad.append(f"artifact run launched {k}, expected K1 11, K2 3, K3 3, K4 484")
+    d = out["no_calibrate_ckpts"]
+    if d["exit"] or d["launches"]["K4"] != 44 * 11 or d["counts"].get("feature_map_video") != n:
+        bad.append(f"no_calibrate / checkpoints run: {d}")
+    if not out["ckpts_with_artifact"]["exit"] or "shadow" not in out["ckpts_with_artifact"]["tail"]:
+        bad.append(f"checkpoints with an existing artifact did not exit: "
+                   f"{out['ckpts_with_artifact']}")
+    if not (np.array_equal(lm["scratch"], lm["artifact"]) and same_jpgs
+            and bucket_px <= BUCKET_LANDMARK_TOL_PX):
+        bad.append("artifact or bucketed runs differ")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"art": art, "demo_launches": out["artifact"]["launches"],
+            "walls": {k: v["wall_s"] for k, v in out.items()}}
+
+
+def check_serving_split(dev, art: str) -> dict:
+    """13b.  Predictor(data_parallel=True) against False, booted from 13a's
+    int8 artifact, one 3.0 s request each: the same frames, bit for bit (one
+    card: the split is the identity).  Then render_frames over [cuda:0,
+    cuda:0] (two shares of 8 a batch of 16) against one device, rgb: frames
+    within one level, K1 once a share and K4 44 a share, render_device ms
+    of each."""
+    from livespeechportraits_torch.pipeline import animate, video
+    from livespeechportraits_torch.serve import Predictor
+
+    tone = video.make_test_tone(3.0)
+    preds = {}
+    for dp in (True, False):
+        p = Predictor(device="cuda")
+        p.setup("Synthetic", image_size=512, artifact=art, data_parallel=dp)
+        p.predict(tone, write_video=False)  # warm
+        preds[dp] = (p, p.predict(tone, write_video=False))
+    same = np.array_equal(preds[True][1].frames, preds[False][1].frames)
+    p = preds[False][0]
+    cfg, person, models = p._cfg, p._assets, p._models
+    lm, sh, _, _, n = animate.compute_motion(cfg, person, models, tone)
+    lm, sh = lm[:n], sh[:n]
+    res = {}
+    for name, devices in (("one_device", None), ("two_shares", [dev, dev])):
+        animate.render_frames(cfg, person, models, lm, sh, render_batch=16,
+                              render_devices=devices)  # warm
+        times = []
+        for _ in range(3):
+            zero_launch_counts()
+            sm = {}
+            frames, _ = animate.render_frames(cfg, person, models, lm, sh, render_batch=16,
+                                              stage_ms=sm, render_devices=devices)
+            times.append(sm["render_device"])
+        res[name] = (frames, float(np.median(times)), launch_counts())
+    diff = int(np.abs(res["two_shares"][0].astype(int) - res["one_device"][0].astype(int)).max())
+    log("serve_data_parallel", frames=preds[True][1].frames.shape, dp_equals_single=same,
+        split_max_level_diff=diff, split_tol_levels=SPLIT_LEVELS,
+        render_device_ms_one_device=f"{res['one_device'][1]:.3f}",
+        render_device_ms_two_shares=f"{res['two_shares'][1]:.3f}",
+        launches_one_device=json.dumps(res["one_device"][2]),
+        launches_two_shares=json.dumps(res["two_shares"][2]))
+    k = res["two_shares"][2]
+    if not same or diff > SPLIT_LEVELS or k["K1"] != 22 or k["K4"] != 44 * 22:
+        raise AssertionError(f"serving split: equal {same}, level diff {diff}, launches {k}")
+    del preds
+    torch.cuda.empty_cache()
+    return {"render_split_launches": k}
+
+
+def _gan_models(dev, size: int = 512):
+    """The default GAN (ngf 64, 'normal', num_D 2) at size^2, seed 0."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.train import trainer
+
+    cfg = Feature2FaceConfig(load_size=size, n_downsample=min(8, int(math.log2(size))))
+    gen = torch.Generator().manual_seed(0)
+    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen).to(dev)
+    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+    return cfg, g, d
+
+
+def _reduced_grads(cfg, g, d, batch, compute_dtype=None):
+    """The fused step's losses' metrics and both networks' gradients, through
+    state.gradients (averaged over the ranks in a process group)."""
+    from livespeechportraits_torch.train import state, steps
+
+    loss_d, loss_g, metrics = steps.f2f_fused_losses(cfg, g, d, batch, None, compute_dtype)
+    gd = state.gradients(loss_d, list(d.parameters()), retain_graph=True)
+    gg = state.gradients(loss_g, list(g.parameters()))
+    return {k: v.item() for k, v in metrics.items()}, list(gd), list(gg)
+
+
+def _grad_err(got, want, floor_share: float) -> float:
+    """The largest |g - g_ref| / |g_ref| over a network's tensors, a tensor
+    whose true gradient is zero floored at floor_share of the largest norm."""
+    floor = floor_share * max(float(w.float().norm()) for w in want)
+    return max(float((a.float() - b.float()).norm()) / max(float(b.float().norm()), floor)
+               for a, b in zip(got, want))
+
+
+def check_dp_one_rank(dev, sampler) -> dict:
+    """13c.  --data_parallel on one card: a one-rank NCCL group.  The fused
+    GAN step at 512^2, B = 8 (bf16 G, f32 D with TF32), its losses and
+    gradients against no group; then 5 steps each way (Adam, K1 each step),
+    the median step ms (CUDA events): the gap is the price of the
+    all-reduces."""
+    from livespeechportraits_torch.parallel import multihost
+    from livespeechportraits_torch.train import state, steps, trainer
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    raw = _raw_device_batch(sampler, dev)
+    cfg, g, d = _gan_models(dev)
+
+    def run(steps_n: int):
+        batch = trainer.device_rasterize_batch(raw)
+        metrics, gd, gg = _reduced_grads(cfg, copy.deepcopy(g), copy.deepcopy(d), batch,
+                                         torch.bfloat16)
+        g2, d2 = copy.deepcopy(g), copy.deepcopy(d)
+        opt_g, opt_d = state.adam(g2.parameters(), 1e-4, 0.5, 0.999), state.adam(
+            d2.parameters(), 1e-4, 0.5, 0.999)
+        ms = []
+        zero_launch_counts()
+        for _ in range(steps_n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            steps.f2f_fused_step(cfg, g2, d2, opt_g, opt_d, trainer.device_rasterize_batch(raw),
+                                 None, torch.bfloat16)
+            end.record()
+            ms.append((start, end))
+        torch.cuda.synchronize()
+        k1 = launch_counts()["K1"]
+        return metrics, gd, gg, float(np.median([a.elapsed_time(b) for a, b in ms])), k1
+
+    ref = run(5)
+    multihost.initialize("cuda:0")
+    try:
+        backend = torch.distributed.get_backend()
+        got = run(5)
+    finally:
+        multihost.shutdown()
+    err = max(_grad_err(got[1], ref[1], DP_ZERO_FLOOR), _grad_err(got[2], ref[2], DP_ZERO_FLOOR))
+    loss_err = max(abs(got[0][k] - v) / max(abs(v), 1e-12) for k, v in ref[0].items())
+    log("dp_one_rank", backend=backend, grad_err=f"{err:.3e}", loss_rel_err=f"{loss_err:.3e}",
+        tol=DP_ONE_RANK_TOL, step_ms_no_group=f"{ref[3]:.3f}", step_ms_one_rank=f"{got[3]:.3f}",
+        reduce_ms=f"{got[3] - ref[3]:.3f}", k1_launches_5_steps=got[4])
+    if not (err <= DP_ONE_RANK_TOL and loss_err <= DP_ONE_RANK_TOL and got[4] == 5):
+        raise AssertionError(f"one-rank DP: grad err {err}, loss err {loss_err}, K1 {got[4]}")
+    del g, d
+    torch.cuda.empty_cache()
+    return {"step_ms": {"no_group": ref[3], "one_rank": got[3]}}
+
+
+def _dp_rank(rank: int, port: int, work: str, device: str, size: int) -> None:
+    """13d's rank: joins a two-rank gloo group on cuda:0 (NCCL refuses two
+    ranks on one card), draws the global batch of 8 and keeps its 4 rows (K1
+    on them), takes the fused step's reduced gradients (float64), then steps
+    ZeRO-1 Adam and replicated Adam on copies with them."""
+    import hashlib
+
+    from livespeechportraits_torch.parallel import mesh, multihost
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import state, trainer
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    dev = multihost.initialize(device, backend="gloo")
+    cfg, g, d = _gan_models(dev, size)
+    g, d = mesh.replicate(g.double()), mesh.replicate(d.double())
+    local = next(multihost.global_batch_iter(cli.synthetic_face_data(8, size), 8,
+                                             np.random.default_rng(3)))
+    zero_launch_counts()
+    batch = _double(trainer._Mover(dev)(local))
+    k1 = launch_counts()["K1"]
+    metrics, gd, gg = _reduced_grads(cfg, g, d, batch)
+    out = {"metrics": metrics, "k1": k1, "rows": int(batch["tgt_image"].shape[0])}
+    if rank == 0:
+        out["grads"] = [t.cpu() for t in gd + gg]
+    same, digest = True, hashlib.sha256()
+    for name, net, grads in (("G", g, gg), ("D", d, gd)):
+        twin = copy.deepcopy(net)
+        zero = mesh.Zero1(state.adam(net.parameters(), 1e-4, 0.5, 0.999))
+        plain = state.adam(twin.parameters(), 1e-4, 0.5, 0.999)
+        for p, q, grad in zip(net.parameters(), twin.parameters(), grads):
+            p.grad, q.grad = grad, grad.clone()
+        sync(dev)
+        t0 = time.perf_counter()
+        zero.step()
+        sync(dev)
+        out[f"zero1_step_ms_{name}"] = (time.perf_counter() - t0) * 1e3
+        plain.step()
+        same &= all(torch.equal(p, q) for p, q in zip(net.parameters(), twin.parameters()))
+        out[f"state_bytes_{name}"] = zero.state_bytes()
+        out[f"replicated_state_bytes_{name}"] = sum(
+            t.numel() * t.element_size() for s in plain.state.values() for t in s.values()
+            if torch.is_tensor(t))
+        for p in net.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+    out["zero1_equals_replicated"] = same
+    out["params_sha256"] = digest.hexdigest()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    multihost.shutdown()
+
+
+def _double(batch: dict) -> dict:
+    return {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_dp_two_ranks(dev, tmp: str, size: int = 512) -> dict:
+    """13d.  Two ranks on the one card (gloo on CUDA tensors), --zero1, the
+    fused GAN step at 512^2, global B = 8 (4 a rank), in float64:
+    both ranks' parameters equal after the step (hashes), ZeRO-1 bitwise
+    against replicated Adam on the same gradients, each rank's optimizer
+    bytes about half, K1 once a rank, and the reduced gradients and the
+    ranks' mean losses against one process on the global batch."""
+    import torch.multiprocessing as mp
+
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import trainer
+
+    work = os.path.join(tmp, "dp2")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    mp.start_processes(_dp_rank, args=(free_port(), work, str(dev), size), nprocs=2, start_method="spawn", join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    cfg, g, d = _gan_models(dev, size)
+    full = next(cli.synthetic_face_data(8, size).batches(8, np.random.default_rng(3)))
+    metrics, gd, gg = _reduced_grads(cfg, g.double(), d.double(),
+                                     _double(trainer._Mover(dev)(full)))
+    got = [t.to(dev) for t in ranks[0]["grads"]]
+    n_d = len(gd)
+    err = max(_grad_err(got[:n_d], gd, DP_ZERO_FLOOR), _grad_err(got[n_d:], gg, DP_ZERO_FLOOR))
+    loss_err = max(abs((ranks[0]["metrics"][k] + ranks[1]["metrics"][k]) / 2 - v)
+                   / max(abs(v), 1e-12) for k, v in metrics.items())
+    share = {k: ranks[r][f"state_bytes_{k}"] / ranks[r][f"replicated_state_bytes_{k}"]
+             for r in range(2) for k in ("G", "D")}
+    log("dp_two_ranks", backend="gloo (CUDA tensors)", wall_s=f"{wall:.3f}",
+        rows_a_rank=[r["rows"] for r in ranks], k1_a_rank=[r["k1"] for r in ranks],
+        params_equal_across_ranks=ranks[0]["params_sha256"] == ranks[1]["params_sha256"],
+        zero1_equals_replicated=[r["zero1_equals_replicated"] for r in ranks],
+        state_bytes=json.dumps({k: [r[f"state_bytes_{k}"] for r in ranks] for k in ("G", "D")}),
+        replicated_state_bytes=json.dumps({k: ranks[0][f"replicated_state_bytes_{k}"]
+                                           for k in ("G", "D")}),
+        zero1_step_ms=json.dumps({k: [round(r[f"zero1_step_ms_{k}"], 3) for r in ranks]
+                                  for k in ("G", "D")}),
+        grad_err=f"{err:.3e}", grad_tol=DP_TWO_RANK_TOL, loss_rel_err=f"{loss_err:.3e}",
+        loss_tol=DP_LOSS_RTOL)
+    if not (ranks[0]["params_sha256"] == ranks[1]["params_sha256"]
+            and all(r["zero1_equals_replicated"] for r in ranks)
+            and all(0.4 < v < 0.6 for v in share.values())
+            and [r["k1"] for r in ranks] == [1, 1] and [r["rows"] for r in ranks] == [4, 4]
+            and err <= DP_TWO_RANK_TOL and loss_err <= DP_LOSS_RTOL):
+        raise AssertionError(f"two-rank DP: shares {share}, grad err {err}, loss err {loss_err}")
+    return {"k1_a_rank_a_step": ranks[0]["k1"], "state_share": share}
+
+
+def free_port() -> int:
+    """A localhost port free now (released for the process group to bind)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_demo_and_parallel(dev, tmp: str, train_dir: str, sampler) -> dict:
+    """Phase 13: the demo's flags and data parallelism."""
+    demo = check_demo_cli(tmp, train_dir)
+    serve = check_serving_split(dev, demo["art"])
+    one = check_dp_one_rank(dev, sampler)
+    two = check_dp_two_ranks(dev, tmp)
+    return {"demo": demo, "serve": serve, "one_rank": one, "two_ranks": two}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2665,9 +3099,9 @@ def main() -> int:
     kernels[0]["onboard_entry"] = plane
 
     # 10. training: the four trainers at full width, then a Predictor
-    # serving their checkpoints
-    with tempfile.TemporaryDirectory() as tmp:
-        train_counts, train_entry, face_sampler = check_training(dev, tmp)
+    # serving their checkpoints (kept for phase 13's demo)
+    train_tmp = tempfile.TemporaryDirectory()
+    train_counts, train_entry, face_sampler = check_training(dev, train_tmp.name)
     kernels[0]["train_launches"] = train_counts["K1"]
     kernels[0]["train_entry"] = train_entry
 
@@ -2691,6 +3125,17 @@ def main() -> int:
     kernels[2]["a2h_lstm_variant"] = fused["a2h_lstm_k3"]
     kernels[3]["fused_step_launches"] = {m: v["k4_a_step"] for m, v in fused["modes"].items()}
     kernels[3]["fused_qat_remat_launches"] = fused["remat_k4"]
+
+    # 13. the demo's flags (a subprocess on the card, phase 10's checkpoints
+    # served) and data parallelism: the render split, one rank, two ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        p13 = check_demo_and_parallel(dev, tmp, train_tmp.name, face_sampler)
+    train_tmp.cleanup()
+    for entry, k in zip(kernels, ("K1", "K2", "K3", "K4")):
+        entry["demo_launches"] = p13["demo"]["demo_launches"][k]
+    kernels[0]["render_split_launches"] = p13["serve"]["render_split_launches"]["K1"]
+    kernels[3]["render_split_launches"] = p13["serve"]["render_split_launches"]["K4"]
+    kernels[0]["dp_rank_step_launches"] = p13["two_ranks"]["k1_a_rank_a_step"]
 
     # 9. results
     print(smi)

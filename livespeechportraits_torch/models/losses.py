@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from livespeechportraits_torch.parallel import mesh, multihost
+
 Tensor = torch.Tensor
 
 
@@ -184,7 +186,9 @@ def vgg_style_loss(vgg: VGG19, x: Tensor, y: Tensor,
     keeping them.  The chunks' per-slice L1 means and Gram matrices are
     summed and divided by the number of chunks, as JAX's scan does, which
     equals the unchunked loss (equal chunks).  m must divide the batch;
-    m >= B is the unchunked path."""
+    m >= B is the unchunked path.  In a process group the Gram matrices are
+    averaged over the ranks before the difference (mesh.all_reduce_sum), so
+    the style term is the global batch's, as are its gradients."""
     if microbatch is None or x.shape[0] <= microbatch:
         p_loss, gx, gy = _vgg_chunk_stats(vgg, x, y.detach(), weights, style)
         n = 1
@@ -201,6 +205,10 @@ def vgg_style_loss(vgg: VGG19, x: Tensor, y: Tensor,
             gx = cx if gx is None else [a + c for a, c in zip(gx, cx)]
             gy = cy if gy is None else [a + c for a, c in zip(gy, cy)]
         p_loss = p_loss / n
+    world = multihost.world_size()
+    if world > 1:  # the Gram matrices are batch means: the global batch's
+        gx = [mesh.all_reduce_sum(g) / world for g in gx]
+        gy = [mesh.all_reduce_sum(g) / world for g in gy]
     s_loss = 0.0
     for i in range(len(gx)):
         g = gx[i] / n - gy[i] / n if n > 1 else gx[i] - gy[i]

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from livespeechportraits_torch.ops import q8conv_cuda
+from livespeechportraits_torch.parallel import mesh, multihost
 
 Tensor = torch.Tensor
 
@@ -380,11 +381,17 @@ def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
     forward of a step, whose statistics JAX discards, and a rematerialised
     forward's recompute): the update lands on copies, so the operator and
     the tensors it saves for the backward are those of update_stats=True,
-    as torch.utils.checkpoint's recompute requires."""
+    as torch.utils.checkpoint's recompute requires.
+
+    In a process group of more than one rank the training statistics are
+    the global batch's (_global_batchnorm), as JAX's data-parallel step is
+    the one-device program on the global batch; one rank runs F.batch_norm."""
     if training:
         mean, var = bn.running_mean, bn.running_var
         if not update_stats:
             mean, var = mean.clone(), var.clone()
+        if multihost.world_size() > 1:
+            return _global_batchnorm(x, bn, mean, var, eps)
         return F.batch_norm(x, mean, var, bn.weight, bn.bias, training=True, momentum=0.1,
                             eps=eps)
     shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -393,6 +400,29 @@ def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
     scale = bn.weight.to(x.dtype).view(shape)
     bias = bn.bias.to(x.dtype).view(shape)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _global_batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, running_mean: Tensor,
+                      running_var: Tensor, eps: float, momentum: float = 0.1) -> Tensor:
+    """Training BatchNorm on the statistics of every rank's rows, in f32 (or
+    x's dtype, if wider) and in F.batch_norm's two-pass order: the global mean (an all-reduce of the
+    sums), then the biased variance about it (an all-reduce of the squared
+    deviations).  Both all-reduces are differentiable (mesh.all_reduce_sum),
+    so each rank's gradient carries the other ranks' terms.  The running
+    variance is unbiased over the global count (the ranks' slices are
+    equal: multihost.local_batch_slice)."""
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    n = xf.numel() // xf.shape[1] * multihost.world_size()
+    mean = mesh.all_reduce_sum(xf.sum(dims)) / n
+    d = xf - mean.view(shape)
+    var = mesh.all_reduce_sum((d * d).sum(dims)) / n
+    y = d * torch.rsqrt(var + eps).view(shape) * bn.weight.view(shape) + bn.bias.view(shape)
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1 - momentum).add_(var * (n / (n - 1)), alpha=momentum)
+    return y.to(x.dtype)
 
 
 def leaky_relu(x: Tensor, slope: float = 0.2) -> Tensor:

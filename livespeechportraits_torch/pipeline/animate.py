@@ -5,7 +5,9 @@ Counterpart of ``livespeechportraits_tpu/pipeline/animate.py``: the staged
 ``_jit_post`` as a plain function, ``render_frames`` with every transfer
 (``rgb``, ``yuv420`` and the ``jpeg``, ``jpeg4`` and ``pack4e`` codes of
 ``pipeline/compress.py``, pack4e with its prefix fetch),
-``build_render_inputs`` and ``animate``.  Stages:
+``build_render_inputs`` and ``animate``, and JAX's ``mesh=`` as
+``render_devices``: each render batch split over a list of devices, each
+holding a replica of the renderer.  Stages:
 
     1. mel + APC features  (ops/mel.py, models/apc.py: GRU kernel K2)
     2. LLE manifold projection (ops/manifold.py)
@@ -24,7 +26,10 @@ path (``pipeline/streaming.py``) renders through the same ``FrameLink``.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -331,12 +336,44 @@ def compute_dtype(cfg: PersonConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.feature2face.precision == "bfloat16" else torch.float32
 
 
+# The renderer's replicas on other devices, kept while the renderer lives:
+# {renderer: {device: replica}}.
+_REPLICAS: "weakref.WeakKeyDictionary[torch.nn.Module, Dict[torch.device, torch.nn.Module]]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _replica(net: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
+    """The renderer on ``dev``: itself on its own device, else a copy made
+    once (int8 QConv2d weights and static scales included)."""
+    if next(iter(net.state_dict().values())).device == dev:
+        return net
+    per = _REPLICAS.setdefault(net, {})
+    if dev not in per:
+        per[dev] = copy.deepcopy(net).to(dev)
+    return per[dev]
+
+
+def _resolved(device: torch.device | str) -> torch.device:
+    """The device with its index ("cuda" is the current card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _on(dev: torch.device):
+    """The device's context: a kernel launched by hand (K1, K4) goes to the
+    current device's stream."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 @torch.no_grad()
 def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                   landmarks2d: Tensor, shoulders2d: Tensor, render_batch: int = 8,
                   keep_feature_maps: bool = False,
                   stage_ms: Optional[Dict[str, float]] = None, transfer: str = "rgb",
-                  link: Optional[Dict[str, int]] = None):
+                  link: Optional[Dict[str, int]] = None,
+                  render_devices: Optional[List[torch.device | str]] = None):
     """Stage 6: rasterise + U-Net, ``render_batch`` frames at a time.
     Returns (frames [N, H, W, 3] uint8, edge maps [N, H, W] uint8 or None).
 
@@ -350,10 +387,23 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     overlapped host work, ``render`` the last batch's decode.  A batch's
     U-Net input is one K1 launch (rasterize_cuda.render_input) and no host
     round trip, so the host queues a batch while the device still renders
-    the one before.  ``link`` receives FrameLink.stats()."""
+    the one before.  ``link`` receives FrameLink.stats() (summed over the
+    devices).
+
+    render_devices (JAX's ``mesh=``): each batch of render_batch frames is
+    split evenly over these devices, each rendering its rows on its replica
+    of the renderer (its own K1 launch, U-Net and transfer encoding), and
+    the frames are gathered back in order.  render_batch must divide over
+    them.  A device listed twice renders two shares on one replica; one
+    device (the default: the landmarks') is the plain path."""
     _check_transfer(transfer)
     sm = stage_ms if stage_ms is not None else {}
     dev = landmarks2d.device
+    devices = [_resolved(d) for d in render_devices or [dev]]
+    if render_batch % len(devices) != 0:
+        raise ValueError(f"render_batch {render_batch} must divide over the data axis "
+                         f"({len(devices)} devices)")
+    per = render_batch // len(devices)
     t0 = time.perf_counter()
     nframe = landmarks2d.shape[0]
     H = W = cfg.feature2face.load_size
@@ -361,7 +411,10 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     # a no-op for a generator already cast (serve.Predictor casts once)
     net = f2f_model.cast_generator(models.feature2face, compute_dtype(cfg))
     cand_stack = _cand_stack(assets, H, dev, compute_dtype(cfg))
-    frame_link = FrameLink(transfer, H, W, render_batch)
+    shares = []  # (device, renderer, candidate stack, FrameLink) of each share of a batch
+    for d in devices:
+        with _on(d):
+            shares.append((d, _replica(net, d), cand_stack.to(d), FrameLink(transfer, H, W, per)))
 
     pad_to = -(-nframe // render_batch) * render_batch
     lm = torch.cat([landmarks2d, landmarks2d[-1:].expand(pad_to - nframe, 73, 2)])
@@ -373,24 +426,33 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
 
     def finish(batch) -> None:
         start, sent = batch
-        frames[start:start + render_batch] = frame_link.receive(sent)
+        for k, ((_, _, _, frame_link), s) in enumerate(zip(shares, sent)):
+            frames[start + k * per:start + (k + 1) * per] = frame_link.receive(s)
 
     for start in range(0, pad_to, render_batch):
-        inp = rasterize_cuda.render_input(lm[start:start + render_batch],
-                                          sh[start:start + render_batch], cand_stack, (H, W))
-        sent = frame_link.send(f2f_model.apply_generator(net, inp))
+        sent = []
+        for k, (d, replica, cand, frame_link) in enumerate(shares):
+            rows = slice(start + k * per, start + (k + 1) * per)
+            lm_k, sh_k = lm[rows], sh[rows]
+            if d != dev:
+                lm_k, sh_k = lm_k.to(d, non_blocking=True), sh_k.to(d, non_blocking=True)
+            with _on(d):
+                inp = rasterize_cuda.render_input(lm_k, sh_k, cand, (H, W))
+                sent.append(frame_link.send(f2f_model.apply_generator(replica, inp)))
+            if keep_feature_maps:
+                maps.append(inp[..., 0].float().to(dev))
         if pending is not None:
             finish(pending)
         pending = (start, sent)
-        if keep_feature_maps:
-            maps.append(inp[..., 0].float())
-    _sync(dev)
+    for d in dict.fromkeys(devices):
+        _sync(d)
     sm["render_device"] = (time.perf_counter() - t0) * 1e3
     finish(pending)
     frames_u8 = frames[:nframe].numpy()
     sm["render"] = (time.perf_counter() - t0) * 1e3 - sm["render_device"]
     if link is not None:
-        link.update(frame_link.stats())
+        stats = [s[3].stats() for s in shares]
+        link.update({k: sum(st[k] for st in stats) for k in stats[0]})
     fmap_u8 = None
     if keep_feature_maps:
         fmap_u8 = (torch.cat(maps)[:nframe] * 255).to(torch.uint8).cpu().numpy()
@@ -437,9 +499,12 @@ def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio
             seed: int = 0, render_batch: int = 8, keep_feature_maps: bool = False,
             profile: bool = False,
             headpose_noise: Optional[Tuple[Tensor, Tensor]] = None,
-            transfer: str = "rgb", valid_frames: Optional[int] = None) -> AnimateResult:
+            transfer: str = "rgb", valid_frames: Optional[int] = None,
+            render_devices: Optional[List[torch.device | str]] = None) -> AnimateResult:
     """audio [-1, 1] float32 at 16 kHz -> frames at 60 FPS, on the models'
     device.  transfer: one of TRANSFERS (see render_frames).
+    render_devices: split each render batch over these devices (see
+    render_frames); the motion half stays on the models' device.
     valid_frames: the unpadded audio's frame count when ``audio`` is
     bucket-padded (see compute_motion); the result then equals the unpadded
     run's, trimmed to valid_frames - frame_future frames."""
@@ -452,7 +517,8 @@ def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio
     frames, fmaps = render_frames(cfg, assets, models, landmarks2d[:nframe],
                                   shoulders2d[:nframe], render_batch=render_batch,
                                   keep_feature_maps=keep_feature_maps, stage_ms=stage_ms,
-                                  transfer=transfer, link=link)
+                                  transfer=transfer, link=link,
+                                  render_devices=render_devices)
     return AnimateResult(
         frames=frames,
         feature_maps=fmaps,

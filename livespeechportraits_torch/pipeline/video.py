@@ -3,8 +3,10 @@
 The port's copy of what it uses from the JAX package's
 ``pipeline/video.py``: ``load_wav`` (scipy, resampled to 16 kHz mono),
 ``save_wav``, ``write_video`` (a cv2 DIVX .avi at 60 FPS, muxed with the
-audio by ffmpeg when it is on PATH, else the .wav is left beside it) and
-``make_test_tone``.  cv2 is optional: ``write_video`` raises without it.
+audio by ffmpeg when it is on PATH, else the .wav is left beside it),
+``save_frames`` (numbered jpgs) and ``make_test_tone``.  cv2 is optional:
+``write_video`` raises without it, and ``save_frames`` writes the frames as
+one .npy, as the demo does for the video.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import os
 import shutil
 import subprocess
 from math import gcd
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 from scipy.io import wavfile
@@ -93,3 +95,23 @@ def make_test_tone(seconds: float = 3.0, sr: int = SAMPLE_RATE) -> np.ndarray:
     t = np.arange(int(seconds * sr)) / sr
     return (0.3 * np.sin(2 * np.pi * 220 * t)
             * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))).astype(np.float32)
+
+
+def save_frames(frames: np.ndarray, save_root: str, prefix: str = "pred_") -> List[str]:
+    """Numbered jpgs ``<prefix><i>.jpg``, i from 1 (the reference's
+    Visualizer.save_images); a [T, H, W] frame is written as grey RGB.
+    Without cv2 the frames go to one ``<prefix>frames.npy``.  Returns the
+    paths written."""
+    os.makedirs(save_root, exist_ok=True)
+    if cv2 is None:
+        path = os.path.join(save_root, f"{prefix}frames.npy")
+        np.save(path, frames)
+        return [path]
+    paths = []
+    for i, frame in enumerate(frames):
+        img = frame if frame.ndim == 3 else np.repeat(frame[..., None], 3, axis=-1)
+        path = os.path.join(save_root, f"{prefix}{i + 1}.jpg")
+        if not cv2.imwrite(path, cv2.cvtColor(img, cv2.COLOR_RGB2BGR)):
+            raise OSError(f"cv2 could not write {path}")
+        paths.append(path)
+    return paths

@@ -10,6 +10,9 @@ scales, and casts the renderer to its compute dtype once; ``predict()`` caps
 the audio, pads it to a length bucket, runs ``animate()`` with any transfer
 (yuv420 by default) and muxes a video; ``stream()`` pushes the audio through
 a ``StreamingAnimator`` and yields the frames as they are determined.
+``setup(data_parallel=True)`` splits each predict() render batch over every
+visible device (``animate(render_devices=)``, JAX's one-axis mesh); with
+one card the split is the identity and the frames are the same bytes.
 
 Bucketing does not change a result: every stage before post-processing is
 prefix-causal over the zero-padded audio, the head-pose noise of frame i
@@ -33,6 +36,7 @@ import torch
 
 from livespeechportraits_torch.config import PersonConfig, load_person_config
 from livespeechportraits_torch.models import feature2face as f2f
+from livespeechportraits_torch.parallel import mesh
 from livespeechportraits_torch.pipeline import animate as animate_mod
 from livespeechportraits_torch.pipeline import assets as assets_mod
 from livespeechportraits_torch.pipeline import video as video_mod
@@ -50,7 +54,8 @@ class PredictResult:
 
 
 class Predictor:
-    """Load once, predict many, on one device."""
+    """Load once, predict many, on one device (the render half on every
+    visible one with data_parallel)."""
 
     def __init__(self, max_audio_seconds: float = 10.0, results_dir: Optional[str] = None,
                  bucket_seconds: float = 1.0, device: str | torch.device = "cuda"):
@@ -67,6 +72,7 @@ class Predictor:
         self._cfg: Optional[PersonConfig] = None
         self._assets: Optional[assets_mod.PersonAssets] = None
         self._models: Optional[assets_mod.PersonModels] = None
+        self._render_devices: Optional[list] = None
 
     def setup(self, person_id: str = "Synthetic", config_dir: str = "./config",
               image_size: int = 512, quantize: bool = False, calibrate: bool = True,
@@ -87,9 +93,11 @@ class Predictor:
         checkpoint directories (``<checkpoints_dir>/<name>/ckpt``; its
         ``ckpt_best`` is preferred), each replacing its stage
         (assets.load_trained_person_models); the config must describe the
-        architecture they were trained at."""
-        if data_parallel:
-            raise NotImplementedError("data_parallel is not ported (ROADMAP item 16)")
+        architecture they were trained at.
+        data_parallel=True shards each predict() render batch over every
+        visible device of the predictor's type (frames are independent: no
+        communication but the gather); stream() stays on one device, being
+        latency-bound rather than throughput-bound."""
         ckpts = f2f_ckpt or a2f_ckpt or a2h_ckpt or apc_ckpt
         boot_artifact = bool(artifact) and os.path.exists(artifact)
         if boot_artifact and ckpts:
@@ -128,6 +136,7 @@ class Predictor:
         models.feature2face = f2f.cast_generator(models.feature2face,
                                                  animate_mod.compute_dtype(cfg))
         self._cfg, self._assets, self._models, self._person = cfg, person, models, person_id
+        self._render_devices = mesh.make_mesh(self.device) if data_parallel else None
 
     def predict(self, driving_audio: str | np.ndarray, seed: int = 0, render_batch: int = 16,
                 transfer: str = "yuv420", write_video: bool = True) -> PredictResult:
@@ -162,7 +171,8 @@ class Predictor:
         t0 = time.perf_counter()
         result = animate_mod.animate(self._cfg, self._assets, self._models, audio, seed=seed,
                                      render_batch=render_batch, transfer=transfer,
-                                     valid_frames=valid_frames)
+                                     valid_frames=valid_frames,
+                                     render_devices=self._render_devices)
         wall = time.perf_counter() - t0
         frames = result.frames[:true_frames]
         out_path = ""

@@ -161,12 +161,15 @@ def make_handler(predictor: Predictor):
 
 def serve_forever(person_id: str = "Synthetic", port: int = 8080, image_size: int = 512,
                   config_dir: str = "./config", max_audio_seconds: float = 10.0,
-                  quantize: bool = False, artifact: str = "", **ckpts: str) -> None:
+                  quantize: bool = False, artifact: str = "", data_parallel: bool = False,
+                  **ckpts: str) -> None:
     """ckpts: f2f_ckpt, a2f_ckpt, a2h_ckpt, apc_ckpt, the port trainer's
-    checkpoint directories (Predictor.setup)."""
+    checkpoint directories; data_parallel: each request's render batch over
+    every visible card (Predictor.setup)."""
     predictor = Predictor(max_audio_seconds=max_audio_seconds)
     predictor.setup(person_id, config_dir=config_dir, image_size=image_size,
-                    quantize=quantize, artifact=artifact or None, **ckpts)
+                    quantize=quantize, artifact=artifact or None,
+                    data_parallel=data_parallel, **ckpts)
     server = ThreadingHTTPServer(("0.0.0.0", port), make_handler(predictor))
     print(f"serving '{person_id}' on :{port} on {predictor.device} "
           "(POST /animate, POST /stream, GET /healthz)")
@@ -193,9 +196,13 @@ def main(argv=None) -> None:
         p.add_argument(f"--{stage}_ckpt", default="",
                        help=f"serve the {stage} stage from a trainer run's ckpt directory "
                             "(python -m livespeechportraits_torch.train)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split each request's render batch over every visible card (frames "
+                        "are independent: no communication but the gather)")
     args = p.parse_args(argv)
     serve_forever(args.id, args.port, args.image_size, args.config_dir, args.max_audio_seconds,
-                  quantize=args.quantize, artifact=args.artifact, f2f_ckpt=args.f2f_ckpt,
+                  quantize=args.quantize, artifact=args.artifact,
+                  data_parallel=args.data_parallel, f2f_ckpt=args.f2f_ckpt,
                   a2f_ckpt=args.a2f_ckpt, a2h_ckpt=args.a2h_ckpt, apc_ckpt=args.apc_ckpt)
 
 

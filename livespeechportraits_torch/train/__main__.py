@@ -11,6 +11,8 @@ root ``train.py``:
     python -m livespeechportraits_torch.train --task apc --dataroot R --clip_names c0,c1
     python -m livespeechportraits_torch.train --task audio2feature --dataroot R \
         --clip_names c0 --apc_ckpt checkpoints/apc/ckpt
+    torchrun --nproc_per_node=N -m livespeechportraits_torch.train --task feature2face \
+        --synthetic --data_parallel [--zero1]
 
 It trains on the card at the default full width; ``--device cpu`` trains on
 the CPU (a small --image_size / window keeps that short).  ``--synthetic``
@@ -26,9 +28,10 @@ with one step from shared forwards, ``--remat`` and ``--vgg_microbatch``
 with less activation memory (trainer.TrainLoopConfig).  Each run writes
 ``<checkpoints_dir>/<name>/ckpt/<epoch>.pt`` (and ``ckpt_best``), which
 ``serve.Predictor.setup(f2f_ckpt=..., a2f_ckpt=..., a2h_ckpt=...,
-apc_ckpt=...)`` serves.  The JAX flags of the parts not ported yet
-(``--data_parallel``, ``--zero1``) raise NotImplementedError naming their
-ROADMAP item.
+apc_ckpt=...)`` serves.  ``--data_parallel`` makes the run one rank of a
+process group (torchrun's, else a group of one rank on one card, JAX's
+one-device mesh), ``--batch_size`` the global batch, and ``--zero1``
+partitions the Adam moments over the ranks (trainer.TrainLoopConfig).
 """
 
 from __future__ import annotations
@@ -113,13 +116,6 @@ def synthetic_mels(n_utts: int, frames: int, mel_dim: int = 80):
     return utts
 
 
-# The JAX flags whose parts are not ported, and the ROADMAP item each waits for.
-_NOT_PORTED = {
-    "data_parallel": "data parallel training (ROADMAP item 16)",
-    "zero1": "ZeRO-1 (ROADMAP item 16)",
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m livespeechportraits_torch.train",
                                 description="Train one model of the PyTorch port")
@@ -143,8 +139,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--continue_train", action="store_true")
-    p.add_argument("--data_parallel", action="store_true")
-    p.add_argument("--zero1", action="store_true")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="train as one rank of a process group (launch with torchrun; plain "
+                        "python is a group of one rank); --batch_size is the global batch")
+    p.add_argument("--zero1", action="store_true",
+                   help="partition the optimizers' state over the ranks (ZeRO-1; needs "
+                        "--data_parallel)")
     p.add_argument("--smooth_loss", type=float, default=0.0)
     p.add_argument("--loss", default="L2", choices=["L2", "GMM"],
                    help="audio2feature loss: MSE or the GMM NLL")
@@ -243,12 +243,19 @@ def _load_real_face_data(args):
 
 
 def main(argv=None):
-    """Train one task as the arguments say; returns its trainer.TrainResult."""
+    """Train one task as the arguments say; returns its trainer.TrainResult.
+    A --data_parallel run ends the process group it joined."""
     args = build_parser().parse_args(argv)
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is not ported")
+    from livespeechportraits_torch.parallel import multihost
 
+    try:
+        return _train(args)
+    finally:
+        if args.data_parallel:
+            multihost.shutdown()
+
+
+def _train(args):
     from livespeechportraits_torch.config import (APCConfig, Audio2FeatureConfig,
                                                   Audio2HeadposeConfig, Feature2FaceConfig)
     from livespeechportraits_torch.train import datasets, trainer
@@ -260,8 +267,10 @@ def main(argv=None):
         continue_train=args.continue_train, smooth_loss=args.smooth_loss, ttur=args.TTUR,
         save_best=not args.no_save_best, device=args.device, qat=args.qat,
         qat_int8=args.qat_int8, qat_d=args.qat_d, fused_step=args.fused_step,
-        remat=args.remat, vgg_microbatch=args.vgg_microbatch)
-    trainer._device(loop)  # no card for a card's run: raise before reading any data
+        remat=args.remat, vgg_microbatch=args.vgg_microbatch, data_parallel=args.data_parallel,
+        zero1=args.zero1)
+    # no card for a card's run, or a group that cannot start: raise before reading any data
+    loop.device = args.device = str(trainer._device(loop))
     if args.task == "apc":
         mels = synthetic_mels(4, 2400) if args.synthetic else _load_mels(args)
         # one clip trains on itself, without validation; more hold out an eighth

@@ -5,7 +5,10 @@ Counterpart of ``livespeechportraits_tpu/train/state.py``.  JAX keeps
 BatchNorm running stats back into the params after each update
 (``merge_bn_stats``); here the parameters live in ``nn.Module``s, the
 running stats in their buffers (updated in place by the training forward),
-and the Adam moments in a ``torch.optim.Adam``.
+and the Adam moments in a ``torch.optim.Adam`` (or its ZeRO-1 partition,
+``parallel.mesh.Zero1``).  In a process group every gradient is the ranks'
+mean (``parallel.mesh.allreduce_gradients``): the gradient of the global
+batch, as JAX's data-parallel step computes it.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Iterable, Sequence
 
 import torch
+
+from livespeechportraits_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -31,7 +36,8 @@ def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = float(lr)
 
 
-def apply_gradients(opt: torch.optim.Optimizer, params: Sequence[Tensor], loss: Tensor) -> None:
+def apply_gradients(opt: "torch.optim.Optimizer | mesh.Zero1", params: Sequence[Tensor],
+                    loss: Tensor) -> None:
     """One optimizer step on d loss / d params (torch.autograd.grad: no other
     tensor in the graph, the other network of a GAN step included, gets a
     gradient).  A parameter the loss does not reach (the WaveNet's last
@@ -43,7 +49,9 @@ def apply_gradients(opt: torch.optim.Optimizer, params: Sequence[Tensor], loss: 
 
 def gradients(loss: Tensor, params: Sequence[Tensor],
               retain_graph: bool = False) -> Sequence[Tensor]:
-    """d loss / d params, zeros where the loss does not reach a parameter;
-    retain_graph keeps the graph for another gradient of the same forward."""
+    """d loss / d params, zeros where the loss does not reach a parameter,
+    averaged over the ranks in a process group; retain_graph keeps the graph
+    for another gradient of the same forward."""
     grads = torch.autograd.grad(loss, params, allow_unused=True, retain_graph=retain_graph)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return mesh.allreduce_gradients([torch.zeros_like(p) if g is None else g
+                                     for p, g in zip(params, grads)])

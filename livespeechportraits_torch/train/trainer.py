@@ -1,8 +1,7 @@
 """The four trainers: APC pretraining, Audio2Feature, Audio2Headpose and the
 Feature2Face GAN.
 
-Counterpart of ``livespeechportraits_tpu/train/trainer.py`` (less the data
-parallel mesh and ZeRO-1): epochs over a host sampler
+Counterpart of ``livespeechportraits_tpu/train/trainer.py``: epochs over a host sampler
 whose batches a background thread moves to the device, one optimizer step a
 batch, the schedule's learning rate set each epoch, a scalar log, validation
 on its own generator (seed + 7919, so it neither sees nor advances the
@@ -20,6 +19,23 @@ computes in cfg.precision (bf16 under torch.autocast), and with
 ``device_rasterize`` each batch's edge maps come from one launch of the
 rasteriser kernel K1 (``rasterize_cuda.rasterize_segments``) on the segment
 table built on the device from the batch's landmarks and shoulders.
+
+Data parallelism (``data_parallel``; JAX's one-device mesh on one card):
+the run is one rank of a ``torch.distributed`` group (``parallel/multihost``:
+torchrun's environment, else a group of one rank), ``batch_size`` is the
+global batch and each rank feeds its device its own rows of it
+(``multihost.global_batch_iter``; a batch that does not divide over the
+ranks raises), so K1 draws only those rows.  The models start from rank
+0's weights, every gradient is the ranks' mean (``state.gradients``), the
+training BatchNorms normalise with the global batch's statistics
+(``nn_core.batchnorm``) and the VGG style term with its Gram matrices.
+Validation runs every batch on every rank, as JAX replicates its
+evaluation batches (no batch needs to divide), and rank 0's means are the
+ones every rank keeps (``best_val``).  Rank 0 alone writes checkpoints,
+panels and logs.  ``zero1`` (with ``data_parallel`` only) partitions each
+optimizer's Adam moments over the ranks (``mesh.Zero1``); a checkpoint
+gathers them into the plain format, so a run resumes with or without it.
+The caller ends the group (``multihost.shutdown``; the CLI does).
 
 Quantization-aware training (``qat``, ``qat_int8``, ``qat_d``): the
 generator is tagged (``f2f.qat_generator``) so that every forward, training
@@ -51,6 +67,7 @@ from livespeechportraits_torch.models import audio2headpose as a2h_model
 from livespeechportraits_torch.models import feature2face as f2f_model
 from livespeechportraits_torch.models import losses, wavenet
 from livespeechportraits_torch.ops import rasterize, rasterize_cuda
+from livespeechportraits_torch.parallel import mesh, multihost
 from livespeechportraits_torch.train import prefetch as prefetch_mod
 from livespeechportraits_torch.train import schedulers, state, steps
 from livespeechportraits_torch.utils import checkpoint as ckpt
@@ -85,6 +102,8 @@ class TrainLoopConfig:
     fused_step: bool = False  # one GAN step from shared forwards (steps.f2f_fused_step)
     remat: bool | int = False  # recompute G's forward (True) or its outer K stages in backward
     vgg_microbatch: int = 0  # chunk and recompute the VGG loss's tower (0 = unchunked)
+    data_parallel: bool = False  # one rank of a process group; batch_size is the global batch
+    zero1: bool = False  # partition the Adam moments over the ranks (needs data_parallel)
 
     @property
     def qat_mode(self) -> Optional[str]:
@@ -106,6 +125,13 @@ class TrainResult:
 
 
 def _device(loop: TrainLoopConfig) -> torch.device:
+    """The run's device; under data_parallel this rank's, in its process
+    group (joined here once a process)."""
+    if loop.zero1 and not loop.data_parallel:
+        raise ValueError("zero1 partitions optimizer state over the data axis and needs "
+                         "data_parallel=True (no process group was set up)")
+    if loop.data_parallel:
+        return multihost.initialize(loop.device)
     dev = torch.device(loop.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {loop.device!r} was asked for but torch sees no CUDA "
@@ -180,7 +206,8 @@ def device_rasterize_batch(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
 
 
 def _batch_iter(sampler, loop: TrainLoopConfig, rng: np.random.Generator, move: _Mover):
-    it = sampler.batches(loop.batch_size, rng)
+    it = (multihost.global_batch_iter(sampler, loop.batch_size, rng) if loop.data_parallel
+          else sampler.batches(loop.batch_size, rng))
     if loop.prefetch > 0:
         return prefetch_mod.prefetch(it, loop.prefetch, move)
     return map(move, it)
@@ -217,14 +244,20 @@ def _schedule_state(schedules: dict) -> dict:
 class _Run:
     """What the two kinds of trainer share: the device, the log, the
     checkpoint directories, resume and the epoch's generators.  qat_mode is
-    the generator's QAT tag (the GAN trainer's; None elsewhere)."""
+    the generator's QAT tag (the GAN trainer's; None elsewhere).  Under
+    data_parallel the optimizers become ZeRO-1 partitions (loop.zero1)
+    before a resume loads them, and the models take rank 0's weights after
+    it; only rank 0 has a log (``vis`` is None elsewhere)."""
 
     def __init__(self, loop: TrainLoopConfig, models: Dict[str, nn.Module],
                  optimizers: Dict[str, torch.optim.Optimizer], schedules: dict,
                  qat_mode: Optional[str] = None):
+        if loop.zero1:
+            optimizers = {k: mesh.Zero1(o) for k, o in optimizers.items()}
         self.loop, self.models, self.optimizers, self.schedules = loop, models, optimizers, schedules
         self.qat_mode = qat_mode
-        self.vis = Visualizer(loop.checkpoints_dir, loop.name)
+        self.primary = multihost.is_primary()
+        self.vis = Visualizer(loop.checkpoints_dir, loop.name) if self.primary else None
         self.ckpt_dir = f"{loop.checkpoints_dir}/{loop.name}/ckpt"
         self.rng = np.random.default_rng(loop.seed)
         self.gen = torch.Generator().manual_seed(loop.seed)
@@ -237,6 +270,8 @@ class _Run:
             _set_rng_state(st["rng"], self.rng, self.gen)
             self.start_epoch, self.best_val = st["epoch"], st["best_val"]
             print(f"resumed from epoch {self.start_epoch}")
+        for m in models.values():
+            mesh.replicate(m)
 
     def _resume_rule(self, raw: dict) -> tuple:
         """The optimizers a resume restarts: the generator's when QAT starts
@@ -259,7 +294,7 @@ class _Run:
 
     def log_step(self, epoch: int, metrics: dict, lr: Optional[float], t0: float, n: int):
         self.it += 1
-        if self.it % self.loop.print_freq == 0:
+        if self.primary and self.it % self.loop.print_freq == 0:
             m = {k: v.item() for k, v in metrics.items()}
             if lr is not None:
                 m["lr"] = lr
@@ -269,8 +304,10 @@ class _Run:
     def validated(self, epoch: int, metrics: Dict[str, float], key: str) -> None:
         """Log the epoch's validation means, feed metrics[key] to plateau
         schedules, and keep the epoch of its lowest value in ckpt_best (one
-        file)."""
-        self.vis.plot_current_errors(metrics, self.it)
+        file).  Every rank takes rank 0's means."""
+        metrics = {k: mesh.broadcast_scalar(v) for k, v in metrics.items()}
+        if self.primary:
+            self.vis.plot_current_errors(metrics, self.it)
         val_mean = metrics[key]
         for s in self.schedules.values():
             if hasattr(s, "update"):
@@ -284,6 +321,11 @@ class _Run:
             self._save(self.ckpt_dir, epoch + 1)
 
     def _save(self, directory: str, epoch: int, keep_only: bool = False) -> None:
+        for o in self.optimizers.values():  # every rank gathers the ZeRO-1 moments
+            if isinstance(o, mesh.Zero1):
+                o.consolidate_state_dict()
+        if not self.primary:
+            return
         ckpt.save_checkpoint(directory, epoch, self.models, self.optimizers,
                              _schedule_state(self.schedules), self.best_val,
                              rng=_rng_state(self.rng, self.gen), keep_only=keep_only,
@@ -305,6 +347,7 @@ def _train_single_state(loop: TrainLoopConfig, sampler, val_sampler, model: nn.M
                                         loop.n_epochs_decay)
     opt = state.adam(model.parameters(), loop.lr, 0.9, 0.99)
     run = _Run(loop, {"params": model}, {"params": opt}, {"params": schedule})
+    opt = run.optimizers["params"]
     params = list(model.parameters())
     move = _Mover(dev)
     bank, rows = _audio_bank(sampler, dev)
@@ -364,8 +407,10 @@ def train_audio2headpose(cfg: Audio2HeadposeConfig, loop: TrainLoopConfig, sampl
     model = init if init is not None else _init(a2h_model.Audio2Headpose(cfg), loop.seed)
 
     def loss_fn(m, b, bank, rows, gen):
-        keep = wavenet.dropout_keep(gen, b["history"].shape[0], b["history"].shape[2],
-                                    b["history"].device)
+        hist = b["history"]
+        # the global batch's masks, this rank's rows (every row outside a group)
+        keep = wavenet.dropout_keep(gen, loop.batch_size, hist.shape[2], hist.device)[
+            multihost.local_batch_slice(loop.batch_size)]
         return steps.a2h_loss(cfg, m, b, dropout_keep=keep, smooth_loss_weight=loop.smooth_loss,
                               audio_bank=bank, audio_rows=rows)
 
@@ -419,8 +464,9 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
         vgg.to(dev)
     vgg_mb = loop.vgg_microbatch or None
     run = _Run(loop, {"G": g, "D": d}, opts, schedules, qat_mode=mode)
+    opts = run.optimizers
     move = _Mover(dev)
-    panel = _panel_batch(sampler, loop, move)
+    panel = _panel_batch(sampler, loop, move) if run.primary else None
     timer = _StepTimer(dev)
     for epoch in run.epochs():
         for k, s in schedules.items():
@@ -444,7 +490,8 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
                     for b in _val_batches(val_sampler, loop, move)]
             if vals:
                 vm = {k: float(np.mean([float(v[k]) for v in vals])) for k in vals[0]}
-                run.vis.print_current_errors(epoch, run.it, vm)
+                if run.primary:
+                    run.vis.print_current_errors(epoch, run.it, vm)
                 run.validated(epoch, vm, "val_L1")
         if panel is not None:
             _display_panel(run.vis, g, panel, compute_dtype, epoch + 1, run.it)

@@ -724,3 +724,80 @@ def test_k1_at_the_training_batch(cuda_device, tmp_path):
     # one a step, one a validation batch, one for the epoch panel's batch
     assert rasterize_cuda.LAUNCHES - before == len(res.step_ms) + -(-len(small) // 4) + 1
     assert np.isfinite(res.best_val) and all(np.isfinite(res.step_ms))
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism on the card
+# ---------------------------------------------------------------------------
+
+
+def test_render_split_over_two_shares_of_one_card(cuda_device):
+    """animate(render_devices=[cuda:0, cuda:0]) on the int8 renderer at test
+    widths (ngf 16): each batch of 8 as two shares of 4, K1 once a share and
+    K4 twice as often as on one device; frames within one level of one
+    device's (JAX tests/test_parallel.py:118-139)."""
+    cfg = torch_config(small_person_config(image_size=64, precision="bfloat16"))
+    cfg = replace(cfg, feature2face=replace(cfg.feature2face, ngf=16))
+    person, models = assets.make_synthetic_person(cfg, image_size=64, device=cuda_device)
+    audio = video.make_test_tone(1.0)
+    calib = animate.build_render_inputs(cfg, person, models, audio, max_frames=8)
+    models = assets.quantize_person_models(models, calibrate_inputs=calib,
+                                           calibrate_dtype=torch.bfloat16)
+    k1, k4 = rasterize_cuda.LAUNCHES, q8conv_cuda.LAUNCHES
+    ref = animate.animate(cfg, person, models, audio, render_batch=8)
+    torch.cuda.synchronize()
+    one = (rasterize_cuda.LAUNCHES - k1, q8conv_cuda.LAUNCHES - k4)
+    k1, k4 = rasterize_cuda.LAUNCHES, q8conv_cuda.LAUNCHES
+    out = animate.animate(cfg, person, models, audio, render_batch=8,
+                          render_devices=[cuda_device, cuda_device])
+    torch.cuda.synchronize()
+    assert one[0] == -(-out.nframe // 8) and one[1] > 0
+    assert (rasterize_cuda.LAUNCHES - k1, q8conv_cuda.LAUNCHES - k4) == (2 * one[0], 2 * one[1])
+    assert out.frames.shape == ref.frames.shape
+    assert np.abs(out.frames.astype(int) - ref.frames.astype(int)).max() <= 1
+
+
+def test_one_rank_nccl_data_parallel_step_equals_no_group(cuda_device, monkeypatch):
+    """--data_parallel on one card is a one-rank NCCL group: the fused GAN
+    step's gradients (all-reduced over the one rank) and running stats equal
+    the step without a group (64^2, B = 4, f32 G and D, TF32 off, cuDNN's
+    deterministic algorithms: its others sum a weight gradient in another
+    order from call to call, 3e-7 on a zero-true-gradient bias)."""
+    from livespeechportraits_torch.parallel import multihost
+    from livespeechportraits_torch.train import __main__ as cli
+    from livespeechportraits_torch.train import state, steps, trainer
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    cfg = Feature2FaceConfig(ngf=16, n_downsample=6, load_size=64, ndf=16, precision="float32")
+    gen = torch.Generator().manual_seed(0)
+    g = trainer._init(feature2face.Feature2FaceG(cfg), gen=gen).to(cuda_device)
+    d = trainer._init(feature2face.Feature2FaceD(cfg), gen=gen).to(cuda_device)
+    batch = trainer._Mover(cuda_device)(next(cli.synthetic_face_data(64, 64).batches(
+        4, np.random.default_rng(0), shuffle=False)))
+
+    def grads():
+        gg, dd = copy.deepcopy(g), copy.deepcopy(d)
+        loss_d, loss_g, _ = steps.f2f_fused_losses(cfg, gg, dd, batch)
+        out = (state.gradients(loss_d, list(dd.parameters()), retain_graph=True)
+               + state.gradients(loss_g, list(gg.parameters())))
+        stats = [v for mod in (gg, dd) for k, v in mod.state_dict().items() if "running" in k]
+        return out, stats
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, ref_stats = grads()
+        assert multihost.initialize(cuda_device) == cuda_device
+        try:
+            assert torch.distributed.get_backend() == "nccl" and multihost.world_size() == 1
+            got, stats = grads()
+        finally:
+            multihost.shutdown()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    for a, b in zip(got + stats, ref + ref_stats):
+        assert torch.equal(a, b)

@@ -268,8 +268,6 @@ def test_predictor_refuses_what_is_not_ported(predictor, tmp_path):
     p = serve.Predictor(device="cpu", results_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="setup"):
         p.predict(_chirp(0.5))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        p.setup(data_parallel=True)
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         p.setup(f2f_ckpt=str(tmp_path / "ckpt"), image_size=32)
     with pytest.raises(ValueError, match="shadow"):
