@@ -142,7 +142,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
    stats) and vgg_microbatch=2 against the unchunked VGG loss, each error
    beside its tolerance.  12b: seven modes (the alternating pair, fused,
    fused with remat=True, remat=2, the VGG loss unchunked and in chunks of
-   2, --qat_int8 --qat_d), ten steps each on one batch whose edge maps K1
+   2, --qat_int8 --qat_d), five steps each on one batch whose edge maps K1
    draws each step: median step ms (CUDA events), peak memory, the busy
    share (a traced step's device busy ms over the median), K1 / K4
    launches a step (K4 56 a fused QAT
@@ -172,6 +172,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
    ranks' parameters equal, ZeRO-1 bitwise against replicated Adam, each
    rank's optimizer bytes about half, K1 once a rank, the reduced gradients
    and losses against one process on the global batch.
+14. the measurement slice.  14a: K1's edge-only form (render_input with no
+   candidates: [B, 512, 512, 1], one launch) at B = 16 and 8, bf16 and f32,
+   bitwise against its twin and channel 0 of the 13-channel form, device ms
+   by CUDA-graph replay beside the bound; animate(split_cand=True) against
+   False on 3 s of tone ('normal' bf16 under rgb and pack4e, the int8
+   renderer under yuv420): frames within SPLIT_BOUNDS (PSNR, levels),
+   render_device of both, K1 once a batch and K4 44 a batch in the split
+   run (the counts set to 0 just before it); the split render loop under
+   torch's sync debug mode.  14b-14k: the tools of
+   livespeechportraits_torch/tools/ at full width, each row echoed:
+   trace_render ('large', ngf 64, 8 downsamplings, 2 residual blocks a
+   stage, B = 16, bf16 and int8: int8 >= INT8_PSNR_DB against bf16, 74 K4
+   launches a forward, 243-246 GFLOP a frame, the MFU and the device-time
+   table by family), int8_probe (the 14 'large' conv shapes, K4 against
+   cuDNN's bf16 conv), render_ablate (three variants), trace_train (the
+   fused step, 'large', B = 8, 3 steps), stream_latency (3 s, 'large'
+   int8, chunks 16 and 32), prewarm_serving (twice, each in its own
+   process: the first writes the artifact, the second reads it), parity
+   (the same seed: landmark error 0 and equal frames; another seed: finite
+   scores), train512 (8 steps at B = 4, losses finite), link_probe and
+   upload_diet.
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -186,13 +207,16 @@ Phases, each printing one line; any failure raises and exits non-zero:
    kernel, K1's and K4's fused_step_launches by mode, K4's
    fused_qat_remat_launches and K3's a2h_lstm_variant; phase 13's
    demo_launches for each kernel, K1's and K4's render_split_launches and
-   K1's dp_rank_step_launches), then
+   K1's dp_rank_step_launches; phase 14's K1 split_cand_entry (the
+   edge-only form) and split_cand_launches, K4's large_launches (a 'large'
+   forward), large_ms_per_batch and int8_probe), then
    {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -205,9 +229,14 @@ import time
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "f32": 67e12}
+from livespeechportraits_torch.tools._common import graph_ms, launch_counts  # noqa: E402
+from livespeechportraits_torch.utils import flops as _flops  # noqa: E402
+from livespeechportraits_torch.utils.profiling import busy_ms  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA's data sheet, dense), for the bounds: the
+# port's one table (livespeechportraits_torch/utils/flops.py)
+HBM_BYTES_PER_S = _flops.H100_SXM["bytes_per_s"]
+PEAK_OPS_PER_S = {k: _flops.H100_SXM[k] for k in ("int8", "bf16", "f32")}
 
 # Stated tolerances (see PERF.md), each about ten times the error measured
 # on an H100 80GB HBM3: the recurrences 9.6e-7 at T=1200/600, the landmarks
@@ -270,21 +299,6 @@ def kernel_device_ms(events, symbol: str):
     symbol; (None, 0) when the trace recorded none."""
     times = [e.time_range.elapsed_us() / 1e3 for e in events if symbol in e.name]
     return (sum(times) / len(times) if times else None), len(times)
-
-
-def busy_ms(events) -> float:
-    """Device busy time: the union of the device events' intervals."""
-    total, start, end = 0.0, None, None
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
-        if end is None or s > end:
-            if end is not None:
-                total += end - start
-            start, end = s, e
-        else:
-            end = max(end, e)
-    if end is not None:
-        total += end - start
-    return total / 1e3
 
 
 def top_kernels(events, n: int):
@@ -509,17 +523,18 @@ def check_rnn_plans(launches, plans) -> None:
 
 def kernel_label(mangled: str):
     """A short name for a kernel instance of K1-K3 from its mangled name,
-    e.g. 'cluster<3,4,2>' or 'rasterize<LandmarkSrc,InputOut<2>>'; None for
-    others."""
+    e.g. 'cluster<3,4,2>' or 'rasterize<LandmarkSrc,InputOut<2,13>>' (element
+    bytes, channels); None for others."""
     import re
 
     k = re.search(r"rnn_(cluster|grid)_kernelILi(\d)E(?:Li(\d)ELi(\d)E)?", mangled)
     if k:
         return f"{k.group(1)}<{','.join(g for g in k.groups()[1:] if g)}>"
-    k = re.search(r"rasterize_kernelI.*?(TableSrc|LandmarkSrc).*?(PlaneOut|InputOutILi(\d)E)",
-                  mangled)
+    k = re.search(r"rasterize_kernelI.*?(TableSrc|LandmarkSrc).*?"
+                  r"(PlaneOut|InputOutILi(\d)ELi(\d+)E)", mangled)
     if k:
-        out = "PlaneOut" if k.group(2) == "PlaneOut" else f"InputOut<{k.group(3)}>"
+        out = ("PlaneOut" if k.group(2) == "PlaneOut"
+               else f"InputOut<{k.group(3)},{k.group(4)}>")
         return f"rasterize<{k.group(1)},{out}>"
     return None
 
@@ -761,33 +776,6 @@ def k4_inputs(B: int, size: int, cin: int, cout: int, dev, seed: int, ksize: int
     scale = (torch.rand(cout, generator=g) * 1e-5).to(dev, dtype)
     bias = torch.randn(cout, generator=g).to(dev, dtype)
     return x, w, r, scale, bias
-
-
-def graph_ms(fn, calls: int = 5, replays: int = 4) -> float:
-    """Device time per fn() call: CUDA events around replays of a CUDA graph
-    of `calls` calls, so no host dispatch gap is counted.  Used for K4: on
-    the H100, torch.profiler has dropped the device records of whole traces
-    in this script's runs."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (calls * replays)
 
 
 def check_q8conv(dev):
@@ -1065,14 +1053,6 @@ def check_serve(dev, tmp: str):
                             for k, v in per_kernel.items() if v[1]}),
         top=json.dumps(top_kernels(events, 8)))
     return k4_launches, pq
-
-
-def launch_counts() -> dict:
-    """The kernels' launch counters, K1-K4."""
-    from livespeechportraits_torch.ops import q8conv_cuda, rasterize_cuda, recurrent_cuda
-
-    return {"K1": rasterize_cuda.LAUNCHES, "K2": recurrent_cuda.GRU_LAUNCHES,
-            "K3": recurrent_cuda.LSTM_LAUNCHES, "K4": q8conv_cuda.LAUNCHES}
 
 
 def zero_launch_counts() -> None:
@@ -1873,7 +1853,7 @@ QAT_MODES = {"float": {}, "qat": {"qat": True}, "qat_int8": {"qat_int8": True},
              "qat_int8_tf32_off": {"qat_int8": True, "tf32": False}}
 
 
-def time_gan_modes(dev, batch, steps: int = 10) -> dict:
+def time_gan_modes(dev, batch, steps: int = 5) -> dict:
     """One D + G step at 512^2, B = 8, in each QAT mode, on the same batch
     and the same seed-0 models: CUDA events around each of `steps` steps
     after two warm-up steps, peak memory (absolute, and above what was
@@ -2284,7 +2264,7 @@ def check_fused_correctness(dev, raw) -> dict:
     return out
 
 
-def time_fused_modes(dev, raw, steps: int = 10) -> dict:
+def time_fused_modes(dev, raw, steps: int = 5) -> dict:
     """12b.  Each mode at full width (512^2, B = 8, bf16 G, f32 D with TF32,
     seed-0 models, Adam at 2e-4): two warm-up steps, then `steps` steps on
     the same device batch, each starting with its edge maps drawn by K1
@@ -2894,7 +2874,325 @@ def check_demo_and_parallel(dev, tmp: str, train_dir: str, sampler) -> dict:
     return {"demo": demo, "serve": serve, "one_rank": one, "two_ranks": two}
 
 
+# Phase 14's bounds (see PERF.md, PR 12), about ten times the error
+# measured on an H100 80GB HBM3: split_cand's frames against the unsplit
+# render's rounds once more at the first conv's output (bf16).
+# Measured in PR 12's first call: bf16 rgb 70.10 dB, 1 level at most; int8
+# pack4e 62.05 dB, 4 levels.  Bounds per case (PSNR 20 dB below, ten times
+# the levels); pack4e's lossy coder takes the int8 bound.
+SPLIT_BOUNDS = {"bf16_rgb": (50.0, 10), "bf16_pack4e": (42.0, 40), "int8_yuv420": (42.0, 40)}
+LARGE_GFLOP = (243.0, 246.0)  # utils/flops.generator_flops of 'large' at 512^2, a frame
+
+
+def run_tool(name: str, argv: list) -> list:
+    """A tool's main(argv) in this process, its output echoed line by line
+    under [tool_<name>]; returns its JSON rows after the first, which names
+    the card (parity's one object, which names it too)."""
+    import contextlib
+    import importlib
+
+    tool = importlib.import_module(f"livespeechportraits_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(argv)
+    out = buf.getvalue()
+    if name == "parity":
+        rows = [json.loads(out[out.index("{"):])]
+    else:
+        rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    for row in rows:
+        print(f"[tool_{name}] " + json.dumps(row), flush=True)
+    log(f"tool_{name}", rc=rc, seconds=f"{time.perf_counter() - t0:.2f}", rows=len(rows))
+    if name != "parity":
+        head, rows = rows[0], rows[1:]
+        if head.get("tool") != name or not head["device"].startswith("cuda") \
+                or not head["card"]:
+            raise AssertionError(f"tool {name}: the first row does not name the card: {head}")
+    if rc != 0 or not rows:
+        raise AssertionError(f"tool {name} returned {rc} with {len(rows)} rows")
+    return rows
+
+
+def check_edge_form(person, dev) -> dict:
+    """14a.  K1's edge-only form (render_input without candidates: [B, H, W,
+    1], one launch) at B = 16 and 8, 512^2, bf16 and f32: bitwise against
+    its plain twin and against channel 0 of the 13-channel form; device ms
+    by CUDA-graph replay beside the bound (the edge bytes written, the
+    landmarks read) and the twin's ms.  Returns B=16 bf16's numbers, B=8's
+    beside them."""
+    from livespeechportraits_torch.ops import rasterize, rasterize_cuda
+    from livespeechportraits_torch.pipeline import animate
+
+    size = (512, 512)
+    out = {}
+    for B in (16, 8):
+        for dtype in (torch.bfloat16, torch.float32):
+            lm, sh = render_case(person, B, dev)
+            cand = animate._cand_stack(person, 512, dev, dtype)
+
+            def new():
+                return rasterize_cuda.render_input(lm, sh, None, size, dtype=dtype)
+
+            got = new()
+            twin = rasterize.render_input(lm, sh, None, size, dtype)
+            full = rasterize_cuda.render_input(lm, sh, cand, size)
+            torch.cuda.synchronize()
+            n_twin = int((got != twin).sum())
+            n_full = int((got[..., 0] != full[..., 0]).sum())
+            err = (got.float() - twin.float()).abs().max().item()
+            dev_ms, ms = graph_ms(new), cuda_ms(new, reps=50)
+            plain_ms = cuda_ms(lambda: rasterize.render_input(lm, sh, None, size, dtype), reps=2,
+                               warmup=1)
+            full_ms = graph_ms(lambda: rasterize_cuda.render_input(lm, sh, cand, size))
+            pairs = rasterize_cuda.segment_pairs(dev, sh.shape[1])
+            nbytes = got.numel() * got.element_size() + 4 * (lm.numel() + sh.numel()
+                                                              + pairs.numel())
+            bound_ms, bound_by = bound(nbytes, 0, "f32")
+            log("K1_edge_only", frames=B, size="512x512", dtype=str(dtype)[6:],
+                shape=tuple(got.shape), lit=int(got.float().sum().item()),
+                mismatched_twin=n_twin, mismatched_channel0=n_full,
+                device_ms=f"{dev_ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                share=f"{bound_ms / dev_ms:.3f}", ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.4f}",
+                thirteen_channel_device_ms=f"{full_ms:.5f}")
+            if n_twin or n_full or tuple(got.shape) != (B, 512, 512, 1):
+                raise AssertionError(f"K1 edge-only B={B} {dtype}: {n_twin} values differ from "
+                                     f"the twin, {n_full} from channel 0 of the full form")
+            nums = {"device_ms": dev_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share": bound_ms / dev_ms, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err, "thirteen_channel_device_ms": full_ms}
+            if dtype == torch.bfloat16 and B == 16:
+                out.update(nums)
+            elif dtype == torch.bfloat16:
+                out["b8"] = nums
+    return out
+
+
+def check_split_cand(dev, cfg, person, models) -> dict:
+    """14a.  K1's edge-only form, then animate(split_cand=True) against
+    split_cand=False on 3 s of tone at 512^2: the 'normal' bf16 renderer
+    under rgb (batch 8) and pack4e, and the int8 renderer (calibrated as
+    serve.Predictor builds it, batch 16, yuv420).  Frames within
+    SPLIT_BOUNDS, render_device of both (render_frames in
+    turns: unsplit, split, split, unsplit; each renderer cast once), the
+    launches of the split run, one batch's forward of each form by graph
+    replay with the kernels a trace shows after K1 (the counts set to 0 just before it: K1 once a batch,
+    K4 44 a batch under int8), then the split render loop under torch's
+    sync debug mode."""
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.pipeline import animate, assets, video
+
+    entry = {"split_cand_entry": check_edge_form(person, dev)}
+    audio = video.make_test_tone(3.0)
+    calib = animate.build_render_inputs(cfg, person, models, video.make_test_tone(1.0),
+                                        max_frames=16)
+    qm = assets.quantize_person_models(models, calibrate_inputs=calib,
+                                       calibrate_dtype=torch.bfloat16)
+    # each renderer cast once, as serve.Predictor does
+    bf = dataclasses.replace(models, feature2face=f2f.cast_generator(models.feature2face,
+                                                                     torch.bfloat16))
+    qm.feature2face = f2f.cast_generator(qm.feature2face, torch.bfloat16)
+    cases = (("bf16_rgb", bf, "rgb", 8), ("bf16_pack4e", bf, "pack4e", 8),
+             ("int8_yuv420", qm, "yuv420", 16))
+    for name, m, transfer, batch in cases:
+        ref = animate.animate(cfg, person, m, audio, render_batch=batch, transfer=transfer)
+        zero_launch_counts()
+        got = animate.animate(cfg, person, m, audio, render_batch=batch, transfer=transfer,
+                              split_cand=True)
+        launches = launch_counts()
+        # render_device of each form, in turns (unsplit, split, split,
+        # unsplit) on the request's motion
+        lm, sh, _, _, n = animate.compute_motion(cfg, person, m, audio)
+        walls = {False: [], True: []}
+        for split in (False, True, True, False):
+            sm = {}
+            animate.render_frames(cfg, person, m, lm[:n], sh[:n], render_batch=batch,
+                                  transfer=transfer, stage_ms=sm, split_cand=split)
+            walls[split].append(sm["render_device"])
+        d = np.abs(got.frames.astype(int) - ref.frames.astype(int))
+        db = psnr(got.frames, ref.frames)
+        batches = math.ceil(got.nframe / batch)
+        want = {"K1": batches, "K4": 44 * batches if name.startswith("int8") else 0}
+        min_db, max_levels = SPLIT_BOUNDS[name]
+        log("split_cand", case=name, frames=got.nframe, psnr_db=f"{db:.2f}",
+            max_levels=int(d.max()), share_within_1=f"{(d <= 1).mean():.6f}",
+            psnr_bound_db=min_db, max_levels_bound=max_levels,
+            render_device_ms=json.dumps(walls[True]),
+            unsplit_render_device_ms=json.dumps(walls[False]),
+            launches=json.dumps(launches))
+        if got.frames.shape != ref.frames.shape or not db >= min_db or d.max() > max_levels:
+            raise AssertionError(f"split_cand {name}: {db:.2f} dB, {d.max()} levels from the "
+                                 "unsplit render")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"split_cand {name}: launches {launches}, want {want}")
+        entry["split_cand_launches" if name == "bf16_rgb" else
+              f"split_cand_{name}_launches"] = launches["K1"] if name == "bf16_rgb" else launches
+    lm, sh, _, _, n = animate.compute_motion(cfg, person, models, audio)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        animate.render_frames(cfg, person, models, lm[:n], sh[:n], split_cand=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("split_cand_sync_debug", batches=math.ceil(n / 8), synchronizing_calls=0)
+    entry["split_cand_forward"] = check_split_forward(person, bf.feature2face, lm[:8],
+                                                      animate._shift_shoulders(person, sh[:8]))
+    return entry
+
+
+def check_split_forward(person, net, lm, sh) -> dict:
+    """One 8-frame batch's input and forward ('normal', bf16, 512^2), split
+    against unsplit: device ms by CUDA-graph replay, and in a traced batch
+    the kernels that follow K1 (where cuDNN takes the first conv: the
+    13-plane input, padded, or the 1-plane edge)."""
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.ops import rasterize_cuda
+    from livespeechportraits_torch.pipeline import animate
+
+    size = (512, 512)
+    cand = animate._cand_stack(person, 512, lm.device, torch.bfloat16)
+    down = f2f.precompute_cand_down(net, cand)
+    forms = {
+        "unsplit": lambda: f2f.apply_generator(
+            net, rasterize_cuda.render_input(lm, sh, cand, size)),
+        "split": lambda: f2f.apply_generator_edge(
+            net, rasterize_cuda.render_input(lm, sh, None, size, dtype=torch.bfloat16), down)}
+    out = {}
+    with torch.no_grad():
+        for name, fn in forms.items():
+            ms = graph_ms(fn)
+            events, _, _ = trace(fn)
+            dev = sorted(events, key=lambda e: e.time_range.start)
+            first = next((j for j, e in enumerate(dev) if SYMBOLS["K1"] in e.name), None)
+            # without a K1 record (the profiler drops some), the trace's first kernels
+            after = [(e.name[:70], round(e.time_range.elapsed_us() / 1e3, 4))
+                     for e in (dev[first + 1:first + 5] if first is not None else dev[:5])]
+            out[name] = {"device_ms": ms, "k1_in_trace": first is not None,
+                         "device_records": len(dev), "kernels_after_k1": after}
+            log("split_cand_forward", form=name, batch=lm.shape[0], device_ms=f"{ms:.4f}",
+                k1_in_trace=first is not None, device_records=len(dev),
+                kernels_after_k1=json.dumps(after))
+    return out
+
+
+def check_tools(dev, tmp: str, cfg, person, models) -> dict:
+    """14b-14k.  The measurement tools at full width on the card, in this
+    process unless named: trace_render ('large', B = 16, bf16 and int8),
+    int8_probe, render_ablate, trace_train, stream_latency, prewarm_serving
+    (twice, subprocesses), parity, train512, link_probe, upload_diet."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.pipeline import animate, video
+    from livespeechportraits_torch.utils import profiling
+
+    out = {}
+    # 14b: 'large' at 512^2, bf16 and int8
+    rows = run_tool("trace_render", ["16", "1", "3"])
+    render = {r["renderer"]: r for r in rows if r.get("row") == "render"}
+    k4_forward = len(f2f.int8_conv_shapes(Feature2FaceConfig(size="large")))
+    int8 = render["int8"]
+    if not int8["psnr_int8_vs_bf16_db"] >= INT8_PSNR_DB:
+        raise AssertionError(f"'large' int8 frames {int8['psnr_int8_vs_bf16_db']:.2f} dB from "
+                             f"bf16 < {INT8_PSNR_DB}")
+    if int8["k4_launches_per_batch"] != k4_forward or any(
+            r["k1_launches_per_batch"] != 1 for r in render.values()):
+        raise AssertionError(f"'large': K4 {int8['k4_launches_per_batch']} a forward (want "
+                             f"{k4_forward}), K1 {[r['k1_launches_per_batch'] for r in render.values()]}")
+    if not LARGE_GFLOP[0] < render["bf16"]["gflop_per_frame"] < LARGE_GFLOP[1]:
+        raise AssertionError(f"'large' GFLOP a frame {render['bf16']['gflop_per_frame']}")
+    out["large_launches"] = int8["k4_launches_per_batch"]
+    out["large"] = {k: {"ms_per_batch": r["ms_per_batch"], "mfu_bf16_peak": r["mfu_bf16_peak"]}
+                    for k, r in render.items()}
+    # 14c: K4 against cuDNN's bf16 conv at the 14 'large' shapes
+    rows = run_tool("int8_probe", ["16"])
+    taken = [r for r in rows if r.get("k4") != "not_taken"]
+    if len(rows) != 14 or len(taken) != 12 or any(r["k4_launches"] < 1 for r in taken):
+        raise AssertionError("int8_probe: expected 14 shapes, K4 launched at 12")
+    out["int8_probe"] = {r["conv"]: {"k4_ms": r.get("k4_ms", "not_taken"),
+                                     "cudnn_bf16_ms": r["cudnn_bf16_ms"]} for r in rows}
+    # 14d: the render with residual blocks removed
+    run_tool("render_ablate", ["16", "1", "--variants", "full,minus_256sq_64ch,minus_leq32sq"])
+    # 14e: the fused GAN step, 'large', B = 8
+    step = run_tool("trace_train", ["8", "0", "3"])[0]
+    if not step["losses_finite"] or step["k1_launches_per_step"] != 1:
+        raise AssertionError(f"trace_train: {step}")
+    # 14f: the live path, 'large' int8, two chunk sizes
+    for r in run_tool("stream_latency", ["3", "512", "--quantize", "--chunks", "16,32",
+                                         "--depths", "1"]):
+        if r["frames"] != 165 or r["kernel_launches_per_push"]["K4"] <= 0:
+            raise AssertionError(f"stream_latency: {r['frames']} frames, launches "
+                                 f"{r['kernel_launches_per_push']}")
+    # 14g: cold boot to first frame, then warm, each in its own process
+    art = os.path.join(tmp, "serve_int8.npz")
+    boots = []
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-m",
+                               "livespeechportraits_torch.tools.prewarm_serving",
+                               "--artifact", art], capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        rows = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        for row in rows:
+            print("[tool_prewarm_serving] " + json.dumps(row), flush=True)
+        if proc.returncode != 0 or len(rows) != 2:
+            raise AssertionError(f"prewarm_serving: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        boots.append(rows[1])
+    if boots[0]["artifact_existed"] or not boots[1]["artifact_existed"]:
+        raise AssertionError("prewarm_serving: the first boot should write the artifact, the "
+                             "second read it")
+    # 14h: parity of two runs: the same seed, then another
+    audio = video.make_test_tone(1.0)
+    runs = {}
+    for tag, seed in (("a", 0), ("b", 0), ("c", 1)):
+        r = animate.animate(cfg, person, models, audio, seed=seed)
+        np.save(os.path.join(tmp, f"{tag}.npy"), r.landmarks)
+        video.write_video(r.frames, os.path.join(tmp, f"{tag}.avi"), audio)
+        runs[tag] = r
+    same = run_tool("parity", ["--landmarks_a", os.path.join(tmp, "a.npy"),
+                               "--landmarks_b", os.path.join(tmp, "b.npy"),
+                               "--video_a", os.path.join(tmp, "a.avi"),
+                               "--video_b", os.path.join(tmp, "b.avi")])[0]
+    other = run_tool("parity", ["--landmarks_a", os.path.join(tmp, "a.npy"),
+                                "--landmarks_b", os.path.join(tmp, "c.npy"),
+                                "--video_a", os.path.join(tmp, "a.avi"),
+                                "--video_b", os.path.join(tmp, "c.avi")])[0]
+    equal = np.array_equal(runs["a"].frames, runs["b"].frames)
+    log("parity", same_seed_landmark_l2_px=same["landmark_l2_px"], same_seed_frames_equal=equal,
+        other_seed_landmark_l2_px=other["landmark_l2_px"], other_seed_psnr_db=other["psnr_db"])
+    if same["landmark_l2_px"] != 0 or not equal or not all(
+            math.isfinite(other[k]) for k in ("landmark_l2_px", "psnr_db",
+                                              "perceptual_distance")):
+        raise AssertionError(f"parity: same seed {same}, other seed {other}")
+    # 14i: the 512^2 'large' GAN campaign, cut to 8 steps at B = 4
+    t512 = run_tool("train512", ["--steps", "8", "--batch", "4", "--frames", "80",
+                                 "--fused_step", "--remat_depth", "2", "--vgg", "random",
+                                 "--bench_steps", "5", "--checkpoints_dir",
+                                 os.path.join(tmp, "t512")])[0]
+    if not t512["losses_finite"] or t512["steps_trained"] < 8:
+        raise AssertionError(f"train512: {t512}")
+    # 14j: the device -> host link
+    link = profiling.link_probe(dev)
+    log("link_probe", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in link.items()})
+    # 14k: the training batches' uploads
+    run_tool("upload_diet", ["--batch", "16", "--reps", "3"])
+    return out
+
+
+class PhaseWalls:
+    """Host seconds of each phase of main, for the script's time budget."""
+
+    def __init__(self):
+        self.seconds, self.name, self.t0 = {}, None, time.perf_counter()
+
+    def mark(self, name) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.seconds[self.name] = now - self.t0
+        self.name, self.t0 = name, now
+
+
 def main() -> int:
+    phase_walls = PhaseWalls()
+    phase_walls.mark("device")
     # 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; nothing runs on the CPU")
@@ -2910,6 +3208,7 @@ def main() -> int:
     log("device", name=repr(kind), count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, nvidia_smi=repr(smi))
 
+    phase_walls.mark("build")
     # 2. build
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -2918,8 +3217,9 @@ def main() -> int:
         nvcc_seconds=_build.build_seconds, library=lib_path.name)
     # registers and spills of the recurrence kernels (ptxas -v; the
     # main-path instances are GRU H=512: cluster<3,4,2>, LSTM H=256:
-    # cluster<4,2,1>) and of K1's three instances: none may spill
-    for what, src, want in (("recurrence", "recurrent.cu", 1), ("k1", "rasterize.cu", 3)):
+    # cluster<4,2,1>) and of K1's five instances (the f32 plane; the render
+    # input in bf16 and f32, 13 channels and the edge-only 1): none may spill
+    for what, src, want in (("recurrence", "recurrent.cu", 1), ("k1", "rasterize.cu", 5)):
         regs = ptxas_summary(_build.build_logs.get(src, ""))
         log(f"ptxas_{what}", instances=json.dumps({k: {"registers": r, "spill_bytes": b}
                                                    for k, (r, b) in sorted(regs.items())}))
@@ -2935,6 +3235,7 @@ def main() -> int:
     person, models_cpu = assets.make_synthetic_person(cfg, image_size=512, device="cpu")
     kernels = []
 
+    phase_walls.mark("k1")
     # 3. K1: the table entry (the Pallas kernel's function) against its
     # plain twin on the edge-case table, then the render-input entry
     table = segment_table(person, 8, dev)
@@ -2961,6 +3262,7 @@ def main() -> int:
                     "table_entry": {"frames": 8, "device_ms": k1_dev, "ms": k1_ms,
                                     "plain_ms": k1_plain, "bound_ms": k1_bound}})
 
+    phase_walls.mark("k2_k3")
     # 4. K2, 5. K3 (main-path lengths for 3 s: 360 mel steps, 198 frames)
     k2 = check_recurrence("K2", 3, 512, 80, (64, 360, 1200), 360, dev)
     # the stream's chunks: 64 mel rows a chunk of 32 frames, then a short one
@@ -2974,6 +3276,7 @@ def main() -> int:
                     "source": "livespeechportraits_torch/csrc/recurrent.cu",
                     "replaces": "livespeechportraits_tpu/ops/recurrent_pallas.py:176", **k3})
 
+    phase_walls.mark("slice")
     # 6. slice: warm once, then zero the counters and drive the main path
     models = assets.init_models(cfg, assets.synthetic_seed(cfg)).to(dev)
     audio = video.make_test_tone(3.0)
@@ -3047,6 +3350,7 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode("default")
     log("render_sync_debug", batches=math.ceil(nframe / 8), synchronizing_calls=0)
 
+    phase_walls.mark("k4")
     # 6c. K4 against its plain twin at the main-path shapes
     k4 = check_q8conv(dev)
     for B in (16, 8):  # the serving render batch and the stream's
@@ -3055,6 +3359,7 @@ def main() -> int:
                     "source": "livespeechportraits_torch/csrc/q8conv.cu",
                     "replaces": "livespeechportraits_tpu/models/nn_core.py:241", **k4})
 
+    phase_walls.mark("serve_stream_coders")
     # 6d. the serving path; 6e. the live path; 6f. the frame coders
     with tempfile.TemporaryDirectory() as tmp:
         kernels[-1]["launches"], pq = check_serve(dev, tmp)
@@ -3063,6 +3368,7 @@ def main() -> int:
             entry["stream_launches"] = stream_launches[k]
         check_coders(pq, dev)
 
+    phase_walls.mark("gpu_vs_cpu")
     # 7. GPU against CPU on the same port, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3091,6 +3397,7 @@ def main() -> int:
         raise AssertionError(f"frame differs by {frame_err} > {FRAME_TOL} or the render "
                              "inputs differ")
 
+    phase_walls.mark("onboard")
     # 8. onboarding: clips -> pack -> a served subject and its variants
     with tempfile.TemporaryDirectory() as tmp:
         onboard, plane = check_onboard(dev, tmp)
@@ -3098,6 +3405,7 @@ def main() -> int:
         entry["onboard_launches"] = onboard[k]
     kernels[0]["onboard_entry"] = plane
 
+    phase_walls.mark("train")
     # 10. training: the four trainers at full width, then a Predictor
     # serving their checkpoints (kept for phase 13's demo)
     train_tmp = tempfile.TemporaryDirectory()
@@ -3105,6 +3413,7 @@ def main() -> int:
     kernels[0]["train_launches"] = train_counts["K1"]
     kernels[0]["train_entry"] = train_entry
 
+    phase_walls.mark("qat_real_data")
     # 11. quantization-aware training (K4's 4x4 taps), then training on a
     # subject's clips
     with tempfile.TemporaryDirectory() as tmp:
@@ -3115,6 +3424,7 @@ def main() -> int:
     kernels[0]["real_data_train_launches"] = real["train_K1"]
     kernels[1]["real_data_prepare_clip_launches"] = real["prepare_clip_K2"]
 
+    phase_walls.mark("fused_e2e")
     # 12. the fused GAN step, remat and the chunked VGG loss at full width,
     # then the from-scratch subject run (tools/e2e_subject.py)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3126,6 +3436,7 @@ def main() -> int:
     kernels[3]["fused_step_launches"] = {m: v["k4_a_step"] for m, v in fused["modes"].items()}
     kernels[3]["fused_qat_remat_launches"] = fused["remat_k4"]
 
+    phase_walls.mark("demo_parallel")
     # 13. the demo's flags (a subprocess on the card, phase 10's checkpoints
     # served) and data parallelism: the render split, one rank, two ranks
     with tempfile.TemporaryDirectory() as tmp:
@@ -3137,6 +3448,20 @@ def main() -> int:
     kernels[3]["render_split_launches"] = p13["serve"]["render_split_launches"]["K4"]
     kernels[0]["dp_rank_step_launches"] = p13["two_ranks"]["k1_a_rank_a_step"]
 
+    phase_walls.mark("measurement")
+    # 14. the measurement slice: split_cand (K1's edge-only form), then the
+    # tools at full width ('large' at 512^2 for the first time on the card)
+    t14 = time.perf_counter()
+    kernels[0].update(check_split_cand(dev, cfg, person, models))
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = check_tools(dev, tmp, cfg, person, models)
+    kernels[3]["large_launches"] = tools["large_launches"]
+    kernels[3]["large_ms_per_batch"] = tools["large"]
+    kernels[3]["int8_probe"] = tools["int8_probe"]
+    log("phase14", seconds=f"{time.perf_counter() - t14:.1f}")
+
+    phase_walls.mark(None)
+    log("phase_walls", **{k: f"{v:.1f}" for k, v in phase_walls.seconds.items()})
     # 9. results
     print(smi)
     print(json.dumps({"kernels": kernels}))

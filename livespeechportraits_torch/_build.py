@@ -95,7 +95,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lsp_rasterize.argtypes = [p, i, i, p, i, i, f, p]
-        lib.lsp_render_input.argtypes = [p, i, p, i, p, i, p, i, p, i, i, i, f, p]
+        lib.lsp_render_input.argtypes = [p, i, p, i, p, i, p, i, i, p, i, i, i, f, p]
         lib.lsp_gru.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.lsp_lstm.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         lib.lsp_q8conv.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, i, i, p]

@@ -16,12 +16,19 @@
 //                     candidate's type, NHWC: the edge as channel 0, then the
 //                     candidates.  That is the U-Net's input, in one launch,
 //                     with the segment table built on chip (endpoints
-//                     truncated toward zero, cv2's int cast).
+//                     truncated toward zero, cv2's int cast); with one
+//                     channel (the edge-only form, the input of the
+//                     split_cand renderer, whose candidate half of the first
+//                     conv is computed once a call) it writes [T, H, W, 1]
+//                     and reads no candidates.  The channel count is a
+//                     template parameter of the output, not a second kernel.
 //
 // What bounds it on the H100: bytes.  The render input is 26 bytes a pixel in
 // bf16 (109 MB for 16 frames at 512^2, 32.5 us at 3.35 TB/s) against a 6.3 MB
-// candidate stack read.  The distance math is kept off that path by culling:
-// a block (256 x 8 pixels of one frame) loads its frame's segments once and
+// candidate stack read; the edge-only form 2 bytes a pixel (8.4 MB, 2.5 us),
+// where the distance math, not the bytes, is likely to set the time.  The
+// distance math is kept off the byte path by culling: a block (256 x 8
+// pixels of one frame) loads its frame's segments once and
 // keeps those whose box, grown by the radius, meets its pixel box; each warp
 // culls that list again by ballot against its own region; each thread (a
 // pack of 8 consecutive pixels of one row) skips a segment whose grown box
@@ -135,46 +142,55 @@ struct PlaneOut {
   }
 };
 
-template <int E>  // bytes an element: 2 for bf16, 4 for f32
+template <int E, int C>  // E bytes an element (2: bf16, 4: f32); C channels (13 or 1)
 struct InputOut {
+  static constexpr int kCandC = C - 1;  // candidate channels written: 12 or none
   static constexpr int kWarpW = 32;  // a warp's packs across: one row
-  static constexpr int kWords = kPack * (kCand + 1) * E / 4;
-  static constexpr int kCandWords = kPack * kCand * E / 4;
+  static constexpr int kWords = kPack * C * E / 4;
+  static constexpr int kCandWords = kPack * kCandC * E / 4;
   static constexpr int kCandU4 = kCandWords / 4;  // a pack's candidates, 16-byte words
   static constexpr int kCandStride = kCandU4 + 1;
   static constexpr int kOutStride = kWords / 4 | 1;
   static constexpr int kStage = 32 * (kOutStride > kCandStride ? kOutStride : kCandStride);
   static constexpr uint32_t kOne = E == 2 ? 0x3F80u : 0x3F800000u;  // 1.0
-  void* out;         // [T, H, W, 13]
-  const void* cand;  // [H, W, 12]
+  static_assert(C == 1 || C == kCand + 1, "the render input has 13 channels, the edge one");
+  void* out;         // [T, H, W, C]
+  const void* cand;  // [H, W, 12]; unread when C == 1
 
-  // element h of the pack's 8 x 13 output, from the pack's candidates c
-  __device__ __forceinline__ static uint32_t elem(const uint32_t (&c)[kCandWords], unsigned mask,
-                                                  int h) {
-    const int j = h / (kCand + 1), r = h % (kCand + 1);
+  // element h of the pack's 8 x C output, from the pack's candidates c
+  __device__ __forceinline__ static uint32_t elem(const uint32_t (&c)[kCandWords ? kCandWords : 1],
+                                                  unsigned mask, int h) {
+    const int j = h / C, r = h % C;
     if (r == 0) return (mask >> j) & 1u ? kOne : 0u;
-    const int i = kCand * j + r - 1;
-    if constexpr (E == 4) return c[i];
-    else return (c[i >> 1] >> ((i & 1) * 16)) & 0xFFFFu;
+    if constexpr (kCandC == 0) {
+      return 0u;  // not reached: the edge-only form's every element is an edge
+    } else {
+      const int i = kCandC * j + r - 1;
+      if constexpr (E == 4) return c[i];
+      else return (c[i >> 1] >> ((i & 1) * 16)) & 0xFFFFu;
+    }
   }
 
   // The candidates of the warp's packs into its stage, a pack's words
   // kCandStride apart: pack l is row l / kWarpW, column l % kWarpW of the
   // warp's region (one row), whose first pixel is p0; rows and packs bound it.
+  // The edge-only form reads no candidates.
   __device__ __forceinline__ void prefetch(uint4* stage, int p0, int width, int rows, int packs,
                                            int lane) const {
-    const uint4* src = reinterpret_cast<const uint4*>(cand);
-    for (int c = lane; c < 32 * kCandU4; c += 32) {
-      const int l = c / kCandU4, r = l / kWarpW, col = l % kWarpW;
-      if (r < rows && col < packs)
-        cp_async16(stage + c + l,
-                   src + (size_t)((p0 + r * width) / kPack + col) * kCandU4 + (c - l * kCandU4));
+    if constexpr (kCandU4 > 0) {
+      const uint4* src = reinterpret_cast<const uint4*>(cand);
+      for (int c = lane; c < 32 * kCandU4; c += 32) {
+        const int l = c / kCandU4, r = l / kWarpW, col = l % kWarpW;
+        if (r < rows && col < packs)
+          cp_async16(stage + c + l,
+                     src + (size_t)((p0 + r * width) / kPack + col) * kCandU4 + (c - l * kCandU4));
+      }
     }
   }
 
   __device__ __forceinline__ void compose(uint32_t (&w)[kWords], unsigned mask,
                                           const uint4* stage, int lane) const {
-    uint32_t c[kCandWords];
+    uint32_t c[kCandWords ? kCandWords : 1] = {};
 #pragma unroll
     for (int i = 0; i < kCandU4; ++i) {
       const uint4 v = stage[lane * kCandStride + i];
@@ -187,7 +203,7 @@ struct InputOut {
     }
   }
   __device__ __forceinline__ uint4* at(size_t pixel) const {
-    return reinterpret_cast<uint4*>(static_cast<char*>(out) + pixel * (kCand + 1) * E);
+    return reinterpret_cast<uint4*>(static_cast<char*>(out) + pixel * C * E);
   }
 };
 
@@ -332,17 +348,22 @@ extern "C" int lsp_rasterize(const float* segs, int n_frames, int n_seg, float* 
 
 // lm: [T, n_lm, 2] f32; sh: [T, n_sh, 2] f32; pairs: [n_seg, 2] int32 point
 // indices (< n_lm a landmark, else shoulder point index - n_lm), n_seg <= 128;
-// cand: [H, W, 12] of elem_bytes (2: bf16, 4: f32); out: [T, H, W, 13] of the
-// same type; W % 8 == 0.
+// channels 13: cand [H, W, 12] of elem_bytes (2: bf16, 4: f32), out
+// [T, H, W, 13] of the same type; channels 1 (the edge-only form, split_cand's
+// input): cand unread (may be null), out [T, H, W, 1] of elem_bytes; W % 8 == 0.
 extern "C" int lsp_render_input(const float* lm, int n_lm, const float* sh, int n_sh,
                                 const int* pairs, int n_seg, const void* cand, int elem_bytes,
-                                void* out, int n_frames, int height, int width, float radius,
-                                void* stream) {
+                                int channels, void* out, int n_frames, int height, int width,
+                                float radius, void* stream) {
   const LandmarkSrc src{lm, sh, reinterpret_cast<const int2*>(pairs), n_lm, n_sh, n_seg};
-  if (elem_bytes == 2)
-    return launch(src, InputOut<2>{out, cand}, n_frames, height, width, radius, stream);
-  if (elem_bytes == 4)
-    return launch(src, InputOut<4>{out, cand}, n_frames, height, width, radius, stream);
+  if (channels == kCand + 1 && elem_bytes == 2)
+    return launch(src, InputOut<2, kCand + 1>{out, cand}, n_frames, height, width, radius, stream);
+  if (channels == kCand + 1 && elem_bytes == 4)
+    return launch(src, InputOut<4, kCand + 1>{out, cand}, n_frames, height, width, radius, stream);
+  if (channels == 1 && elem_bytes == 2)
+    return launch(src, InputOut<2, 1>{out, cand}, n_frames, height, width, radius, stream);
+  if (channels == 1 && elem_bytes == 4)
+    return launch(src, InputOut<4, 1>{out, cand}, n_frames, height, width, radius, stream);
   return (int)cudaErrorInvalidValue;
 }
 

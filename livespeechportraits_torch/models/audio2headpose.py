@@ -59,12 +59,20 @@ class Audio2Headpose(nn.Module):
 
 def _audio_downsample(model: nn.Module, audio: Tensor, training: bool = False) -> Tensor:
     """[B, T, 2H] paired APC frames -> [B, T, H] conditioning (BatchNorm over
-    the [B*T, C] rows, in eval mode unless training)."""
+    the [B*T, C] rows, in eval mode unless training).  Inference runs the
+    two GEMMs in fixed row blocks (nn_core.linear_row_blocks), so row t does
+    not depend on T."""
     B, T, D = audio.shape
     d = model.audio_downsample
-    x = nn_core.leaky_relu(nn_core.batchnorm(nn_core.dense(audio.reshape(B * T, D), d[0]), d[1],
+
+    def dense(x, layer):
+        if training:
+            return nn_core.dense(x, layer)
+        return nn_core.linear_row_blocks(x, layer.weight, layer.bias)
+
+    x = nn_core.leaky_relu(nn_core.batchnorm(dense(audio.reshape(B * T, D), d[0]), d[1],
                                              training=training))
-    return nn_core.dense(x, d[3]).reshape(B, T, -1)
+    return dense(x, d[3]).reshape(B, T, -1)
 
 
 def apply_audio2headpose(model: Audio2Headpose, history: Tensor, audio_feats: Tensor,

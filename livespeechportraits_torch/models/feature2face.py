@@ -3,7 +3,8 @@ the pix2pix U-Net ('small').
 
 Counterpart of the generator path of ``livespeechportraits_tpu/models/
 feature2face.py`` (``_resblock``, ``_resunet_stage``, ``_unet_stage``,
-``apply_generator``) and its int8 inference transforms
+``apply_generator``, and split_cand's ``precompute_cand_down`` /
+``apply_generator_edge``) and its int8 inference transforms
 (``quantize_generator``, ``fold_bn_generator``, ``calibrate_generator``,
 which refuse 'small' as JAX does), and quantization-aware training's tags
 (``qat_generator``, ``strip_qat_generator``, ``qat_discriminator``).
@@ -98,15 +99,21 @@ class ResUnetBlock(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x: Tensor, training: bool = False, update_stats: bool = True,
-                remat: int = 0, depth: int = 0) -> Tensor:
+                remat: int = 0, depth: int = 0, y_down: Optional[Tensor] = None) -> Tensor:
         """remat: the number of outermost stages whose down half (down conv
         .. res blocks) and up half (upsample .. res blocks) each run under
         ``checkpointed``; depth is this stage's (0 = outermost).  The inner
-        stages keep their activations."""
+        stages keep their activations.  y_down: the down conv's output,
+        computed by the caller (apply_generator_edge, outermost stage only);
+        the stage then starts after its down conv and reads no x."""
         layers = list(self.model)
         cut = next(i for i, m in enumerate(layers) if isinstance(m, nn.Upsample))
         inner = layers[cut - 1] if isinstance(layers[cut - 1], ResUnetBlock) else None
         down, up = layers[:cut - 1 if inner is not None else cut], layers[cut:]
+        if y_down is not None:
+            if not self.outermost:
+                raise ValueError("y_down replaces the outermost stage's down conv")
+            down, x = down[1:], y_down
 
         def half(seq):
             return lambda t, upd: self._run(seq, t, training, upd)
@@ -184,9 +191,16 @@ class UnetBlock(nn.Module):
                       up, nn.BatchNorm2d(outer_nc)]
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x: Tensor, training: bool = False, update_stats: bool = True) -> Tensor:
-        y = x
-        for m in self.model:
+    def forward(self, x: Tensor, training: bool = False, update_stats: bool = True,
+                y_down: Optional[Tensor] = None) -> Tensor:
+        """y_down: the outermost down conv's output, computed by the caller
+        (apply_generator_edge); the stage then starts after that conv."""
+        y, layers = x, list(self.model)
+        if y_down is not None:
+            if not self.outermost:
+                raise ValueError("y_down replaces the outermost stage's down conv")
+            y, layers = y_down, layers[1:]
+        for m in layers:
             if isinstance(m, nn.Conv2d):
                 y = F.conv2d(y, _narrow_input(m.weight, y.shape[1]), stride=2, padding=1)
             elif isinstance(m, nn.ConvTranspose2d):
@@ -287,6 +301,57 @@ def apply_generator(model: Feature2FaceG, x: Tensor, training: bool = False,
         y = net(x, training, remat=int(remat))
     else:
         y = net(x, training)
+    return torch.tanh(y.float()).permute(0, 2, 3, 1)
+
+
+def _first_conv(model: Feature2FaceG) -> nn.Conv2d:
+    """The outermost down conv, which split_cand splits into the edge's and
+    the candidates' halves: it must be a plain float conv without a bias
+    (linear, so conv(cat(edge, cand)) = conv(edge; w[:, :1]) + conv(cand;
+    w[:, 1:13])), as JAX's precompute_cand_down requires."""
+    conv = model.netG.model.model[0]
+    if type(conv) is not nn.Conv2d or conv.bias is not None:
+        raise ValueError(
+            "split_cand requires the plain outermost down conv (float, no bias); this "
+            f"generator's first layer is {type(conv).__name__}"
+            f"{' with a bias' if getattr(conv, 'bias', None) is not None else ''}")
+    return conv
+
+
+def precompute_cand_down(model: Feature2FaceG, cand_stack: Tensor,
+                         dtype: Optional[torch.dtype] = None) -> Tensor:
+    """The candidates' constant contribution to the outermost down conv
+    (JAX feature2face.precompute_cand_down): 12 of the renderer's 13 input
+    planes are the subject's candidate images, the same in every frame, and
+    the first conv is linear and bias-free, so its candidate half is
+    computed once a render call.  cand_stack [H, W, 12] -> [1, H/2, W/2,
+    ngf] (NHWC, JAX's layout) in ``dtype`` (the model's when None), with the
+    conv's own kernel size, stride and padding ('small': 4x4; 'normal' and
+    'large': 3x3, stride 2, padding 1)."""
+    conv = _first_conv(model)
+    dtype = dtype or conv.weight.dtype
+    w = conv.weight[:, 1:1 + cand_stack.shape[-1]].to(dtype)
+    x = cand_stack.permute(2, 0, 1)[None].to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    y = F.conv2d(x, w, stride=conv.stride, padding=conv.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def apply_generator_edge(model: Feature2FaceG, edge: Tensor, cand_down: Tensor) -> Tensor:
+    """The inference forward on the edge channel alone (JAX
+    apply_generator_edge): edge [B, H, W, 1] (K1's edge-only form) and
+    cand_down [1, H/2, W/2, ngf] (precompute_cand_down) -> [B, H, W, 3] in
+    [-1, 1], f32.  The first conv runs on the edge plane with its weight's
+    first input plane and adds the candidates' half; every other layer is
+    apply_generator's.  The sum rounds once more than the fused conv (in the
+    compute dtype), so frames agree with apply_generator within rounding,
+    not bit for bit."""
+    conv = _first_conv(model)
+    dtype = next(model.parameters()).dtype
+    x = edge.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+    y_down = F.conv2d(x, conv.weight[:, :1], stride=conv.stride, padding=conv.padding)
+    y_down = y_down + cand_down.permute(0, 3, 1, 2).to(dtype)
+    y = model.netG.model(None, False, y_down=y_down)
     return torch.tanh(y.float()).permute(0, 2, 3, 1)
 
 

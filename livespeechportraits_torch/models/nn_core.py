@@ -37,6 +37,26 @@ def dense(x: Tensor, layer: nn.Linear) -> Tensor:
     return F.linear(x, layer.weight, layer.bias)
 
 
+# Rows of one GEMM in linear_row_blocks
+ROW_BLOCK = 64
+
+
+def linear_row_blocks(x: Tensor, weight: Tensor, bias: Optional[Tensor]) -> Tensor:
+    """F.linear over the rows of x [..., K], ROW_BLOCK rows a GEMM (the last
+    block zero-padded).  Every GEMM has one shape, so BLAS runs one kernel
+    whatever the row count, and row i does not depend on how many rows
+    follow it: the inference GEMMs of a bucket-padded request give its
+    first rows bit for bit as the unpadded request's (one GEMM over all the
+    rows lets BLAS pick its summation order by the row count)."""
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    pad = -n % ROW_BLOCK
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(pad, rows.shape[1])])
+    out = torch.cat([F.linear(b, weight, bias) for b in rows.split(ROW_BLOCK)])
+    return out[:n].reshape(*x.shape[:-1], -1)
+
+
 def conv1d(x: Tensor, layer: nn.Conv1d, dilation: int = 1,
            padding: Union[int, Tuple[int, int]] = 0) -> Tensor:
     """x: [N, C, W]; padding is symmetric, or (left, right) for causal

@@ -188,11 +188,13 @@ def stream_step(net: WaveNet, state: StreamState, x_t: Tensor,
 
 def precompute_cond_projections(net: WaveNet, cond: Tensor) -> List[Tuple[Tensor, Tensor]]:
     """All layers' 1x1 conditioning projections over a whole sequence:
-    cond [B, T, cond_ch] -> per layer ([B, T, dil_ch], [B, T, dil_ch])."""
+    cond [B, T, cond_ch] -> per layer ([B, T, dil_ch], [B, T, dil_ch]), in
+    fixed row blocks (nn_core.linear_row_blocks), so step t's projection
+    does not depend on T."""
     out = []
     for blk in net.residual_blocks:
         if not hasattr(blk, "cond_filter_conv"):
             raise ValueError("the WaveNet has no conditioning projections")
-        out.append((_pointwise(cond, blk.cond_filter_conv),
-                    _pointwise(cond, blk.cond_gate_conv)))
+        out.append(tuple(nn_core.linear_row_blocks(cond, c.weight[:, :, 0], c.bias)
+                         for c in (blk.cond_filter_conv, blk.cond_gate_conv)))
     return out

@@ -108,15 +108,23 @@ def rasterize_feature_maps(landmarks: Tensor, shoulders: Optional[Tensor] = None
     return rasterize_segments(segment_table(landmarks, shoulders), height=h, width=w)
 
 
-def render_input(landmarks: Tensor, shoulders: Optional[Tensor], cand: Tensor,
-                 size: Tuple[int, int] = (512, 512)) -> Tensor:
+def render_input(landmarks: Tensor, shoulders: Optional[Tensor], cand: Optional[Tensor] = None,
+                 size: Tuple[int, int] = (512, 512),
+                 dtype: Optional[torch.dtype] = None) -> Tensor:
     """The renderer's input [T, H, W, 13] in ``cand``'s dtype: the edge maps
     of [T, 73, 2] landmarks (+ [T, S2, 2] shoulders) as channel 0, then the
     [H, W, 12] candidate stack; concatenated in f32, then cast (round to
-    nearest even): what K1's render-input entry computes in one launch."""
+    nearest even): what K1's render-input entry computes in one launch.
+    With cand None, the edge-only form [T, H, W, 1] in ``dtype`` (f32 when
+    None), the split_cand renderer's input: channel 0 of the 13-channel
+    form."""
     h, w = size
-    edge = rasterize_feature_maps(landmarks, shoulders, size)
-    inp = torch.cat([edge[..., None], cand.float().expand(edge.shape[0], h, w, 12)], dim=-1)
+    edge = rasterize_feature_maps(landmarks, shoulders, size)[..., None]
+    if cand is None:
+        return edge.to(dtype or torch.float32)
+    if dtype is not None and dtype != cand.dtype:
+        raise ValueError(f"dtype {dtype} differs from the candidates' {cand.dtype}")
+    inp = torch.cat([edge, cand.float().expand(edge.shape[0], h, w, 12)], dim=-1)
     return inp.to(cand.dtype)
 
 

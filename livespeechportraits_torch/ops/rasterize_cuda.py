@@ -10,7 +10,8 @@ two entry points, each bitwise equal to its plain twin in
 - ``render_input``: landmarks, shoulders and the candidate stack -> the
   U-Net's NHWC input [T, H, W, 13] in the compute dtype, with the segment
   table built on chip from the index pairs of ``segment_pairs``, which
-  reach each device once.
+  reach each device once; without the candidates, the edge-only form
+  [T, H, W, 1] that the split_cand renderer reads (one launch as well).
 
 Dispatch is on the tensor's device: a CPU tensor takes the twin, a CUDA
 tensor the kernel, anything else raises.  ``LAUNCHES`` counts kernel
@@ -98,26 +99,37 @@ def rasterize_segments(segments: Tensor, height: int = 512, width: int = 512,
     return out
 
 
-def render_input(landmarks: Tensor, shoulders: Optional[Tensor], cand: Tensor,
-                 size: Tuple[int, int] = (512, 512)) -> Tensor:
+def render_input(landmarks: Tensor, shoulders: Optional[Tensor], cand: Optional[Tensor] = None,
+                 size: Tuple[int, int] = (512, 512),
+                 dtype: Optional[torch.dtype] = None) -> Tensor:
     """[T, 73, 2] landmarks (+ [T, S2, 2] shoulders), f32, and the [H, W, 12]
     candidate stack in the compute dtype (bf16 or f32) -> the renderer's
     input [T, H, W, 13] in that dtype, NHWC-contiguous: the edge maps as
-    channel 0, then the candidates.  On the card: one launch, no host
-    round trip; the width must be a multiple of 8."""
+    channel 0, then the candidates.  With cand None, the edge-only form
+    [T, H, W, 1] in ``dtype`` (bf16 or f32; f32 when None), split_cand's
+    input.  On the card: one launch, no host round trip; the width must be
+    a multiple of 8."""
     global LAUNCHES
     h, w = size
     if landmarks.device.type == "cpu":
-        return rasterize.render_input(landmarks, shoulders, cand, size)
+        return rasterize.render_input(landmarks, shoulders, cand, size, dtype)
     _check_cuda(landmarks, "landmarks")
-    _check_cuda(cand, "cand", (torch.bfloat16, torch.float32))
     if landmarks.dim() != 3 or tuple(landmarks.shape[1:]) != (N_LANDMARKS, 2):
         raise ValueError(f"landmarks must be [T, 73, 2], got {tuple(landmarks.shape)}")
     T = landmarks.shape[0]
-    if tuple(cand.shape) != (h, w, 12):
-        raise ValueError(f"cand must be [{h}, {w}, 12], got {tuple(cand.shape)}")
-    if cand.device != landmarks.device or cand.data_ptr() % 16:
-        raise ValueError("cand must be 16-byte aligned, on the landmarks' device")
+    if cand is None:
+        channels, out_dtype = 1, dtype or torch.float32
+        if out_dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"the edge-only form is bf16 or f32, got {out_dtype}")
+    else:
+        _check_cuda(cand, "cand", (torch.bfloat16, torch.float32))
+        if dtype is not None and dtype != cand.dtype:
+            raise ValueError(f"dtype {dtype} differs from the candidates' {cand.dtype}")
+        if tuple(cand.shape) != (h, w, 12):
+            raise ValueError(f"cand must be [{h}, {w}, 12], got {tuple(cand.shape)}")
+        if cand.device != landmarks.device or cand.data_ptr() % 16:
+            raise ValueError("cand must be 16-byte aligned, on the landmarks' device")
+        channels, out_dtype = 13, cand.dtype
     n_sh = 0
     sh = landmarks
     if shoulders is not None:
@@ -131,12 +143,13 @@ def render_input(landmarks: Tensor, shoulders: Optional[Tensor], cand: Tensor,
     if pairs.shape[0] > MAX_SEGMENTS:
         raise ValueError(f"{pairs.shape[0]} segments exceed the kernel's {MAX_SEGMENTS}")
     _check_width(w)
-    out = torch.empty(T, h, w, 13, device=landmarks.device, dtype=cand.dtype)
+    out = torch.empty(T, h, w, channels, device=landmarks.device, dtype=out_dtype)
     lib = _build.library()
     with torch.cuda.device(landmarks.device):
         err = lib.lsp_render_input(landmarks.data_ptr(), N_LANDMARKS, sh.data_ptr(), n_sh,
-                                   pairs.data_ptr(), pairs.shape[0], cand.data_ptr(),
-                                   cand.element_size(), out.data_ptr(), T, h, w, 1.5,
+                                   pairs.data_ptr(), pairs.shape[0],
+                                   None if cand is None else cand.data_ptr(),
+                                   out.element_size(), channels, out.data_ptr(), T, h, w, 1.5,
                                    _stream(landmarks))
     _build.check(err, "lsp_render_input")
     LAUNCHES += 1

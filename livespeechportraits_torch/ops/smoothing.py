@@ -55,11 +55,15 @@ def gaussian_filter1d(x: Tensor, sigma: float, truncate: float = 4.0,
     m = np.mod(np.arange(-radius, T + radius), 2 * n)
     idx = torch.as_tensor(np.where(m < n, m, 2 * n - 1 - m), device=x.device)
     xp = x[idx].float()  # [T + 2r, D]
-    k = torch.as_tensor(kernel, device=x.device)
-    # correlate each column, out[t] = sum_j k[j] * xp[t + j], as a matmul
-    # over sliding windows: full f32 on the card, where a float32 conv
-    # would run in TF32 by default
-    out = xp.unfold(0, k.shape[0], 1) @ k  # [T, D, 2r+1] @ [2r+1]
+    # correlate each column, out[t] = sum_j k[j] * xp[t + j], tap by tap in
+    # the order of j, as the stream's smoother sums: elementwise f32 ops, so
+    # row t does not depend on T (a matmul over the sliding windows lets
+    # BLAS pick its summation order by the row count, and a bucket-padded
+    # run then differs from the unpadded one in the last bit), and no TF32
+    # on the card
+    out = float(kernel[0]) * xp[:T]
+    for j in range(1, kernel.shape[0]):
+        out = out + float(kernel[j]) * xp[j:j + T]
     return out.to(x.dtype)
 
 

@@ -5,9 +5,10 @@ Counterpart of ``livespeechportraits_tpu/pipeline/animate.py``: the staged
 ``_jit_post`` as a plain function, ``render_frames`` with every transfer
 (``rgb``, ``yuv420`` and the ``jpeg``, ``jpeg4`` and ``pack4e`` codes of
 ``pipeline/compress.py``, pack4e with its prefix fetch),
-``build_render_inputs`` and ``animate``, and JAX's ``mesh=`` as
+``build_render_inputs`` and ``animate``, JAX's ``mesh=`` as
 ``render_devices``: each render batch split over a list of devices, each
-holding a replica of the renderer.  Stages:
+holding a replica of the renderer, and JAX's ``split_cand``: the first
+conv's candidate half once a call, K1's edge-only input a batch.  Stages:
 
     1. mel + APC features  (ops/mel.py, models/apc.py: GRU kernel K2)
     2. LLE manifold projection (ops/manifold.py)
@@ -87,6 +88,8 @@ def _check_transfer(transfer: str) -> None:
 _P4E_NEED: Dict[Tuple[int, int, int], int] = {}
 P4E_BUCKETS = 32  # prefix sizes snap to this many linear steps of the cap
 P4E_MARGIN = 1.15
+# The profiler label of a batch's encoding on the device
+CODER_LABEL = "lsp::coder"
 
 
 @dataclass
@@ -129,19 +132,22 @@ class FrameLink:
         return min(self.cap, -(-want // step) * step)
 
     def send(self, img: Tensor) -> SentBatch:
-        """img [batch, H, W, 3] in [-1, 1] (the generator's output)."""
+        """img [batch, H, W, 3] in [-1, 1] (the generator's output).  The
+        encoder runs under the profiler label CODER_LABEL, which traces
+        read (tools/trace_render.py)."""
         stream = None
-        if self.transfer == "rgb":
-            out = f2f_model.to_uint8(img)
-        elif self.transfer == "yuv420":
-            out = rgb_to_yuv420_packed(img)
-        elif self.transfer == "jpeg":
-            out = compress.encode_rgb_frames(img)
-        elif self.transfer == "jpeg4":
-            out = compress.encode_rgb_frames_p4(img)
-        else:
-            stream, _ = compress.encode_rgb_frames_p4e(img)
-            out = stream[:self._prefix()]
+        with torch.profiler.record_function(CODER_LABEL):
+            if self.transfer == "rgb":
+                out = f2f_model.to_uint8(img)
+            elif self.transfer == "yuv420":
+                out = rgb_to_yuv420_packed(img)
+            elif self.transfer == "jpeg":
+                out = compress.encode_rgb_frames(img)
+            elif self.transfer == "jpeg4":
+                out = compress.encode_rgb_frames_p4(img)
+            else:
+                stream, _ = compress.encode_rgb_frames_p4e(img)
+                out = stream[:self._prefix()]
         copied = None
         if out.device.type == "cuda":
             # the copy to pinned memory queues behind the batch, so the host
@@ -373,7 +379,8 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                   keep_feature_maps: bool = False,
                   stage_ms: Optional[Dict[str, float]] = None, transfer: str = "rgb",
                   link: Optional[Dict[str, int]] = None,
-                  render_devices: Optional[List[torch.device | str]] = None):
+                  render_devices: Optional[List[torch.device | str]] = None,
+                  split_cand: bool = False):
     """Stage 6: rasterise + U-Net, ``render_batch`` frames at a time.
     Returns (frames [N, H, W, 3] uint8, edge maps [N, H, W] uint8 or None).
 
@@ -395,7 +402,14 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     of the renderer (its own K1 launch, U-Net and transfer encoding), and
     the frames are gathered back in order.  render_batch must divide over
     them.  A device listed twice renders two shares on one replica; one
-    device (the default: the landmarks') is the plain path."""
+    device (the default: the landmarks') is the plain path.
+
+    split_cand (JAX's): the U-Net's first conv is split into its edge and
+    candidate halves.  The candidates' half is computed once a call on each
+    render device (f2f_model.precompute_cand_down), and each batch's input is
+    K1's edge-only form [B, H, W, 1] (one launch), which
+    f2f_model.apply_generator_edge convolves.  The frames agree with the
+    unsplit render within rounding (the sum rounds once more)."""
     _check_transfer(transfer)
     sm = stage_ms if stage_ms is not None else {}
     dev = landmarks2d.device
@@ -411,10 +425,15 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     # a no-op for a generator already cast (serve.Predictor casts once)
     net = f2f_model.cast_generator(models.feature2face, compute_dtype(cfg))
     cand_stack = _cand_stack(assets, H, dev, compute_dtype(cfg))
-    shares = []  # (device, renderer, candidate stack, FrameLink) of each share of a batch
+    # (device, renderer, candidate stack or, under split_cand, its first-conv
+    # half, FrameLink) of each share of a batch
+    shares = []
     for d in devices:
         with _on(d):
-            shares.append((d, _replica(net, d), cand_stack.to(d), FrameLink(transfer, H, W, per)))
+            replica, cand = _replica(net, d), cand_stack.to(d)
+            if split_cand:
+                cand = f2f_model.precompute_cand_down(replica, cand)
+            shares.append((d, replica, cand, FrameLink(transfer, H, W, per)))
 
     pad_to = -(-nframe // render_batch) * render_batch
     lm = torch.cat([landmarks2d, landmarks2d[-1:].expand(pad_to - nframe, 73, 2)])
@@ -437,8 +456,14 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
             if d != dev:
                 lm_k, sh_k = lm_k.to(d, non_blocking=True), sh_k.to(d, non_blocking=True)
             with _on(d):
-                inp = rasterize_cuda.render_input(lm_k, sh_k, cand, (H, W))
-                sent.append(frame_link.send(f2f_model.apply_generator(replica, inp)))
+                if split_cand:
+                    inp = rasterize_cuda.render_input(lm_k, sh_k, None, (H, W),
+                                                      dtype=cand_stack.dtype)
+                    img = f2f_model.apply_generator_edge(replica, inp, cand)
+                else:
+                    inp = rasterize_cuda.render_input(lm_k, sh_k, cand, (H, W))
+                    img = f2f_model.apply_generator(replica, inp)
+                sent.append(frame_link.send(img))
             if keep_feature_maps:
                 maps.append(inp[..., 0].float().to(dev))
         if pending is not None:
@@ -500,11 +525,14 @@ def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio
             profile: bool = False,
             headpose_noise: Optional[Tuple[Tensor, Tensor]] = None,
             transfer: str = "rgb", valid_frames: Optional[int] = None,
-            render_devices: Optional[List[torch.device | str]] = None) -> AnimateResult:
+            render_devices: Optional[List[torch.device | str]] = None,
+            split_cand: bool = False) -> AnimateResult:
     """audio [-1, 1] float32 at 16 kHz -> frames at 60 FPS, on the models'
     device.  transfer: one of TRANSFERS (see render_frames).
     render_devices: split each render batch over these devices (see
     render_frames); the motion half stays on the models' device.
+    split_cand: the first conv's candidate half once a call, K1's edge-only
+    input a batch (see render_frames).
     valid_frames: the unpadded audio's frame count when ``audio`` is
     bucket-padded (see compute_motion); the result then equals the unpadded
     run's, trimmed to valid_frames - frame_future frames."""
@@ -518,7 +546,7 @@ def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio
                                   shoulders2d[:nframe], render_batch=render_batch,
                                   keep_feature_maps=keep_feature_maps, stage_ms=stage_ms,
                                   transfer=transfer, link=link,
-                                  render_devices=render_devices)
+                                  render_devices=render_devices, split_cand=split_cand)
     return AnimateResult(
         frames=frames,
         feature_maps=fmaps,

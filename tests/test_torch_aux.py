@@ -343,3 +343,125 @@ def test_registry_names_jax_families_and_builds_them():
         t_a2h.Audio2Headpose(torch_config(Audio2HeadposeConfig(decoder="lstm")))
     with pytest.raises(NotImplementedError, match="Audio2FeatureWaveNet"):
         t_a2f.Audio2Feature(torch_config(Audio2FeatureConfig(decoder="wavenet")))
+
+
+# ---------------------------------------------------------------------------
+# utils/profiling.py, flow_viz.py, image_pool.py and get_data.py (JAX
+# tests/test_utils_aux.py:97-118, 200-247)
+# ---------------------------------------------------------------------------
+
+
+def test_stopwatch_and_trace_on_the_cpu(tmp_path):
+    from livespeechportraits_torch.utils import profiling
+    from livespeechportraits_tpu.utils import profiling as j_profiling
+
+    sw, jsw = profiling.Stopwatch(), j_profiling.Stopwatch()
+    assert sw.report() == jsw.report() == "no stages recorded"
+    for w in (sw, jsw):
+        for name in ("a", "b", "a"):
+            with w.stage(name):
+                pass
+    assert list(sw.ms) == list(jsw.ms) == ["a", "b"]
+    assert sw.report().endswith("ms") and "total" in sw.report()
+    with profiling.trace(str(tmp_path / "tr")) as prof:
+        torch.ones(4) @ torch.ones(4)
+    assert any(e.name == "aten::dot" or e.name == "aten::matmul" for e in prof.events())
+    assert (tmp_path / "tr" / "trace.json").exists()
+    # no device events on the CPU: busy 0, and the coverage says the table is partial
+    cov = profiling.coverage(list(prof.events()), 1.0)
+    assert cov["device_records"] == 0 and not cov["trace_whole"] and "partial" in cov["note"]
+
+
+def test_link_probe_refuses_a_cpu_device():
+    from livespeechportraits_torch.utils import profiling
+
+    with pytest.raises(ValueError, match="no CPU stand-in"):
+        profiling.link_probe("cpu")
+    with pytest.raises(ValueError):
+        profiling.traced(lambda: None, "cpu")
+
+
+def test_flow_viz_matches_jax():
+    from livespeechportraits_torch.utils import flow_viz
+    from livespeechportraits_tpu.utils import flow_viz as j_flow_viz
+
+    np.testing.assert_array_equal(flow_viz.make_colorwheel(), j_flow_viz.make_colorwheel())
+    flow = np.random.default_rng(0).normal(size=(12, 10, 2)).astype(np.float32)
+    for bgr in (False, True):
+        np.testing.assert_array_equal(flow_viz.flow_to_image(flow, convert_to_bgr=bgr),
+                                      j_flow_viz.flow_to_image(flow, convert_to_bgr=bgr))
+    np.testing.assert_array_equal(flow_viz.flow_to_image(flow, clip_flow=0.5),
+                                  j_flow_viz.flow_to_image(flow, clip_flow=0.5))
+    np.testing.assert_array_equal(flow_viz.tensor2flow(flow.transpose(2, 0, 1)[None]),
+                                  j_flow_viz.tensor2flow(flow.transpose(2, 0, 1)[None]))
+    with pytest.raises(ValueError):
+        flow_viz.flow_to_image(flow[..., :1])
+
+
+def test_image_pool_matches_jax():
+    from livespeechportraits_torch.utils.image_pool import ImagePool
+    from livespeechportraits_tpu.utils.image_pool import ImagePool as JImagePool
+
+    rng = np.random.default_rng(1)
+    pool, jpool = ImagePool(3, np.random.default_rng(7)), JImagePool(3, np.random.default_rng(7))
+    for _ in range(5):
+        batch = rng.normal(size=(2, 4, 4, 3)).astype(np.float32)
+        np.testing.assert_array_equal(pool.query(batch), jpool.query(batch))
+    assert pool.num_imgs == jpool.num_imgs == 3
+    passthrough = rng.normal(size=(2, 4, 4, 3))
+    np.testing.assert_array_equal(ImagePool(0).query(passthrough), passthrough)
+
+
+def test_get_data_offline(tmp_path, monkeypatch):
+    """Index parsing, the non-interactive choice, the download, the
+    checksum and the extraction, with urlopen mocked: nothing downloads."""
+    import hashlib
+    import io
+    import tarfile
+    import urllib.request
+    import zipfile
+
+    from livespeechportraits_torch.utils import get_data
+
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        z.writestr("mini/a.txt", "hello")
+    payload = buf.getvalue()
+    tbuf = io.BytesIO()
+    with tarfile.open(fileobj=tbuf, mode="w:gz") as t:
+        info = tarfile.TarInfo("big/b.txt")
+        info.size = 3
+        t.addfile(info, io.BytesIO(b"abc"))
+    tar_payload = tbuf.getvalue()
+    html = ('<html><a href="x/mini.zip">mini.zip</a><a href="notes.txt">notes.txt</a>'
+            '<a href="y/big.tar.gz">big.tar.gz</a></html>')
+    urls = []
+
+    class _Resp(io.BytesIO):
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+    def fake_urlopen(url):
+        urls.append(url)
+        if url.endswith("mini.zip"):
+            return _Resp(payload)
+        if url.endswith("big.tar.gz"):
+            return _Resp(tar_payload)
+        return _Resp(html.encode())
+
+    monkeypatch.setattr(urllib.request, "urlopen", fake_urlopen)
+    assert get_data.parse_archive_options(html) == ["mini.zip", "big.tar.gz"]
+    gd = get_data.GetData(technique="pix2pix", verbose=False)
+    assert gd.options() == ["mini.zip", "big.tar.gz"]
+    out = gd.get(str(tmp_path / "ds"), choice=0, sha256=hashlib.sha256(payload).hexdigest())
+    assert out == str(tmp_path / "ds" / "mini")
+    assert (tmp_path / "ds" / "mini" / "a.txt").read_text() == "hello"
+    assert not (tmp_path / "ds" / "mini.zip").exists()
+    assert gd.get(str(tmp_path / "ds3"), dataset="big.tar.gz") == str(tmp_path / "ds3" / "big")
+    assert (tmp_path / "ds3" / "big" / "b.txt").read_text() == "abc"
+    with pytest.raises(ValueError, match="checksum mismatch"):
+        gd.get(str(tmp_path / "ds2"), dataset="mini.zip", sha256="0" * 64)
+    assert all(u.startswith(get_data.URL_DICT["pix2pix"].rstrip("/")) for u in urls)

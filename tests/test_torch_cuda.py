@@ -78,6 +78,46 @@ def test_render_input_matches_twin_and_replaced_sequence_bitwise(cuda_device, dt
     assert got[..., 0].sum() > 100
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W", [(16, 512, 512), (8, 512, 512), (3, 44, 72)])
+def test_render_input_edge_only_form_bitwise(cuda_device, dtype, B, H, W):
+    """K1's edge-only form (no candidates: split_cand's input), one launch:
+    [B, H, W, 1] in the asked dtype, bitwise equal to its plain twin and to
+    channel 0 of the 13-channel form."""
+    lm, sh, cand = _render_case(B, H, W, dtype, cuda_device, seed=B + W)
+    before = rasterize_cuda.LAUNCHES
+    got = rasterize_cuda.render_input(lm, sh, None, (H, W), dtype=dtype)
+    assert rasterize_cuda.LAUNCHES == before + 1
+    twin = rasterize.render_input(lm, sh, None, (H, W), dtype)
+    full = rasterize_cuda.render_input(lm, sh, cand, (H, W))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, H, W, 1) and got.is_contiguous()
+    assert torch.equal(got, twin)
+    assert torch.equal(got[..., 0], full[..., 0])
+    assert got.sum() > 100
+
+
+def test_split_cand_render_on_the_card(cuda_device):
+    """render_frames(split_cand=True) on the card, bf16, six batches: one K1
+    launch a batch (the edge-only form), no synchronizing host call, frames
+    within 10 levels of the unsplit render (chip_smoke.py's bf16 rgb bound;
+    the first conv's sum rounds once more in bf16)."""
+    cfg = torch_config(small_person_config(image_size=64, precision="bfloat16"))
+    person, models = assets.make_synthetic_person(cfg, image_size=64, device=cuda_device)
+    lm, sh, _, _, n = animate.compute_motion(cfg, person, models, video.make_test_tone(1.0))
+    ref, _ = animate.render_frames(cfg, person, models, lm[:n], sh[:n])
+    animate.render_frames(cfg, person, models, lm[:n], sh[:n], split_cand=True)
+    torch.cuda.synchronize()
+    before = rasterize_cuda.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames, _ = animate.render_frames(cfg, person, models, lm[:n], sh[:n], split_cand=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert rasterize_cuda.LAUNCHES - before == -(-n // 8) == 6
+    assert np.abs(frames.astype(int) - ref.astype(int)).max() <= 10
+
+
 def test_render_input_makes_no_host_round_trip(cuda_device):
     """After the first call has put the index pairs on the card, a call
     makes no synchronizing host operation; building the table the old way

@@ -4,6 +4,7 @@ field), and its entry points run on the card unless asked for the CPU."""
 
 import ast
 import dataclasses
+import importlib
 import inspect
 import os
 import subprocess
@@ -15,6 +16,7 @@ import pytest
 from livespeechportraits_torch import config as tconfig
 from livespeechportraits_torch.ops import mel
 from livespeechportraits_torch.pipeline import assets
+from livespeechportraits_torch.utils import profiling
 from livespeechportraits_tpu import config as jconfig
 from torch_parity import small_person_config, torch_config
 
@@ -121,7 +123,20 @@ def test_config_constants_and_yaml_overlay_equal_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize("fn", [assets.make_synthetic_person, assets.from_jax,
-                                assets.load_models_artifact, mel.compute_mel_sequence],
+                                assets.load_models_artifact, mel.compute_mel_sequence,
+                                profiling.link_probe],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+TOOLS = ("trace_render", "int8_probe", "render_ablate", "trace_train", "stream_latency",
+         "prewarm_serving", "parity", "train512", "upload_diet")
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tools_default_to_the_card(name):
+    """Each measurement tool's main runs on the card unless --device cpu."""
+    tool = importlib.import_module(f"livespeechportraits_torch.tools.{name}")
+    assert tool.build_parser().parse_args([]).device == "cuda"
+    assert "argv" in inspect.signature(tool.main).parameters
