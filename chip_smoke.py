@@ -50,10 +50,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
    ResUNet forward at B=16 (serving) and B=8 (the stream's render batch),
    bitwise, device time beside the bound.
 6d. serve: the serving path, serve.Predictor(device="cuda") booted with the
-   int8 calibrated renderer (writing an artifact), three predict() requests
+   int8 calibrated renderer (writing an artifact) and prewarm() (every
+   bucket's fused motion graphs captured), three predict() requests
    with bucketing and the yuv420 transfer; frame counts, every kernel
    launched (K1 once a 16-frame batch, K4 at least 44 a batch; 3 GRU + 3
-   LSTM launches, all on the cluster plan), PSNR against the bf16
+   LSTM launches inside the replayed motion graph, all on the cluster
+   plan), PSNR against the bf16
    float renderer, bucketed against exact, a second Predictor booted from
    the artifact giving the same frames bit for bit, and one traced request
    (K4's device time and launches, the render loop's K1 check as in 6, the
@@ -193,6 +195,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
    (the same seed: landmark error 0 and equal frames; another seed: finite
    scores), train512 (8 steps at B = 4, losses finite), link_probe and
    upload_diet.
+15. the fused motion half (pipeline/motion_graph.py) on the int8
+   Predictor's subject, 3.0 s of tone: G1, G2 (165 times) and G3 eagerly
+   under torch's sync debug mode "error"; the bucket's capture, each graph's
+   nodes, capture and instantiate ms and pool bytes; fused against staged
+   on the card (the landmarks and head pose bitwise or within
+   FUSED_*_TOL, the first stage that differs named; frames within one
+   level); K2 and K3 in a traced G1 replay and, replayed from a graph at
+   the request's shapes, against their plain twins (RNN_TOL); each graph's
+   device ms; the request through predict() against the staged request
+   (median of 3, in turns), its K2 / K3 launches inside the replay (the
+   counts set to 0 just before); a 3.0 s stream (chunk 32, 100 ms pushes):
+   at least 3 fused chunks, frames against the per-stage stream; a float
+   Predictor's boot and prewarm() capturing every bucket to 10 s.
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -209,7 +224,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
    demo_launches for each kernel, K1's and K4's render_split_launches and
    K1's dp_rank_step_launches; phase 14's K1 split_cand_entry (the
    edge-only form) and split_cand_launches, K4's large_launches (a 'large'
-   forward), large_ms_per_batch and int8_probe), then
+   forward), large_ms_per_batch and int8_probe; phase 15's
+   motion_graph_launches (K2 / K3 inside the fused request's replayed
+   graph) and motion_graph_max_abs_err), then
    {"ok": true, "device": {...}} as the last line.
 """
 
@@ -920,11 +937,9 @@ def check_serve(dev, tmp: str):
     requests, the int8 Predictor).  Raises on any failed check."""
     from livespeechportraits_torch import serve
     from livespeechportraits_torch.models.nn_core import QConv2d
-    from livespeechportraits_torch.ops import gmm, q8conv_cuda, rasterize_cuda, recurrent_cuda
+    from livespeechportraits_torch.ops import gmm, q8conv_cuda, recurrent_cuda
     from livespeechportraits_torch.pipeline import animate, video
 
-    counters = ((rasterize_cuda, "LAUNCHES"), (recurrent_cuda, "GRU_LAUNCHES"),
-                (recurrent_cuda, "LSTM_LAUNCHES"), (q8conv_cuda, "LAUNCHES"))
     ff = 15
     requests = (("tone 3.0 s", video.make_test_tone(3.0)), ("chirp 1.7 s", chirp(1.7)),
                 ("tone 2.5 s", video.make_test_tone(2.5)))
@@ -943,21 +958,26 @@ def check_serve(dev, tmp: str):
     n_q8 = sum(isinstance(m, QConv2d) for m in pq._models.feature2face.modules())
     if n_q8 != 44:
         raise AssertionError(f"serve: {n_q8} int8 convs in the 'normal' ResUNet, want 44")
+    # the fused motion half's graphs of every bucket, as a deployment
+    # prewarms them (tools/prewarm_serving.py): each request then replays
+    t0 = time.perf_counter()
+    graphs = pq.prewarm()
+    pf.prewarm()
+    torch.cuda.synchronize()
     log("serve_boot", int8_calibrate_and_save_s=f"{boot_q:.3f}", float_s=f"{boot_f:.3f}",
-        artifact_mb=f"{os.path.getsize(art) / 2**20:.1f}", int8_convs=n_q8)
+        artifact_mb=f"{os.path.getsize(art) / 2**20:.1f}", int8_convs=n_q8,
+        prewarm_both_s=f"{time.perf_counter() - t0:.3f}", motion_graphs=len(graphs))
     pq.predict(requests[0][1][:16000], write_video=False)  # warm
     pf.predict(requests[0][1][:16000], write_video=False)
 
     k4_launches = 0
     int8_frames = {}
     for name, audio in requests:
-        for mod, attr in counters:
-            setattr(mod, attr, 0)
-        recurrent_cuda.PLAN_LAUNCHES.clear()
+        zero_launch_counts()
         torch.cuda.synchronize()
         res = pq.predict(audio, write_video=False)
         torch.cuda.synchronize()
-        launches = {f"K{i + 1}": getattr(mod, attr) for i, (mod, attr) in enumerate(counters)}
+        launches = launch_counts()  # K2 / K3: inside the replayed motion graph
         plans = dict(recurrent_cuda.PLAN_LAUNCHES)
         n = res.nframe
         want = int(len(audio) / 16000 * 60) - ff
@@ -1057,10 +1077,12 @@ def check_serve(dev, tmp: str):
 
 def zero_launch_counts() -> None:
     from livespeechportraits_torch.ops import q8conv_cuda, rasterize_cuda, recurrent_cuda
+    from livespeechportraits_torch.pipeline import motion_graph
 
     rasterize_cuda.LAUNCHES = recurrent_cuda.GRU_LAUNCHES = recurrent_cuda.LSTM_LAUNCHES = 0
     q8conv_cuda.LAUNCHES = 0
     recurrent_cuda.PLAN_LAUNCHES.clear()
+    motion_graph.REPLAYED_LAUNCHES.clear()
 
 
 def check_stream(pq, dev) -> dict:
@@ -1359,7 +1381,9 @@ def _serve_subject(dev, cfg_dir: str, what: str, quantize: bool, audio) -> tuple
     if res.nframe != n or f.shape != (n, 512, 512, 3) or f.dtype != np.uint8 \
             or f.min() == f.max():
         raise AssertionError(f"onboard {what}: frames {f.shape} {f.dtype}, want {n}")
-    want = {"K1": math.ceil(n / 16), "K2": 3, "K3": 3}
+    # a bucket's first request runs G1 once eagerly (the capture's warm-up:
+    # 3 GRU + 3 LSTM launches) and then replays it (3 + 3 more)
+    want = {"K1": math.ceil(n / 16), "K2": 6, "K3": 6}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"onboard {what}: launches {launches}, want {want}")
     k4_ok = launches["K4"] >= 44 * want["K1"] if quantize else launches["K4"] == 0
@@ -3177,6 +3201,301 @@ def check_tools(dev, tmp: str, cfg, person, models) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. the fused motion half
+# ---------------------------------------------------------------------------
+
+# Fused against staged on the card, where they are not bitwise (see PERF.md):
+# the landmarks in px and the head pose; frames within one level.
+FUSED_LANDMARK_TOL_PX = 1e-4
+FUSED_HEADPOSE_TOL = 1e-5
+FUSED_FRAME_LEVELS = 1
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item())
+
+
+def _event_ms(fn) -> float:
+    """Device ms of fn() (enqueued work between two CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def check_graph_recurrences(dev, mg, cfg, models, mel80, feats) -> dict:
+    """K2 and K3 replayed from a CUDA graph at the request's shapes, each
+    layer on the plain stack's input to it, against nn_core's plain layers
+    on the card (RNN_TOL, phase 4's)."""
+    from livespeechportraits_torch.models import audio2feature as a2f_model
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import recurrent_cuda
+
+    T = feats.shape[0] // 2
+    ff = cfg.audio2feature.frame_future
+    pad = torch.cat([feats[:2 * T], feats[2 * T - 1:2 * T].expand(2 * ff, feats.shape[1])])
+    a2f_in = a2f_model._downsample(models.audio2feature,
+                                   pad.reshape(T + ff, -1))[None].contiguous()
+    cases = []  # (kernel, wrapper, weights, input, plain output)
+    x = mel80[None].contiguous()
+    for rnn in models.apc.rnns:
+        w = rnn.layer(0)
+        y = nn_core.gru_layer(x, *w)[0]
+        cases.append(("K2", recurrent_cuda.gru_layer, w, x, y))
+        x = y.contiguous()
+    x = a2f_in
+    for k in range(models.audio2feature.LSTM.num_layers):
+        w = models.audio2feature.LSTM.layer(k)
+        y = nn_core.lstm_layer(x, *w)[0]
+        cases.append(("K3", recurrent_cuda.lstm_layer, w, x, y))
+        x = y.contiguous()
+    outs = [None] * len(cases)
+
+    def run():
+        for i, (_, wrapper, w, xin, _) in enumerate(cases):
+            outs[i] = wrapper(xin, *w)[0]
+
+    g = mg.capture("K2_K3_at_request_shapes", run)
+    outs_ref = list(outs)  # the graph's output tensors
+    g.replay()
+    torch.cuda.synchronize()
+    err = {"K2": 0.0, "K3": 0.0}
+    for (k, _, _, _, ref), got in zip(cases, outs_ref):
+        err[k] = max(err[k], _max_diff(got, ref))
+    log("fused_graph_recurrences", T_gru=mel80.shape[0], T_lstm=a2f_in.shape[1],
+        graph_launches=json.dumps(g.launches), nodes=g.nodes,
+        K2_max_abs_err=f"{err['K2']:.3e}", K3_max_abs_err=f"{err['K3']:.3e}", tol=RNN_TOL)
+    if g.launches != {"K2": 3, "K3": 3} or max(err.values()) > RNN_TOL:
+        raise AssertionError(f"fused: the graph's K2 / K3 {g.launches} differ from their "
+                             f"plain twins by {err} > {RNN_TOL}")
+    return err
+
+
+def check_fused_motion(dev, pq, smi: str) -> dict:
+    """15.  The fused motion half (pipeline/motion_graph.py) on the int8
+    Predictor's subject at full width, 3.0 s of tone: (1) G1, G2 and G3
+    once eagerly under torch's sync debug mode "error"; (2) the bucket's
+    capture: each graph's nodes, capture and instantiate ms and pool
+    bytes; (3) fused against staged on the card (landmarks and head pose
+    bitwise, or within FUSED_*_TOL with the first stage that differs
+    named; frames within one level); (4) K2 and K3 in a profiled G1 replay,
+    and replayed from a graph against their plain twins; (5) the request's
+    motion ms and wall against the staged stages, median of 3, in turns;
+    (6) a 3.0 s stream: its fused chunks engage and equal the per-stage
+    stream; (7) a Predictor boot that captures every bucket to 10 s.
+    Returns the K2 / K3 launches of the fused request's replays."""
+    from livespeechportraits_torch import serve
+    from livespeechportraits_torch.pipeline import (animate, motion_graph, streaming,
+                                                    video)
+    from livespeechportraits_torch.models import audio2headpose as a2h_model
+    from livespeechportraits_torch.models import audio2feature as a2f_model
+    from livespeechportraits_torch.ops import mel
+
+    t_phase = time.perf_counter()
+    cfg, person, models = pq._cfg, pq._assets, pq._models
+    mg = motion_graph.for_models(cfg, person, models)
+    audio = video.make_test_tone(3.0)
+    n_mel = 360
+
+    # (1) the three functions eagerly, then once more under sync debug
+    mg.run(audio, graphs=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = mg.run(audio, graphs=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("fused_sync_debug", functions="G1,G2x165,G3", synchronizing_calls=0)
+
+    # (2) capture (G2 may be captured already by phase 6d's prewarm)
+    mg.buckets.pop(n_mel, None)
+    t0 = time.perf_counter()
+    b = mg.prepare(n_mel)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    stats = {g.name: g.stats() for g in (mg.g2_graph, b.g1, b.g3)}
+    for name, st in stats.items():
+        log("fused_graph", name=name, **{k: (json.dumps(v) if isinstance(v, dict) else v)
+                                         for k, v in st.items()})
+    log("fused_capture", bucket_n_mel=n_mel, seconds=f"{capture_s:.3f}",
+        static_buffer_bytes=mg.nbytes(), card=repr(smi))
+
+    # (3) fused against staged, the motion half and the frames
+    torch.cuda.synchronize()
+    staged_sm, fused_sm = {}, {}
+    staged = animate.compute_motion(cfg, person, models, audio, stage_ms=staged_sm)
+    fused = animate.compute_motion(cfg, person, models, audio, stage_ms=fused_sm, fused=True)
+    names = ("landmarks", "shoulders", "headpose", "pts3d")
+    diff = {k: _max_diff(f, s_) for k, f, s_ in zip(names, fused[:4], staged[:4])}
+    eager_diff = {k: _max_diff(f, s_) for k, f, s_ in zip(names, eager[:4], staged[:4])}
+    # where the first difference arises: G1's outputs against the staged
+    # stages (A2F, the decode's conditioning), then the decode's samples
+    mel80 = mel.compute_mel_sequence(audio, device=dev)
+    feats = motion_graph.features(cfg, person, models, mel80)
+    a2h = cfg.audio2headpose
+    stage_diff = {
+        "a2f": _max_diff(b.pred_feat, a2f_model.generate_sequence(
+            models.audio2feature, feats, frame_future=cfg.audio2feature.frame_future)),
+        "headpose_samples": _max_diff(mg.dec.samples[:b.nframe], a2h_model.generate_sequence(
+            models.audio2headpose, a2h, feats, motion_graph.pre_headpose(cfg, dev),
+            sigma_scale=a2h.sample_sigma_scale))}
+    first = next((k for k, v in stage_diff.items() if v), "post" if any(diff.values())
+                 else None)
+    staged_r = animate.animate(cfg, person, models, audio, render_batch=16, transfer="rgb")
+    fused_r = animate.animate(cfg, person, models, audio, render_batch=16, transfer="rgb",
+                              fused=True)
+    levels = int(np.abs(fused_r.frames.astype(int) - staged_r.frames.astype(int)).max())
+    log("fused_vs_staged", **{f"{k}_max": f"{v:.3e}" for k, v in diff.items()},
+        eager_vs_staged=json.dumps(eager_diff), stage_diff=json.dumps(stage_diff),
+        first_differing_stage=first, frame_max_levels=levels,
+        tol_px=FUSED_LANDMARK_TOL_PX, tol_headpose=FUSED_HEADPOSE_TOL)
+    if fused[4] != staged[4] or any(eager_diff.values()):
+        raise AssertionError(f"fused: eager functions differ from the staged path {eager_diff}")
+    if not (diff["landmarks"] <= FUSED_LANDMARK_TOL_PX and diff["headpose"] <= FUSED_HEADPOSE_TOL
+            and levels <= FUSED_FRAME_LEVELS):
+        raise AssertionError(f"fused: the replayed graphs differ from staged: {diff}, "
+                             f"{levels} levels (first at {first})")
+
+    # (4) K2 and K3 in a profiled replay of G1, and at its shapes against
+    # their twins
+    # Three replays a trace: the profiler can miss the kernels at the start
+    # of its window (on an H100 a one-replay trace has held K3's launches
+    # and none of K2's), so each kernel must show at least one replay's.
+    found, events = None, []
+    for _ in range(3):  # the profiler may drop a trace's device records
+        events, _, _ = trace(lambda: [b.g1.replay() for _ in range(3)])
+        counts = {k: kernel_device_ms(events, SYMBOLS[k])[1] for k in ("K2", "K3")}
+        if events:
+            found = counts
+            if all(counts[k] >= b.g1.launches[k] for k in counts):
+                break
+    log("fused_g1_trace", replays=3, kernels=json.dumps(found) if found else "not_measured",
+        g1_launches=json.dumps(b.g1.launches))
+    if found is not None and not all(found[k] >= b.g1.launches[k] for k in found):
+        raise AssertionError(f"fused: K2 / K3 not in traced G1 replays: {found}; the last "
+                             f"trace's {len(events)} device events: "
+                             f"{top_kernels(events, 12)}")
+    rnn_err = check_graph_recurrences(dev, mg, cfg, models, mel80, feats)
+
+    # device ms of each graph's replay
+    g1_ms = _event_ms(b.g1.replay)
+    g2_ms = _event_ms(lambda: [mg.g2_graph.replay() for _ in range(b.nframe)]) / b.nframe
+    g3_ms = _event_ms(b.g3.replay)
+    log("fused_device_ms", g1=f"{g1_ms:.4f}", g2_per_step=f"{g2_ms:.5f}", g3=f"{g3_ms:.4f}",
+        g2_x_nframe=f"{g2_ms * b.nframe:.3f}", nframe=b.nframe)
+
+    # (5) the request as predict() runs it (int8, yuv420, batch 16), fused
+    # and staged in turns, median of 3
+    ff = a2h.frame_future
+    valid = int(len(audio) / 16000 * 60)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    req = pq.predict(audio, write_video=False)
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    main_launches = launch_counts()
+    main_replayed = dict(motion_graph.REPLAYED_LAUNCHES)
+    walls = {"staged": [], "fused": []}
+    sms = {"staged": [], "fused": []}
+    for mode in ("staged", "fused", "fused", "staged", "staged", "fused"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "fused":
+            res = pq.predict(audio, write_video=False)
+        else:
+            res = animate.animate(cfg, person, models, audio, render_batch=16,
+                                  transfer="yuv420", valid_frames=valid)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        sms[mode].append(res.stage_ms)
+    med = {m: float(np.median(v)) for m, v in walls.items()}
+
+    def med_stage(mode, k):
+        return float(np.median([sm[k] for sm in sms[mode]]))
+
+    staged_motion = sum(med_stage("staged", k) for k in ("mel_apc", "lle", "audio2mouth",
+                                                         "headpose", "post"))
+    log("fused_request", audio_s=3.0, nframe=req.nframe, card=repr(smi),
+        fused_wall_s=f"{med['fused']:.4f}", staged_wall_s=f"{med['staged']:.4f}",
+        fused_fps=f"{req.nframe / med['fused']:.2f}",
+        staged_fps=f"{req.nframe / med['staged']:.2f}",
+        fused_motion_ms=f"{med_stage('fused', 'motion'):.3f}",
+        staged_headpose_ms=f"{med_stage('staged', 'headpose'):.3f}",
+        staged_motion_stages_ms=f"{staged_motion:.3f}",
+        fused_render_device_ms=f"{med_stage('fused', 'render_device'):.3f}",
+        staged_render_device_ms=f"{med_stage('staged', 'render_device'):.3f}",
+        walls=json.dumps({m: [round(w, 4) for w in v] for m, v in walls.items()}),
+        main_wall_s=f"{main_wall:.4f}", launches=json.dumps(main_launches),
+        replayed=json.dumps(main_replayed),
+        fused_stage_ms=json.dumps({k: round(v, 3) for k, v in sms["fused"][0].items()}))
+    if req.nframe != valid - ff or main_replayed != {"K2": 3, "K3": 3}:
+        raise AssertionError(f"fused request: {req.nframe} frames, replayed {main_replayed}")
+
+    # (6) a 3.0 s stream (int8, chunk 32, batch 8, 100 ms pushes, depth 1):
+    # the fused chunks against the per-stage stream
+    def stream(fused_on: bool):
+        st = streaming.StreamingAnimator(cfg, person, models, chunk=32, render_batch=8,
+                                         pipeline_depth=1, transfer="yuv420")
+        if not fused_on:
+            st._advance_stream_fused = lambda: False
+            st._advance_motion_fused = lambda: False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = np.concatenate(list(st.run(audio, push_samples=1600)))
+        return frames, time.perf_counter() - t0, st.stage_ms
+
+    stream(True)  # the chunk graphs' capture
+    per_stage, per_wall, per_sm = stream(False)
+    fused_frames, fused_wall, fused_sm2 = stream(True)
+    d = np.abs(fused_frames.astype(int) - per_stage.astype(int))
+    within = float((d <= 1).mean())
+    log("fused_stream", audio_s=3.0, nframe=len(fused_frames), card=repr(smi),
+        mega_chunks=fused_sm2.get("mega_chunks", 0), fused_chunks=fused_sm2.get("fused_chunks", 0),
+        bitwise=bool(np.array_equal(fused_frames, per_stage)), max_levels=int(d.max()),
+        within_1=f"{within:.6f}", share_tol=STREAM_FRAME_SHARE,
+        fused_wall_s=f"{fused_wall:.4f}", per_stage_wall_s=f"{per_wall:.4f}",
+        fused_a2h_ms=f"{fused_sm2.get('a2h', 0.0):.3f}",
+        fused_stream_fused_ms=f"{fused_sm2.get('stream_fused', 0.0):.3f}",
+        per_stage_a2h_ms=f"{per_sm.get('a2h', 0.0):.3f}",
+        fused_stage_ms=json.dumps({k: round(v, 3) for k, v in fused_sm2.items()}),
+        per_stage_stage_ms=json.dumps({k: round(v, 3) for k, v in per_sm.items()}))
+    if (fused_sm2.get("mega_chunks", 0) < 3 or fused_frames.shape != per_stage.shape
+            or within < STREAM_FRAME_SHARE):
+        raise AssertionError("fused stream: the fused chunks did not engage or differ")
+
+    # (7) a Predictor boot that captures every bucket to 10 s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pb = serve.Predictor(device=dev, max_audio_seconds=10.0)
+    pb.setup("Synthetic", image_size=512)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphs = pb.prewarm()
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t0
+    total = {k: sum(g[k] or 0 for g in graphs.values())
+             for k in ("nodes", "capture_ms", "instantiate_ms", "pool_bytes")}
+    log("fused_boot", setup_s=f"{setup_s:.3f}", prewarm_s=f"{prewarm_s:.3f}",
+        graphs=len(graphs), buckets=len(pb.bucket_lengths()), card=repr(smi),
+        **{f"total_{k}": (f"{v:.3f}" if isinstance(v, float) else v) for k, v in total.items()},
+        g1_10s=json.dumps(graphs.get(f"G1[{pb.bucket_lengths()[-1]}]")),
+        static_buffer_bytes=motion_graph.for_models(pb._cfg, pb._assets,
+                                                    pb._models).nbytes())
+    if len(graphs) != 2 * len(pb.bucket_lengths()) + 1:
+        raise AssertionError(f"fused boot: {len(graphs)} graphs for "
+                             f"{len(pb.bucket_lengths())} buckets")
+    del pb
+    log("phase15", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return {"replayed": main_replayed, "rnn_err": rnn_err, "g1": stats[b.g1.name]}
+
+
 class PhaseWalls:
     """Host seconds of each phase of main, for the script's time budget."""
 
@@ -3459,6 +3778,16 @@ def main() -> int:
     kernels[3]["large_ms_per_batch"] = tools["large"]
     kernels[3]["int8_probe"] = tools["int8_probe"]
     log("phase14", seconds=f"{time.perf_counter() - t14:.1f}")
+
+    phase_walls.mark("fused_motion")
+    # 15. the fused motion half: three CUDA graphs on the int8 Predictor's
+    # subject, the request and the stream against the staged path
+    with tempfile.TemporaryDirectory() as tmp:
+        pq.results_dir = tmp
+        p15 = check_fused_motion(dev, pq, smi)
+    for entry, k in zip(kernels[1:3], ("K2", "K3")):
+        entry["motion_graph_launches"] = p15["replayed"][k]
+        entry["motion_graph_max_abs_err"] = p15["rnn_err"][k]
 
     phase_walls.mark(None)
     log("phase_walls", **{k: f"{v:.1f}" for k, v in phase_walls.seconds.items()})

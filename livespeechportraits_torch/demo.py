@@ -26,8 +26,9 @@ not; ``--bucket_seconds`` pads the audio to a multiple of that length (the
 result is the unpadded run's); ``--save_intermediates`` also writes the
 frames as numbered jpgs and ``landmarks.npy`` / ``headpose.npy``; a config
 with ``Image2Image: {save_input: true}`` writes the renderer's edge maps as
-``<audio name>_feature_maps.avi``.  ``--fused`` is accepted and changes
-nothing (see its help).
+``<audio name>_feature_maps.avi``; ``--fused`` runs the motion half as
+one fused program (on the card its three CUDA graphs, pipeline/
+motion_graph.py; the same results, one "motion" stage entry).
 """
 
 from __future__ import annotations
@@ -109,8 +110,10 @@ def main(argv=None) -> None:
                         help="with --streaming: hand each push's frames back up to N "
                              "pushes later, so their fetch overlaps the next pushes")
     parser.add_argument("--fused", action="store_true",
-                        help="accepted for the JAX demo's command lines; the port runs the "
-                             "motion half stage by stage either way (same results)")
+                        help="run the motion half (mel->APC->LLE->mouth->head-pose->post) as "
+                             "the fused program: CUDA graphs on the card, one graph launch a "
+                             "frame for the head-pose decode (same results; one 'motion' "
+                             "stage entry)")
     args = parser.parse_args(argv)
 
     import torch
@@ -204,9 +207,6 @@ def main(argv=None) -> None:
         _write_video(video_mod, frames, save_root, audio_name, "frames.npy", audio)
         return
 
-    if args.fused:
-        print("note: --fused has no effect: the port runs the motion half stage by stage "
-              "(one device program for it is future work); the results are a run's without it")
     true_audio, valid_frames = audio, None
     if args.bucket_seconds > 0:
         bucket = int(args.bucket_seconds * 16000)
@@ -215,7 +215,8 @@ def main(argv=None) -> None:
     result = animate_mod.animate(cfg, person_assets, person_models, audio, seed=args.seed,
                                  render_batch=args.render_batch,
                                  keep_feature_maps=bool(cfg.feature2face.save_input),
-                                 transfer=args.transfer, valid_frames=valid_frames)
+                                 transfer=args.transfer, valid_frames=valid_frames,
+                                 fused=args.fused)
     wall = time.perf_counter() - t0
     print(f"stages (ms): {json.dumps({k: round(v, 1) for k, v in result.stage_ms.items()})}")
     print(f"{result.nframe} frames in {wall:.2f}s -> {result.nframe / wall:.1f} fps end-to-end")

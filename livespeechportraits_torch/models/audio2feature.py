@@ -154,19 +154,23 @@ def decode(cfg: Audio2FeatureConfig, preds: Tensor, seed: int = 0, start: int = 
 
 
 def generate_sequence(model: Audio2Feature, audio_feats: Tensor,
-                      frame_future: int = 18, seed: int = 0) -> Tensor:
+                      frame_future: int = 18, seed: int = 0,
+                      gumbel: Optional[Tensor] = None) -> Tensor:
     """Whole-utterance inference: [2T, H] APC features -> [T, output_dim].
 
     The tail is padded with the last feature for ``frame_future`` frames and
     the first ``frame_future`` predictions are dropped, since the model
     predicts that far ahead.  A GMM head decodes every row before the drop
-    (decode, with row j's draws those of padded row j)."""
+    (decode, with row j's draws those of padded row j; ``gumbel`` [T +
+    frame_future, gmm_ncenter] passes them in, as the fused motion program
+    does from its device buffer)."""
     T = audio_feats.shape[0] // 2
     feats = audio_feats[:2 * T]
     if frame_future > 0:
         pad = feats[-1:].expand(2 * frame_future, feats.shape[1])
         feats = torch.cat([feats, pad], dim=0)
-    preds = decode(model.cfg, apply_audio2feature(model, feats[None])[0], seed=seed)
+    preds = decode(model.cfg, apply_audio2feature(model, feats[None])[0], seed=seed,
+                   gumbel=gumbel)
     if frame_future > 0:
         preds = preds[frame_future:]
     return preds[:T]

@@ -9,9 +9,11 @@ frame: stream_step, then one GMM sample that becomes the next input.
 
 With ``frame_future`` f and receptive field R, decode step i reads audio row
 i+f (rows < 0 clamp to row 0) and the history starts as ``pre_headpose``
-repeated.  The decode is a plain Python loop over frames.  Its noise is
-drawn up front on the CPU (ops/gmm.draw_noise), so a run draws the same
-noise on any device.
+repeated.  The decode's state lives in ``DecodeBuffers`` and one step is
+``decode_step``, device ops only: the staged path calls it in a Python loop
+over frames, the fused motion program (pipeline/motion_graph.py) replays a
+CUDA graph of it.  Its noise is drawn up front on the CPU
+(ops/gmm.draw_noise), so a run draws the same noise on any device.
 
 The LSTM variant (JAX audio2headpose.py:223-287, the reference's
 audio2headpose.py:57-102) is ``Audio2HeadposeLSTM``: the same audio MLP,
@@ -27,7 +29,6 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -89,32 +90,110 @@ def apply_audio2headpose(model: Audio2Headpose, history: Tensor, audio_feats: Te
                            dropout_keep=dropout_keep)
 
 
-def _decode_scan(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_ds: Tensor,
-                 pre_headpose: Tensor, gumbel: Tensor, eps: Tensor, nframe: int,
-                 sigma_scale: float) -> Tensor:
-    """audio_ds [T, cond_ch] -> [nframe, ndim] sampled poses; gumbel
-    [nframe, ncenter] and eps [nframe, ndim] are the per-step noise."""
+class DecodeBuffers:
+    """The device state of the head-pose decode, which ``decode_step``
+    reads and writes in place: the WaveNet's ring buffers (views of one
+    tensor, ``ring_flat``), the steps taken (``step``, int64 [1]: the rings'
+    slot), the previous sample ``x_prev`` [1, input_channels], and ``rows``
+    rows of per-step inputs and outputs: each layer's conditioning
+    projections ``fproj`` / ``gproj`` [layers, rows, dilation_channels], the
+    noise ``gumbel`` [rows, ncenter] and ``eps`` [rows, ndim], and the
+    ``samples`` [rows, ndim]; ``row`` (int64 [1]) is the row the next step
+    reads and writes.  The fused motion program keeps one set a subject and
+    device and replays a CUDA graph of one step over it."""
+
+    def __init__(self, model: Audio2Headpose, cfg: Audio2HeadposeConfig, rows: int,
+                 device: torch.device | str):
+        wn = cfg.wavenet
+        lens = [d * (wn.kernel_size - 1) for d in wn.dilations]
+        dev = torch.device(device)
+        self.rows = rows
+        self.ring_flat = torch.zeros(sum(lens), wn.residual_channels, device=dev)
+        self.ring = [r[None] for r in self.ring_flat.split(lens)]
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.row = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.x_prev = torch.zeros(1, wn.input_channels, device=dev)
+        n_layers = len(model.WaveNet.residual_blocks)
+        self.fproj = torch.zeros(n_layers, rows, wn.dilation_channels, device=dev)
+        self.gproj = torch.zeros_like(self.fproj)
+        self.gumbel = torch.zeros(rows, cfg.ncenter, device=dev)
+        self.eps = torch.zeros(rows, cfg.ndim, device=dev)
+        self.samples = torch.zeros(rows, cfg.ndim, device=dev)
+
+    def state(self) -> Tuple[Tensor, Tensor, Tensor]:
+        """(ring_flat, step, x_prev): what a decode carries from step to step."""
+        return self.ring_flat, self.step, self.x_prev
+
+    def load_state(self, state: Tuple[Tensor, Tensor, Tensor]) -> None:
+        """Copy a carried state (``state()`` of another set) in."""
+        for dst, src in zip(self.state(), state):
+            dst.copy_(src)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.ring_flat, self.step, self.row, self.x_prev, self.fproj, self.gproj,
+            self.gumbel, self.eps, self.samples))
+
+
+def downsample_sequence(model: Audio2Headpose, audio_feats: Tensor) -> Tensor:
+    """[2T, H] APC features -> [T, cond] conditioning rows (pairs of rows,
+    then the downsample MLP)."""
+    T = audio_feats.shape[0] // 2
+    return _audio_downsample(model, audio_feats[:2 * T].reshape(T, -1)[None])[0]
+
+
+def prime_decode(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_ds: Tensor,
+                 x_warm: Tensor, dec: DecodeBuffers, first: int, nframe: int) -> None:
+    """Ready ``dec`` for decode steps ``first`` .. ``first + nframe - 1`` of
+    an utterance whose conditioning rows are ``audio_ds`` [T, cond]: with
+    first == 0 the ring buffers are primed on R-1 warm-up frames of
+    ``x_warm`` [input_channels] (conditioning rows < 0 clamp to row 0), the
+    steps taken and x_prev are reset; then the steps' conditioning
+    projections (step i reads row i + frame_future) fill rows 0 ..
+    nframe - 1 and ``row`` is reset.  Device ops only."""
     net = model.WaveNet
     R = cfg.wavenet.receptive_field
     f = cfg.frame_future
     dev = audio_ds.device
+    if first == 0:
+        warm_idx = torch.clamp(torch.arange(-(R - 1), 0, device=dev) + f, min=0)
+        st = wavenet.stream_init(net, x_warm.expand(1, R - 1, x_warm.shape[-1]),
+                                 audio_ds[warm_idx][None])
+        for dst, src in zip(dec.ring, st.buffers):
+            dst.copy_(src)
+        dec.step.zero_()
+        dec.x_prev.copy_(x_warm[None])
+    write_cond_projections(net, audio_ds[first + f:first + f + nframe], dec)
 
-    warm_idx = torch.as_tensor(np.maximum(np.arange(-(R - 1), 0) + f, 0), device=dev)
-    x_warm = pre_headpose.expand(1, R - 1, pre_headpose.shape[-1])
-    state = wavenet.stream_init(net, x_warm, audio_ds[warm_idx][None])
 
-    step_idx = torch.arange(nframe, device=dev) + f
-    cond_proj = wavenet.precompute_cond_projections(net, audio_ds[step_idx][None])
+def write_cond_projections(net: wavenet.WaveNet, cond: Tensor, dec: DecodeBuffers) -> None:
+    """The conditioning projections of the rows ``cond`` [n, cond_ch] into
+    rows 0 .. n-1 of ``dec``; the next step reads row 0."""
+    n = cond.shape[0]
+    for li, (fp, gp) in enumerate(wavenet.precompute_cond_projections(net, cond[None])):
+        dec.fproj[li, :n].copy_(fp[0])
+        dec.gproj[li, :n].copy_(gp[0])
+    dec.row.zero_()
 
-    x_prev = pre_headpose[None]
-    samples = []
-    for i in range(nframe):
-        proj_t = [(fp[:, i], gp[:, i]) for fp, gp in cond_proj]
-        state, out = wavenet.stream_step(net, state, x_prev, cond_proj_t=proj_t)
-        x_prev = gmm.sample_gmm(out, cfg.ncenter, cfg.ndim, gumbel[i:i + 1], eps[i:i + 1],
-                                sigma_scale=sigma_scale)
-        samples.append(x_prev)
-    return torch.cat(samples, dim=0)
+
+def decode_step(model: Audio2Headpose, cfg: Audio2HeadposeConfig, dec: DecodeBuffers,
+                sigma_scale: float) -> None:
+    """One decode step on ``dec``: the WaveNet step from x_prev with row
+    ``row``'s projections, then one GMM sample with row ``row``'s noise,
+    written to row ``row`` of the samples and to x_prev; row and step move
+    on by one.  Device ops only: the fused program captures this function
+    once and replays it a frame."""
+    row = dec.row
+    fsel = dec.fproj.index_select(1, row)  # [layers, 1, dil]
+    gsel = dec.gproj.index_select(1, row)
+    state = wavenet.StreamState(dec.ring, dec.step)
+    _, out = wavenet.stream_step(model.WaveNet, state, dec.x_prev,
+                                 cond_proj_t=list(zip(fsel, gsel)))
+    x = gmm.sample_gmm(out, cfg.ncenter, cfg.ndim, dec.gumbel.index_select(0, row),
+                       dec.eps.index_select(0, row), sigma_scale=sigma_scale)
+    dec.samples.index_copy_(0, row, x)
+    dec.x_prev.copy_(x)
+    dec.row.add_(1)
 
 
 def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_feats: Tensor,
@@ -122,20 +201,28 @@ def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_fe
                       noise: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
     """Full-utterance decode: [2T, H] APC features -> [T - frame_future, ndim].
 
+    The decode primes the WaveNet ring buffers on R-1 warm-up frames, hoists
+    every layer's audio projection over all frames, then steps frame by frame
+    (decode_step: stream_step, then one GMM sample that becomes the next
+    input); step i reads audio row i + frame_future.
+
     noise: (gumbel [n, ncenter], eps [n, ndim]) for the n = T - frame_future
     steps; ``gmm.draw_noise(n, ..., seed)`` when None, whose step-i draws
     depend on (seed, i) alone."""
     T = audio_feats.shape[0] // 2
-    paired = audio_feats[:2 * T].reshape(T, -1)[None]
-    audio_ds = _audio_downsample(model, paired)[0]
     nframe = T - cfg.frame_future
     if nframe <= 0:
         raise ValueError(f"utterance too short: {T} frames <= frame_future {cfg.frame_future}")
+    audio_ds = downsample_sequence(model, audio_feats)
     if noise is None:
         noise = gmm.draw_noise(nframe, cfg.ncenter, cfg.ndim, seed)
-    gumbel, eps = (n.to(audio_ds.device, torch.float32) for n in noise)
-    return _decode_scan(model, cfg, audio_ds, pre_headpose, gumbel, eps, nframe,
-                        float(sigma_scale))
+    dec = DecodeBuffers(model, cfg, nframe, audio_ds.device)
+    prime_decode(model, cfg, audio_ds, pre_headpose, dec, 0, nframe)
+    dec.gumbel.copy_(noise[0][:nframe])
+    dec.eps.copy_(noise[1][:nframe])
+    for _ in range(nframe):
+        decode_step(model, cfg, dec, float(sigma_scale))
+    return dec.samples
 
 
 # ---------------------------------------------------------------------------

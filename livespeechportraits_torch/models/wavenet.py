@@ -112,14 +112,16 @@ def forward(net: WaveNet, x: Tensor, cond: Optional[Tensor] = None,
 @dataclass
 class StreamState:
     """Per-layer ring buffers [B, d_l, residual_channels] and the number of
-    steps taken.  Slot (step % d_l) of layer l holds that layer's trunk input
-    from d_l steps ago; stream_step reads it and overwrites it in place with
-    the current input.  (JAX shifts each buffer by one and appends, which
-    copies the whole buffer every step; the circular index is the same
-    sequence of values.)"""
+    steps taken, an int64 tensor [1] on the buffers' device.  Slot (step %
+    d_l) of layer l holds that layer's trunk input from d_l steps ago;
+    stream_step reads it and overwrites it in place with the current input.
+    The slot is device arithmetic on the step, so a CUDA graph of a step
+    replays with the step it finds.  (JAX shifts each buffer by one and
+    appends, which copies the whole buffer every step; the circular index is
+    the same sequence of values.)"""
 
     buffers: List[Tensor]
-    step: int = 0
+    step: Tensor
 
 
 def stream_init(net: WaveNet, x_hist: Tensor, cond_hist: Optional[Tensor] = None
@@ -137,7 +139,7 @@ def stream_init(net: WaveNet, x_hist: Tensor, cond_hist: Optional[Tensor] = None
         else:
             buf = torch.cat([trunk.new_zeros(B, d - L, trunk.shape[2]), trunk], dim=1)
         buffers.append(buf.contiguous())
-    return StreamState(buffers)
+    return StreamState(buffers, torch.zeros(1, dtype=torch.int64, device=x_hist.device))
 
 
 def _pointwise(x: Tensor, conv: nn.Conv1d) -> Tensor:
@@ -156,17 +158,22 @@ def stream_step(net: WaveNet, state: StreamState, x_t: Tensor,
     """One causal step: x_t [B, input_channels] -> [B, output_channels].
 
     Conditioning comes as this step's per-layer (filter, gate) projections
-    (cond_proj_t, from precompute_cond_projections).  The ring buffers are
-    updated in place."""
+    (cond_proj_t, from precompute_cond_projections).  The ring buffers and
+    the step are updated in place, by device ops only (no host read), so the
+    step can be captured in a CUDA graph."""
     cfg = net.cfg
     if cfg.kernel_size != 2:
         raise NotImplementedError("streaming decode supports kernel_size=2")
     h = _activation(cfg, _pointwise(x_t, net.start_conv1))
     h = _activation(cfg, _pointwise(h, net.start_conv2))
     skip = 0.0
+    slots = {}  # ring length -> this step's slot [1]
     for li, (blk, buf) in enumerate(zip(net.residual_blocks, state.buffers)):
-        slot = state.step % buf.shape[1]
-        x_old = buf[:, slot, :]  # trunk input at t - dilation
+        d = buf.shape[1]
+        if d not in slots:
+            slots[d] = torch.remainder(state.step, d)
+        slot = slots[d]
+        x_old = buf.index_select(1, slot)[:, 0]  # trunk input at t - dilation
         f = x_old @ _tap(blk.filter_conv, 0) + h @ _tap(blk.filter_conv, 1)
         g = x_old @ _tap(blk.gate_conv, 0) + h @ _tap(blk.gate_conv, 1)
         if blk.filter_conv.bias is not None:
@@ -178,11 +185,11 @@ def stream_step(net: WaveNet, state: StreamState, x_t: Tensor,
         z = torch.tanh(f) * torch.sigmoid(g)
         s = _pointwise(z, blk.skip_conv)
         skip = skip + s
-        buf[:, slot, :] = h
+        buf.index_copy_(1, slot, h[:, None, :])
         h = _pointwise(z, blk.residual_conv) + h
     out = _pointwise(_activation(cfg, skip), net.end_conv_1)
     out = _pointwise(_activation(cfg, out), net.end_conv_2)
-    state.step += 1
+    state.step.add_(1)
     return state, out
 
 

@@ -9,6 +9,7 @@ systems.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -49,6 +50,21 @@ def knn_chunked(feats: Tensor, feat_database: Tensor, K: int = 10,
     return best_idx
 
 
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """torch.linalg on cuSOLVER for a CUDA device (the preference restored
+    after); nothing on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
 def solve_lle_weights(feats: Tensor, neighbors: Tensor) -> Tuple[Tensor, Tensor]:
     """Sum-to-one constrained least squares per frame: feats [T, D],
     neighbors [T, K, D] -> (weights [T, K], reconstruction [T, D]).
@@ -56,13 +72,18 @@ def solve_lle_weights(feats: Tensor, neighbors: Tensor) -> Tuple[Tensor, Tensor]
     A singular Gram matrix (duplicate neighbours) gives non-finite weights,
     which fall back to uniform 1/K, as in JAX.  ``solve_ex`` with
     ``check_errors=False`` neither raises nor synchronises with the device.
+    On the card the solve runs on cuSOLVER (``_cusolver``), whatever
+    backend torch's heuristics or build would pick: the staged and the
+    fused motion half solve alike, on the backend whose batched LU the
+    fused program's CUDA graph captures (chip_smoke.py phase 15).
     """
     f1 = neighbors[:, 0, :]
     A = neighbors[:, 1:, :] - f1[:, None, :]  # [T, K-1, D]
     B = feats - f1
     gram = A @ A.transpose(1, 2)  # [T, K-1, K-1]
     rhs = (A @ B[:, :, None])  # [T, K-1, 1]
-    w_rest = torch.linalg.solve_ex(gram, rhs, check_errors=False).result[..., 0]
+    with _cusolver(gram.device):
+        w_rest = torch.linalg.solve_ex(gram, rhs, check_errors=False).result[..., 0]
     w0 = 1.0 - w_rest.sum(-1, keepdim=True)
     w = torch.cat([w0, w_rest], dim=-1)
     finite = torch.isfinite(w).all(dim=-1, keepdim=True)

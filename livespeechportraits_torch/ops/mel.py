@@ -16,8 +16,11 @@ import numpy as np
 import torch
 
 from livespeechportraits_torch.config import FPS, MEL_RATE, SAMPLE_RATE
+from livespeechportraits_torch.ops import device_consts
 
 LOG_MEL_MIN = math.log(1e-5)
+MEL_STEP = SAMPLE_RATE * 0.5 / FPS  # 133.33 samples a 120 Hz mel frame
+MEL_WIN = SAMPLE_RATE // FPS  # 266 samples a clip
 
 
 def _hz_to_mel(f) -> np.ndarray:
@@ -70,26 +73,40 @@ def _reflect_index(p: np.ndarray, n: int) -> np.ndarray:
     return np.where(p >= n, 2 * (n - 1) - p, p)
 
 
-def mel_frames(audio: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
-    """The normalised log-mel frames [len(starts), 80] whose clips begin at
-    ``starts`` (sample indices into ``audio``, on audio's device); each clip
-    reads samples [start, start + 266), so ``audio`` must hold them."""
-    sr = SAMPLE_RATE
-    n_fft, n_mels = 512, 80
+def _frame_consts(device: torch.device):
+    """(col [512] int64, window [512] f32, basis [80, 257] f32) on
+    ``device``, uploaded once: a frame's reflect-padded sample offsets, the
+    Hann window zero-padded to n_fft and the mel filterbank."""
+    sr, n_fft, n_mels = SAMPLE_RATE, 512, 80
     win_length = sr // FPS  # 266
     pad = (n_fft - sr // MEL_RATE) // 2  # 189
+
+    def window():
+        w = np.zeros(n_fft, dtype=np.float32)
+        lpad = (n_fft - win_length) // 2
+        w[lpad:lpad + win_length] = _hann_periodic(win_length)
+        return w
+
+    return (device_consts.const("mel.col", device,
+                                lambda: _reflect_index(np.arange(n_fft) - pad, win_length)),
+            device_consts.const("mel.window", device, window),
+            device_consts.const("mel.basis", device,
+                                lambda: mel_filterbank(sr, n_fft, n_mels, 90.0, 7600.0)))
+
+
+def mel_frames(audio: torch.Tensor, starts) -> torch.Tensor:
+    """The normalised log-mel frames [len(starts), 80] whose clips begin at
+    ``starts`` (sample indices into ``audio``: an int64 tensor on audio's
+    device, or a numpy array, which is uploaded); each clip reads samples
+    [start, start + 266), so ``audio`` must hold them.  With ``starts`` on
+    the device the frames make no host round trip."""
     dev = audio.device
-
-    col = _reflect_index(np.arange(n_fft) - pad, win_length)
-    idx = torch.as_tensor(np.asarray(starts, np.int64)[:, None] + col[None, :], device=dev)
-
-    window = np.zeros(n_fft, dtype=np.float32)
-    lpad = (n_fft - win_length) // 2
-    window[lpad:lpad + win_length] = _hann_periodic(win_length)
-
-    frames = audio.float()[idx] * torch.as_tensor(window, device=dev)  # [n, n_fft]
-    mag = torch.fft.rfft(frames, n=n_fft, dim=-1).abs()
-    basis = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels, 90.0, 7600.0), device=dev)
+    col, window, basis = _frame_consts(dev)
+    if not isinstance(starts, torch.Tensor):
+        starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+    idx = starts[:, None] + col[None, :]
+    frames = audio.float()[idx] * window  # [n, n_fft]
+    mag = torch.fft.rfft(frames, n=512, dim=-1).abs()
     melspec = mag @ basis.t()
     log_mel = torch.log(torch.clamp(melspec, min=1e-5))
     return (log_mel - LOG_MEL_MIN) / -LOG_MEL_MIN
@@ -98,7 +115,20 @@ def mel_frames(audio: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
 def frame_starts(first: int, stop: int) -> np.ndarray:
     """The first sample of mel frames first .. stop-1 (a fractional hop of
     133.33 samples, floored per frame)."""
-    return np.floor(np.arange(first, stop) * (SAMPLE_RATE * 0.5 / FPS)).astype(np.int64)
+    return np.floor(np.arange(first, stop) * MEL_STEP).astype(np.int64)
+
+
+def frame_start_tensor(first: int, stop: int, device: torch.device) -> torch.Tensor:
+    """frame_starts on ``device`` by device arithmetic (the same float64
+    product and floor), so no host data is uploaded."""
+    i = torch.arange(first, stop, dtype=torch.float64, device=device)
+    return torch.floor(i * MEL_STEP).to(torch.int64)
+
+
+def samples_read(n_frames: int) -> int:
+    """The samples that mel frames 0 .. n_frames-1 read: the last clip ends
+    there."""
+    return int(np.floor((n_frames - 1) * MEL_STEP)) + MEL_WIN
 
 
 def _mel_sequence_impl(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -106,7 +136,7 @@ def _mel_sequence_impl(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
     clips past the end of the audio read zeros."""
     padded = torch.cat([audio.float(),
                         audio.new_zeros(SAMPLE_RATE // FPS, dtype=torch.float32)])
-    return mel_frames(padded, frame_starts(0, n_frames))
+    return mel_frames(padded, frame_start_tensor(0, n_frames, audio.device))
 
 
 def compute_mel_sequence(audio, device: torch.device | str = "cuda") -> torch.Tensor:

@@ -15,6 +15,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from livespeechportraits_torch.ops import device_consts
+
 Tensor = torch.Tensor
 
 # Landmark-group index constants (funcs/utils.py:267-273 of the reference).
@@ -27,6 +29,19 @@ LOWER_MOUTH = (53, 54, 55, 56, 57, 58, 59, 60)
 UPPER_MOUTH = (46, 47, 48, 49, 50, 51, 52, 61, 62, 63)
 
 
+_LIP_GROUPS = {"UPPER_INNER_LIP": UPPER_INNER_LIP, "LOWER_INNER_LIP": LOWER_INNER_LIP,
+               "UPPER_OUTER_LIP": UPPER_OUTER_LIP, "LOWER_OUTER_LIP": LOWER_OUTER_LIP,
+               "UPPER_MOUTH": UPPER_MOUTH, "LOWER_MOUTH": LOWER_MOUTH}
+
+
+def lip_rows(device: torch.device) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The inner upper, inner lower, outer upper and outer lower lip rows as
+    index tensors on ``device`` (uploaded once)."""
+    return tuple(device_consts.const(k, device, lambda k=k: np.asarray(_LIP_GROUPS[k]))
+                 for k in ("UPPER_INNER_LIP", "LOWER_INNER_LIP", "UPPER_OUTER_LIP",
+                           "LOWER_OUTER_LIP"))
+
+
 def _gaussian_kernel(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """scipy.ndimage-compatible discrete Gaussian kernel."""
     radius = int(truncate * float(sigma) + 0.5)
@@ -36,24 +51,27 @@ def _gaussian_kernel(sigma: float, truncate: float = 4.0) -> np.ndarray:
 
 
 def gaussian_filter1d(x: Tensor, sigma: float, truncate: float = 4.0,
-                      valid_len: Optional[int] = None) -> Tensor:
+                      valid_len: Optional[int | Tensor] = None) -> Tensor:
     """Gaussian smoothing along axis 0 of [T, D] (scipy 'reflect' mode).
 
     valid_len: treat only rows [0, valid_len) as the signal (the rest is
     bucket padding, serve.py); the reflection is built from those rows, so
     rows >= valid_len are never read and outputs [0, valid_len) equal
-    filtering the unpadded signal bit for bit."""
+    filtering the unpadded signal bit for bit.  An int, or an int64 tensor
+    of one element on x's device (the fused motion program's, which a CUDA
+    graph reads at replay); the reflect index is device arithmetic either
+    way, so no host data is uploaded."""
     if sigma <= 0:
         return x
     kernel = _gaussian_kernel(sigma, truncate)
     radius = kernel.shape[0] // 2
     T = x.shape[0]
-    n = T if valid_len is None else int(valid_len)
-    if n < 1:
+    n = T if valid_len is None else valid_len
+    if not isinstance(n, Tensor) and n < 1:
         raise ValueError(f"valid_len must be >= 1, got {valid_len}")
     # closed form of the repeated reflection: a period-2n triangle
-    m = np.mod(np.arange(-radius, T + radius), 2 * n)
-    idx = torch.as_tensor(np.where(m < n, m, 2 * n - 1 - m), device=x.device)
+    m = torch.remainder(torch.arange(-radius, T + radius, device=x.device), 2 * n)
+    idx = torch.where(m < n, m, 2 * n - 1 - m)
     xp = x[idx].float()  # [T + 2r, D]
     # correlate each column, out[t] = sum_j k[j] * xp[t + j], tap by tap in
     # the order of j, as the stream's smoother sums: elementwise f32 ops, so
@@ -97,6 +115,13 @@ def mouth_amp(pts3d: Tensor, is_delta: bool = True, method: str = "XY",
     p = list(params)
     out = pts3d.clone()
     dev = pts3d.device
+
+    def scales(q):  # the parameters as a tensor, uploaded once
+        return device_consts.const(f"amp{tuple(q)}", dev,
+                                   lambda: np.asarray(q, np.float32)).to(out.dtype)
+
+    def rows(name):
+        return device_consts.const(name, dev, lambda: np.asarray(_LIP_GROUPS[name]))
     if method == "XY":
         ax, ay = p
         if is_delta:
@@ -111,20 +136,17 @@ def mouth_amp(pts3d: Tensor, is_delta: bool = True, method: str = "XY",
             out[1:, m0:m1] += p[0] * (pts3d[1:, m0:m1] - pts3d[:-1, m0:m1])
     elif method == "XYZ":
         if is_delta:
-            out[:, m0:m1, :] *= torch.tensor(p, device=dev, dtype=out.dtype)
+            out[:, m0:m1, :] *= scales(p)
     elif method == "LowerMore":
         if is_delta:
-            up = torch.tensor(UPPER_MOUTH, device=dev)
-            lo = torch.tensor(LOWER_MOUTH, device=dev)
-            out[:, up, :] *= torch.tensor(p[:3], device=dev, dtype=out.dtype)
-            out[:, lo, :] *= torch.tensor(p[3:], device=dev, dtype=out.dtype)
+            up, lo = rows("UPPER_MOUTH"), rows("LOWER_MOUTH")
+            out[:, up, :] *= scales(p[:3])
+            out[:, lo, :] *= scales(p[3:])
     elif method == "CloseSmall":
-        up = torch.tensor(UPPER_MOUTH, device=dev)
-        lo = torch.tensor(LOWER_MOUTH, device=dev)
+        up, lo = rows("UPPER_MOUTH"), rows("LOWER_MOUTH")
         open_score = (pts3d[:, up, 1] > 0).sum(1) + (pts3d[:, lo, 1] < 0).sum(1)
         is_open = (open_score > 16 * 0.3)[:, None, None]
-        scale = torch.where(is_open, torch.tensor(p[:3], device=dev, dtype=out.dtype),
-                            torch.tensor(p[3:], device=dev, dtype=out.dtype))
+        scale = torch.where(is_open, scales(p[:3]), scales(p[3:]))
         out[:, m0:m1, :] *= scale
     else:
         raise ValueError(f"unknown AMP method {method!r}")
@@ -138,10 +160,7 @@ def solve_intersect_mouth(pts3d: Tensor, valid: Optional[Tensor] = None) -> Tens
     the mean overlap over all flipped frames.  ``valid`` ([T] bool) keeps
     bucket-padding rows out of that statistic."""
     dev = pts3d.device
-    ui = torch.tensor(UPPER_INNER_LIP, device=dev)
-    li = torch.tensor(LOWER_INNER_LIP, device=dev)
-    uo = torch.tensor(UPPER_OUTER_LIP, device=dev)
-    lo = torch.tensor(LOWER_OUTER_LIP, device=dev)
+    ui, li, uo, lo = lip_rows(dev)
     upper_y = pts3d[:, ui, 1]
     lower_y = pts3d[:, li, 1]
     flip = (lower_y > upper_y).sum(1) == 3  # [T]

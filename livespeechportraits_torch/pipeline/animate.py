@@ -1,8 +1,9 @@
 """The audio -> video inference pipeline on PyTorch.
 
 Counterpart of ``livespeechportraits_tpu/pipeline/animate.py``: the staged
-``compute_motion`` with ``valid_frames`` bucketing (without ``fused``),
-``_jit_post`` as a plain function, ``render_frames`` with every transfer
+``compute_motion`` with ``valid_frames`` bucketing and ``fused`` (JAX's
+``_jit_motion``: pipeline/motion_graph.py, CUDA graphs on the card),
+``_jit_post`` as ``motion_graph.post``, ``render_frames`` with every transfer
 (``rgb``, ``yuv420`` and the ``jpeg``, ``jpeg4`` and ``pack4e`` codes of
 ``pipeline/compress.py``, pack4e with its prefix fetch),
 ``build_render_inputs`` and ``animate``, JAX's ``mesh=`` as
@@ -14,7 +15,7 @@ conv's candidate half once a call, K1's edge-only input a batch.  Stages:
     2. LLE manifold projection (ops/manifold.py)
     3. Audio2Mouth (models/audio2feature.py: LSTM kernel K3)
     4. Audio2Headpose decode (models/audio2headpose.py)
-    5. post-processing: smoothing, AMP, projection (_post)
+    5. post-processing: smoothing, AMP, projection (motion_graph.post)
     6. rendering: kernel K1 (landmarks -> the U-Net's input) + Feature2Face
        U-Net (the int8 convs on kernel K4), frames batched, then the
        transfer's encoder on the device and its decoder on the host
@@ -37,14 +38,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from livespeechportraits_torch.config import EYE_BROW_INDICES, MOUTH_INDICES, PersonConfig
+from livespeechportraits_torch.config import PersonConfig
 from livespeechportraits_torch.models import apc as apc_model
 from livespeechportraits_torch.models import audio2feature as a2f_model
 from livespeechportraits_torch.models import audio2headpose as a2h_model
 from livespeechportraits_torch.models import feature2face as f2f_model
-from livespeechportraits_torch.ops import (geometry, manifold, mel, rasterize_cuda,
-                                           smoothing)
-from livespeechportraits_torch.pipeline import compress
+from livespeechportraits_torch.ops import manifold, mel, rasterize_cuda
+from livespeechportraits_torch.pipeline import compress, motion_graph
 from livespeechportraits_torch.pipeline.assets import PersonAssets, PersonModels
 
 Tensor = torch.Tensor
@@ -196,7 +196,7 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
                    audio: np.ndarray, seed: int = 0,
                    stage_ms: Optional[Dict[str, float]] = None, profile: bool = False,
                    headpose_noise: Optional[Tuple[Tensor, Tensor]] = None,
-                   valid_frames: Optional[int] = None):
+                   valid_frames: Optional[int] = None, fused: bool = False):
     """Stages 1-5: audio -> (landmarks2d [N', 73, 2], shoulders2d [N', S, 2],
     head [N', 6], pts3d [N', 73, 3], N), tensors on the models' device; the
     first N rows are the frames (N' > N only with valid_frames).
@@ -210,13 +210,28 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
     the last true row (what the A2F tail sees on the unpadded run), the
     post stage reflects at the true end, and N = valid_frames -
     frame_future: the first N rows equal the unpadded run's.  Every other
-    stage is prefix-causal over the padded audio."""
+    stage is prefix-causal over the padded audio.
+
+    fused (JAX's): stages 1-5 as the fused motion program
+    (pipeline/motion_graph.py): on the card G1, G2 once a frame and G3
+    replayed from CUDA graphs captured on the bucket length's first use, on
+    the CPU the same functions run eagerly; the same ops as the staged
+    path, so the same results.  ``stage_ms`` then holds one "motion" entry
+    (host wall, no synchronize).  With profile=True the stages run staged,
+    as JAX's do."""
     sm = stage_ms if stage_ms is not None else {}
     dev = _device_of(models)
     ff = cfg.audio2headpose.frame_future
     if valid_frames is not None and int(valid_frames) <= ff:
         raise ValueError(f"valid_frames={valid_frames} must exceed the head-pose lookahead "
                          f"frame_future={ff} (audio too short for the bucket)")
+
+    if fused and not profile:
+        t0 = time.perf_counter()
+        out = motion_graph.for_models(cfg, assets, models).run(
+            audio, seed=seed, noise=headpose_noise, valid_frames=valid_frames)
+        sm["motion"] = (time.perf_counter() - t0) * 1e3
+        return out
 
     t0 = time.perf_counter()
     mel80 = mel.compute_mel_sequence(audio, device=dev)  # [2T, 80]
@@ -236,8 +251,7 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
     if valid_frames is not None:
         # rows at or past the true end become the last true row: at the
         # FRAME count 2*valid_frames-1, not the post-stage count
-        last = 2 * int(valid_frames) - 1
-        feats = feats[torch.clamp(torch.arange(feats.shape[0], device=dev), max=last)]
+        feats = motion_graph.repeat_past(feats, 2 * int(valid_frames) - 1)
 
     t0 = time.perf_counter()
     pred_feat = a2f_model.generate_sequence(models.audio2feature, feats,
@@ -249,9 +263,8 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
 
     t0 = time.perf_counter()
     a2h_cfg = cfg.audio2headpose
-    pre_headpose = torch.zeros(a2h_cfg.wavenet.input_channels, device=dev)
     pred_head = a2h_model.generate_sequence(
-        models.audio2headpose, a2h_cfg, feats, pre_headpose, seed=seed,
+        models.audio2headpose, a2h_cfg, feats, motion_graph.pre_headpose(cfg, dev), seed=seed,
         sigma_scale=a2h_cfg.sample_sigma_scale, noise=headpose_noise)
     if profile:
         _sync(dev)
@@ -259,67 +272,17 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
 
     t0 = time.perf_counter()
     nframe = int(min(pred_feat.shape[0], pred_head.shape[0]))
-    brow_idx = torch.as_tensor(np.arange(nframe) % assets.candidate_eye_brow.shape[0],
-                               device=dev)
     valid_len = None
     if valid_frames is not None and int(valid_frames) - ff < nframe:
         valid_len = int(valid_frames) - ff
-    landmarks2d, shoulders2d, head, final = _post(
-        cfg, pred_feat[:nframe], pred_head[:nframe],
-        *(assets.tensor(k, dev) for k in ("mean_pts3d", "std_mean_pts3d",
-                                          "mean_translation", "candidate_eye_brow")),
-        brow_idx,
-        *(assets.tensor(k, dev) for k in ("camera_intrinsic", "shoulder3D", "ref_trans")),
-        assets.scale, valid_len)
+    landmarks2d, shoulders2d, head, final = motion_graph.post(
+        cfg, assets, pred_feat[:nframe], pred_head[:nframe], valid_len)
     if valid_frames is not None:
         nframe = min(nframe, int(valid_frames) - ff)
     if profile:
         _sync(dev)
     sm["post"] = (time.perf_counter() - t0) * 1e3
     return landmarks2d, shoulders2d, head, final, nframe
-
-
-def _post(cfg: PersonConfig, pred_feat: Tensor, pred_head: Tensor, mean_pts3d: Tensor,
-          std_mean_pts3d: Tensor, mean_translation: Tensor, candidate_eye_brow: Tensor,
-          brow_idx: Tensor, K: Tensor, shoulder3D: Tensor, ref_trans: Tensor, scale: float,
-          valid_len: Optional[int] = None):
-    """Stage 5: smoothing, mouth AMP, lip de-intersection, head-pose
-    conditioning, eyebrow cycling, landmark and shoulder projection.
-    valid_len: the true length of bucket-padded inputs; smoothing reflects
-    at it and the lip-flip statistic ignores the rows past it, so rows
-    [0, valid_len) equal the unpadded run's."""
-    a2f_cfg = cfg.audio2feature
-    a2h_cfg = cfg.audio2headpose
-    nframe = pred_feat.shape[0]
-    dev = pred_feat.device
-    mouth_idx = torch.as_tensor(MOUTH_INDICES, device=dev)
-    brow_rows = torch.as_tensor(EYE_BROW_INDICES, device=dev)
-    valid = None if valid_len is None else torch.arange(nframe, device=dev) < valid_len
-
-    pts3d = pred_feat.new_zeros(nframe, 73, 3)
-    pts3d[:, mouth_idx] = pred_feat.reshape(nframe, 25, 3)
-    pts3d = smoothing.landmark_smooth_3d(pts3d, a2f_cfg.smooth_sigma, "only_mouth",
-                                         valid_len=valid_len)
-    pts3d = smoothing.mouth_amp(pts3d, True, a2f_cfg.amp_method, a2f_cfg.amp_params)
-    pts3d = smoothing.solve_intersect_mouth(pts3d + mean_pts3d, valid)
-
-    head = pred_head[:, :6].clone()
-    head[:, :3] *= a2h_cfg.rot_amp
-    head[:, 3:] *= a2h_cfg.trans_amp
-    head = smoothing.headpose_smooth(head, a2h_cfg.smooth_sigmas, valid_len=valid_len)
-    head[:, 3:] += mean_translation
-    head[:, 0] += 180.0  # x-axis convention flip (reference demo.py:232)
-
-    final = std_mean_pts3d.expand(nframe, 73, 3).clone()
-    final[:, 46:64] = pts3d[:, 46:64]
-    final[:, brow_rows] = candidate_eye_brow[brow_idx] + mean_pts3d[brow_rows]
-
-    eye = torch.eye(3, device=dev)
-    landmarks2d = geometry.project_landmarks(K, eye, torch.zeros(3, device=dev), scale,
-                                             head, final)
-    shoulders2d, _ = geometry.project_shoulders(K, shoulder3D, head[:, 3:], ref_trans,
-                                                a2h_cfg.shoulder_amp)
-    return landmarks2d, shoulders2d, head, final
 
 
 def _shift_shoulders(assets: PersonAssets, shoulders2d: Tensor) -> Tensor:
@@ -526,7 +489,7 @@ def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio
             headpose_noise: Optional[Tuple[Tensor, Tensor]] = None,
             transfer: str = "rgb", valid_frames: Optional[int] = None,
             render_devices: Optional[List[torch.device | str]] = None,
-            split_cand: bool = False) -> AnimateResult:
+            split_cand: bool = False, fused: bool = False) -> AnimateResult:
     """audio [-1, 1] float32 at 16 kHz -> frames at 60 FPS, on the models'
     device.  transfer: one of TRANSFERS (see render_frames).
     render_devices: split each render batch over these devices (see
@@ -535,13 +498,14 @@ def animate(cfg: PersonConfig, assets: PersonAssets, models: PersonModels, audio
     input a batch (see render_frames).
     valid_frames: the unpadded audio's frame count when ``audio`` is
     bucket-padded (see compute_motion); the result then equals the unpadded
-    run's, trimmed to valid_frames - frame_future frames."""
+    run's, trimmed to valid_frames - frame_future frames.
+    fused: the motion half as the fused program (see compute_motion)."""
     _check_transfer(transfer)
     stage_ms: Dict[str, float] = {}
     link: Dict[str, int] = {}
     landmarks2d, shoulders2d, head, final, nframe = compute_motion(
         cfg, assets, models, audio, seed=seed, stage_ms=stage_ms, profile=profile,
-        headpose_noise=headpose_noise, valid_frames=valid_frames)
+        headpose_noise=headpose_noise, valid_frames=valid_frames, fused=fused)
     frames, fmaps = render_frames(cfg, assets, models, landmarks2d[:nframe],
                                   shoulders2d[:nframe], render_batch=render_batch,
                                   keep_feature_maps=keep_feature_maps, stage_ms=stage_ms,

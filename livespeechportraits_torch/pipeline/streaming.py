@@ -23,9 +23,16 @@ transfer: a decode thread waits on each batch's copy and decodes it, so a
 push returns while its frames are still on their way when
 ``pipeline_depth`` > 0.
 
-JAX's fused steady-state programs (one device program for the motion half
-of a chunk) are not ported: they are bitwise equal to the per-stage path
-and exist to save dispatch round trips; this path runs per stage.
+In the steady state (pushes of one chunk) ``push_audio`` tries JAX's two
+fused advances first, in JAX's order: ``_advance_stream_fused`` (mel, APC,
+LLE, A2F, the downsample and the decode of one chunk: ``stage_ms``'s
+``mega_chunks``), then, after a per-stage mel + APC, ``_advance_motion_fused``
+(A2F, the downsample and the decode: ``fused_chunks``).  On the card they
+replay CUDA graphs of the chunk (pipeline/motion_graph.ChunkGraphs) and the
+head-pose decode step (G2) C times, with the stream's carried state copied
+in and out; on the CPU the same functions run eagerly.  Both run the
+per-stage path's functions, so the frames are the same bits; start-up,
+ragged pushes, catch-up bursts and flush() run per stage, as in JAX.
 
 *divergence: offline lip de-intersection shifts the outer lips by the mean
 overlap over ALL flipped frames of the clip, which is non-causal; streaming
@@ -41,22 +48,19 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from livespeechportraits_torch.config import (EYE_BROW_INDICES, FPS, MOUTH_INDICES,
-                                              SAMPLE_RATE, PersonConfig)
+from livespeechportraits_torch.config import FPS, MOUTH_INDICES, SAMPLE_RATE, PersonConfig
 from livespeechportraits_torch.models import apc as apc_model
 from livespeechportraits_torch.models import audio2feature as a2f_model
 from livespeechportraits_torch.models import audio2headpose as a2h_model
 from livespeechportraits_torch.models import feature2face as f2f_model
-from livespeechportraits_torch.models import wavenet
 from livespeechportraits_torch.ops import (geometry, gmm, manifold, mel, rasterize_cuda,
                                            smoothing)
-from livespeechportraits_torch.pipeline import animate
+from livespeechportraits_torch.pipeline import animate, motion_graph
 from livespeechportraits_torch.pipeline.assets import PersonAssets, PersonModels
 
 Tensor = torch.Tensor
 
-MEL_STEP = SAMPLE_RATE * 0.5 / FPS  # 133.33 samples per 120 Hz frame
-MEL_WIN = SAMPLE_RATE // FPS  # 266
+MEL_STEP, MEL_WIN = mel.MEL_STEP, mel.MEL_WIN
 
 
 def _mel_sample_end(i: int) -> int:
@@ -170,10 +174,7 @@ def _deintersect_per_frame(pts3d: Tensor) -> Tensor:
     """Causal lip de-intersection: each flipped frame's own mean overlap
     moves its outer lips, where the offline pass uses the clip's mean."""
     dev = pts3d.device
-    ui = torch.tensor(smoothing.UPPER_INNER_LIP, device=dev)
-    li = torch.tensor(smoothing.LOWER_INNER_LIP, device=dev)
-    uo = torch.tensor(smoothing.UPPER_OUTER_LIP, device=dev)
-    lo = torch.tensor(smoothing.LOWER_OUTER_LIP, device=dev)
+    ui, li, uo, lo = smoothing.lip_rows(dev)
     upper_y = pts3d[:, ui, 1]
     lower_y = pts3d[:, li, 1]
     flip = ((lower_y > upper_y).sum(1) == 3)[:, None]
@@ -226,7 +227,6 @@ class StreamingAnimator:
         self.device = dev = animate._device_of(models)
 
         a2h = cfg.audio2headpose
-        self.R = a2h.wavenet.receptive_field
         self.ff_m = cfg.audio2feature.frame_future
         self.ff_h = a2h.frame_future
 
@@ -236,8 +236,12 @@ class StreamingAnimator:
         lh = cfg.audio2feature.lstm_hidden_size
         self._lstm = [(torch.zeros(lh, device=dev), torch.zeros(lh, device=dev))
                       for _ in range(models.audio2feature.LSTM.num_layers)]
-        self._wn_state: Optional[wavenet.StreamState] = None
-        self._prev_sample = torch.zeros(1, a2h.wavenet.input_channels, device=dev)
+        # the head-pose decode's carried state (rings, step, previous
+        # sample) and a chunk's rows, primed on the first decode
+        self._dec = a2h_model.DecodeBuffers(models.audio2headpose, a2h, chunk, dev)
+        self._primed = False
+        # the fused steady state's graphs (shared by the subject's streams)
+        self._graphs = motion_graph.for_models(cfg, assets, models)
 
         # stream buffers, each retired as it is consumed so memory stays
         # bounded over an unbounded stream; the model stages' rows stay on
@@ -347,6 +351,7 @@ class StreamingAnimator:
         self._feats.retire(upto)
 
     def _step_noise(self, i0: int, n: int) -> Tuple[Tensor, Tensor]:
+        """The noise of decode steps i0 .. i0+n-1, on the CPU."""
         a2h = self.cfg.audio2headpose
         if self.noise is not None:
             gumbel, eps = (x[i0:i0 + n] for x in self.noise)
@@ -355,7 +360,7 @@ class StreamingAnimator:
                                  f"stream reached step {i0 + n}")
         else:
             gumbel, eps = gmm.draw_noise(n, a2h.ncenter, a2h.ndim, self.seed, start=i0)
-        return gumbel.to(self.device, torch.float32), eps.to(self.device, torch.float32)
+        return gumbel.to("cpu", torch.float32), eps.to("cpu", torch.float32)
 
     def _advance_a2h(self, flush: bool) -> None:
         T = len(self._feats) // 2
@@ -363,7 +368,6 @@ class StreamingAnimator:
             return
         a2h = self.cfg.audio2headpose
         model = self.models.audio2headpose
-        net = model.WaveNet
         total = max(T - self.ff_h, 0)
         if T > len(self._down_rows):  # the downsample MLP is per row: extend it
             lo = len(self._down_rows)
@@ -371,31 +375,164 @@ class StreamingAnimator:
             self._down_rows.append(a2h_model._audio_downsample(model, paired[None])[0])
             self._retire_feats()
 
+        dec = self._dec
         while total - self._decoded >= (1 if flush else self.chunk):
             n = min(self.chunk, total - self._decoded)
             i0 = self._decoded
-            if self._wn_state is None:
-                # prime the ring buffers (conditioning rows < 0 clamp to row 0)
-                warm_idx = np.maximum(np.arange(-(self.R - 1), 0) + self.ff_h, 0)
-                cond_warm = self._down_rows.buf[torch.as_tensor(warm_idx - self._down_rows.base,
-                                                                device=self.device)]
-                x_warm = self._prev_sample.expand(1, self.R - 1, self._prev_sample.shape[-1])
-                self._wn_state = wavenet.stream_init(net, x_warm, cond_warm[None])
-            cond = self._down_rows.slice(i0 + self.ff_h, i0 + n + self.ff_h)
-            proj = wavenet.precompute_cond_projections(net, cond[None])
+            if not self._primed:
+                # prime the ring buffers (conditioning rows < 0 clamp to
+                # row 0) and this chunk's projections
+                rows = self._down_rows.slice(self._down_rows.base, len(self._down_rows))
+                a2h_model.prime_decode(model, a2h, rows,
+                                       motion_graph.pre_headpose(self.cfg, self.device),
+                                       dec, 0, n)
+                self._primed = True
+            else:
+                cond = self._down_rows.slice(i0 + self.ff_h, i0 + n + self.ff_h)
+                a2h_model.write_cond_projections(model.WaveNet, cond, dec)
             gumbel, eps = self._step_noise(i0, n)
-            samples = []
-            for t in range(n):
-                proj_t = [(fp[:, t], gp[:, t]) for fp, gp in proj]
-                self._wn_state, out = wavenet.stream_step(net, self._wn_state,
-                                                          self._prev_sample, cond_proj_t=proj_t)
-                self._prev_sample = gmm.sample_gmm(out, a2h.ncenter, a2h.ndim,
-                                                   gumbel[t:t + 1], eps[t:t + 1],
-                                                   sigma_scale=float(a2h.sample_sigma_scale))
-                samples.append(self._prev_sample)
-            self._head_raw.append(torch.cat(samples).cpu())
+            dec.gumbel[:n].copy_(gumbel)
+            dec.eps[:n].copy_(eps)
+            for _ in range(n):
+                a2h_model.decode_step(model, a2h, dec, float(a2h.sample_sigma_scale))
+            self._head_raw.append(dec.samples[:n].cpu())
             self._decoded += n
             self._down_rows.retire(self._decoded + self.ff_h)
+
+    # -- the fused steady state (JAX's _advance_motion_fused and
+    # _advance_stream_fused) --------------------------------------------
+
+    def _chunk_graphs(self) -> "motion_graph.ChunkGraphs":
+        mg = self._graphs
+        mg.reserve(self.chunk)
+        ch = mg.chunks.get(self.chunk)
+        if ch is None:
+            ch = mg.chunks[self.chunk] = motion_graph.ChunkGraphs(mg, self.chunk)
+        return ch
+
+    def _run_fused_chunk(self, front: bool, lag: int) -> None:
+        """One chunk through the chunk graphs and G2 C times, with this
+        stream's carried state copied in and out; then the rows into the
+        stream's buffers, as the per-stage path appends them."""
+        C = self.chunk
+        mg = self._graphs
+        with mg.lock, mg.on_device():
+            mg.check_weights()
+            ch = self._chunk_graphs()
+            ch.ensure_graphs(front)
+            mg.wait_staged()
+            if front:
+                a = self._mel_done
+                start = int(np.floor(a * MEL_STEP))
+                end = _mel_sample_end(a + 2 * C - 1)
+                span = np.zeros(ch.span, np.float32)
+                got = self._audio[start - self._audio_base:end - self._audio_base]
+                span[:len(got)] = got
+                mg.stage(ch.audio, ch.host.get("audio"), torch.from_numpy(span))
+                mg.stage(ch.offsets, ch.host.get("offsets"),
+                          torch.from_numpy(mel.frame_starts(a, a + 2 * C) - start))
+                ch.apc_h.copy_(torch.stack(self._apc_h))
+            else:
+                T = len(self._feats) // 2
+                ch.feats.copy_(self._feats.slice(2 * len(self._a2f_raw), 2 * T))
+            # the un-retired cached rows [decoded + ff_h, lo) are the lag
+            # rows the window still needs; they sit below the fresh ones at
+            # offset C - lag, and the rows under the offset are never read
+            lo = len(self._down_rows)
+            if lag:
+                ch.old_tail[C - lag:].copy_(self._down_rows.slice(self._decoded + self.ff_h, lo))
+            mg.stage(ch.win_off, ch.host.get("win_off"),
+                      torch.tensor([C - lag], dtype=torch.int64))
+            if ch.a2f_gumbel is not None:
+                mg.stage(ch.a2f_gumbel, ch.host.get("a2f_gumbel"),
+                          a2f_model.component_gumbel(C, self.cfg.audio2feature.gmm_ncenter,
+                                                     self.seed, start=len(self._a2f_raw)))
+            mg.stage_noise(*self._step_noise(self._decoded, C))
+            mg.mark_staged()
+            ch.lstm.copy_(torch.stack([torch.stack(s) for s in self._lstm]))
+            mg.dec.load_state(self._dec.state())
+            if mg.on_card:
+                if front:
+                    ch.front_graph.replay()
+                ch.motion_graph.replay()
+                g2 = mg.g2_graph
+                for _ in range(C):
+                    g2.replay()
+            else:
+                if front:
+                    ch.front()
+                ch.motion()
+                for _ in range(C):
+                    mg.g2()
+            self._dec.load_state(mg.dec.state())
+            self._lstm = [(s[0].clone(), s[1].clone()) for s in ch.lstm]
+            if front:
+                self._apc_h = list(ch.apc_h.clone())
+                feats = ch.feats.clone()
+            new_rows = ch.new_rows.clone()
+            d_out = self.cfg.audio2feature.output_dim
+            ch.out[:, d_out:].copy_(mg.dec.samples[:C])
+            packed = ch.out.cpu()  # the one fetch of the chunk
+        if front:
+            # mel bookkeeping (_advance_mel_apc's loop tail)
+            self._feats.append(feats)
+            self._mel_done += 2 * C
+            keep_from = int(np.floor(self._mel_done * MEL_STEP))
+            k = keep_from - self._audio_base
+            if k > 0:
+                self._audio = self._audio[k:]
+                self._audio_base = keep_from
+        self._a2f_raw.append(packed[:, :d_out])
+        self._down_rows.append(new_rows)
+        self._head_raw.append(packed[:, d_out:])
+        self._decoded += C
+        self._down_rows.retire(self._decoded + self.ff_h)
+        self._retire_feats()
+
+    def _advance_motion_fused(self) -> bool:
+        """The steady-state advance of A2F, the A2H downsample and the A2H
+        decode in one go (JAX's _advance_motion_fused, its conditions word
+        for word): only when every stage advances by exactly one chunk and
+        the decode's conditioning window fits in the last C cached rows and
+        the fresh chunk, with the ring buffers already primed; False lets
+        push_audio run the per-stage path."""
+        C = self.chunk
+        T = len(self._feats) // 2
+        done = len(self._a2f_raw)
+        lo = len(self._down_rows)
+        total = T - self.ff_h
+        lag = (total - self._decoded) - C  # the decode's trail behind the front
+        if (not self._primed or T - done != C or T - lo != C
+                or lag < 0 or lag >= C or lo < C):
+            return False
+        self._run_fused_chunk(False, lag)
+        self.stage_ms["fused_chunks"] = self.stage_ms.get("fused_chunks", 0.0) + 1
+        return True
+
+    def _advance_stream_fused(self) -> bool:
+        """The steady-state advance of the whole motion half (JAX's
+        _advance_stream_fused, its conditions word for word): only when the
+        pending audio admits exactly one 2*chunk mel block and every stage
+        downstream would then advance by exactly one chunk; False
+        otherwise."""
+        C = self.chunk
+        a = self._mel_done
+        b = a + 2 * C
+        if (_mel_sample_end(b - 1) > self._total_samples
+                # 2+ blocks pending: catch up per stage
+                or _mel_sample_end(b + 2 * C - 1) <= self._total_samples
+                or len(self._feats) % 2):
+            return False
+        T = len(self._feats) // 2
+        done = len(self._a2f_raw)
+        lo = len(self._down_rows)
+        lag = T - self.ff_h - self._decoded  # the decode's trail after the advance
+        if (not self._primed or done != T or lo != T
+                or lag < 0 or lag >= C or lo < C):
+            return False
+        self._run_fused_chunk(True, lag)
+        self.stage_ms["mega_chunks"] = self.stage_ms.get("mega_chunks", 0.0) + 1
+        return True
 
     def _advance_post(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Feed new raw predictions to the smoothers -> the newly determined
@@ -442,7 +579,7 @@ class StreamingAnimator:
 
     def _project(self, n: int) -> Tuple[Tensor, Tensor]:
         """Landmarks [n, 73, 2] and shoulders [n, S, 2] of the next n frames
-        (animate._post's per-frame part, on the device)."""
+        (motion_graph.post's per-frame part, on the device)."""
         a2f, a2h = self.cfg.audio2feature, self.cfg.audio2headpose
         dev = self.device
         s = self._emitted_frames
@@ -457,10 +594,9 @@ class StreamingAnimator:
         pts = smoothing.mouth_amp(mouth, True, a2f.amp_method, a2f.amp_params)
         pts = _deintersect_per_frame(pts + asset("mean_pts3d"))
         head[:, 3:] += asset("mean_translation")
-        head[:, 0] += 180.0  # x-axis convention flip, as animate._post
-        brow_rows = torch.as_tensor(EYE_BROW_INDICES, device=dev)
-        brow_idx = torch.as_tensor(np.arange(s, s + n) % self.assets.candidate_eye_brow.shape[0],
-                                   device=dev)
+        head[:, 0] += 180.0  # x-axis convention flip, as motion_graph.post
+        _, brow_rows = motion_graph.landmark_rows(dev)
+        brow_idx = motion_graph.brow_index(self.assets, s, n, dev)
         final = asset("std_mean_pts3d").expand(n, 73, 3).clone()
         final[:, 46:64] = pts[:, 46:64]
         final[:, brow_rows] = asset("candidate_eye_brow")[brow_idx] + asset("mean_pts3d")[brow_rows]
@@ -518,9 +654,11 @@ class StreamingAnimator:
         samples = np.asarray(samples, np.float32)
         self._audio = np.concatenate([self._audio, samples])
         self._total_samples += len(samples)
-        self._timed("mel_apc", self._advance_mel_apc, flush=False)
-        self._timed("a2f", self._advance_a2f, flush=False)
-        self._timed("a2h", self._advance_a2h, flush=False)
+        if not self._timed("stream_fused", self._advance_stream_fused):
+            self._timed("mel_apc", self._advance_mel_apc, flush=False)
+            if not self._timed("motion_fused", self._advance_motion_fused):
+                self._timed("a2f", self._advance_a2f, flush=False)
+                self._timed("a2h", self._advance_a2h, flush=False)
         mouth_sm, rot_sm, trans_sm = self._timed("post", self._advance_post)
         return self._timed("finalize_render", self._finalize_frames, mouth_sm, rot_sm, trans_sm)
 

@@ -8,8 +8,11 @@ serving artifact,
 optionally int8-quantizes the renderer with calibrated static activation
 scales, and casts the renderer to its compute dtype once; ``predict()`` caps
 the audio, pads it to a length bucket, runs ``animate()`` with any transfer
-(yuv420 by default) and muxes a video; ``stream()`` pushes the audio through
-a ``StreamingAnimator`` and yields the frames as they are determined.
+(yuv420 by default) and the motion half fused, as JAX's serves it
+(``fused=True``: pipeline/motion_graph.py, CUDA graphs captured on a
+bucket's first request, or every bucket up front by ``prewarm()``), and
+muxes a video; ``stream()`` pushes the audio through a
+``StreamingAnimator`` and yields the frames as they are determined.
 ``setup(data_parallel=True)`` splits each predict() render batch over every
 visible device (``animate(render_devices=)``, JAX's one-axis mesh); with
 one card the split is the identity and the frames are the same bytes.
@@ -39,6 +42,7 @@ from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.parallel import mesh
 from livespeechportraits_torch.pipeline import animate as animate_mod
 from livespeechportraits_torch.pipeline import assets as assets_mod
+from livespeechportraits_torch.pipeline import motion_graph
 from livespeechportraits_torch.pipeline import video as video_mod
 from livespeechportraits_torch.pipeline.streaming import StreamingAnimator
 
@@ -137,6 +141,35 @@ class Predictor:
                                                  animate_mod.compute_dtype(cfg))
         self._cfg, self._assets, self._models, self._person = cfg, person, models, person_id
         self._render_devices = mesh.make_mesh(self.device) if data_parallel else None
+        # the fused motion half's decode buffers, sized for the longest
+        # bucket (a request never grows them, so never captures G2 again)
+        self._motion().reserve(self.bucket_lengths()[-1] // 2 if self.bucket_seconds > 0
+                               else int(self.max_audio_seconds * 60))
+
+    def _motion(self) -> motion_graph.MotionGraphs:
+        return motion_graph.for_models(self._cfg, self._assets, self._models)
+
+    def bucket_lengths(self) -> list:
+        """The mel lengths (n_mel) of the buckets a request can land in, up
+        to max_audio_seconds; empty without bucketing."""
+        if self.bucket_seconds <= 0:
+            return []
+        bucket = int(self.bucket_seconds * 16000)
+        cap = int(self.max_audio_seconds * 16000)
+        return [2 * int(k * bucket / 16000 * 60) for k in range(1, -(-cap // bucket) + 1)]
+
+    def prewarm(self) -> dict:
+        """Capture the fused motion graphs of every bucket (and G2) on the
+        card, so no request pays a capture: {graph name: its nodes,
+        capture and instantiate ms, pool bytes, K2 / K3 launches}.  Nothing
+        to capture on the CPU or without bucketing."""
+        if self._cfg is None:
+            raise RuntimeError("call setup() first")
+        mg = self._motion()
+        if mg.on_card:
+            for n_mel in self.bucket_lengths():
+                mg.prepare(n_mel)
+        return mg.graph_stats()
 
     def predict(self, driving_audio: str | np.ndarray, seed: int = 0, render_batch: int = 16,
                 transfer: str = "yuv420", write_video: bool = True) -> PredictResult:
@@ -169,10 +202,11 @@ class Predictor:
             valid_frames = int(len(true_audio) / 16000 * 60)
 
         t0 = time.perf_counter()
+        # the motion half fused, as JAX's serve.py runs it
         result = animate_mod.animate(self._cfg, self._assets, self._models, audio, seed=seed,
                                      render_batch=render_batch, transfer=transfer,
                                      valid_frames=valid_frames,
-                                     render_devices=self._render_devices)
+                                     render_devices=self._render_devices, fused=True)
         wall = time.perf_counter() - t0
         frames = result.frames[:true_frames]
         out_path = ""

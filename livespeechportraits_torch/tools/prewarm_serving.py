@@ -15,6 +15,12 @@ then loaded).  One JSON line, after the card's name and power limit:
   loading a build already in ``build_dir``: ``kernel_build_cached``);
 - ``setup_s``: ``serve.Predictor.setup`` (subject, models, quantize and
   calibrate or the artifact's load, the renderer's cast);
+- ``capture_s``: ``Predictor.prewarm``: the fused motion half's CUDA graphs
+  of every bucket up to the Predictor's 10 s and the decode step's,
+  captured before the first request, with ``graphs`` (their count),
+  ``graph_nodes``,
+  ``graph_capture_ms``, ``graph_instantiate_ms`` and ``graph_pool_bytes``
+  summed over them (none on the CPU);
 - ``predict_first_s``: the first bucketed request on a ``--seconds`` tone;
 - ``stream_first_frame_s``: from ``Predictor.stream``'s start to its first
   non-empty frame batch;
@@ -81,6 +87,13 @@ def main(argv=None) -> int:
                quantize=bool(args.quantize), artifact=artifact or None)
     _common.sync(dev)
     setup_s = time.perf_counter() - t
+    t = time.perf_counter()
+    graphs = pred.prewarm()
+    _common.sync(dev)
+    capture = {"capture_s": time.perf_counter() - t, "graphs": len(graphs)}
+    for k in ("nodes", "capture_ms", "instantiate_ms", "pool_bytes"):
+        vals = [g[k] for g in graphs.values()]
+        capture[f"graph_{k}"] = None if None in vals else sum(vals)
     audio = video.make_test_tone(args.seconds)
     t = time.perf_counter()
     pred.predict(audio, render_batch=args.render_batch, transfer=args.transfer,
@@ -93,7 +106,7 @@ def main(argv=None) -> int:
                                   pipeline_depth=args.stream_depth):
             if stream_first is None and len(frames):
                 stream_first = time.perf_counter() - t
-    _common.emit(**build, setup_s=setup_s, predict_first_s=predict_first_s,
+    _common.emit(**build, setup_s=setup_s, **capture, predict_first_s=predict_first_s,
                  boot_to_first_frame_s=setup_s + predict_first_s,
                  stream_first_frame_s=stream_first, total_s=time.perf_counter() - t0,
                  build_dir=str(_build.BUILD_DIR), artifact=artifact,

@@ -841,3 +841,59 @@ def test_one_rank_nccl_data_parallel_step_equals_no_group(cuda_device, monkeypat
          torch.backends.cudnn.deterministic) = flags
     for a, b in zip(got + stats, ref + ref_stats):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The fused motion half (pipeline/motion_graph.py)
+# ---------------------------------------------------------------------------
+
+
+def test_fused_motion_replays_its_graphs_on_the_card(cuda_device):
+    """compute_motion(fused=True) on the card: G1, G2 and G3 captured on the
+    bucket's first request, G1's three K2 and three K3 launches inside its
+    replays, G2 replayed once a frame; the landmarks within 1e-4 px and the
+    head pose within 1e-5 of the staged path (chip_smoke.py's bounds)."""
+    from livespeechportraits_torch.pipeline import motion_graph
+
+    cfg = torch_config(small_person_config(image_size=32))
+    person, models = assets.make_synthetic_person(cfg, image_size=32, device="cpu")
+    models = models.to(cuda_device)
+    audio = video.make_test_tone(1.0)
+    staged = animate.compute_motion(cfg, person, models, audio, seed=3)
+    animate.compute_motion(cfg, person, models, audio, seed=3, fused=True)  # captures
+    motion_graph.REPLAYED_LAUNCHES.clear()
+    before = (recurrent_cuda.GRU_LAUNCHES, recurrent_cuda.LSTM_LAUNCHES)
+    fused = animate.compute_motion(cfg, person, models, audio, seed=3, fused=True)
+    torch.cuda.synchronize()
+    assert (recurrent_cuda.GRU_LAUNCHES, recurrent_cuda.LSTM_LAUNCHES) == before
+    assert dict(motion_graph.REPLAYED_LAUNCHES) == {"K2": 2, "K3": 3}  # APC 2 layers here
+    mg = motion_graph.for_models(cfg, person, models)
+    assert {"G1[120]", "G2", "G3[120]"} <= set(mg.graph_stats())
+    assert fused[4] == staged[4] == 45
+    assert (fused[0] - staged[0]).abs().max().item() <= 1e-4
+    assert (fused[2] - staged[2]).abs().max().item() <= 1e-5
+
+
+def test_stream_fused_chunks_on_the_card(cuda_device):
+    """The stream's fused chunks replay their graphs on the card and give
+    the per-stage stream's frames within one level on over 99 % of the
+    values."""
+    from livespeechportraits_torch.pipeline import streaming
+
+    cfg = torch_config(small_person_config(image_size=32))
+    person, models = assets.make_synthetic_person(cfg, image_size=32, device="cpu")
+    models = models.to(cuda_device)
+    audio = video.make_test_tone(2.0)
+
+    def run(fused: bool):
+        st = streaming.StreamingAnimator(cfg, person, models, chunk=16, render_batch=4)
+        if not fused:
+            st._advance_stream_fused = lambda: False
+            st._advance_motion_fused = lambda: False
+        return np.concatenate(list(st.run(audio, push_samples=4267))), st.stage_ms
+
+    ref, _ = run(False)
+    got, sm = run(True)
+    assert sm.get("mega_chunks", 0) >= 3
+    d = np.abs(got.astype(int) - ref.astype(int))
+    assert got.shape == ref.shape and (d <= 1).mean() >= 0.99

@@ -7,9 +7,9 @@ Each flag group runs once, and the results are held against the port's
 tests/test_torch_slice.py holds against JAX:
 - ``--quantize --artifact A --bucket_seconds 1 --save_intermediates 1`` from
   scratch writes A; the same command reads it: equal landmarks and frames;
-- bucketed against unbucketed (``--fused``, which changes nothing): the
-  landmarks, frames and head pose bitwise equal on the CPU, as JAX's
-  tests/test_pipeline.py:131-178 holds;
+- bucketed against unbucketed with ``--fused`` (the fused motion program):
+  the landmarks, frames and head pose bitwise equal on the CPU, as JAX's
+  tests/test_pipeline.py:131-178 holds, and a "motion" stage entry;
 - the ``--save_intermediates`` files and their counts;
 - ``--quantize --no_calibrate`` and a ``save_input: true`` YAML: dynamic
   activation scales, and the feature-map video;
@@ -119,9 +119,14 @@ def test_artifact_written_then_read_gives_the_same_frames(runs):
 
 
 def test_bucketed_equals_exact_and_fused_changes_nothing(runs):
+    """The exact run is --fused: the fused motion program (eager on the
+    CPU) gives the staged, bucketed run's results bit for bit, and one
+    "motion" stage entry where the staged run has five."""
     bucketed, _, _ = runs["artifact"]
     exact, log, _ = runs["exact"]
-    assert "note: --fused has no effect" in log
+    assert "--fused" not in log
+    assert "motion" in exact.stage_ms and "headpose" not in exact.stage_ms
+    assert "headpose" in bucketed.stage_ms and "motion" not in bucketed.stage_ms
     assert bucketed.nframe == exact.nframe == NFRAME
     np.testing.assert_array_equal(bucketed.landmarks, exact.landmarks)
     np.testing.assert_array_equal(bucketed.frames, exact.frames)

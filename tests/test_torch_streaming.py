@@ -131,7 +131,10 @@ def test_stream_matches_offline_animate(person, seconds, push):
     frames, _ = _run(st, audio, push)
     assert frames.shape[0] == offline.nframe == int(seconds * 60) - 15
     _assert_close(frames, offline.frames)
-    assert set(st.stage_ms) == {"mel_apc", "a2f", "a2h", "post", "finalize_render"}
+    # the per-stage path's stages and the fused advances' attempts; the
+    # counts of fused chunks when they engaged
+    assert set(st.stage_ms) - {"mega_chunks", "fused_chunks"} == {
+        "mel_apc", "a2f", "a2h", "post", "finalize_render", "stream_fused", "motion_fused"}
     assert st.latency_frames == max(cfg.audio2feature.frame_future + 8,
                                     cfg.audio2headpose.frame_future + 40)
 
