@@ -208,6 +208,22 @@ Phases, each printing one line; any failure raises and exits non-zero:
    counts set to 0 just before); a 3.0 s stream (chunk 32, 100 ms pushes):
    at least 3 fused chunks, frames against the per-stage stream; a float
    Predictor's boot and prewarm() capturing every bucket to 10 s.
+16. the renderer's inference rewrites: ptxas -v of K4's gather kernel
+   (registers of its 20 instances, the plain launches' and the rewrite
+   forms', no spills); K4's rewrite forms (four-phase subpixel, single,
+   dilated, split) at every int8 up conv of 'normal' at 512^2, B = 16,
+   bitwise against their plain twins in the int32 and fused bf16 modes,
+   device ms by CUDA-graph replay beside the bound and cuDNN's bf16 float
+   form; whole 'normal' generators (B = 16, bf16): the float forms against
+   the float renderer, the split int8 tree against the unsplit one (the
+   pair the float to-RGB up conv reads bitwise), the subpixel, dilated and
+   s2d-composed int8 trees against the float frames, split_cand on the
+   split tree, each forward's K4 launches; a 3.0 s request served by
+   Predictors booted from artifacts of the int8 Predictor's models under
+   split-skip and under subpixel "single" (frames, K1 and K4 launches a
+   batch, render_device beside the unrewritten one's); the 'large' int8
+   renderer unrewritten, split and single (tools/trace_render --rewrites:
+   ms a batch, upsample + concat by family, the same FLOPs).
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -226,7 +242,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
    edge-only form) and split_cand_launches, K4's large_launches (a 'large'
    forward), large_ms_per_batch and int8_probe; phase 15's
    motion_graph_launches (K2 / K3 inside the fused request's replayed
-   graph) and motion_graph_max_abs_err), then
+   graph) and motion_graph_max_abs_err; phase 16's K4 rewrite_forms (per
+   form its shapes, device ms, bound, cuDNN yardstick and launches, the
+   generators, the requests, 'large')), then
    {"ok": true, "device": {...}} as the last line.
 """
 
@@ -246,6 +264,8 @@ import time
 import numpy as np
 import torch
 
+from livespeechportraits_torch.pipeline.assets import REWRITE_FORMS  # noqa: E402
+from livespeechportraits_torch.tools import ptxas_report  # noqa: E402
 from livespeechportraits_torch.tools._common import graph_ms, launch_counts  # noqa: E402
 from livespeechportraits_torch.utils import flops as _flops  # noqa: E402
 from livespeechportraits_torch.utils.profiling import busy_ms  # noqa: E402
@@ -556,26 +576,18 @@ def kernel_label(mangled: str):
     return None
 
 
-def ptxas_summary(log: str):
-    """{kernel instance: (registers, spill bytes)} of the K1-K3 kernels in
-    nvcc's -Xptxas -v output (names from kernel_label)."""
+def gather_label(mangled: str):
+    """A short name for an instance of K4's gather kernel, e.g.
+    'gather<bf16,128,fused>' or 'gather<int8,64,int32,forms>' (the rewrite
+    forms' instance); None for others."""
     import re
 
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = kernel_label(m.group(1))
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            out.setdefault(name, [None, 0])[1] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(name, [None, 0])[0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
+    k = re.search(r"q8conv_gather_kernelI(\w+?)Li(\d+)ELb(\d)ELb(\d)E", mangled)
+    if k is None:
+        return None
+    tin = {"a": "int8", "f": "f32", "13__nv_bfloat16": "bf16"}.get(k.group(1), k.group(1))
+    mode = "fused" if k.group(3) == "1" else "int32"
+    return f"gather<{tin},{k.group(2)},{mode}{',forms' if k.group(4) == '1' else ''}>"
 
 
 def projected(person, n_frames: int):
@@ -3496,6 +3508,374 @@ def check_fused_motion(dev, pq, smi: str) -> dict:
     return {"replayed": main_replayed, "rnn_err": rnn_err, "g1": stats[b.g1.name]}
 
 
+# ---------------------------------------------------------------------------
+# 16. the renderer's inference rewrites
+# ---------------------------------------------------------------------------
+
+# the rewrite forms (assets.REWRITE_FORMS) with an int8 up conv of their own on K4
+K4_FORMS = ("four", "single", "dilated", "split")
+# Phase 16's bounds, set before its first call on the card (PSNR of the
+# [-1, 1] frames, 'normal' at 512^2, bf16): a float form against the
+# unrewritten float renderer (the forms sum in other orders; a wrong phase
+# or tap measures ~10-15 dB); the split int8 renderer against the unsplit one
+# (its int8 part is held bitwise; its float to-RGB up conv, split into two
+# summed convs as JAX's is, rounds once more in bf16).
+REWRITE_FLOAT_PSNR_DB = 30.0
+REWRITE_SPLIT_PSNR_DB = 40.0
+
+
+def k4_up_bound(B: int, size: int, cin: int, cout: int):
+    """The least time of one int8 up conv, whatever its form: the coarse
+    [B, Cin, size/2, size/2] bf16 input read once, the 3x3 int8 weights, the
+    fine [B, Cout, size, size] bf16 output written once; the four-phase
+    form's operations, 2 * B * size^2 * Cout * 4 * Cin (each output pixel
+    reads 2 x 2 coarse taps: the work the function needs)."""
+    h = size // 2
+    nbytes = B * h * h * cin * 2 + 9 * cin * cout + B * size * size * cout * 2
+    return bound(nbytes, 2 * B * size * size * cout * 4 * cin, "int8")
+
+
+def k4_form_operands(form: str, B: int, size: int, cin: int, cout: int, n_a: int, dev,
+                     seed: int):
+    """One int8 up conv of 'normal' under a form: the coarse bf16 activation
+    on k4_inputs' 1/8 grid (split: the pair, n_a channels and the rest), an
+    int8 one of the same shape, the form's int8 weights (four: [4 Co, Ci,
+    2, 2]; single: [4 Co, Ci, 3, 3]; dilated: [Co, Ci, 4, 4]; split: [Co,
+    Ci, 3, 3]), r, its scale ([4, Co], [4 Co] or [Co]) and bias ([Co]; none
+    for single, whose layer adds it after the phase shuffle)."""
+    cl = torch.channels_last
+    x, _, r, _, bias = k4_inputs(B, size // 2, cin, cout, dev, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    x_q = torch.randint(-127, 128, tuple(x.shape), generator=g, dtype=torch.int8)
+    x_q = x_q.to(dev).contiguous(memory_format=cl)
+    wshape = {"four": (4 * cout, cin, 2, 2), "single": (4 * cout, cin, 3, 3),
+              "dilated": (cout, cin, 4, 4), "split": (cout, cin, 3, 3)}[form]
+    w = torch.randint(-127, 128, wshape, generator=g, dtype=torch.int8).to(dev)
+    w = w.contiguous(memory_format=cl)
+    sshape = {"four": (4, cout), "single": (4 * cout,)}.get(form, (cout,))
+    scale = (torch.rand(sshape, generator=g) * 1e-5).to(dev, torch.bfloat16)
+    if form == "split":
+        x, x_q = [(t[:, :n_a].contiguous(memory_format=cl), t[:, n_a:].contiguous(memory_format=cl))
+                  for t in (x, x_q)]
+    return x, x_q, w, r, scale, None if form == "single" else bias
+
+
+def k4_form(form: str, x, w, r=None, scale=None, bias=None, plain: bool = False):
+    """The form's K4 wrapper (or its plain twin) on the operands: int32 sums
+    for int8 x, else the fused quantize and rescale.  x is the pair for
+    split; single is the 3x3 conv at 4 Co outputs."""
+    from livespeechportraits_torch.ops import q8conv_cuda as q8
+
+    if form == "four":
+        return (q8.subpixel_plain if plain else q8.subpixel_q8)(x, w, r, scale, bias)
+    if form == "dilated":
+        return (q8.dilated_plain if plain else q8.dilated_q8)(x, w, r, scale, bias)
+    if form == "split":
+        return (q8.split_plain if plain else q8.split_q8)(x[0], x[1], w, r, scale, bias)
+    if r is None:
+        return (q8.conv_s8_plain if plain else q8.conv_s8)(x, w, 1, 1)
+    return (q8.conv_q8_plain if plain else q8.conv_q8)(x, r, w, 1, 1, scale, bias)
+
+
+def float_form_layer(form: str, w, n_a: int):
+    """The float layer of the form (bf16, the int8 weights' values): the
+    cuDNN yardstick of its K4 form."""
+    from livespeechportraits_torch.models import nn_core
+
+    cl = torch.channels_last
+    wb = w.to(torch.bfloat16).contiguous(memory_format=cl)
+    shape = (3, w.shape[1], w.shape[0], 1, 1)
+    if form == "split":
+        return nn_core.UpConvSplit({"w_a": wb[:, :n_a].contiguous(memory_format=cl),
+                                    "w_b": wb[:, n_a:].contiguous(memory_format=cl)}, shape)
+    cls = {"four": nn_core.UpConvSubpixel, "single": nn_core.UpConvSubpixel1,
+           "dilated": nn_core.UpConvDilated}[form]
+    return cls({cls.FLOAT[0]: wb}, shape)
+
+
+def check_k4_rewrite_forms(dev, B: int = 16) -> dict:
+    """16a.  K4's rewrite forms at every int8 up conv of 'normal' at 512^2
+    (feature2face.int8_up_convs), B = 16: bitwise against the plain twins in
+    the int32 mode and the fused bf16 mode (ties and values past +-127, as
+    6c's inputs), device ms a call by CUDA-graph replay (four: its four
+    launches) beside the bound (k4_up_bound), the plain twin's ms (CUDA
+    events, one call) and cuDNN's bf16 conv of the same float form and of
+    the unrewritten upsample + 3x3 conv."""
+    from livespeechportraits_torch import _build
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import q8conv_cuda as q8
+
+    regs = ptxas_report.summary(_build.build_logs.get("q8conv.cu", ""), gather_label)
+    log("ptxas_gather", instances=json.dumps(regs))
+    # 10 instances a side: (int8 | f32 | bf16) x (64 | 128) x (int32 | fused, int8 int32
+    # only), without the forms (a plain launch's) and with them (a rewrite's)
+    if len(regs) != 20 or any(v["spill_stores"] or v["spill_loads"] for v in regs.values()):
+        raise AssertionError(f"K4's gather kernel spills, or ptxas -v listed {len(regs)} "
+                             f"instances, not 20: {regs}")
+    ups = f2f.int8_up_convs(Feature2FaceConfig())
+    out = {}
+    for form in K4_FORMS:
+        rows = []
+        for j, (size, cin, cout, n_a) in enumerate(ups):
+            if form == "split" and not n_a:
+                continue  # the innermost up conv reads one map: no split
+            x, x_q, w, r, scale, bias = k4_form_operands(form, B, size, cin, cout, n_a, dev,
+                                                         400 + j)
+            before = q8.LAUNCHES
+            got32 = k4_form(form, x_q, w)
+            launches = q8.LAUNCHES - before
+            got = k4_form(form, x, w, r, scale, bias)
+            ref32 = k4_form(form, x_q, w, plain=True)
+            ref = k4_form(form, x, w, r, scale, bias, plain=True)
+            torch.cuda.synchronize()
+            n32, nbf = int((got32 != ref32).sum()), int((got != ref).sum())
+            dev_ms = graph_ms(lambda: k4_form(form, x, w, r, scale, bias))
+            plain_ms = cuda_ms(lambda: k4_form(form, x, w, r, scale, bias, plain=True), reps=1,
+                               warmup=1)
+            layer = float_form_layer(form, w, n_a)
+            xf = x if form == "split" else (x,)
+            cudnn_ms = graph_ms(lambda: layer(*xf))
+            cat = torch.cat(xf, 1) if form == "split" else x
+            w3 = torch.randn(cout, cin, 3, 3, device=dev, dtype=torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            up_ms = graph_ms(lambda: torch.nn.functional.conv2d(
+                nn_core.upsample_nearest_2x(cat), w3, padding=1))
+            bound_ms, bound_by = k4_up_bound(B, size, cin, cout)
+            log("K4_rewrite", form=form, shape=f"{size // 2}^2->{size}^2:{cin}->{cout}",
+                n_a=n_a, launches_per_call=launches, int32_mismatched=n32,
+                bf16_mismatched=nbf, device_ms=f"{dev_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+                bound_by=bound_by, share=f"{bound_ms / dev_ms:.3f}", plain_ms=f"{plain_ms:.4f}",
+                cudnn_bf16_form_ms=f"{cudnn_ms:.4f}",
+                cudnn_bf16_upsample_conv_ms=f"{up_ms:.4f}")
+            if n32 or nbf or tuple(got.shape) != (B, cout, size, size) and form != "single":
+                raise AssertionError(f"K4 {form} at {size}^2 {cin}->{cout}: {n32} int32 and {nbf} "
+                                     f"bf16 values differ from the plain twin, shape "
+                                     f"{tuple(got.shape)}")
+            rows.append({"shape": [size, cin, cout, n_a], "device_ms": dev_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
+                         "cudnn_bf16_form_ms": cudnn_ms, "cudnn_bf16_upsample_conv_ms": up_ms,
+                         "launches_per_call": launches})
+        out[form] = {"shapes": rows,
+                     "device_ms_all_up_convs": sum(r["device_ms"] for r in rows),
+                     "bound_ms_all_up_convs": sum(r["bound_ms"] for r in rows),
+                     "cudnn_bf16_form_ms_all_up_convs": sum(r["cudnn_bf16_form_ms"]
+                                                            for r in rows)}
+    # a second source whose first has channels % 64 != 0 is refused on the card
+    a = torch.zeros(1, 32, 4, 4, device=dev, dtype=torch.int8).contiguous(
+        memory_format=torch.channels_last)
+    try:
+        q8.split_q8(a, a, torch.zeros(8, 64, 3, 3, device=dev, dtype=torch.int8).contiguous(
+            memory_format=torch.channels_last))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("split_q8 took a first source of 32 channels on the card")
+    out["ptxas_gather"] = regs
+    return out
+
+
+def _inner_pair(net, x):
+    """The (skip, inner output) pair the outermost up conv reads: the int8
+    part of a forward."""
+    from livespeechportraits_torch.models import feature2face as f2f
+
+    inner = next(m for m in net.netG.model.model if isinstance(m, f2f.ResUnetBlock))
+    got = []
+    handle = inner.register_forward_hook(lambda m, i, o: got.append(o))
+    try:
+        y = f2f.apply_generator(net, x)
+    finally:
+        handle.remove()
+    return got[0], y
+
+
+def _db(a, b) -> float:
+    """PSNR of two [-1, 1] frame batches (peak 2)."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * math.log10(4.0 / mse)
+
+
+def check_rewrite_generators(dev, pq) -> dict:
+    """16b.  Whole 'normal' generators at 512^2, B = 16, bf16, on one batch
+    of the chirp's render inputs: each float form (four, single, dilated,
+    split, s2d) against the unrewritten float renderer; the split int8 tree
+    against the unsplit one (the pair its outermost up conv reads bitwise,
+    the frame within REWRITE_SPLIT_PSNR_DB); four, single, dilated, s2d +
+    four and s2d + split int8 against the float frames (INT8_PSNR_DB);
+    apply_generator_edge (split_cand) on the split int8 tree against its full
+    forward.  Each forward's K4 launches against feature2face.k4_launches,
+    its device ms by CUDA-graph replay."""
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import q8conv_cuda
+    from livespeechportraits_torch.pipeline import animate, assets
+
+    cfg, person, models = pq._cfg, pq._assets, pq._models
+    x = animate.build_render_inputs(cfg, person, models, chirp(1.7), max_frames=16)
+    fnet = f2f.cast_generator(assets.init_models(cfg, assets.synthetic_seed(cfg)).feature2face
+                              .to(dev), torch.bfloat16)
+    qnet = models.feature2face
+    tr = lambda net, **kw: assets.transform_person_models(  # noqa: E731
+        dataclasses.replace(models, feature2face=net), **kw).feature2face
+    nets = {"float": fnet, "int8": qnet}
+    for form in K4_FORMS + ("s2d",):
+        nets[f"float_{form}"] = tr(fnet, **REWRITE_FORMS[form])
+    for form in K4_FORMS + ("s2d+four", "s2d+split"):
+        nets[f"int8_{form}"] = tr(qnet, **REWRITE_FORMS[form])
+    out = {}
+    with torch.no_grad():
+        ref = {"float": f2f.apply_generator(fnet, x)}
+        pair_q, ref["int8"] = _inner_pair(qnet, x)
+        for name, net in nets.items():
+            q8conv_cuda.LAUNCHES = 0
+            if name == "int8_split":
+                pair, y = _inner_pair(net, x)
+                pair_equal = all(torch.equal(u, v) for u, v in zip(pair, pair_q))
+            else:
+                y = f2f.apply_generator(net, x)
+            launches = q8conv_cuda.LAUNCHES
+            ms = graph_ms(lambda: f2f.apply_generator(net, x))
+            row = {"device_ms": ms, "k4_launches": launches,
+                   "psnr_vs_float_db": _db(y, ref["float"]),
+                   "psnr_vs_int8_db": _db(y, ref["int8"]),
+                   "max_abs_vs_int8": float((y - ref["int8"]).abs().max())}
+            want_db = (REWRITE_FLOAT_PSNR_DB if name.startswith("float_") else
+                       INT8_PSNR_DB if name.startswith("int8_") else None)
+            ok = launches == f2f.k4_launches(net) and torch.isfinite(y).all()
+            if want_db is not None and not row["psnr_vs_float_db"] >= want_db:
+                ok = False
+            if name == "int8_split":
+                row["inner_pair_bitwise"] = pair_equal
+                ok = ok and pair_equal and row["psnr_vs_int8_db"] >= REWRITE_SPLIT_PSNR_DB
+            log("rewrite_generator", net=name, batch=x.shape[0], psnr_bound_db=want_db,
+                **{k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in row.items()})
+            if not ok:
+                raise AssertionError(f"rewrite {name}: {row}, K4 launches want "
+                                     f"{f2f.k4_launches(net)}")
+            out[name] = row
+        # split_cand on the split int8 tree
+        net = nets["int8_split"]
+        cand_down = f2f.precompute_cand_down(net, x[0, ..., 1:])
+        y_edge = f2f.apply_generator_edge(net, x[..., :1].contiguous(), cand_down)
+        db = _db(y_edge, f2f.apply_generator(net, x))
+        log("rewrite_split_cand", net="int8_split", psnr_vs_full_db=f"{db:.2f}",
+            bound_db=SPLIT_BOUNDS["int8_yuv420"][0])
+        if not db >= SPLIT_BOUNDS["int8_yuv420"][0]:
+            raise AssertionError(f"split_cand on the split tree: {db:.2f} dB from its full "
+                                 "forward")
+        out["int8_split"]["split_cand_psnr_db"] = db
+    del nets, fnet
+    return out
+
+
+def check_rewrite_requests(dev, pq, tmp: str) -> dict:
+    """16c.  A 3.0 s request served fused by a Predictor booted from an
+    artifact the port wrote of the int8 Predictor's models under split-skip,
+    then under subpixel "single": frames against the unrewritten Predictor's
+    (split within REWRITE_SPLIT_PSNR_DB, single within INT8_PSNR_DB), K1
+    once a batch and K4 feature2face.k4_launches a batch (the counts set to
+    0 just before), render_device of each beside the unrewritten one's
+    (turns: unrewritten, rewritten, rewritten, unrewritten)."""
+    from livespeechportraits_torch import serve
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.pipeline import assets, video
+
+    audio = video.make_test_tone(3.0)
+    ref = pq.predict(audio, write_video=False)
+    batches = math.ceil(ref.nframe / 16)
+    out = {}
+    for form in ("split", "single"):
+        art = os.path.join(tmp, f"serving_int8_{form}.npz")
+        assets.save_models_artifact(assets.transform_person_models(pq._models,
+                                                                   **REWRITE_FORMS[form]), art)
+        p = serve.Predictor(device=dev, results_dir=os.path.join(tmp, form))
+        p.setup("Synthetic", image_size=512, artifact=art)
+        p.predict(audio[:16000], write_video=False)  # warm
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        res = p.predict(audio, write_video=False)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        per_batch = f2f.k4_launches(p._models.feature2face)
+        walls = {"unrewritten": [], form: []}
+        for who in ("unrewritten", form, form, "unrewritten"):
+            r = (pq if who == "unrewritten" else p).predict(audio, write_video=False)
+            walls[who].append(r.stage_ms["render_device"])
+        d = np.abs(res.frames.astype(int) - ref.frames.astype(int))
+        db = psnr(res.frames, ref.frames)
+        want_db = REWRITE_SPLIT_PSNR_DB if form == "split" else INT8_PSNR_DB
+        row = {"nframe": res.nframe, "psnr_vs_unrewritten_db": db, "max_levels": int(d.max()),
+               "frames_equal": float((d == 0).mean()), "launches": launches,
+               "k4_launches_per_batch": per_batch, "render_device_ms": walls[form],
+               "unrewritten_render_device_ms": walls["unrewritten"],
+               "artifact_mb": os.path.getsize(art) / 2 ** 20}
+        log("rewrite_request", form=form, psnr_bound_db=want_db,
+            **{k: (json.dumps(v) if isinstance(v, (dict, list)) else
+                   f"{v:.4f}" if isinstance(v, float) else v) for k, v in row.items()})
+        if (res.nframe != ref.nframe or not db >= want_db or launches["K1"] != batches
+                or launches["K4"] != per_batch * batches):
+            raise AssertionError(f"rewrite request {form}: {row}, want K1 {batches} and K4 "
+                                 f"{per_batch * batches}")
+        out[form] = row
+        del p
+    return out
+
+
+def check_rewrite_large() -> dict:
+    """16d.  The 'large' renderer (ngf 64, 8 downsamplings, 2 residual blocks
+    a stage) at 512^2, B = 16: int8 unrewritten, split and single
+    (tools/trace_render --rewrites split,single): ms a batch, the device
+    table by family with upsample + concat read out, generator_flops the
+    same for every renderer.  Records numbers; claims nothing."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+
+    rows = run_tool("trace_render", ["16", "1", "3", "--rewrites", "split,single"])
+    render = {r["renderer"]: r for r in rows if r.get("row") == "render"}
+    fams = {r["renderer"]: r for r in rows if r.get("row") == "families"}
+    k4_forward = len(f2f.int8_conv_shapes(Feature2FaceConfig(size="large")))
+    flops_set = {r["gflop_per_frame_of_model"] for k, r in render.items() if k != "bf16"}
+    out = {}
+    for name in ("int8", "int8_split", "int8_single"):
+        r, fam = render[name], fams[name]["device_ms_per_batch"]
+        up_cat = fam.get("nearest upsample and concat") if isinstance(fam, dict) else None
+        log("rewrite_large", renderer=name, ms_per_batch=f"{r['ms_per_batch']:.4f}",
+            upsample_and_concat_device_ms=up_cat, k4_launches_per_batch=r["k4_launches_per_batch"],
+            psnr_vs_bf16_db=f"{r['psnr_int8_vs_bf16_db']:.2f}",
+            gflop_per_frame_of_model=r["gflop_per_frame_of_model"])
+        if (r["k4_launches_per_batch"] != k4_forward or not r["psnr_int8_vs_bf16_db"]
+                >= INT8_PSNR_DB):
+            raise AssertionError(f"'large' {name}: {r}")
+        out[name] = {"ms_per_batch": r["ms_per_batch"], "families_device_ms_per_batch": fam,
+                     "upsample_and_concat_device_ms": up_cat}
+    if len(flops_set) != 1:
+        raise AssertionError(f"generator_flops differs between the renderers: {flops_set}")
+    return out
+
+
+def check_rewrites(dev, pq, tmp: str) -> dict:
+    """16.  The renderer's inference rewrites on the card; returns K4's
+    rewrite_forms entry."""
+    t0 = time.perf_counter()
+    forms = check_k4_rewrite_forms(dev)
+    gens = check_rewrite_generators(dev, pq)
+    reqs = check_rewrite_requests(dev, pq, tmp)
+    large = check_rewrite_large()
+    entry = {}
+    for form in K4_FORMS:
+        entry[form] = dict(forms[form], generator_k4_launches=gens[f"int8_{form}"]["k4_launches"],
+                           generator_device_ms=gens[f"int8_{form}"]["device_ms"],
+                           request_launches=reqs.get(form, {}).get("launches", {}).get("K4"))
+    entry["ptxas_gather"] = forms["ptxas_gather"]
+    entry["generators"] = gens
+    entry["requests"] = reqs
+    entry["large"] = large
+    log("phase16", seconds=f"{time.perf_counter() - t0:.1f}")
+    return entry
+
+
 class PhaseWalls:
     """Host seconds of each phase of main, for the script's time budget."""
 
@@ -3539,10 +3919,9 @@ def main() -> int:
     # cluster<4,2,1>) and of K1's five instances (the f32 plane; the render
     # input in bf16 and f32, 13 channels and the edge-only 1): none may spill
     for what, src, want in (("recurrence", "recurrent.cu", 1), ("k1", "rasterize.cu", 5)):
-        regs = ptxas_summary(_build.build_logs.get(src, ""))
-        log(f"ptxas_{what}", instances=json.dumps({k: {"registers": r, "spill_bytes": b}
-                                                   for k, (r, b) in sorted(regs.items())}))
-        spills = {k: b for k, (r, b) in regs.items() if b}
+        regs = ptxas_report.summary(_build.build_logs.get(src, ""), kernel_label)
+        log(f"ptxas_{what}", instances=json.dumps(dict(sorted(regs.items()))))
+        spills = {k: v for k, v in regs.items() if v["spill_stores"] or v["spill_loads"]}
         if spills or len(regs) < want:
             raise AssertionError(f"{src}: kernels spill ({spills}) or ptxas -v listed "
                                  f"{len(regs)} instances")
@@ -3788,6 +4167,12 @@ def main() -> int:
     for entry, k in zip(kernels[1:3], ("K2", "K3")):
         entry["motion_graph_launches"] = p15["replayed"][k]
         entry["motion_graph_max_abs_err"] = p15["rnn_err"][k]
+
+    phase_walls.mark("rewrites")
+    # 16. the renderer's inference rewrites: K4's new forms, whole
+    # generators, two requests served from rewritten artifacts, 'large'
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels[3]["rewrite_forms"] = check_rewrites(dev, pq, tmp)
 
     phase_walls.mark(None)
     log("phase_walls", **{k: f"{v:.1f}" for k, v in phase_walls.seconds.items()})

@@ -98,7 +98,8 @@ def library() -> ctypes.CDLL:
         lib.lsp_render_input.argtypes = [p, i, p, i, p, i, p, i, i, p, i, i, i, f, p]
         lib.lsp_gru.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.lsp_lstm.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.lsp_q8conv.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, i, i, p]
+        lib.lsp_q8conv.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, i, i,
+                                   i, p, i, i, i, i, i, i, p]
         lib.lsp_smem_optin.argtypes = []
         for fn in (lib.lsp_rasterize, lib.lsp_render_input, lib.lsp_gru, lib.lsp_lstm,
                    lib.lsp_q8conv, lib.lsp_smem_optin):

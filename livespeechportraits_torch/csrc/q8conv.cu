@@ -70,13 +70,31 @@
 // tiles and A from shared memory with two taps in flight each left it
 // about where it was on the H100.
 //
-// The gather kernel (stride 2, maps narrower than 16 or shorter than 8, and
-// every 4x4 conv; the kernel size is a launch parameter):
+// The gather kernel (stride 2, maps narrower than 16 or shorter than 8,
+// every 2x2 and 4x4 conv, and every conv that reads its source through a
+// row map; the kernel size is a launch parameter):
 // per (tap, slice) stage the producer warp gathers the 128 rows of A with
 // 16-byte cp.async (src-size 0 writes the zero padding) and
 // cp.async.mbarrier.arrive signals the stage; the consumers quantize the
 // stage in registers.
 // Needs Cin % 16 == 0 (every ResUNet width is a multiple of 64).
+//
+// The renderer's inference rewrites (nn_core.py:471-800 of the JAX package:
+// the subpixel, dilated and split up convs, each an int8 lax.conv there) run
+// on the gather kernel through four launch parameters, all in the producer's
+// row map, so the consumers and the int32 sums are those of every other conv:
+// - a 2x2 kernel with its own top and left padding: phase (a, b) of the
+//   four-phase subpixel conv, padding (1 - a, a) by (1 - b, b);
+// - a source read through a nearest 2x upsample (row iy reads iy >> 1) or an
+//   input dilation of 2 (row iy reads iy / 2 when iy is even, else zero):
+//   the upsampled or dilated map is never written;
+// - a second source: channels below n_a come from x, the rest from x2, both
+//   quantized with the one r, one int32 sum over both (the split up conv over
+//   the U-Net's (skip, submodule) pair without the concat); n_a % 64 == 0, so
+//   no 64-channel slice straddles the two;
+// - an output map: output pixel (b, oy, ox) of the launch lands at (b,
+//   step * oy + dy, step * ox + dx) of an [OH, OW] map, so the four phase
+//   launches write the interleaved map directly.
 
 #include <cuda.h>  // CUtensorMap; the encoder is looked up in the driver at run time
 #include <cuda_bf16.h>
@@ -148,15 +166,45 @@ struct HaloSmem {
   static_assert(kBM * out_row<TIn, BN>() <= 2 * kRawBytes, "the epilogue tile must fit");
 };
 
+// How a conv's input row (or column) v reads its source of n rows
+enum SrcMode { kSrcPlain = 0, kSrcUp2 = 1, kSrcDil2 = 2 };
+
+// Where output pixel m = (b, oy, ox) of an [Ho, Wo] launch is stored: at
+// (b, step * oy + dy, step * ox + dx) of an [OH, OW] map (step 1: at m).
+struct OutMap {
+  int Ho, Wo, step, dy, dx, OH, OW;
+  __host__ __device__ __forceinline__ size_t operator()(int m) const {
+    if (step == 1) return (size_t)m;
+    const int ox = m % Wo, t = m / Wo, oy = t % Ho, b = t / Ho;
+    return ((size_t)b * OH + step * oy + dy) * OW + step * ox + dx;
+  }
+};
+
 struct Params {
-  const void* x;      // [B, H, W, Cin] of TIn
-  void* out;          // [M, Cout] of the out type, or int32 [splits, M, Cout]
+  const void* x;      // [B, H, W, Cin] of TIn (forms: [B, H, W, n_a])
+  void* out;          // [M, Cout] of the out type (forms: through om), or int32 [splits, M, Cout]
   const void* r;      // [] reciprocal activation scale, TIn (fused only)
   const void* scale;  // [Cout] TIn (fused only)
   const void* bias;   // [Cout] TIn or null
-  int H, W, Cin, Cout, ks, stride, pad, Ho, Wo, M;
+  int H, W, Cin, Cout, ks, stride, pad, Ho, Wo, M;  // H, W: the source's; pad (forms): the top's
   int n_ci, n_iter, iters_per_split;  // K iterations: ks * ks taps x n_ci slices
 };
+
+// The rewrite forms' parameters, an argument of the gather kernel's kForms
+// instance only, so that every other instance keeps Params as it was.
+struct Forms {
+  const void* x2;  // [B, H, W, Cin - n_a] of TIn (the input's channels n_a..), or null
+  int pad_l, src, n_a;  // left padding, SrcMode, x's channels
+  OutMap om;
+};
+
+// Source row s of conv input row v under the SrcMode; false where the input
+// is zero (the padding, or an odd row of the dilated input).
+__device__ __forceinline__ bool src_coord(int v, int n, int mode, int& s) {
+  s = mode == kSrcPlain ? v : v >> 1;
+  const bool in = v >= 0 && s < n;
+  return mode == kSrcDil2 ? in && (v & 1) == 0 : in;
+}
 
 // The output pixel m of tile row rr: base + (rr / tw) * w + rr % tw (the
 // gather kernel's tiles are 128 consecutive pixels: tw = kBM, w = 0).
@@ -413,9 +461,13 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 // kFused: the rescaled dt tile is staged in `tile` (idle shared memory),
 // then stored 16 bytes at a time along Cout; otherwise the int32 sums go
 // straight from the registers (8-byte pairs along Cout) to split z's slab.
-template <typename TIn, int BN, bool kFused>
+// kOutMap: output pixel m is stored where om puts it (the gather kernel's
+// forms); otherwise at m.
+template <typename TIn, int BN, bool kFused, bool kOutMap>
 __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], uint8_t* tile, const Params& p,
-                                           RowMap map, int n0, int row, int t, int tid) {
+                                           RowMap map, int n0, int row, int t, int tid,
+                                           const OutMap& om) {
+  auto at = [&](int m) -> size_t { return kOutMap ? om(m) : (size_t)m; };
   if constexpr (kFused) {
     using OutT = TIn;
     constexpr int kOutRow = out_row<TIn, BN>();
@@ -444,7 +496,7 @@ __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], uint8_t* ti
       const int m = map(rr), n = n0 + c * kEpc;
       if (m >= p.M || n >= p.Cout) continue;
       const OutT* src = reinterpret_cast<const OutT*>(tile + rr * kOutRow) + c * kEpc;
-      OutT* dst = out + (size_t)m * p.Cout + n;
+      OutT* dst = out + at(m) * p.Cout + n;
       if (vec && n + kEpc <= p.Cout) {
         *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
       } else {
@@ -461,7 +513,7 @@ __device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], uint8_t* ti
       for (int h = 0; h < 2; ++h) {
         const int m = map(row + 8 * h);
         if (m >= p.M || n >= p.Cout) continue;
-        int* dst = out + (size_t)m * p.Cout + n;
+        int* dst = out + at(m) * p.Cout + n;
         if (pair) {
           *reinterpret_cast<int2*>(dst) = make_int2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         } else {
@@ -486,9 +538,11 @@ __device__ __forceinline__ void mma_stage(int (&acc)[BN / 2], const uint32_t (&a
 
 // kFused: quantize TIn activations and write the rescaled dt (= TIn) output;
 // otherwise the int32 sums (int8 input, or one split of a split-K launch).
-template <typename TIn, int BN, bool kFused>
+// kForms: the rewrite forms' row map (pad_l, the SrcMode, the second source)
+// and output map; a plain launch takes the instance without them.
+template <typename TIn, int BN, bool kFused, bool kForms>
 __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
-    q8conv_gather_kernel(const __grid_constant__ CUtensorMap wmap, const Params p) {
+    q8conv_gather_kernel(const __grid_constant__ CUtensorMap wmap, const Params p, const Forms f) {
   using L = Smem<TIn, BN>;
   constexpr int S = L::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -527,7 +581,7 @@ __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
       const int ox = mm % p.Wo, t = mm / p.Wo;
       rb[j] = t / p.Ho;
       riy[j] = (t % p.Ho) * p.stride - p.pad;
-      rix[j] = ox * p.stride - p.pad;
+      rix[j] = ox * p.stride - (kForms ? f.pad_l : p.pad);
     }
     for (int it = it0; it < it1; ++it) {
       const int k = it - it0, s = k % S;
@@ -538,17 +592,34 @@ __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
         mbar_expect_tx(full0 + 8 * s, L::kBBytes);
         tma_load_2d(base + s * L::kBBytes, &wmap, tap * p.Cin + ci0, n0, full0 + 8 * s);
       }
+      // the slice's source: x, or (forms) x2 past its first n_a channels
+      const TIn* xs = x;
+      int pitch = p.Cin, c0 = ci0;
+      if constexpr (kForms) {
+        if (ci0 >= f.n_a) {
+          xs = static_cast<const TIn*>(f.x2);
+          pitch = p.Cin - f.n_a, c0 = ci0 - f.n_a;
+        } else {
+          pitch = f.n_a;
+        }
+      }
       const uint32_t as = base + L::kAOff + s * L::kABytes;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int iy = riy[j] + kh, ix = rix[j] + kw;
-        const bool ok = rok[j] && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
-        const TIn* src = ok ? x + (((size_t)rb[j] * p.H + iy) * p.W + ix) * p.Cin : x;
+        int sy = riy[j] + kh, sx = rix[j] + kw;
+        bool ok;
+        if constexpr (kForms) {
+          const bool oky = src_coord(sy, p.H, f.src, sy);
+          ok = rok[j] && oky && src_coord(sx, p.W, f.src, sx);
+        } else {
+          ok = rok[j] && sy >= 0 && sy < p.H && sx >= 0 && sx < p.W;
+        }
+        const TIn* src = ok ? xs + (((size_t)rb[j] * p.H + sy) * p.W + sx) * pitch : x;
         const uint32_t dst = as + (lane + 32 * j) * L::kARow;
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
-          const int ch = ci0 + c * kEpc;
-          const bool okc = ok && ch < p.Cin;
+          const int ch = c0 + c * kEpc;
+          const bool okc = ok && ch < pitch;
           cp_async16(dst + 16 * c, okc ? src + ch : x, okc);
         }
       }
@@ -575,7 +646,8 @@ __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
       mma_stage<BN>(acc, a0, a1, base + s * L::kBBytes);
       mbar_arrive(empty0 + 8 * s);  // the stage's A and B have been read
     }
-    store_tile<TIn, BN, kFused>(acc, smem + L::kAOff, p, RowMap{m0, kBM, 0}, n0, row, t, tid);
+    store_tile<TIn, BN, kFused, kForms>(acc, smem + L::kAOff, p, RowMap{m0, kBM, 0}, n0, row, t,
+                                        tid, f.om);
   }
 }
 
@@ -675,26 +747,29 @@ __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
       }
     }
     const RowMap map{(b * p.H + y0) * p.W + x0, kHaloTW, p.W};
-    store_tile<TIn, BN, kFused>(acc, smem + L::kRawOff, p, map, n0, row, t, tid);
+    store_tile<TIn, BN, kFused, false>(acc, smem + L::kRawOff, p, map, n0, row, t, tid, OutMap{});
   }
 }
 
 // Split-K's second pass: sum the int32 partials of each output (exact), then
-// write int32 or apply the fused epilogue.
-template <typename OutT>
+// write int32 or apply the fused epilogue; kOutMap: at om's place (the
+// rewrite forms' output map), else at the partial's.
+template <typename OutT, bool kOutMap>
 __global__ void q8conv_reduce_kernel(const int* __restrict__ ws, int splits, int M, int Cout,
-                                     void* out, const void* scale, const void* bias) {
+                                     void* out, const void* scale, const void* bias,
+                                     const OutMap om) {
   const size_t mn = (size_t)M * Cout;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < mn;
        i += (size_t)gridDim.x * blockDim.x) {
     int acc = 0;
     for (int s = 0; s < splits; ++s) acc += ws[s * mn + i];
+    const int n = (int)(i % Cout);
+    const size_t o = kOutMap ? om((int)(i / Cout)) * Cout + n : i;
     if constexpr (std::is_same<OutT, int>::value) {
-      static_cast<int*>(out)[i] = acc;
+      static_cast<int*>(out)[o] = acc;
     } else {
-      const int n = (int)(i % Cout);
       const OutT* b = static_cast<const OutT*>(bias);
-      static_cast<OutT*>(out)[i] =
+      static_cast<OutT*>(out)[o] =
           rescale(acc, static_cast<const OutT*>(scale)[n], b ? b[n] : OutT(), b != nullptr);
     }
   }
@@ -717,9 +792,21 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+template <typename TIn, int BN, bool kFused, bool kForms>
+cudaError_t launch_gather(const CUtensorMap& wmap, const Params& p, const Forms& f, dim3 grid,
+                          cudaStream_t s) {
+  auto kernel = q8conv_gather_kernel<TIn, BN, kFused, kForms>;
+  constexpr int bytes = Smem<TIn, BN>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, bytes, s>>>(wmap, p, f);
+  return cudaGetLastError();
+}
+
 template <typename TIn, int BN, bool kFused>
-cudaError_t launch(const CUtensorMap& wmap, const CUtensorMap* xmap, const Params& p, dim3 grid,
-                   cudaStream_t s) {
+cudaError_t launch(const CUtensorMap& wmap, const CUtensorMap* xmap, const Params& p,
+                   const Forms* forms, dim3 grid, cudaStream_t s) {
   if (xmap != nullptr) {
     auto kernel = q8conv_halo_kernel<TIn, BN, kFused>;
     constexpr int bytes = HaloSmem<TIn, BN>::kBytes;
@@ -727,51 +814,74 @@ cudaError_t launch(const CUtensorMap& wmap, const CUtensorMap* xmap, const Param
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, bytes, s>>>(wmap, *xmap, p);
-  } else {
-    auto kernel = q8conv_gather_kernel<TIn, BN, kFused>;
-    constexpr int bytes = Smem<TIn, BN>::kBytes;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, bytes, s>>>(wmap, p);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  return forms ? launch_gather<TIn, BN, kFused, true>(wmap, p, *forms, grid, s)
+               : launch_gather<TIn, BN, kFused, false>(wmap, p, Forms{}, grid, s);
 }
 
 template <typename TIn, bool kFused>
-cudaError_t launch_bn(const CUtensorMap& wmap, const CUtensorMap* xmap, const Params& p, dim3 grid,
-                      int bn, cudaStream_t s) {
-  return bn == 64 ? launch<TIn, 64, kFused>(wmap, xmap, p, grid, s)
-                  : launch<TIn, 128, kFused>(wmap, xmap, p, grid, s);
+cudaError_t launch_bn(const CUtensorMap& wmap, const CUtensorMap* xmap, const Params& p,
+                      const Forms* forms, dim3 grid, int bn, cudaStream_t s) {
+  return bn == 64 ? launch<TIn, 64, kFused>(wmap, xmap, p, forms, grid, s)
+                  : launch<TIn, 128, kFused>(wmap, xmap, p, forms, grid, s);
+}
+
+template <typename OutT>
+void launch_reduce(const int* ws, int splits, int M, int Cout, void* out, const void* scale,
+                   const void* bias, const OutMap& om, cudaStream_t s) {
+  const int threads = 256;
+  const long long want = ((long long)M * Cout + threads - 1) / threads;
+  const unsigned blocks = (unsigned)(want < 4096 ? want : 4096);
+  if (om.step == 1)
+    q8conv_reduce_kernel<OutT, false><<<blocks, threads, 0, s>>>(ws, splits, M, Cout, out, scale,
+                                                                 bias, om);
+  else
+    q8conv_reduce_kernel<OutT, true><<<blocks, threads, 0, s>>>(ws, splits, M, Cout, out, scale,
+                                                                bias, om);
 }
 
 }  // namespace
 
 // x: [B, H, W, Cin] of in_kind (0 int8, 1 float32, 2 bfloat16); w: [Cout, ks,
-// ks, Cin] int8, ks 3 or 4; out: [B, Ho, Wo, Cout], int32 for int8 input, else
-// of the input dtype with the quantize (r: [] reciprocal scale) and the
+// ks, Cin] int8, ks 2, 3 or 4; out: [B, Ho, Wo, Cout], int32 for int8 input,
+// else of the input dtype with the quantize (r: [] reciprocal scale) and the
 // rescale (scale [Cout], bias [Cout] or null) fused.  iters_per_split > 0
 // splits the ks * ks * ceil(Cin / 64) K iterations over `splits` =
 // ceil(n_iter / iters_per_split) blocks per tile, through workspace (int32
 // [splits, M, Cout]); the caller sizes it with the same formula.  A 3x3 conv
-// of stride 1 with padding 1 on a map with W % 16 == 0 and H % 8 == 0 takes
-// the halo kernel, which splits whole slices: iters_per_split must then be a
-// multiple of 9.
+// of stride 1 with padding 1 on a plain source with W % 16 == 0 and H % 8 ==
+// 0, and a plain output, takes the halo kernel, which splits whole slices:
+// iters_per_split must then be a multiple of 9.
+//
+// The gather kernel's forms (see the note at the top): pad_t / pad_l the top
+// and left padding (Ho and Wo fix the bottom and right); src a SrcMode, with
+// H and W the source's size; x2 (or null) the second source, x holding the
+// first n_a channels (n_a % 64 == 0 with x2; Cin without); out_step, out_dy,
+// out_dx, OH, OW the output map (out is then [B, OH, OW, Cout]).
 extern "C" int lsp_q8conv(const void* x, int in_kind, const int8_t* w, int B, int H, int W,
-                          int Cin, int Cout, int ks, int stride, int pad, int Ho, int Wo,
-                          void* out, const void* r, const void* scale, const void* bias,
-                          int* workspace, int iters_per_split, int splits, void* stream) {
+                          int Cin, int Cout, int ks, int stride, int pad_t, int pad_l, int Ho,
+                          int Wo, void* out, const void* r, const void* scale, const void* bias,
+                          int* workspace, int iters_per_split, int splits, int src,
+                          const void* x2, int n_a, int out_step, int out_dy, int out_dx, int OH,
+                          int OW, void* stream) {
   if (Cin % 16 != 0 || Cin <= 0 || Cout <= 0 || stride < 1 || in_kind < 0 || in_kind > 2 ||
-      (ks != 3 && ks != 4) || pad < 0 || iters_per_split <= 0 ||
-      ((uintptr_t)x | (uintptr_t)w) % 16 != 0)
+      ks < 2 || ks > 4 || pad_t < 0 || pad_l < 0 || iters_per_split <= 0 ||
+      ((uintptr_t)x | (uintptr_t)w | (uintptr_t)x2) % 16 != 0 || src < kSrcPlain ||
+      src > kSrcDil2 || n_a <= 0 || n_a > Cin || n_a % 16 != 0 ||
+      (x2 == nullptr) != (n_a == Cin) || (x2 != nullptr && n_a % kBK != 0) || out_step < 1 ||
+      out_dy < 0 || out_dx < 0 || out_dy >= out_step || out_dx >= out_step ||
+      (out_step == 1 && (OH != Ho || OW != Wo)) ||
+      (out_step > 1 && (OH != out_step * Ho || OW != out_step * Wo)))
     return (int)cudaErrorInvalidValue;
   if (in_kind != 0 && (r == nullptr || scale == nullptr)) return (int)cudaErrorInvalidValue;
   const long long M = (long long)B * Ho * Wo;
   if (M == 0) return (int)cudaSuccess;
-  if (M > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  if (M > (1LL << 30) || (long long)B * OH * OW > (1LL << 30)) return (int)cudaErrorInvalidValue;
   const int n_ci = (Cin + kBK - 1) / kBK, n_iter = ks * ks * n_ci;
-  const bool halo = ks == 3 && stride == 1 && pad == 1 && Ho == H && Wo == W &&
-                    W % kHaloTW == 0 && H % kHaloTR == 0;
+  const bool halo = ks == 3 && stride == 1 && pad_t == 1 && pad_l == 1 && Ho == H && Wo == W &&
+                    W % kHaloTW == 0 && H % kHaloTR == 0 && src == kSrcPlain &&
+                    x2 == nullptr && out_step == 1;
   if (splits != (n_iter + iters_per_split - 1) / iters_per_split ||
       (splits > 1 && workspace == nullptr) || (halo && iters_per_split % 9 != 0))
     return (int)cudaErrorInvalidValue;
@@ -807,42 +917,43 @@ extern "C" int lsp_q8conv(const void* x, int in_kind, const int8_t* w, int B, in
       return (int)cudaErrorInvalidValue;
   }
 
+  const OutMap om{Ho, Wo, out_step, out_dy, out_dx, OH, OW};
   Params p;
   p.x = x;
   p.out = splits > 1 ? (void*)workspace : out;
   p.r = r;
   p.scale = scale;
   p.bias = bias;
-  p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.ks = ks, p.stride = stride, p.pad = pad;
+  p.H = H, p.W = W, p.Cin = Cin, p.Cout = Cout, p.ks = ks, p.stride = stride, p.pad = pad_t;
   p.Ho = Ho, p.Wo = Wo, p.M = (int)M;
   p.n_ci = n_ci, p.n_iter = n_iter, p.iters_per_split = iters_per_split;
+  // split-K's partials are m-major in the workspace; the reduce pass maps them
+  const Forms f{x2, pad_l, src, n_a, splits > 1 ? OutMap{Ho, Wo, 1, 0, 0, Ho, Wo} : om};
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((Cout + bn - 1) / bn),
                   (unsigned)splits);
   cudaStream_t s = (cudaStream_t)stream;
   const CUtensorMap* xm = halo ? &xmap : nullptr;
   const bool fused = in_kind != 0 && splits == 1;
+  // a plain launch (one source read as it is, padding pad_t all round, the
+  // output at m) takes the gather instance without the forms
+  const bool forms = src != kSrcPlain || x2 != nullptr || out_step != 1 || pad_l != pad_t;
+  const Forms* fp = forms ? &f : nullptr;
   cudaError_t err;
   if (in_kind == 0)
-    err = launch_bn<int8_t, false>(wmap, xm, p, grid, bn, s);
+    err = launch_bn<int8_t, false>(wmap, xm, p, fp, grid, bn, s);
   else if (in_kind == 1)
-    err = fused ? launch_bn<float, true>(wmap, xm, p, grid, bn, s)
-                : launch_bn<float, false>(wmap, xm, p, grid, bn, s);
+    err = fused ? launch_bn<float, true>(wmap, xm, p, fp, grid, bn, s)
+                : launch_bn<float, false>(wmap, xm, p, fp, grid, bn, s);
   else
-    err = fused ? launch_bn<__nv_bfloat16, true>(wmap, xm, p, grid, bn, s)
-                : launch_bn<__nv_bfloat16, false>(wmap, xm, p, grid, bn, s);
+    err = fused ? launch_bn<__nv_bfloat16, true>(wmap, xm, p, fp, grid, bn, s)
+                : launch_bn<__nv_bfloat16, false>(wmap, xm, p, fp, grid, bn, s);
   if (err != cudaSuccess || splits == 1) return (int)err;
 
-  const int threads = 256;
-  const long long want = (M * Cout + threads - 1) / threads;
-  const unsigned blocks = (unsigned)(want < 4096 ? want : 4096);
   if (in_kind == 0)
-    q8conv_reduce_kernel<int><<<blocks, threads, 0, s>>>(workspace, splits, (int)M, Cout, out,
-                                                         scale, bias);
+    launch_reduce<int>(workspace, splits, (int)M, Cout, out, scale, bias, om, s);
   else if (in_kind == 1)
-    q8conv_reduce_kernel<float><<<blocks, threads, 0, s>>>(workspace, splits, (int)M, Cout, out,
-                                                           scale, bias);
+    launch_reduce<float>(workspace, splits, (int)M, Cout, out, scale, bias, om, s);
   else
-    q8conv_reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(workspace, splits, (int)M,
-                                                                   Cout, out, scale, bias);
+    launch_reduce<__nv_bfloat16>(workspace, splits, (int)M, Cout, out, scale, bias, om, s);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@ feature2face.py`` (``_resblock``, ``_resunet_stage``, ``_unet_stage``,
 ``apply_generator``, and split_cand's ``precompute_cand_down`` /
 ``apply_generator_edge``) and its int8 inference transforms
 (``quantize_generator``, ``fold_bn_generator``, ``calibrate_generator``,
-which refuse 'small' as JAX does), and quantization-aware training's tags
+which refuse 'small' as JAX does), the structural inference rewrites
+(``subpixel_generator``, ``s2d_input_generator``, ``split_skip_generator``),
+and quantization-aware training's tags
 (``qat_generator``, ``strip_qat_generator``, ``qat_discriminator``).
 The modules mirror the reference's nested ``nn.Sequential`` so that its
 state-dict keys (``netG.model.model.0.weight`` ...) load unchanged; the
@@ -72,10 +74,19 @@ def checkpointed(fn, x: Tensor, update_stats: bool = True) -> Tensor:
     return checkpoint(run, x, use_reentrant=False)
 
 
+class UpsampleAbsorbed(nn.Identity):
+    """Where a stage's nearest 2x upsample stood before a rewrite absorbed it
+    into the up conv that follows (subpixel_generator, split_skip_generator):
+    the layer indices, and so the state-dict keys, stay those of the
+    unrewritten stage."""
+
+
 class ResUnetBlock(nn.Module):
     """One U-Net stage: stride-2 down conv (+BN), ReLU, res blocks, the
     inner stage, nearest 2x upsample, up conv (+BN, ReLU, res blocks).  A
-    non-outermost stage returns cat([input, output]) over channels."""
+    non-outermost stage returns the pair (input, output); its parent's up
+    conv reads cat(pair) over channels, or the pair itself when it is split
+    (nn_core.UpConvSplit), as JAX's _resunet_stage does."""
 
     def __init__(self, outer_nc: int, inner_nc: int, input_nc: Optional[int], n_res: int,
                  submodule: Optional["ResUnetBlock"] = None, outermost: bool = False):
@@ -107,7 +118,8 @@ class ResUnetBlock(nn.Module):
         computed by the caller (apply_generator_edge, outermost stage only);
         the stage then starts after its down conv and reads no x."""
         layers = list(self.model)
-        cut = next(i for i, m in enumerate(layers) if isinstance(m, nn.Upsample))
+        cut = next(i for i, m in enumerate(layers)
+                   if isinstance(m, (nn.Upsample, UpsampleAbsorbed)))
         inner = layers[cut - 1] if isinstance(layers[cut - 1], ResUnetBlock) else None
         down, up = layers[:cut - 1 if inner is not None else cut], layers[cut:]
         if y_down is not None:
@@ -124,11 +136,15 @@ class ResUnetBlock(nn.Module):
             y = self._run(down, x, training, update_stats)
         if inner is not None:
             y = inner(y, training, update_stats, remat, depth + 1)
+            if isinstance(up[1], nn_core.UpConvSplit):  # the concat-free up conv
+                y, up = up[1](*y), up[2:]
+            else:
+                y = torch.cat(y, dim=1)
         if depth < remat:
             y = checkpointed(half(up), y, update_stats)
         else:
             y = self._run(up, y, training, update_stats)
-        return y if self.outermost else torch.cat([x, y], dim=1)
+        return y if self.outermost else (x, y)
 
     @staticmethod
     def _run(layers, y: Tensor, training: bool, update_stats: bool) -> Tensor:
@@ -141,7 +157,9 @@ class ResUnetBlock(nn.Module):
                 y = torch.relu(y)
             elif isinstance(m, nn.Upsample):
                 y = nn_core.upsample_nearest_2x(y)
-            else:  # ResnetBlock
+            elif isinstance(m, nn_core.REWRITES):
+                y = m(y)
+            elif not isinstance(m, UpsampleAbsorbed):  # ResnetBlock
                 y = m(y, training, update_stats)
         return y
 
@@ -310,6 +328,12 @@ def _first_conv(model: Feature2FaceG) -> nn.Conv2d:
     (linear, so conv(cat(edge, cand)) = conv(edge; w[:, :1]) + conv(cand;
     w[:, 1:13])), as JAX's precompute_cand_down requires."""
     conv = model.netG.model.model[0]
+    if isinstance(conv, nn_core.ConvS2DDown):
+        # JAX precompute_cand_down's refusal: the packed kernel's channels
+        # interleave the phases, so the edge / candidate split is gone
+        raise ValueError(
+            "split_cand requires the plain outermost down conv; this generator's input conv "
+            "was rewritten (s2d_input_generator). Disable one of split_cand / s2d_input.")
     if type(conv) is not nn.Conv2d or conv.bias is not None:
         raise ValueError(
             "split_cand requires the plain outermost down conv (float, no bias); this "
@@ -390,6 +414,34 @@ def int8_conv_shapes(cfg: Feature2FaceConfig) -> list:
     return stage(0, cfg.load_size)
 
 
+def int8_up_convs(cfg: Feature2FaceConfig) -> list:
+    """(fine size, Cin, Cout, n_a) of each int8 up conv of the quantized
+    ResUNet at cfg.load_size (stages 1 .., outermost first; the outermost
+    stage's up conv stays float): the 3x3 conv on the nearest-2x-upsampled
+    map of cat(skip, inner output), n_a the skip's channels (0 for the
+    innermost stage, whose up conv reads its own map alone).  The shapes the
+    rewrites' int8 forms run at (subpixel_generator, split_skip_generator)."""
+    inner = [cfg.ngf, cfg.ngf * 2, cfg.ngf * 4] + [cfg.ngf * 8] * (cfg.n_downsample - 3)
+    out = []
+    for k in range(1, len(inner)):
+        innermost = k + 1 == len(inner)
+        out.append((cfg.load_size >> k, inner[k] if innermost else 2 * inner[k],
+                    inner[k - 1], 0 if innermost else inner[k]))
+    return out
+
+
+def k4_launches(model: nn.Module) -> int:
+    """K4 launches of one forward of ``model``: one an int8 conv or int8
+    rewritten layer, four a four-phase subpixel one; float layers none."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, nn_core.QConv2d):
+            n += 1
+        elif isinstance(m, nn_core.REWRITES) and m.quantized:
+            n += 4 if isinstance(m, nn_core.UpConvSubpixel) else 1
+    return n
+
+
 # JAX's refusals of the 'small' U-Net (feature2face.py:349-353, 511-514, 632-635)
 _SMALL_REFUSED = {
     "quantize": "int8 quantization targets the ResUNet variants ('normal'/'large'); the "
@@ -399,6 +451,11 @@ _SMALL_REFUSED = {
                  "first (quantize_generator)",
     "fold_bn": "BN folding targets the ResUNet variants; the 'small' U-Net applies BN "
                "after ConvTranspose upsampling, left unfolded",
+    "subpixel": "the 'small' pix2pix U-Net upsamples with ConvTranspose, not nearest+conv; "
+                "subpixel rewrite targets the ResUNet variants",
+    "s2d": "s2d input rewrite targets the ResUNet variants",
+    "split_skip": "split-skip rewrite targets the ResUNet variants ('small' uses "
+                  "ConvTranspose ups)",
 }
 
 
@@ -523,8 +580,18 @@ def _convs_in_order(stage: ResUnetBlock) -> Iterator[nn.Module]:
         elif isinstance(m, ResnetBlock):
             yield m.block[0]
             yield m.block[3]
-        elif isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
+        elif isinstance(m, (nn.Conv2d, nn_core.QConv2d) + nn_core.REWRITES):
             yield m
+
+
+def _calibrated(conv: nn.Module) -> bool:
+    """Whether JAX's calibration walk gives this conv a scale: the int8 and
+    QAT-tagged convs and an int8 split up conv (one joint amax).  Its walk
+    skips the subpixel and dilated rewrites, whose forwards record all the
+    same, so calibrating such a tree raises, as it does there: they apply
+    after calibration."""
+    return (isinstance(conv, (nn_core.QConv2d, nn_core.QATConv2d))
+            or isinstance(conv, nn_core.UpConvSplit) and conv.quantized)
 
 
 def _assign_x_scales(model: Feature2FaceG, scales: np.ndarray) -> None:
@@ -532,13 +599,14 @@ def _assign_x_scales(model: Feature2FaceG, scales: np.ndarray) -> None:
     scale each."""
     it = iter(scales)
     for conv in _convs_in_order(model.netG.model):
-        if isinstance(conv, (nn_core.QConv2d, nn_core.QATConv2d)):
+        if _calibrated(conv):
             try:
                 s = next(it)
             except StopIteration:
                 raise RuntimeError("parameter walk visited more quantized convs than the "
                                    "forward recorded - forward/walk order mismatch") from None
-            dev = (conv.w_scale if isinstance(conv, nn_core.QConv2d) else conv.weight).device
+            dev = next(conv.parameters(), None)
+            dev = (dev if dev is not None else next(conv.buffers())).device
             conv.x_scale = torch.tensor(s, dtype=torch.float32, device=dev)
     leftovers = sum(1 for _ in it)
     if leftovers:
@@ -547,13 +615,14 @@ def _assign_x_scales(model: Feature2FaceG, scales: np.ndarray) -> None:
 
 
 @torch.no_grad()
-def calibrate_generator(model: Feature2FaceG, inputs,
-                        compute_dtype: Optional[torch.dtype] = None) -> Feature2FaceG:
+def calibrate_generator(model: Feature2FaceG, inputs, compute_dtype: Optional[torch.dtype] = None,
+                        margin: float = 1.0) -> Feature2FaceG:
     """Static activation scales for an int8 or a QAT-tagged model: run the
     forward on ``inputs`` (one [B, H, W, input_nc] batch or a list), record
-    each quantized or tagged conv's input amax in call order, and store
-    x_scale = max-over-batches(amax) / 127 (f32) on each of them (JAX's
-    margin 1)."""
+    each quantized or tagged conv's input amax in call order (a split up
+    conv one joint amax of its pair), and store x_scale =
+    max(max-over-batches(amax) * margin, 1e-12) / 127 (f32) on each of
+    them."""
     _resunet_only(model, "calibrate")
     batches = inputs if isinstance(inputs, (list, tuple)) else [inputs]
     net = model if compute_dtype is None else cast_generator(model, compute_dtype)
@@ -568,20 +637,99 @@ def calibrate_generator(model: Feature2FaceG, inputs,
         a = torch.stack(record).cpu().numpy()
         amax = a if amax is None else np.maximum(amax, a)
     out = copy.deepcopy(model)
-    _assign_x_scales(out, np.maximum(amax, 1e-12) / 127.0)
+    _assign_x_scales(out, np.maximum(amax * margin, 1e-12) / 127.0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The structural inference rewrites (feature2face.py:639-720 of the JAX
+# package).  Exact maps, float up to summation order; each returns a copy and
+# applies after quantize, fold and calibrate, as in JAX.
+# ---------------------------------------------------------------------------
+
+
+def _rewrite_up(stage: ResUnetBlock, fn) -> None:
+    """Replace the stage's upsample + up conv by UpsampleAbsorbed + fn(conv)."""
+    seq = stage.model
+    i = next(i for i, m in enumerate(seq) if isinstance(m, nn.Upsample))
+    seq[i + 1] = fn(seq[i + 1])
+    seq[i] = UpsampleAbsorbed()
+
+
+def subpixel_generator(model: Feature2FaceG, mode: str = "four",
+                       outermost_only: bool = False) -> Feature2FaceG:
+    """Every nearest-2x upsample + 3x3 up conv (only the outermost, to-RGB
+    one with outermost_only) rewritten into an exact subpixel conv at the
+    coarse resolution: mode "four" (four 2x2 phase convs, 4/9 the
+    multiply-adds; int8: four K4 launches), "single" (one 3x3 conv with 4 *
+    Co outputs; int8: one K4 launch) or "dilated" (one 4x4 conv over the
+    input dilated by 2; int8: one K4 launch).  Float and int8 models alike."""
+    _resunet_only(model, "subpixel")
+    rewrite = {"four": nn_core.subpixel_from_conv3x3, "single": nn_core.subpixel1_from_conv3x3,
+               "dilated": nn_core.dilated_from_conv3x3}[mode]
+    q = copy.deepcopy(model)
+    for stage in _stages(q):
+        if stage.outermost or not outermost_only:
+            _rewrite_up(stage, rewrite)
+    return q
+
+
+def s2d_input_generator(model: Feature2FaceG) -> Feature2FaceG:
+    """The outermost down conv (the [64, 13, 3, 3] stride-2 conv reading the
+    edge and candidate input) as a 2x2 stride-1 conv over the space-to-depth
+    packed input (nn_core.s2d_from_conv3x3s2), 4x the input channels for
+    16/9 the nominal multiply-adds.  split_cand then refuses the model
+    (precompute_cand_down)."""
+    _resunet_only(model, "s2d")
+    q = copy.deepcopy(model)
+    seq = q.netG.model.model
+    seq[0] = nn_core.s2d_from_conv3x3s2(seq[0])
+    return q
+
+
+def split_skip_generator(model: Feature2FaceG) -> Feature2FaceG:
+    """Every skip-consuming up conv (every stage's but the innermost's) as
+    the concat-free split form (nn_core.split_from_concat_conv): no stage
+    writes its cat(skip, inner output), nor its upsample.  Exact: float up to
+    summation order, int8 bit for bit on K4 (one x_scale, one int32 sum).
+    Instead of the subpixel rewrites (both take the same up convs): a model
+    that holds one raises."""
+    _resunet_only(model, "split_skip")
+    q = copy.deepcopy(model)
+    for stage in _stages(q):
+        seq = list(stage.model)
+        if not any(isinstance(m, ResUnetBlock) for m in seq):
+            continue  # the innermost up conv reads a single tensor
+        i = next(i for i, m in enumerate(seq) if isinstance(m, (nn.Upsample, UpsampleAbsorbed)))
+        up = seq[i + 1]
+        if not isinstance(up, (nn.Conv2d, nn_core.QConv2d)):
+            raise ValueError("split_skip_generator needs plain 3x3 'up' convs; this tree already "
+                             "carries a subpixel/dilated rewrite "
+                             f"({sorted(n for n, _ in up.named_buffers())})")
+        n_a = (up.w_q if isinstance(up, nn_core.QConv2d) else up.weight).shape[1] // 2
+        _rewrite_up(stage, lambda c: nn_core.split_from_concat_conv(c, n_a))
+    return q
 
 
 def conform_to_state_dict(model: Feature2FaceG, sd) -> None:
     """Shape the module tree, in place, for a state dict of a transformed
-    generator: a conv whose entry is int8 (``w_q``) becomes a QConv2d, and a
-    float conv that carries a bias after BN folding gets one."""
+    generator: a conv whose entry is int8 (``w_q``) becomes a QConv2d, one
+    whose entry holds a rewrite's weights that rewrite's layer (an up conv's
+    upsample then UpsampleAbsorbed), and a float conv that carries a bias
+    after BN folding gets one."""
     for prefix, parent in list(model.named_modules()):
         for name, child in list(parent.named_children()):
             if not isinstance(child, nn.Conv2d):
                 continue
             key = f"{prefix}.{name}" if prefix else name
-            if f"{key}.w_q" in sd:
+            cls = next((c for c in nn_core.REWRITES if c.rewrites(sd, key)), None)
+            if cls is not None:
+                shape = (child.kernel_size[0], child.in_channels, child.out_channels,
+                         child.stride[0], child.padding[0])
+                setattr(parent, name, cls.shaped_like(sd, key, shape))
+                if cls is not nn_core.ConvS2DDown:
+                    setattr(parent, str(int(name) - 1), UpsampleAbsorbed())
+            elif f"{key}.w_q" in sd:
                 w_q = torch.zeros(sd[f"{key}.w_q"].shape, dtype=torch.int8)
                 setattr(parent, name, nn_core.QConv2d(
                     w_q, torch.zeros(w_q.shape[0]), child.stride[0], child.padding[0]))

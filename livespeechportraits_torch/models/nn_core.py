@@ -89,14 +89,18 @@ def conv2d(x: Tensor, layer: Union[nn.Conv2d, "QConv2d"], stride: int = 1,
 # ---------------------------------------------------------------------------
 
 
-def quantize_weight_int8(w: Tensor) -> Tuple[Tensor, Tensor]:
-    """Per-output-channel symmetric int8 weights of a conv weight [O, I, kh,
-    kw]: (w_q int8 in [-127, 127], scale [O]) with scale = amax / 127
-    floored at 1e-12 / 127, in JAX's operation order."""
+def quantize_weight_int8(w: Tensor, dims: Tuple[int, ...] = (1, 2, 3)) -> Tuple[Tensor, Tensor]:
+    """Symmetric int8 weights with one scale per index of the dims not
+    reduced: (w_q int8 in [-127, 127], scale) with scale = amax over ``dims``
+    / 127, floored at 1e-12 / 127, in JAX's operation order, squeezed over
+    ``dims`` (JAX's ``axes``).  The default reduces a conv weight [O, I, kh,
+    kw] to one scale an output channel; the rewrites below quantize in JAX's
+    layouts with JAX's axes.  Every int8 form quantizes through this one
+    expression, so their weights equal JAX's bit for bit."""
     w = w.detach().float()
-    s_k = torch.clamp(w.abs().amax(dim=(1, 2, 3), keepdim=True), min=1e-12) / 127.0
+    s_k = torch.clamp(w.abs().amax(dim=dims, keepdim=True), min=1e-12) / 127.0
     w_q = torch.clamp(torch.round(w / s_k), -127, 127).to(torch.int8)
-    return w_q, s_k.flatten()
+    return w_q, s_k.squeeze(dims)
 
 
 class QConv2d(nn.Module):
@@ -139,13 +143,7 @@ class QConv2d(nn.Module):
         dtype dt, kept until x_scale or w_scale is replaced (a cast or a
         move) or changed in place, so a calibrated conv launches no kernel
         but K4."""
-        versions = (self.x_scale._version, self.w_scale._version)
-        c = self._static
-        if (c is None or c[0] != dt or c[1] is not self.x_scale or c[2] is not self.w_scale
-                or c[3] != versions):
-            r, scale = rescale_operands(self.w_scale, self.x_scale.float(), dt)
-            c = self._static = (dt, self.x_scale, self.w_scale, versions, r, scale)
-        return c[4], c[5]
+        return static_operands(self, self.w_scale, dt)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # the optional buffers exist when the state dict carries them
@@ -157,12 +155,14 @@ class QConv2d(nn.Module):
 
 @contextlib.contextmanager
 def recording_amax(module: nn.Module):
-    """Calibration: within the block every QConv2d and QATConv2d of
-    ``module`` appends its input's |x| max (f32) to the yielded list, in
-    call order, and quantizes with that amax (an "fq8" conv through the f32
+    """Calibration: within the block every QConv2d, QATConv2d and int8
+    rewritten layer of ``module`` appends its input's |x| max (f32) to the
+    yielded list, in call order (a split up conv one joint amax of its two
+    inputs), and quantizes with that amax (an "fq8" conv through the f32
     emulation, as JAX's does)."""
     record: list = []
-    convs = [m for m in module.modules() if isinstance(m, (QConv2d, QATConv2d))]
+    convs = [m for m in module.modules() if isinstance(m, (QConv2d, QATConv2d))
+             or isinstance(m, REWRITES) and m.quantized]
     for c in convs:
         c.amax_record = record
     try:
@@ -172,20 +172,23 @@ def recording_amax(module: nn.Module):
             c.amax_record = None
 
 
-def activation_scale(layer: Union[QConv2d, "QATConv2d"], x: Tensor) -> Tensor:
+def activation_scale(layer: nn.Module, x: Tensor, *more: Tensor) -> Tensor:
     """s_x, the per-tensor activation scale (f32 scalar) of an int8 or a
     QAT-tagged conv: the recorded amax / 127 during calibration, the
     calibrated x_scale (cast to x's dtype first, as the deployed model's
     buffers are), or the dynamic amax / 127 (JAX's _quantize_activation).
-    Computed without gradient."""
-    x = x.detach()
-    if layer.amax_record is not None:
-        amax = x.abs().amax().float()
-        layer.amax_record.append(amax)
-        return torch.clamp(amax, min=1e-12) / 127.0
-    if layer.x_scale is not None:
+    The amax is the joint one of x and ``more`` (a split conv's two
+    halves, one scale and one record for both).  Computed without
+    gradient."""
+    if layer.amax_record is None and layer.x_scale is not None:
         return layer.x_scale.detach().to(x.dtype).float()
-    return torch.clamp(x.abs().amax().float(), min=1e-12) / 127.0
+    amax = x.detach().abs().amax()
+    for t in more:
+        amax = torch.maximum(amax, t.detach().abs().amax())
+    amax = amax.float()
+    if layer.amax_record is not None:
+        layer.amax_record.append(amax)
+    return torch.clamp(amax, min=1e-12) / 127.0
 
 
 def rescale_operands(w_scale: Tensor, s_x: Tensor, dt: torch.dtype) -> Tuple[Tensor, Tensor]:
@@ -194,15 +197,36 @@ def rescale_operands(w_scale: Tensor, s_x: Tensor, dt: torch.dtype) -> Tuple[Ten
     return torch.reciprocal(s_x).to(dt), (w_scale.float() * s_x).to(dt)
 
 
+def static_operands(layer: nn.Module, w_scale: Tensor, dt: torch.dtype) -> Tuple[Tensor, Tensor]:
+    """rescale_operands of an int8 layer's calibrated x_scale and its weight
+    scale w_scale, kept on the layer (``_static``) until either is replaced
+    or changed in place."""
+    versions = (layer.x_scale._version, w_scale._version)
+    c = layer._static
+    if (c is None or c[0] != dt or c[1] is not layer.x_scale or c[2] is not w_scale
+            or c[3] != versions):
+        r, scale = rescale_operands(w_scale, layer.x_scale.float(), dt)
+        c = layer._static = (dt, layer.x_scale, w_scale, versions, r, scale)
+    return c[4], c[5]
+
+
+def int8_operands(layer: nn.Module, w_scale: Tensor, x: Tensor,
+                  *more: Tensor) -> Tuple[Tensor, Tensor]:
+    """(r, scale) of an int8 layer for the activation x (and ``more``, read
+    with x's one scale): those of the calibrated x_scale, kept
+    (static_operands), or of this call's activation scale (activation_scale:
+    the dynamic amax, or the amax recorded during calibration)."""
+    if layer.amax_record is None and layer.x_scale is not None:
+        return static_operands(layer, w_scale, x.dtype)
+    return rescale_operands(w_scale, activation_scale(layer, x, *more), x.dtype)
+
+
 def conv2d_q8(x: Tensor, layer: QConv2d, stride: int, padding: int) -> Tensor:
     """y = conv_s8(clamp(round(x * r), -127, 127), w_q).to(dt) * scale + b
     with (r, scale) from rescale_operands: one launch of kernel K4 on the
     card (ops/q8conv_cuda.conv_q8), the int32 sums exact.  A calibrated
     layer's (r, scale) are computed once (QConv2d.static_operands)."""
-    if layer.amax_record is None and layer.x_scale is not None:
-        r, scale = layer.static_operands(x.dtype)
-    else:
-        r, scale = rescale_operands(layer.w_scale, activation_scale(layer, x), x.dtype)
+    r, scale = int8_operands(layer, layer.w_scale, x)
     # a no-op for the renderer's activations; a 1-pixel-wide map may lose the format
     x = x.contiguous(memory_format=torch.channels_last)
     return q8conv_cuda.conv_q8(x, r, layer.w_q, stride, padding, scale, layer.b)
@@ -384,6 +408,319 @@ def conv2d_fakequant_int8(x: Tensor, layer: QATConv2d, stride: int, padding: int
         x = x.float()
     return _Q8STE.apply(x, layer.weight, activation_scale(layer, x), layer.bias, stride,
                         padding)
+
+
+# ---------------------------------------------------------------------------
+# The renderer's inference rewrites (nn_core.py:471-800 of the JAX package:
+# subpixel_from_conv3x3 / upconv_subpixel, subpixel1_from_conv3x3 /
+# upconv_subpixel1, dilated_from_conv3x3 / upconv_dilated,
+# split_from_concat_conv / upconv_split, s2d_from_conv3x3s2 / conv_s2d_down).
+# Each rewrite builds its weights in JAX's layout with JAX's expressions, in
+# JAX's summation order (w0 + w1, then + w2 ...), so the int8 weights equal
+# JAX's bit for bit, and stores them in torch's layouts.  A float layer runs
+# through cuDNN, an int8 one through K4 (ops/q8conv_cuda).
+# ---------------------------------------------------------------------------
+
+
+class UpConv(nn.Module):
+    """A conv rewritten for inference: its weights (``FLOAT`` names for a
+    float layer; ``INT8`` for an int8 one, the int8 weights first and their
+    scale last, empty for a float-only form), an optional bias ``b`` [Co] and calibrated ``x_scale`` [],
+    as buffers.  ``shape`` is (k, cin, cout, stride, padding) of the conv it
+    replaced (utils/flops counts that conv's work)."""
+
+    FLOAT: Tuple[str, ...] = ()
+    INT8: Tuple[str, ...] = ()
+
+    def __init__(self, weights: dict, shape: Tuple[int, int, int, int, int],
+                 b: Optional[Tensor] = None, x_scale: Optional[Tensor] = None):
+        super().__init__()
+        for name, t in weights.items():
+            self.register_buffer(name, t)
+        self.register_buffer("b", b)
+        self.register_buffer("x_scale", x_scale)
+        self.shape = tuple(shape)
+        self.amax_record: Optional[list] = None  # see recording_amax
+        self._static: Optional[tuple] = None  # see static_operands
+
+    @property
+    def quantized(self) -> bool:
+        return bool(self.INT8) and self.INT8[0] in self._buffers
+
+    @classmethod
+    def rewrites(cls, sd, prefix: str) -> bool:
+        """Whether state dict entry ``prefix`` holds a layer of this class."""
+        return any(f"{prefix}.{names[0]}" in sd for names in (cls.FLOAT, cls.INT8) if names)
+
+    @classmethod
+    def shaped_like(cls, sd, prefix: str, shape) -> "UpConv":
+        """An empty layer of the state dict's shapes (load_state_dict fills it)."""
+        names = cls.INT8 if cls.INT8 and f"{prefix}.{cls.INT8[0]}" in sd else cls.FLOAT
+        return cls({n: torch.empty_like(sd[f"{prefix}.{n}"]) for n in names}, shape)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for name in ("b", "x_scale"):
+            if getattr(self, name) is None and prefix + name in state_dict:
+                setattr(self, name, torch.empty_like(state_dict[prefix + name]))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _bias(self, y: Tensor) -> Tensor:
+        return y if self.b is None else y + self.b.view(1, -1, 1, 1)
+
+
+def _rewrite_source(conv: nn.Module) -> Tuple[Tensor, dict]:
+    """The f32 weight of a float or int8 3x3 conv in JAX's HWIO layout (an
+    int8 one dequantized as JAX does, w_q * w_scale), and what the rewritten
+    layer carries over: its bias, an int8 layer's x_scale, the float dtype
+    and the replaced conv's shape."""
+    if isinstance(conv, QConv2d):
+        w = conv.w_q.float() * conv.w_scale.float().view(-1, 1, 1, 1)
+        dt, b, x_scale = conv.w_scale.dtype, conv.b, conv.x_scale
+    else:
+        w = conv.weight.detach().float()
+        dt, b, x_scale = conv.weight.dtype, conv.bias, None
+    carry = {"dt": dt, "int8": isinstance(conv, QConv2d),
+             "b": None if b is None else b.detach().clone().to(dt),
+             "x_scale": None if x_scale is None else x_scale.detach().clone(),
+             "shape": (conv.w_q.shape[2] if isinstance(conv, QConv2d) else conv.kernel_size[0],
+                       w.shape[1], w.shape[0], conv.stride[0], conv.padding[0])}
+    return w.permute(2, 3, 1, 0), carry
+
+
+def _to_torch_layout(w: Tensor) -> Tensor:
+    """HWIO -> OIHW, contiguous in channels_last memory (OHWI: K4's layout)."""
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def _rewritten(cls, w: Tensor, carry: dict, dims: Tuple[int, ...], layout) -> UpConv:
+    """The layer of class cls holding w (JAX layout, f32): quantized over
+    dims (JAX's axes) when the source was int8, else in the source's dtype;
+    layout maps the JAX-layout weight to torch's."""
+    if carry["int8"]:
+        w_q, s = quantize_weight_int8(w, dims)
+        weights = {cls.INT8[0]: layout(w_q), cls.INT8[-1]: s.to(carry["dt"])}
+    else:
+        weights = {cls.FLOAT[0]: layout(w).to(carry["dt"])}
+    return cls(weights, carry["shape"], b=carry["b"], x_scale=carry["x_scale"])
+
+
+def _phase_layout(w: Tensor) -> Tensor:
+    """[4, 2, 2, Ci, Co] (phase, JAX HWIO) -> [4 * Co, Ci, 2, 2], phase-major
+    over the output channels, channels_last: each phase's [Co, Ci, 2, 2]
+    slice is a K4 weight."""
+    p, kh, kw, ci, co = w.shape
+    return w.permute(0, 4, 3, 1, 2).reshape(p * co, ci, kh, kw).contiguous(
+        memory_format=torch.channels_last)
+
+
+class UpConvSubpixel(UpConv):
+    """Four 2x2 phase convs at the coarse resolution (JAX upconv_subpixel):
+    ``w_ph`` / ``w_ph_q`` [4 * Co, Ci, 2, 2] (phase a * 2 + b major),
+    ``w_ph_scale`` [4, Co].  [B, Ci, h, w] -> [B, Co, 2h, 2w], the map of the
+    3x3 conv on the nearest-2x-upsampled input.  int8: four K4 launches
+    writing the interleaved map."""
+
+    FLOAT, INT8 = ("w_ph",), ("w_ph_q", "w_ph_scale")
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.quantized:
+            r, scale = int8_operands(self, self.w_ph_scale, x)
+            x = x.contiguous(memory_format=torch.channels_last)
+            return q8conv_cuda.subpixel_q8(x, self.w_ph_q, r, scale, self.b)
+        # one conv of all four phases' kernels with padding 1, each phase's
+        # outputs offset by its (a, b): phase (a, b) reads coarse rows i - 1 + a, i + a
+        co, (h, w) = self.w_ph.shape[0] // 4, x.shape[2:]
+        y = F.conv2d(x, self.w_ph, padding=1)
+        return self._bias(q8conv_cuda.interleave(
+            [y[:, p * co:(p + 1) * co, a:a + h, b:b + w]
+             for p, (a, b) in enumerate(q8conv_cuda.PHASES)]))
+
+
+class UpConvSubpixel1(UpConv):
+    """One 3x3 conv with 4 * Co outputs at the coarse resolution, the
+    uncovered taps zero (JAX upconv_subpixel1): ``w_sp1`` / ``w_sp1_q`` [4 *
+    Co, Ci, 3, 3] (phase-major outputs), ``w_sp1_scale`` [4 * Co]; then the
+    phases interleaved and the Co bias added (one pass).  int8: one K4
+    launch."""
+
+    FLOAT, INT8 = ("w_sp1",), ("w_sp1_q", "w_sp1_scale")
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.quantized:
+            r, scale = int8_operands(self, self.w_sp1_scale, x)
+            y = q8conv_cuda.conv_q8(x.contiguous(memory_format=torch.channels_last), r,
+                                    self.w_sp1_q, 1, 1, scale)
+        else:
+            y = F.conv2d(x, self.w_sp1, padding=1)
+        return q8conv_cuda.shuffle_phases(y, self.b)
+
+
+class UpConvDilated(UpConv):
+    """One 4x4 conv over the input dilated by 2 with padding 2 (JAX
+    upconv_dilated): ``w_dl`` / ``w_dl_q`` [Co, Ci, 4, 4], ``w_dl_scale``
+    [Co].  Float: cuDNN's transposed conv (stride 2, padding 1) with the
+    kernel flipped and its in and out axes swapped, the same map; int8: one
+    K4 launch reading the dilated input through its row map."""
+
+    FLOAT, INT8 = ("w_dl",), ("w_dl_q", "w_dl_scale")
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.quantized:
+            r, scale = int8_operands(self, self.w_dl_scale, x)
+            x = x.contiguous(memory_format=torch.channels_last)
+            return q8conv_cuda.dilated_q8(x, self.w_dl_q, r, scale, self.b)
+        w_t = self.w_dl.flip(2, 3).transpose(0, 1)
+        return self._bias(F.conv_transpose2d(x, w_t, stride=2, padding=1))
+
+
+class UpConvSplit(UpConv):
+    """The concat-free up conv over the U-Net's (skip, submodule) pair (JAX
+    upconv_split): ``w_a`` / ``w_a_q`` [Co, n_a, 3, 3] for the skip's
+    channels, ``w_b`` / ``w_b_q`` for the rest, ``w_scale`` [Co].
+    forward(a, b) is the 3x3 conv of the nearest-2x-upsampled cat(a, b).
+    Float: two cuDNN convs summed; int8: one activation scale for both
+    halves (the joint amax, or x_scale), one K4 launch whose int32 sums cover
+    both sources, so the result equals the unsplit int8 conv's bit for
+    bit."""
+
+    FLOAT, INT8 = ("w_a", "w_b"), ("w_a_q", "w_b_q", "w_scale")
+
+    def weight_q(self) -> Tensor:
+        """cat(w_a_q, w_b_q) over the input channels, channels_last (K4's
+        one weight), kept until either half is replaced or changed."""
+        a, b = self.w_a_q, self.w_b_q
+        c = getattr(self, "_wcat", None)
+        if c is None or c[0] is not a or c[1] is not b or c[2] != (a._version, b._version):
+            w = torch.cat([a, b], 1).contiguous(memory_format=torch.channels_last)
+            c = self._wcat = (a, b, (a._version, b._version), w)
+        return c[3]
+
+    def forward(self, a: Tensor, b: Tensor) -> Tensor:
+        if not self.quantized:
+            up = upsample_nearest_2x
+            return self._bias(F.conv2d(up(a), self.w_a, padding=1)
+                              + F.conv2d(up(b), self.w_b, padding=1))
+        r, scale = int8_operands(self, self.w_scale, a, b)
+        cl = torch.channels_last
+        return q8conv_cuda.split_q8(a.contiguous(memory_format=cl),
+                                    b.contiguous(memory_format=cl), self.weight_q(), r, scale,
+                                    self.b)
+
+
+class ConvS2DDown(UpConv):
+    """The stride-2 3x3 input conv as a 2x2 stride-1 conv over the
+    space-to-depth(2) packed input (JAX conv_s2d_down): ``w_s2d`` [Co, 4 *
+    Ci, 2, 2] (input channels phase-major, the uncovered phase slots zero).
+    [B, Ci, H, W] -> [B, Co, H/2, W/2].  Float only, through cuDNN (the
+    outermost down conv stays float)."""
+
+    FLOAT = ("w_s2d",)
+
+    def forward(self, x: Tensor) -> Tensor:
+        B, C, H, W = x.shape
+        xp = x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        xp = xp.reshape(B, 4 * C, H // 2, W // 2).contiguous(memory_format=torch.channels_last)
+        return self._bias(F.conv2d(F.pad(xp, (1, 0, 1, 0)), self.w_s2d))
+
+
+REWRITES = (UpConvSubpixel, UpConvSubpixel1, UpConvDilated, UpConvSplit, ConvS2DDown)
+
+
+def subpixel_from_conv3x3(conv: nn.Module) -> UpConvSubpixel:
+    """A float or int8 3x3 up conv (consuming a nearest-2x-upsampled map)
+    rewritten into its four 2x2 phase convs at the coarse resolution: phase
+    (a, b) covers coarse rows [i - 1, i] (a = 0; taps w0, w1 + w2) or [i,
+    i + 1] (a = 1; w0 + w1, w2), the same per column.  An int8 layer is
+    dequantized, rewritten and requantized per (phase, out channel), its
+    x_scale kept (the input is the same coarse map)."""
+    w, carry = _rewrite_source(conv)
+    rows = [torch.stack([w[0], w[1] + w[2]]),  # a=0: coarse [i-1, i]
+            torch.stack([w[0] + w[1], w[2]])]  # a=1: coarse [i, i+1]
+    phases = []
+    for a in range(2):
+        r = rows[a]  # [2, 3, Ci, Co]
+        phases.append(torch.stack([r[:, 0], r[:, 1] + r[:, 2]], dim=1))  # b=0
+        phases.append(torch.stack([r[:, 0] + r[:, 1], r[:, 2]], dim=1))  # b=1
+    return _rewritten(UpConvSubpixel, torch.stack(phases), carry, (1, 2, 3), _phase_layout)
+
+
+def subpixel1_from_conv3x3(conv: nn.Module) -> UpConvSubpixel1:
+    """The single-conv form: one 3x3 conv with 4 * Co outputs (phase-major),
+    each phase's two coarse taps a dimension placed in a 3-tap kernel whose
+    uncovered tap is zero; int8 requantized per output channel."""
+    w, carry = _rewrite_source(conv)
+    z = torch.zeros_like(w[0])
+    rows = [torch.stack([w[0], w[1] + w[2], z]),  # a=0: taps {-1, 0}
+            torch.stack([z, w[0] + w[1], w[2]])]  # a=1: taps {0, +1}
+    phases = []
+    for a in range(2):
+        r = rows[a]  # [3, 3, Ci, Co]
+        zc = torch.zeros_like(r[:, 0])
+        phases.append(torch.stack([r[:, 0], r[:, 1] + r[:, 2], zc], dim=1))
+        phases.append(torch.stack([zc, r[:, 0] + r[:, 1], r[:, 2]], dim=1))
+    w4 = torch.stack(phases, dim=-1)  # [3, 3, Ci, Co, 4]
+    kh, kw, ci, co, _ = w4.shape
+    w4 = w4.permute(0, 1, 2, 4, 3).reshape(kh, kw, ci, 4 * co)
+    return _rewritten(UpConvSubpixel1, w4, carry, (0, 1, 2), _to_torch_layout)
+
+
+def dilated_from_conv3x3(conv: nn.Module) -> UpConvDilated:
+    """The four phase kernels packed into one 4x4 kernel applied to the input
+    dilated by 2 with padding 2: even kernel rows serve phase a = 0 (w0,
+    then w1 + w2), odd ones a = 1 (w0 + w1, then w2), the same per column."""
+    w, carry = _rewrite_source(conv)
+    k0 = [w[0], w[1] + w[2]]  # a=0: coarse rows {i-1, i}
+    k1 = [w[0] + w[1], w[2]]  # a=1: coarse rows {i, i+1}
+
+    def tap(u):
+        return k0[u // 2] if u % 2 == 0 else k1[(u - 1) // 2]
+
+    rows = []
+    for u in range(4):
+        r = tap(u)  # [3, Ci, Co]
+        c0 = [r[0], r[1] + r[2]]
+        c1 = [r[0] + r[1], r[2]]
+        rows.append(torch.stack([c0[v // 2] if v % 2 == 0 else c1[(v - 1) // 2]
+                                 for v in range(4)]))
+    return _rewritten(UpConvDilated, torch.stack(rows), carry, (0, 1, 2), _to_torch_layout)
+
+
+def split_from_concat_conv(conv: nn.Module, n_a: int) -> UpConvSplit:
+    """A conv on cat(a, b) (a the first n_a channels) as the concat-free
+    pair: the kernel sliced over its input channels; int8 weights and
+    w_scale as they are (one scale per output channel, shared x_scale)."""
+    if isinstance(conv, QConv2d):
+        w = conv.w_q
+        weights = {"w_a_q": w[:, :n_a].contiguous(memory_format=torch.channels_last),
+                   "w_b_q": w[:, n_a:].contiguous(memory_format=torch.channels_last),
+                   "w_scale": conv.w_scale.detach().clone()}
+        b, x_scale = conv.b, conv.x_scale
+    else:
+        w = conv.weight.detach()
+        weights = {"w_a": w[:, :n_a].contiguous(memory_format=torch.channels_last),
+                   "w_b": w[:, n_a:].contiguous(memory_format=torch.channels_last)}
+        b, x_scale = conv.bias, None
+    shape = (w.shape[2], w.shape[1], w.shape[0], conv.stride[0], conv.padding[0])
+    return UpConvSplit(weights, shape, b=None if b is None else b.detach().clone(),
+                       x_scale=None if x_scale is None else x_scale.detach().clone())
+
+
+def s2d_from_conv3x3s2(conv: nn.Conv2d) -> ConvS2DDown:
+    """A float [Co, Ci, 3, 3] stride-2 conv as a 2x2 stride-1 conv over the
+    space-to-depth(2) input: coarse tap s and phase a cover fine kernel row
+    u by row_map {(0, 1): 0, (1, 0): 1, (1, 1): 2}, the same per column;
+    the other phase slots stay zero."""
+    if not isinstance(conv, nn.Conv2d) or isinstance(conv, QATConv2d):
+        raise ValueError(f"s2d_from_conv3x3s2 takes a float conv, got {type(conv).__name__}")
+    w, carry = _rewrite_source(conv)  # [3, 3, Ci, Co]
+    ci, co = w.shape[2], w.shape[3]
+    w2 = w.new_zeros(2, 2, 4, ci, co)
+    row_map = {(0, 1): 0, (1, 0): 1, (1, 1): 2}
+    for (s, a), u in row_map.items():
+        for (t, b), v in row_map.items():
+            w2[s, t, a * 2 + b] = w[u, v]
+    w_s2d = _to_torch_layout(w2.reshape(2, 2, 4 * ci, co)).to(carry["dt"])
+    return ConvS2DDown({"w_s2d": w_s2d}, carry["shape"], b=carry["b"])
 
 
 def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,

@@ -299,19 +299,57 @@ def load_subject(cfg: PersonConfig, image_size: Optional[int] = 512, skip_models
 
 
 def quantize_person_models(models: PersonModels, fold_bn: bool = True,
-                           calibrate_inputs=None, calibrate_dtype: Optional[torch.dtype] = None
-                           ) -> PersonModels:
+                           calibrate_inputs=None, calibrate_dtype: Optional[torch.dtype] = None,
+                           calibrate_margin: float = 1.0, subpixel: bool | str = False,
+                           s2d_input: bool = False, split_skip: bool = False) -> PersonModels:
     """A copy with the renderer int8-quantized for inference
     (feature2face.quantize_generator), its BN folded into the convs
     (fold_bn) and, given ``calibrate_inputs`` (a [B, H, W, input_nc]
     renderer batch or a list, e.g. animate.build_render_inputs), static
-    activation scales measured in ``calibrate_dtype``.  The motion models
-    are shared, unchanged."""
+    activation scales measured in ``calibrate_dtype`` with
+    ``calibrate_margin``; then transform_person_models' rewrites, which come
+    after the calibration.  The motion models are shared, unchanged."""
     net = f2f.quantize_generator(models.feature2face)
     if fold_bn:
         net = f2f.fold_bn_generator(net)
     if calibrate_inputs is not None:
-        net = f2f.calibrate_generator(net, calibrate_inputs, compute_dtype=calibrate_dtype)
+        net = f2f.calibrate_generator(net, calibrate_inputs, compute_dtype=calibrate_dtype,
+                                      margin=calibrate_margin)
+    return transform_person_models(replace(models, feature2face=net), subpixel=subpixel,
+                                   s2d_input=s2d_input, split_skip=split_skip)
+
+
+# transform_person_models' arguments of each named rewrite and of the
+# compositions the tests, the tools and chip_smoke.py run
+REWRITE_FORMS = {"four": {"subpixel": "four"}, "single": {"subpixel": "single"},
+                 "single_outermost": {"subpixel": "single_outermost"},
+                 "dilated": {"subpixel": "dilated"}, "s2d": {"s2d_input": True},
+                 "split": {"split_skip": True},
+                 "s2d+four": {"subpixel": "four", "s2d_input": True},
+                 "s2d+split": {"s2d_input": True, "split_skip": True}}
+
+
+def transform_person_models(models: PersonModels, subpixel: bool | str = False,
+                            s2d_input: bool = False, split_skip: bool = False) -> PersonModels:
+    """The renderer's structural rewrites, exact on float and int8 models
+    (JAX assets.transform_person_models), applied in JAX's order:
+
+    subpixel: True or "four" (four 2x2 phase convs), "single" (one 3x3 conv
+    with 4x the outputs), "dilated" (one 4x4 conv over the dilated input),
+    each with "_outermost" to rewrite only the to-RGB up conv
+    (feature2face.subpixel_generator); on an int8 model after calibration.
+    s2d_input: the 13-channel input conv over the space-to-depth packed
+    input (split_cand then refuses the model).  split_skip: the concat-free
+    split up convs; with subpixel it raises (the same up convs)."""
+    net = models.feature2face
+    if subpixel:
+        mode = "four" if subpixel is True else str(subpixel)
+        net = f2f.subpixel_generator(net, mode=mode.replace("_outermost", ""),
+                                     outermost_only=mode.endswith("_outermost"))
+    if s2d_input:
+        net = f2f.s2d_input_generator(net)
+    if split_skip:
+        net = f2f.split_skip_generator(net)
     return replace(models, feature2face=net)
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""K1 and the render half of the port on one NVIDIA GPU, for several
+"""K1, K4 and the render half of the port on one NVIDIA GPU, for several
 checkouts side by side.
 
     python3 livespeechportraits_torch/tools/render_ab.py ROOT [ROOT ...] \\
-        [--rounds 2] [--cases k1,render]
+        [--rounds 2] [--cases k1,k4,render]
 
 Each ROOT is a checkout of the repo (e.g. a parent commit unpacked with
 ``git archive`` next to this one).  Runs go A, B, ..., then back (B, A) for
@@ -19,6 +19,10 @@ case, with the card's name and power limit:
   U-Net's bf16 input at B = 16 and 8 (``render_input`` where the ROOT has
   it, else rasterize_segments + cat + cast on a prebuilt table, the
   sequence it replaced);
+- ``k4``: device ms by CUDA-graph replays of ``q8conv_cuda.conv_q8`` (fused
+  bf16, B = 16) at each distinct int8 conv shape of one 'normal' 512^2
+  forward (``feature2face.int8_conv_shapes``), with the kernel it takes
+  (halo or gather), and their sum over the 44 convs of the forward;
 - ``render``: ``render_frames`` with the bf16 renderer (batch 8, rgb: the
   offline slice) and the int8 renderer calibrated on a 1 s tone (batch 16,
   yuv420: serve.Predictor's request): ``render_device_ms`` (host wall from
@@ -60,6 +64,34 @@ def graph_ms(torch, fn, calls: int = 5, replays: int = 4) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def k4_case(torch, emit) -> None:
+    """The ``k4`` case (see the module's note); the same inputs in every
+    ROOT (a CPU generator from one seed a shape)."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.ops import q8conv_cuda as q8
+
+    cl, B = torch.channels_last, 16
+    shapes = f2f.int8_conv_shapes(Feature2FaceConfig())
+    rows, total = [], 0.0
+    for j, (size, cin, cout, stride) in enumerate(dict.fromkeys(shapes)):
+        g = torch.Generator().manual_seed(300 + j)
+        x = (torch.round(torch.randn(B, cin, size, size, generator=g) * 96) / 8).to(
+            "cuda", torch.bfloat16).contiguous(memory_format=cl)
+        w = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, dtype=torch.int8).to(
+            "cuda").contiguous(memory_format=cl)
+        r = torch.tensor(4.0, device="cuda", dtype=torch.bfloat16)
+        scale = (torch.rand(cout, generator=g) * 1e-5).to("cuda", torch.bfloat16)
+        bias = torch.randn(cout, generator=g).to("cuda", torch.bfloat16)
+        ms = graph_ms(torch, lambda: q8.conv_q8(x, r, w, stride, 1, scale, bias))
+        n = shapes.count((size, cin, cout, stride))
+        total += n * ms
+        rows.append({"shape": f"{size}^2:{cin}->{cout}/s{stride}", "convs": n,
+                     "kernel": "halo" if q8.uses_halo(size, size, stride, 1) else "gather",
+                     "device_ms": ms})
+    emit(case="k4", batch=B, shapes=rows, forward_device_ms=total, convs=len(shapes))
+
+
 def one(root: str, cases) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -78,6 +110,11 @@ def one(root: str, cases) -> None:
 
     def emit(**kv):
         print(json.dumps({"root": root, **kv, "card": card}), flush=True)
+
+    if "k4" in cases:
+        k4_case(torch, emit)
+    if not {"k1", "render"} & set(cases):
+        return
 
     for quantize, batch, transfer in ((False, 8, "rgb"), (True, 16, "yuv420")):
         if quantize and "render" not in cases:

@@ -3,20 +3,26 @@
 512^2, with a device-time table by operation family.
 
     python -m livespeechportraits_torch.tools.trace_render [batch] [quantize] [iters] \\
-        [--size large] [--transfer rgb] [--image_size 512] [--ngf 64] [--device cuda]
+        [--size large] [--transfer rgb] [--image_size 512] [--ngf 64] [--device cuda] \\
+        [--rewrites split,single]
 
 Counterpart of ``tools/trace_render.py``.  The synthetic subject (random
 weights, seed 0) with the 'large' ResUNet (ngf 64, 8 downsamplings, 2
 residual blocks a stage) by default, bf16; ``quantize`` 1 (the default)
 also renders with the int8 renderer (interior convs on K4, BatchNorm
 folded, static activation scales calibrated in bf16 on a 1 s tone, as
-``serve.Predictor`` builds it).  The frames are the motion of a test tone,
+``serve.Predictor`` builds it); ``--rewrites`` adds that int8 renderer under
+each of the named structural rewrites (``assets.transform_person_models``:
+split, four, single, single_outermost, dilated, s2d; each a renderer named
+``int8_<rewrite>``).  The frames are the motion of a test tone,
 ``batch * iters`` of them, rendered in ``iters`` batches.  Rows (one JSON
 line each, after the card's name and power limit):
 
 - ``render``, per renderer: ``render_device_ms`` a call and a batch (the
   median of three unprofiled calls), K1 and K4 launches a batch, the
-  generator's FLOPs a frame (utils/flops.generator_flops, the float count)
+  generator's FLOPs a frame (utils/flops.generator_flops, the float count;
+  ``gflop_per_frame_of_model`` the renderer's own, which BN folding's biases
+  raise and a rewrite leaves as it is)
   and the MFU of the render against the card's bf16 (and for int8, int8)
   dense peak; under int8, the PSNR of its frames against the bf16 ones;
 - ``families``: the traced call's device ms a batch by family (K4, K1, the
@@ -67,19 +73,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image_size", type=int, default=512)
     p.add_argument("--ngf", type=int, default=64)
     p.add_argument("--split_cand", action="store_true")
+    p.add_argument("--rewrites", default="",
+                   help="comma-separated rewrites of the int8 renderer to render too: "
+                        + ", ".join(assets.REWRITE_FORMS))
     _common.add_device_arg(p)
     return p
 
 
-def renderers(cfg, person, models, quantize: bool):
-    """{name: PersonModels}: bf16 (the config's float renderer), and the
-    int8 one calibrated on a 1 s tone in bf16, as serve.Predictor builds it."""
+def renderers(cfg, person, models, quantize: bool, rewrites=()):
+    """{name: PersonModels}: bf16 (the config's float renderer), the int8 one
+    calibrated on a 1 s tone in bf16, as serve.Predictor builds it, and that
+    one under each rewrite (``int8_<rewrite>``)."""
     out = {"bf16": models}
     if quantize:
         calib = animate.build_render_inputs(cfg, person, models, video.make_test_tone(1.0),
                                             max_frames=16)
         out["int8"] = assets.quantize_person_models(models, calibrate_inputs=calib,
                                                     calibrate_dtype=animate.compute_dtype(cfg))
+        for name in rewrites:
+            out[f"int8_{name}"] = assets.transform_person_models(out["int8"],
+                                                                   **assets.REWRITE_FORMS[name])
     for m in out.values():
         m.feature2face = f2f.cast_generator(m.feature2face, animate.compute_dtype(cfg))
     return out
@@ -97,9 +110,10 @@ def main(argv=None) -> int:
     lm, sh, _, _, nframe = animate.compute_motion(cfg, person, models, audio)
     lm, sh = lm[:n], sh[:n]
     flop_frame = flops.generator_flops(models.feature2face, H)
+    rewrites = [r for r in args.rewrites.split(",") if r]
     frames = {}
-    for name, m in renderers(cfg, person, models, bool(args.quantize) and args.size != "small"
-                             ).items():
+    for name, m in renderers(cfg, person, models, bool(args.quantize) and args.size != "small",
+                             rewrites).items():
         def render(stage_ms=None):
             return animate.render_frames(cfg, person, m, lm, sh, render_batch=B,
                                          transfer=args.transfer, stage_ms=stage_ms,
@@ -122,19 +136,21 @@ def main(argv=None) -> int:
                "clock": "host wall to the device's end" if dev.type == "cuda" else "host",
                "k1_launches_per_batch": (rasterize_cuda.LAUNCHES - k1) / batches,
                "k4_launches_per_batch": (q8conv_cuda.LAUNCHES - k4) / batches,
-               "gflop_per_frame": flop_frame / 1e9, "card": card}
+               "gflop_per_frame": flop_frame / 1e9,
+               "gflop_per_frame_of_model": flops.generator_flops(m.feature2face, H) / 1e9,
+               "card": card}
         if dev.type == "cuda":
             peak, label = flops.render_peak_flops(card)
             rate = flop_frame * B / (wall / args.iters / 1e3)
             row.update(tflops=rate / 1e12, peak=label,
                        mfu_bf16_peak=None if peak is None else rate / peak)
-            if name == "int8":
+            if name.startswith("int8"):
                 peak8, _ = flops.render_peak_flops(card, "int8")
                 row["mfu_int8_peak"] = None if peak8 is None else rate / peak8
         else:
             row.update(tflops=_common.NOT_MEASURED, mfu_bf16_peak=_common.NOT_MEASURED)
-        if name == "int8":
-            row["psnr_int8_vs_bf16_db"] = _common.psnr_db(torch.from_numpy(frames["int8"]),
+        if name.startswith("int8"):
+            row["psnr_int8_vs_bf16_db"] = _common.psnr_db(torch.from_numpy(frames[name]),
                                                           torch.from_numpy(frames["bf16"]), 255.0)
         _common.emit(**row)
         fam = {"row": "families", "renderer": name, "batch": B}

@@ -12,6 +12,14 @@ reference's released ``.pkl`` checkpoints.  Layout maps:
     JAX RNN     [in, G*H]          -> weight_*_l{k} [G*H, in]
     JAX int8 conv2d {w_q [kh, kw, in, out] int8, w_scale, b?, x_scale?}
                                    -> QConv2d {w_q [out, in, kh, kw], ...}
+    JAX's renderer rewrites (nn_core.py:471-800 there), float or int8, each
+    with b? and x_scale?:
+        {w_ph(_q) [4, 2, 2, in, out], w_ph_scale [4, out]}
+                                   -> UpConvSubpixel {w_ph(_q) [4*out, in, 2, 2], ...}
+        {w_sp1(_q) [3, 3, in, 4*out], w_sp1_scale} -> UpConvSubpixel1 (OIHW)
+        {w_dl(_q) [4, 4, in, out], w_dl_scale}    -> UpConvDilated (OIHW)
+        {w_a(_q), w_b(_q) [3, 3, in_a|in_b, out], w_scale} -> UpConvSplit (OIHW)
+        {w_s2d [2, 2, 4*in, out]}                 -> ConvS2DDown (OIHW)
 
 The trainers' two extra trees convert too: the APC pretraining tree
 ({"encoder", "head"} -> ``encoder.rnns.*``, ``head.*``) and the
@@ -77,7 +85,28 @@ def _conv1d(p, out: StateDict, name: str) -> None:
         out[f"{name}.bias"] = _t(p["b"])
 
 
+# The weight keys of JAX's rewritten layers (every other key of such a layer
+# - a scale, b, x_scale - crosses as it is)
+_REWRITE_WEIGHTS = ("w_ph", "w_ph_q", "w_sp1", "w_sp1_q", "w_dl", "w_dl_q", "w_a", "w_b",
+                    "w_a_q", "w_b_q", "w_s2d")
+
+
+def _rewrite_from_jax(p, out: StateDict, name: str) -> None:
+    for k, v in p.items():
+        a = np.asarray(v)
+        if k in ("w_ph", "w_ph_q"):  # [4, 2, 2, in, out] -> [4 * out, in, 2, 2]
+            a = a.transpose(0, 4, 3, 1, 2)
+            a = a.reshape(-1, *a.shape[2:])
+        elif k in _REWRITE_WEIGHTS:
+            a = a.transpose(3, 2, 0, 1)
+        out[f"{name}.{k}"] = (torch.tensor(np.ascontiguousarray(a)) if a.dtype == np.int8
+                              else _t(a))
+
+
 def _conv2d(p, out: StateDict, name: str) -> None:
+    if any(k in p for k in _REWRITE_WEIGHTS):  # an inference rewrite of the renderer
+        _rewrite_from_jax(p, out, name)
+        return
     if "w_q" in p:  # int8 conv (nn_core.quantize_conv)
         out[f"{name}.w_q"] = torch.tensor(np.asarray(p["w_q"], np.int8).transpose(3, 2, 0, 1))
         out[f"{name}.w_scale"] = _t(p["w_scale"])
@@ -290,6 +319,20 @@ def _conv2d_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
     return p
 
 
+def _rewrite_to(layer: nn_core.UpConv, sd: StateDict, name: str) -> Dict[str, np.ndarray]:
+    """A rewritten layer's entries in JAX's layouts (inverse of
+    _rewrite_from_jax)."""
+    p = {}
+    for k, _ in layer.named_buffers():
+        a = _a(sd, f"{name}.{k}")
+        if k in ("w_ph", "w_ph_q"):  # [4 * out, in, 2, 2] -> [4, 2, 2, in, out]
+            a = a.reshape(4, -1, *a.shape[1:]).transpose(0, 3, 4, 2, 1)
+        elif k in _REWRITE_WEIGHTS:
+            a = a.transpose(2, 3, 1, 0)
+        p[k] = np.array(a)
+    return p
+
+
 def _batchnorm_to(sd: StateDict, name: str) -> Dict[str, np.ndarray]:
     return {"scale": _a(sd, f"{name}.weight"), "bias": _a(sd, f"{name}.bias"),
             "mean": _a(sd, f"{name}.running_mean"), "var": _a(sd, f"{name}.running_var")}
@@ -333,6 +376,8 @@ def _res_stage_to(sd: StateDict, stage: f2f.ResUnetBlock, block: str) -> Dict[st
         name = f"{block}.model.{i}"
         if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
             p["up" if "down" in p else "down"] = _conv2d_to(sd, name)
+        elif isinstance(m, nn_core.REWRITES):
+            p["up" if "down" in p else "down"] = _rewrite_to(m, sd, name)
         elif isinstance(m, nn.BatchNorm2d):
             p["up_bn" if "up" in p else "down_bn"] = _batchnorm_to(sd, name)
         elif isinstance(m, f2f.ResnetBlock):

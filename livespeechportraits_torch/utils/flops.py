@@ -88,7 +88,11 @@ def _conv_flops(k: int, cin: int, cout: int, in_res: int, out_res: int, stride: 
 
 
 def _conv_shape(conv: nn.Module) -> Tuple[int, int, int, int, int, bool]:
-    """(k, cin, cout, stride, padding, bias) of a float, int8 or QAT conv."""
+    """(k, cin, cout, stride, padding, bias) of a float, int8 or QAT conv; of
+    a rewritten layer, those of the conv it replaced (JAX counts the float
+    tree: the work one frame represents, flops.py:132-137 there)."""
+    if isinstance(conv, nn_core.REWRITES):
+        return (*conv.shape, conv.b is not None)
     if isinstance(conv, nn_core.QConv2d):
         cout, cin, k, _ = conv.w_q.shape
         return k, cin, cout, conv.stride[0], conv.padding[0], conv.b is not None
@@ -115,7 +119,7 @@ def _resunet_stage_flops(stage: f2f.ResUnetBlock, res: int) -> float:
     res on the upsampled map (+BN, ReLU, residual blocks)."""
     f, cur, ch = 0.0, res, 0
     for m in stage.model:
-        if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
+        if isinstance(m, (nn.Conv2d, nn_core.QConv2d) + nn_core.REWRITES):
             k, cin, ch, stride, pad, bias = _conv_shape(m)
             out = (cur + 2 * pad - k) // stride + 1
             f += _conv_flops(k, cin, ch, cur, out, stride, pad, bias)
@@ -128,7 +132,7 @@ def _resunet_stage_flops(stage: f2f.ResUnetBlock, res: int) -> float:
             f += _resblock_flops(m, cur)
         elif isinstance(m, f2f.ResUnetBlock):
             f += _resunet_stage_flops(m, cur)
-        elif isinstance(m, nn.Upsample):
+        elif isinstance(m, (nn.Upsample, f2f.UpsampleAbsorbed)):
             cur *= 2
     return f
 

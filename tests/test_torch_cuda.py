@@ -897,3 +897,91 @@ def test_stream_fused_chunks_on_the_card(cuda_device):
     assert sm.get("mega_chunks", 0) >= 3
     d = np.abs(got.astype(int) - ref.astype(int))
     assert got.shape == ref.shape and (d <= 1).mean() >= 0.99
+
+
+def _form_case(form, B, h, cin, cout, n_a, dev, seed):
+    """Coarse bf16 activations on a 1/8 grid (ties, values past +-127 at r =
+    4), their int8 twins, the form's int8 weights, r, scale and bias."""
+    g = torch.Generator().manual_seed(seed)
+    cl = torch.channels_last
+    x = (torch.round(torch.randn(B, cin, h, h + 2, generator=g) * 96) / 8).to(dev, torch.bfloat16)
+    x_q = torch.randint(-127, 128, (B, cin, h, h + 2), generator=g, dtype=torch.int8).to(dev)
+    wshape = {"four": (4 * cout, cin, 2, 2), "dilated": (cout, cin, 4, 4),
+              "split": (cout, cin, 3, 3)}[form]
+    w = torch.randint(-127, 128, wshape, generator=g, dtype=torch.int8).to(dev)
+    r = torch.tensor(4.0).to(dev, torch.bfloat16)
+    scale = (torch.rand((4, cout) if form == "four" else (cout,), generator=g) * 1e-5).to(
+        dev, torch.bfloat16)
+    bias = torch.randn(cout, generator=g).to(dev, torch.bfloat16)
+    xs = [t.contiguous(memory_format=cl) for t in (x, x_q)]
+    if form == "split":
+        xs = [(t[:, :n_a].contiguous(memory_format=cl), t[:, n_a:].contiguous(memory_format=cl))
+              for t in xs]
+    return xs[0], xs[1], w.contiguous(memory_format=cl), r, scale, bias
+
+
+def _form_call(form, x, w, r=None, scale=None, bias=None, plain=False):
+    q = q8conv_cuda
+    if form == "four":
+        return (q.subpixel_plain if plain else q.subpixel_q8)(x, w, r, scale, bias)
+    if form == "dilated":
+        return (q.dilated_plain if plain else q.dilated_q8)(x, w, r, scale, bias)
+    return (q.split_plain if plain else q.split_q8)(x[0], x[1], w, r, scale, bias)
+
+
+@pytest.mark.parametrize("form,B,h,cin,cout,n_a", [
+    ("four", 2, 12, 64, 64, 0), ("four", 16, 2, 512, 512, 0), ("four", 3, 9, 48, 136, 0),
+    ("dilated", 2, 12, 64, 64, 0), ("dilated", 16, 4, 1024, 512, 0),
+    ("split", 2, 12, 128, 64, 64), ("split", 16, 4, 1024, 512, 512),
+    ("split", 3, 9, 80, 40, 64)])
+def test_q8conv_rewrite_forms_match_their_twins_bitwise(cuda_device, form, B, h, cin, cout, n_a):
+    """K4's rewrite forms (the four phase launches writing the interleaved
+    map, the dilated source, the nearest-2x second source) against their
+    plain twins: int32 sums and the fused bf16 output bitwise, ragged maps
+    and split-K included; the four-phase form counts four launches."""
+    x, x_q, w, r, scale, bias = _form_case(form, B, h, cin, cout, n_a, cuda_device, 7)
+    before = q8conv_cuda.LAUNCHES
+    got32 = _form_call(form, x_q, w)
+    assert q8conv_cuda.LAUNCHES - before == (4 if form == "four" else 1)
+    got = _form_call(form, x, w, r, scale, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got32, _form_call(form, x_q, w, plain=True))
+    assert torch.equal(got, _form_call(form, x, w, r, scale, bias, plain=True))
+    assert got.shape == (B, cout, 2 * h, 2 * (h + 2))
+
+
+def test_split_q8_refuses_a_straddling_slice(cuda_device):
+    """A first source of channels % 64 != 0 would put one 64-channel K slice
+    across the two sources: the wrapper raises (no fallback)."""
+    x, _, w, r, scale, bias = _form_case("split", 1, 4, 96, 16, 32, cuda_device, 8)
+    with pytest.raises(ValueError, match="% 64"):
+        q8conv_cuda.split_q8(x[0], x[1], w, r, scale, bias)
+
+
+def test_split_int8_generator_on_the_card_is_bitwise(cuda_device):
+    """A calibrated int8 'normal' ResUNet (ngf 32: every split's skip has 64
+    or more channels) under split_skip_generator on the card: the pair its
+    outermost up conv reads equals the unsplit tree's bit for bit (one
+    x_scale, one int32 sum over both halves), in bf16; the frame within
+    1e-2 (the float to-RGB up conv, split into two summed bf16 convs as
+    JAX's is, rounds once more)."""
+    cfg = Feature2FaceConfig(ngf=32, n_downsample=5, load_size=64, precision="bfloat16")
+    g = feature2face.Feature2FaceG(cfg).eval().requires_grad_(False)
+    g.reset_parameters(torch.Generator().manual_seed(3))
+    x = torch.rand(4, 64, 64, 13, generator=torch.Generator().manual_seed(4)) * 2 - 1
+    q = feature2face.fold_bn_generator(feature2face.quantize_generator(g))
+    q = feature2face.calibrate_generator(q.to(cuda_device), x.to(cuda_device), torch.bfloat16)
+    q = feature2face.cast_generator(q, torch.bfloat16)
+    s = feature2face.split_skip_generator(q)
+    xb = x.to(cuda_device, torch.bfloat16)
+    pairs = []
+    for net in (q, s):
+        inner = next(m for m in net.netG.model.model if isinstance(m, feature2face.ResUnetBlock))
+        got = []
+        h = inner.register_forward_hook(lambda m, i, o: got.append(o))
+        with torch.no_grad():
+            y = feature2face.apply_generator(net, xb)
+        h.remove()
+        pairs.append((got[0], y))
+    assert all(torch.equal(a, b) for a, b in zip(pairs[0][0], pairs[1][0]))
+    assert (pairs[0][1] - pairs[1][1]).abs().max().item() <= 1e-2

@@ -53,6 +53,37 @@ def test_trace_render(capsys):
     assert all(r["device_ms_per_batch"] == "not_measured" for r in rows if r["row"] == "families")
 
 
+def test_trace_render_rewrites(capsys):
+    """--rewrites renders the int8 renderer under each named rewrite: the
+    same FLOPs a frame as the unrewritten int8 renderer, and frames within
+    its PSNR gate of the bf16 ones (the launch counts are the card's:
+    tests/test_torch_cuda.py)."""
+    rows = _rows(capsys, trace_render, ["2", "1", "1", "--device", "cpu", "--image_size", "32",
+                                        "--ngf", "4", "--rewrites", "split,single"])
+    render = {r["renderer"]: r for r in rows if r["row"] == "render"}
+    assert set(render) == {"bf16", "int8", "int8_split", "int8_single"}
+    assert len({render[k]["gflop_per_frame_of_model"]
+                for k in ("int8", "int8_split", "int8_single")}) == 1
+    assert all(render[k]["psnr_int8_vs_bf16_db"] > 20 for k in ("int8_split", "int8_single"))
+
+
+def test_ptxas_report_parses_the_log():
+    from livespeechportraits_torch.tools import ptxas_report
+
+    log = ("ptxas info    : Compiling entry function '_Z3fooi' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z3fooi\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+           "ptxas info    : Used 96 registers, used 1 barriers, 16 bytes smem, 384 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z3bari' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers, 380 bytes cmem[0]\n")
+    assert ptxas_report.parse(log) == [
+        {"name": "_Z3fooi", "registers": 96, "spill_stores": 4, "spill_loads": 12, "smem": 16},
+        {"name": "_Z3bari", "registers": 40, "spill_stores": 0, "spill_loads": 0, "smem": 0}]
+    # summary keeps the kernels its label names
+    assert ptxas_report.summary(log, {"_Z3fooi": "foo"}.get) == {
+        "foo": {"registers": 96, "spill_stores": 4, "spill_loads": 12}}
+
+
 def test_int8_probe(capsys):
     rows = _rows(capsys, int8_probe, ["1", "--device", "cpu", "--image_size", "16"])
     assert [r["conv"] for r in rows] == [s[0] for s in int8_probe.SHAPES]
