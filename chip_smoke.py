@@ -69,7 +69,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
    one level); the wall from the first push to the first batch,
    latency_frames, each push's wall (median, p95, max), frames a second over
    the stream's wall and each kernel's launches a push.
-6f. coders: a 3.0 s request under each transfer (rgb, yuv420, jpeg, jpeg4,
+6f. coders: a 2.0 s request under each transfer (rgb, yuv420, jpeg, jpeg4,
    pack4e) against the rgb one (PSNR >= 30 dB), with the bytes fetched a
    frame, the pack4e refetches and the wall; on one rendered 16-frame batch
    at 512^2: each encoder's ms a call (CUDA events, host dispatch included)
@@ -144,7 +144,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
    stats) and vgg_microbatch=2 against the unchunked VGG loss, each error
    beside its tolerance.  12b: seven modes (the alternating pair, fused,
    fused with remat=True, remat=2, the VGG loss unchunked and in chunks of
-   2, --qat_int8 --qat_d), five steps each on one batch whose edge maps K1
+   2, --qat_int8 --qat_d), three steps each on one batch whose edge maps K1
    draws each step: median step ms (CUDA events), peak memory, the busy
    share (a traced step's device busy ms over the median), K1 / K4
    launches a step (K4 56 a fused QAT
@@ -155,7 +155,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
    one of the renderer's fused step, 2 s scored): e2e_metrics.json and each
    phase's wall, K1-K3 all launched (the float renderer: no K4).
 13. the demo's flags and data parallelism.  13a: the demo CLI as one
-   subprocess on the card (demo.main five times, 3 s of tone, 512^2,
+   subprocess on the card (demo.main five times, 1.5 s of tone, 512^2,
    'normal', render batch 16): --quantize --artifact --bucket_seconds 2
    --save_intermediates 1 from scratch (writes the artifact) and again
    (reads it: the same landmarks and jpgs), unbucketed from the artifact
@@ -163,14 +163,15 @@ Phases, each printing one line; any failure raises and exits non-zero:
    serving phase 10's four checkpoints from a save_input YAML (the
    feature-map video), and the checkpoints with the existing artifact
    (exits non-zero); the frame counts of the video, the jpgs and
-   landmarks.npy, each run's wall and fps and launches (K1 11, K2 3, K3 3,
-   K4 484 from the artifact).  13b: Predictor(data_parallel=True) against
+   landmarks.npy, each run's wall and fps and launches (K1 5, K2 3, K3 3,
+   K4 220 from the artifact).  13b: Predictor(data_parallel=True) against
    False on a 3.0 s int8 request, bitwise; render_frames over [cuda:0,
    cuda:0] against one device, within one level, K1 once a share,
    render_device ms beside one device's.  13c: --data_parallel on one card
    (a one-rank NCCL group): the fused GAN step at 512^2, B = 8, its losses
-   and gradients against no group, the step ms of each.  13d: two ranks on
-   the card (gloo on CUDA tensors), --zero1, the global batch of 8: the
+   and gradients against no group, the step ms of each (3 steps).  13d, run
+   by phase 17's two spawned ranks: two ranks on the card (gloo on CUDA
+   tensors), --zero1, the global batch of 8: the
    ranks' parameters equal, ZeRO-1 bitwise against replicated Adam, each
    rank's optimizer bytes about half, K1 once a rank, the reduced gradients
    and losses against one process on the global batch.
@@ -178,7 +179,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
    candidates: [B, 512, 512, 1], one launch) at B = 16 and 8, bf16 and f32,
    bitwise against its twin and channel 0 of the 13-channel form, device ms
    by CUDA-graph replay beside the bound; animate(split_cand=True) against
-   False on 3 s of tone ('normal' bf16 under rgb and pack4e, the int8
+   False on 1.5 s of tone ('normal' bf16 under rgb and pack4e, the int8
    renderer under yuv420): frames within SPLIT_BOUNDS (PSNR, levels),
    render_device of both, K1 once a batch and K4 44 a batch in the split
    run (the counts set to 0 just before it); the split render loop under
@@ -189,11 +190,11 @@ Phases, each printing one line; any failure raises and exits non-zero:
    launches a forward, 243-246 GFLOP a frame, the MFU and the device-time
    table by family), int8_probe (the 14 'large' conv shapes, K4 against
    cuDNN's bf16 conv), render_ablate (three variants), trace_train (the
-   fused step, 'large', B = 8, 3 steps), stream_latency (3 s, 'large'
-   int8, chunks 16 and 32), prewarm_serving (twice, each in its own
+   fused step, 'large', B = 8, 3 steps), stream_latency (2 s, 'large'
+   int8, chunk 16; 6e streams chunk 32), prewarm_serving (twice, each in its own
    process: the first writes the artifact, the second reads it), parity
    (the same seed: landmark error 0 and equal frames; another seed: finite
-   scores), train512 (8 steps at B = 4, losses finite), link_probe and
+   scores), train512 (4 steps at B = 4, losses finite), link_probe and
    upload_diet.
 15. the fused motion half (pipeline/motion_graph.py) on the int8
    Predictor's subject, 3.0 s of tone: G1, G2 (165 times) and G3 eagerly
@@ -224,6 +225,28 @@ Phases, each printing one line; any failure raises and exits non-zero:
    batch, render_device beside the unrewritten one's); the 'large' int8
    renderer unrewritten, split and single (tools/trace_render --rewrites:
    ms a batch, upsample + concat by family, the same FLOPs).
+17. the model axis (parallel.mesh's grid, parallel.sharding), two ranks
+   spawned on the one card over gloo (NCCL refuses two ranks on one card;
+   gloo moves the CUDA tensors through the host).  17a, spatial: the int8
+   Predictor's 'normal' renderer at 512^2, B = 16, K1's render input split
+   into 256 rows a rank, the bf16 float and the calibrated int8 renderer
+   (sharding.apply_generator_spatial), each of K4's 44 layers' output rows
+   bitwise against the one-device forward, the gathered frames within one
+   level on >= GRID_FRAME_SHARE of the values, ms a forward a rank beside
+   one device's, K1 / K4 launches and the bytes exchanged a forward.  17b,
+   channels: the fused GAN step at 512^2 with G and D channel-sharded over
+   the two ranks: the float step in float64 (B = 2) against one process at
+   13d's tolerances; under qat and qat_int8 the eval frames (f32) within
+   one level of one process's, then one step at B = 8 as phase 12 trains
+   (bf16 G, f32 D with TF32, Adam): its ms beside one process's, K1 / K4
+   launches, the parameter and optimizer bytes a rank, its losses and
+   gathered gradients against one process's (reported).  17d: the
+   activation scale of --data_parallel --qat_int8 over two data ranks on a
+   batch whose halves differ twofold in range: one scale on both ranks, the
+   eval frame's rows against one process with it and with a scale per rank
+   (the fault), the step's gradients of both.  17c, beside the two ranks:
+   parallel.dryrun with 4 ranks on the card, its line.  The two ranks also
+   run 13d.
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -244,7 +267,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
    motion_graph_launches (K2 / K3 inside the fused request's replayed
    graph) and motion_graph_max_abs_err; phase 16's K4 rewrite_forms (per
    form its shapes, device ms, bound, cuDNN yardstick and launches, the
-   generators, the requests, 'large')), then
+   generators, the requests, 'large'); phase 17's K1 and K4 ``spatial`` and
+   ``channel`` entries (launches a rank, ms beside one device's, bytes
+   exchanged)), then
    {"ok": true, "device": {...}} as the last line.
 """
 
@@ -1191,7 +1216,7 @@ def check_stream(pq, dev) -> dict:
 
 
 def check_coders(pq, dev) -> None:
-    """The frame coders on the card: a 3.0 s request under each transfer
+    """The frame coders on the card: a 2.0 s request under each transfer
     against the rgb one, the encoders' device time and the host decoders'
     time on one rendered 16-frame batch, each decoder against its numpy
     twin, and the card's encoders against the CPU's on the same
@@ -1200,7 +1225,7 @@ def check_coders(pq, dev) -> None:
     from livespeechportraits_torch.pipeline import animate, compress, video
 
     H = W = pq._cfg.feature2face.load_size
-    audio = video.make_test_tone(3.0)
+    audio = video.make_test_tone(2.0)
     for transfer in animate.TRANSFERS:  # warm (the coders' constants reach the card)
         pq.predict(audio[:16000], transfer=transfer, write_video=False)
     res, launches = {}, {}
@@ -1684,9 +1709,7 @@ def check_training(dev, tmp: str) -> tuple:
     t0 = time.perf_counter()
     sampler = cli.synthetic_face_data(80, 512)
     data_s = time.perf_counter() - t0
-    gen = torch.Generator().manual_seed(0)
-    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
-    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen)
+    g, d = seed0_gan(cfg)
     g_before = copy.deepcopy(g).to(dev)
     fixed = next(sampler.batches(8, np.random.default_rng(1), shuffle=False))
     zero_launch_counts()
@@ -1889,7 +1912,7 @@ QAT_MODES = {"float": {}, "qat": {"qat": True}, "qat_int8": {"qat_int8": True},
              "qat_int8_tf32_off": {"qat_int8": True, "tf32": False}}
 
 
-def time_gan_modes(dev, batch, steps: int = 5) -> dict:
+def time_gan_modes(dev, batch, steps: int = 3) -> dict:
     """One D + G step at 512^2, B = 8, in each QAT mode, on the same batch
     and the same seed-0 models: CUDA events around each of `steps` steps
     after two warm-up steps, peak memory (absolute, and above what was
@@ -1906,9 +1929,8 @@ def time_gan_modes(dev, batch, steps: int = 5) -> dict:
     for mode, kw in QAT_MODES.items():
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
-        gen = torch.Generator().manual_seed(0)
-        g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
-        d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+        g, d = seed0_gan(cfg)
+        d = d.to(dev)
         if kw:
             g = f2f.qat_generator(g, int8_forward=kw.get("qat_int8", False))
         g = g.to(dev)
@@ -1985,9 +2007,7 @@ def check_qat(dev, tmp: str, sampler) -> dict:
     loop = trainer.TrainLoopConfig(n_epochs=1, n_epochs_decay=1, lr=1e-4, batch_size=8,
                                    print_freq=1, checkpoints_dir=tmp, name="f2f_qat8",
                                    device="cuda", qat_int8=True, qat_d=True)
-    gen = torch.Generator().manual_seed(0)
-    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
-    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen)
+    g, d = seed0_gan(cfg)
     before = {k: v.clone() for k, v in g.state_dict().items()}
     zero_launch_counts()
     torch.cuda.synchronize()
@@ -2260,9 +2280,8 @@ def check_fused_correctness(dev, raw) -> dict:
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
     cfg = Feature2FaceConfig()
-    gen = torch.Generator().manual_seed(0)
-    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen).to(dev)
-    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+    g, d = seed0_gan(cfg)
+    g, d = g.to(dev), d.to(dev)
     batch = trainer.device_rasterize_batch(raw)
     ref, ref_stats, _ = _fused_grads(cfg, g, d, batch, compute_dtype=torch.bfloat16)
     for name, remat in (("remat", True), ("remat2", 2)):
@@ -2300,7 +2319,7 @@ def check_fused_correctness(dev, raw) -> dict:
     return out
 
 
-def time_fused_modes(dev, raw, steps: int = 5) -> dict:
+def time_fused_modes(dev, raw, steps: int = 3) -> dict:
     """12b.  Each mode at full width (512^2, B = 8, bf16 G, f32 D with TF32,
     seed-0 models, Adam at 2e-4): two warm-up steps, then `steps` steps on
     the same device batch, each starting with its edge maps drawn by K1
@@ -2322,9 +2341,8 @@ def time_fused_modes(dev, raw, steps: int = 5) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
-        gen = torch.Generator().manual_seed(0)
-        g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen)
-        d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+        g, d = seed0_gan(cfg)
+        d = d.to(dev)
         if kw.get("qat_int8"):
             g = f2f.qat_generator(g, int8_forward=True)
         g = g.to(dev)
@@ -2402,10 +2420,9 @@ def check_fused_remat_k4(dev, raw) -> dict:
     from livespeechportraits_torch.train import trainer
 
     cfg = Feature2FaceConfig()
-    gen = torch.Generator().manual_seed(0)
-    g = f2f.qat_generator(trainer._init(f2f.Feature2FaceG(cfg), gen=gen),
-                          int8_forward=True).to(dev)
-    d = f2f.qat_discriminator(trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev))
+    g, d = seed0_gan(cfg)
+    g = f2f.qat_generator(g, int8_forward=True).to(dev)
+    d = f2f.qat_discriminator(d.to(dev))
     batch = trainer.device_rasterize_batch(raw)
     out = {}
     for name, remat in (("none", False), ("remat", True), ("remat2", 2)):
@@ -2555,9 +2572,9 @@ def _video_frames(path: str) -> int:
 
 def check_demo_cli(tmp: str, train_dir: str) -> dict:
     """13a.  The demo CLI on the card, as one subprocess running demo.main
-    five times on 3 s of tone at 512^2 ('normal', render batch 16): from
-    scratch with --quantize --artifact --bucket_seconds 2 (1 s buckets pad
-    nothing on 3 s) --save_intermediates 1 (writes the artifact); the same
+    five times on 1.5 s of tone at 512^2 ('normal', render batch 16): from
+    scratch with --quantize --artifact --bucket_seconds 2 (the 1.5 s padded
+    to 2 s) --save_intermediates 1 (writes the artifact); the same
     command again (reads it); unbucketed from the artifact; --quantize
     --no_calibrate serving phase 10's four checkpoints from a save_input
     YAML (the feature-map video); the checkpoints with the existing artifact
@@ -2572,7 +2589,8 @@ def check_demo_cli(tmp: str, train_dir: str) -> dict:
              for a in (f"--{s}_ckpt", os.path.join(train_dir, task, "ckpt"))]
 
     def argv(name, *flags):
-        return [name, ["--duration", "3", "--render_batch", "16", "--driving_audio", "missing.wav",
+        return [name, ["--duration", "1.5", "--render_batch", "16", "--driving_audio",
+                       "missing.wav",
                        "--results_dir", os.path.join(tmp, name), *flags]]
 
     bucketed = ["--quantize", "--artifact", art, "--bucket_seconds", "2", "--save_intermediates",
@@ -2594,7 +2612,7 @@ def check_demo_cli(tmp: str, train_dir: str) -> dict:
     if proc.returncode != 0 or len(done) != len(runs):
         raise AssertionError(f"demo runner rc {proc.returncode}: {proc.stdout[-3000:]}"
                              f"{proc.stderr[-3000:]}")
-    n = 165
+    n = 75  # 1.5 s at 60 fps, less frame_future (15)
     out = {}
     for name, r in done.items():
         where = os.path.join(tmp, name, "Synthetic", "missing")
@@ -2632,10 +2650,13 @@ def check_demo_cli(tmp: str, train_dir: str) -> dict:
         if out[name]["exit"] or c != {"video": n, "jpgs": n, "landmarks": n}:
             bad.append(f"{name}: exit {out[name]['exit']}, counts {c}")
     k = out["artifact"]["launches"]
-    if k != {"K1": 11, "K2": 3, "K3": 3, "K4": 44 * 11}:
-        bad.append(f"artifact run launched {k}, expected K1 11, K2 3, K3 3, K4 484")
+    batches = -(-n // 16)
+    if k != {"K1": batches, "K2": 3, "K3": 3, "K4": 44 * batches}:
+        bad.append(f"artifact run launched {k}, expected K1 {batches}, K2 3, K3 3, K4 "
+                   f"{44 * batches}")
     d = out["no_calibrate_ckpts"]
-    if d["exit"] or d["launches"]["K4"] != 44 * 11 or d["counts"].get("feature_map_video") != n:
+    if d["exit"] or d["launches"]["K4"] != 44 * batches or d["counts"].get(
+            "feature_map_video") != n:
         bad.append(f"no_calibrate / checkpoints run: {d}")
     if not out["ckpts_with_artifact"]["exit"] or "shadow" not in out["ckpts_with_artifact"]["tail"]:
         bad.append(f"checkpoints with an existing artifact did not exit: "
@@ -2698,6 +2719,23 @@ def check_serving_split(dev, art: str) -> dict:
     return {"render_split_launches": k}
 
 
+_SEED0_GAN: dict = {}
+
+
+def seed0_gan(cfg):
+    """(G, D) of cfg at the trainers' seed-0 init (G drawn first, then D from
+    the same generator), on the CPU: copies of one draw a config, so the
+    phases that each start from it do not draw it again."""
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.train import trainer
+
+    if cfg not in _SEED0_GAN:
+        gen = torch.Generator().manual_seed(0)
+        _SEED0_GAN[cfg] = (trainer._init(f2f.Feature2FaceG(cfg), gen=gen),
+                           trainer._init(f2f.Feature2FaceD(cfg), gen=gen))
+    return tuple(copy.deepcopy(m) for m in _SEED0_GAN[cfg])
+
+
 def _gan_models(dev, size: int = 512):
     """The default GAN (ngf 64, 'normal', num_D 2) at size^2, seed 0."""
     from livespeechportraits_torch.config import Feature2FaceConfig
@@ -2705,9 +2743,8 @@ def _gan_models(dev, size: int = 512):
     from livespeechportraits_torch.train import trainer
 
     cfg = Feature2FaceConfig(load_size=size, n_downsample=min(8, int(math.log2(size))))
-    gen = torch.Generator().manual_seed(0)
-    g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen).to(dev)
-    d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(dev)
+    g, d = seed0_gan(cfg)
+    g, d = g.to(dev), d.to(dev)
     return cfg, g, d
 
 
@@ -2733,7 +2770,7 @@ def _grad_err(got, want, floor_share: float) -> float:
 def check_dp_one_rank(dev, sampler) -> dict:
     """13c.  --data_parallel on one card: a one-rank NCCL group.  The fused
     GAN step at 512^2, B = 8 (bf16 G, f32 D with TF32), its losses and
-    gradients against no group; then 5 steps each way (Adam, K1 each step),
+    gradients against no group; then 3 steps each way (Adam, K1 each step),
     the median step ms (CUDA events): the gap is the price of the
     all-reduces."""
     from livespeechportraits_torch.parallel import multihost
@@ -2764,39 +2801,39 @@ def check_dp_one_rank(dev, sampler) -> dict:
         k1 = launch_counts()["K1"]
         return metrics, gd, gg, float(np.median([a.elapsed_time(b) for a, b in ms])), k1
 
-    ref = run(5)
+    ref = run(3)
     multihost.initialize("cuda:0")
     try:
         backend = torch.distributed.get_backend()
-        got = run(5)
+        got = run(3)
     finally:
         multihost.shutdown()
     err = max(_grad_err(got[1], ref[1], DP_ZERO_FLOOR), _grad_err(got[2], ref[2], DP_ZERO_FLOOR))
     loss_err = max(abs(got[0][k] - v) / max(abs(v), 1e-12) for k, v in ref[0].items())
     log("dp_one_rank", backend=backend, grad_err=f"{err:.3e}", loss_rel_err=f"{loss_err:.3e}",
         tol=DP_ONE_RANK_TOL, step_ms_no_group=f"{ref[3]:.3f}", step_ms_one_rank=f"{got[3]:.3f}",
-        reduce_ms=f"{got[3] - ref[3]:.3f}", k1_launches_5_steps=got[4])
-    if not (err <= DP_ONE_RANK_TOL and loss_err <= DP_ONE_RANK_TOL and got[4] == 5):
+        reduce_ms=f"{got[3] - ref[3]:.3f}", k1_launches_3_steps=got[4])
+    if not (err <= DP_ONE_RANK_TOL and loss_err <= DP_ONE_RANK_TOL and got[4] == 3):
         raise AssertionError(f"one-rank DP: grad err {err}, loss err {loss_err}, K1 {got[4]}")
     del g, d
     torch.cuda.empty_cache()
     return {"step_ms": {"no_group": ref[3], "one_rank": got[3]}}
 
 
-def _dp_rank(rank: int, port: int, work: str, device: str, size: int) -> None:
-    """13d's rank: joins a two-rank gloo group on cuda:0 (NCCL refuses two
-    ranks on one card), draws the global batch of 8 and keeps its 4 rows (K1
-    on them), takes the fused step's reduced gradients (float64), then steps
-    ZeRO-1 Adam and replicated Adam on copies with them."""
+def _dp_case(rank: int, work: str, dev, size: int) -> None:
+    """13d on one rank of phase 17's two-rank gloo group on cuda:0 (NCCL
+    refuses two ranks on one card; the group is spawned once for 13d and
+    17): draws the global batch of 8 and keeps its 4 rows (K1 on them),
+    takes the fused step's reduced gradients (float64), then steps ZeRO-1
+    Adam and replicated Adam on copies with them; saves rank<r>.pt in
+    work."""
     import hashlib
 
     from livespeechportraits_torch.parallel import mesh, multihost
     from livespeechportraits_torch.train import __main__ as cli
     from livespeechportraits_torch.train import state, trainer
 
-    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
-    dev = multihost.initialize(device, backend="gloo")
+    os.makedirs(work, exist_ok=True)
     cfg, g, d = _gan_models(dev, size)
     g, d = mesh.replicate(g.double()), mesh.replicate(d.double())
     local = next(multihost.global_batch_iter(cli.synthetic_face_data(8, size), 8,
@@ -2831,7 +2868,8 @@ def _dp_rank(rank: int, port: int, work: str, device: str, size: int) -> None:
     out["zero1_equals_replicated"] = same
     out["params_sha256"] = digest.hexdigest()
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
-    multihost.shutdown()
+    del g, d
+    torch.cuda.empty_cache()
 
 
 def _double(batch: dict) -> dict:
@@ -2843,23 +2881,17 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def check_dp_two_ranks(dev, tmp: str, size: int = 512) -> dict:
-    """13d.  Two ranks on the one card (gloo on CUDA tensors), --zero1, the
-    fused GAN step at 512^2, global B = 8 (4 a rank), in float64:
-    both ranks' parameters equal after the step (hashes), ZeRO-1 bitwise
-    against replicated Adam on the same gradients, each rank's optimizer
-    bytes about half, K1 once a rank, and the reduced gradients and the
-    ranks' mean losses against one process on the global batch."""
-    import torch.multiprocessing as mp
-
+def check_dp_two_ranks(dev, work: str, wall: float, size: int = 512) -> dict:
+    """13d.  Two ranks on the one card (gloo on CUDA tensors; run by phase
+    17's ranks, _dp_case), --zero1, the fused GAN step at 512^2, global B = 8
+    (4 a rank), in float64: both ranks' parameters equal after the step
+    (hashes), ZeRO-1 bitwise against replicated Adam on the same gradients,
+    each rank's optimizer bytes about half, K1 once a rank, and the reduced
+    gradients and the ranks' mean losses against one process on the global
+    batch.  ``wall``: the ranks' seconds for the case."""
     from livespeechportraits_torch.train import __main__ as cli
     from livespeechportraits_torch.train import trainer
 
-    work = os.path.join(tmp, "dp2")
-    os.makedirs(work)
-    t0 = time.perf_counter()
-    mp.start_processes(_dp_rank, args=(free_port(), work, str(dev), size), nprocs=2, start_method="spawn", join=True)
-    wall = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
     cfg, g, d = _gan_models(dev, size)
     full = next(cli.synthetic_face_data(8, size).batches(8, np.random.default_rng(3)))
@@ -2902,12 +2934,12 @@ def free_port() -> int:
 
 
 def check_demo_and_parallel(dev, tmp: str, train_dir: str, sampler) -> dict:
-    """Phase 13: the demo's flags and data parallelism."""
+    """Phase 13: the demo's flags and data parallelism (13d runs with phase
+    17's ranks)."""
     demo = check_demo_cli(tmp, train_dir)
     serve = check_serving_split(dev, demo["art"])
     one = check_dp_one_rank(dev, sampler)
-    two = check_dp_two_ranks(dev, tmp)
-    return {"demo": demo, "serve": serve, "one_rank": one, "two_ranks": two}
+    return {"demo": demo, "serve": serve, "one_rank": one}
 
 
 # Phase 14's bounds (see PERF.md, PR 12), about ten times the error
@@ -3006,7 +3038,7 @@ def check_edge_form(person, dev) -> dict:
 
 def check_split_cand(dev, cfg, person, models) -> dict:
     """14a.  K1's edge-only form, then animate(split_cand=True) against
-    split_cand=False on 3 s of tone at 512^2: the 'normal' bf16 renderer
+    split_cand=False on 1.5 s of tone at 512^2: the 'normal' bf16 renderer
     under rgb (batch 8) and pack4e, and the int8 renderer (calibrated as
     serve.Predictor builds it, batch 16, yuv420).  Frames within
     SPLIT_BOUNDS, render_device of both (render_frames in
@@ -3019,7 +3051,7 @@ def check_split_cand(dev, cfg, person, models) -> dict:
     from livespeechportraits_torch.pipeline import animate, assets, video
 
     entry = {"split_cand_entry": check_edge_form(person, dev)}
-    audio = video.make_test_tone(3.0)
+    audio = video.make_test_tone(1.5)
     calib = animate.build_render_inputs(cfg, person, models, video.make_test_tone(1.0),
                                         max_frames=16)
     qm = assets.quantize_person_models(models, calibrate_inputs=calib,
@@ -3152,10 +3184,10 @@ def check_tools(dev, tmp: str, cfg, person, models) -> dict:
     step = run_tool("trace_train", ["8", "0", "3"])[0]
     if not step["losses_finite"] or step["k1_launches_per_step"] != 1:
         raise AssertionError(f"trace_train: {step}")
-    # 14f: the live path, 'large' int8, two chunk sizes
-    for r in run_tool("stream_latency", ["3", "512", "--quantize", "--chunks", "16,32",
+    # 14f: the live path, 'large' int8, chunk 16 (6e streams chunk 32)
+    for r in run_tool("stream_latency", ["2", "512", "--quantize", "--chunks", "16",
                                          "--depths", "1"]):
-        if r["frames"] != 165 or r["kernel_launches_per_push"]["K4"] <= 0:
+        if r["frames"] != 105 or r["kernel_launches_per_push"]["K4"] <= 0:
             raise AssertionError(f"stream_latency: {r['frames']} frames, launches "
                                  f"{r['kernel_launches_per_push']}")
     # 14g: cold boot to first frame, then warm, each in its own process
@@ -3199,11 +3231,11 @@ def check_tools(dev, tmp: str, cfg, person, models) -> dict:
                                               "perceptual_distance")):
         raise AssertionError(f"parity: same seed {same}, other seed {other}")
     # 14i: the 512^2 'large' GAN campaign, cut to 8 steps at B = 4
-    t512 = run_tool("train512", ["--steps", "8", "--batch", "4", "--frames", "80",
+    t512 = run_tool("train512", ["--steps", "4", "--batch", "4", "--frames", "80",
                                  "--fused_step", "--remat_depth", "2", "--vgg", "random",
-                                 "--bench_steps", "5", "--checkpoints_dir",
+                                 "--bench_steps", "3", "--checkpoints_dir",
                                  os.path.join(tmp, "t512")])[0]
-    if not t512["losses_finite"] or t512["steps_trained"] < 8:
+    if not t512["losses_finite"] or t512["steps_trained"] < 4:
         raise AssertionError(f"train512: {t512}")
     # 14j: the device -> host link
     link = profiling.link_probe(dev)
@@ -3876,6 +3908,495 @@ def check_rewrites(dev, pq, tmp: str) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# 17. the model axis: spatial and channel partitioning over a rank grid
+# ---------------------------------------------------------------------------
+
+# Phase 17's bounds (see PERF.md)
+GRID_FRAME_SHARE = 0.999  # 17a, 17b: share of frame values within one level of one device's
+# 17b / 17d compare the QAT steps in f32 with TF32 off, where the training
+# BatchNorms of the inner stages (2 x 2 maps) divide by small variances and
+# an activation that rounds to the next int8 step moves every layer after it
+# (13d's note: f32 gradients of a batch of 4 and of 8 differ by up to 7.5e-3
+# of a tensor's norm through rounding alone; on the CPU the two-rank QAT
+# step's frames differ from one process's by 0.1 in f32, 1e-18 in float64)
+# rounding alone).  The float step is held in float64 at 13d's tolerances;
+# the QAT steps by their eval-mode frames (within one level, as 17a's), which
+# the BatchNorms' batch statistics do not feed
+# 17d, the eval-mode frame of two data ranks against one process: with the
+# one scale each rank's rows are one process's up to the convs' other batch
+# sizes; with a scale per rank the half of smaller range snaps to another
+# int8 grid.  The repaired mean difference must be this many times below the
+# fault's, and each eval scale within DATA_QAT_SCALE_RTOL of one process's.
+DATA_QAT_FAKE_MARGIN = 10.0
+DATA_QAT_SCALE_RTOL = 1e-5
+
+
+def _event_wall(fn, reps: int, warm: bool = True) -> float:
+    """ms a call of fn by CUDA events around reps calls (after one warm-up
+    call unless warm is False)."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _spatial_rank(dev, work: str) -> dict:
+    """17a on one of two model ranks: K1's render input of the 16 frames,
+    this rank's 256 rows, the bf16 float and the calibrated int8 renderer
+    (sharding.apply_generator_spatial), each K4 layer's output rows against
+    the one-device forward's (computed here too, on the whole batch), the
+    frames gathered, ms a forward beside one device's, K1 / K4 launches and
+    the bytes exchanged a forward."""
+    import torch.distributed as dist
+
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.ops import q8conv_cuda, rasterize_cuda
+    from livespeechportraits_torch.parallel import mesh, sharding
+
+    grid = mesh.make_grid(2)
+    inp = torch.load(os.path.join(work, "spatial.pt"), map_location=dev, weights_only=False)
+    zero_launch_counts()
+    size = inp["cand"].shape[-2]
+    x = rasterize_cuda.render_input(inp["lm"], inp["sh"], inp["cand"], (size, size))
+    out = {"k1_launches": rasterize_cuda.LAUNCHES, "rows": size // grid.model_size}
+    slab = sharding.shard_spatial(x, grid, axis=1)
+    for name in ("float", "int8"):
+        model = inp[name]
+        ref_out, orig = {}, nn_core.conv2d_q8
+
+        def record(xq, layer, stride, padding):
+            y = orig(xq, layer, stride, padding)
+            ref_out[id(layer)] = y
+            return y
+
+        nn_core.conv2d_q8 = record
+        try:
+            with torch.no_grad(), mesh.use_grid(mesh.LOCAL):
+                ref = f2f.apply_generator(model, x)
+        finally:
+            nn_core.conv2d_q8 = orig
+        taps = []
+        q8conv_cuda.LAUNCHES = 0
+        sharding.EXCHANGED_BYTES = 0
+        y = sharding.apply_generator_spatial(model, slab, grid, taps=taps)
+        k4 = q8conv_cuda.LAUNCHES
+        exchanged = sharding.EXCHANGED_BYTES
+        q8 = [(layer, rows, r0) for layer, rows, r0 in taps
+              if isinstance(layer, nn_core.QConv2d)]
+        equal = sum(torch.equal(ref_out[id(layer)][:, :, r0:r0 + rows.shape[2]], rows)
+                    for layer, rows, r0 in q8)
+        frames = sharding.gather_spatial(y, grid, axis=1)
+        diff = (f2f.to_uint8(frames).int() - f2f.to_uint8(ref).int()).abs()
+        ms = _event_wall(lambda: sharding.apply_generator_spatial(model, slab, grid), 5)
+        dist.barrier()
+        one_ms = None
+        if grid.model_index == 0:  # one device alone, the other rank waiting
+            with torch.no_grad(), mesh.use_grid(mesh.LOCAL):
+                one_ms = _event_wall(lambda: f2f.apply_generator(model, x), 5)
+        dist.barrier()
+        out[name] = {"k4_layers": len(q8), "k4_layers_bitwise": int(equal),
+                     "k4_launches_a_forward": k4, "one_device_k4_layers": len(ref_out),
+                     "exchanged_bytes_a_forward": exchanged,
+                     "frame_share_within_1": float((diff <= 1).float().mean()),
+                     "frame_max_levels": int(diff.max()), "ms": ms, "one_device_ms": one_ms,
+                     "slab": list(y.shape)}
+        del ref_out, taps, q8, ref, y, frames
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gathered(grads, params_named, net, grid):
+    """Each gradient with its channels gathered over the model axis."""
+    import torch.distributed as dist
+
+    out = []
+    for (name, _), g in zip(params_named, grads):
+        if name in net.sharded_keys:
+            parts = [torch.empty_like(g) for _ in range(grid.model_size)]
+            dist.all_gather(parts, g.contiguous(), group=grid.model_group)
+            g = torch.cat(parts, dim=0)
+        out.append(g)
+    return out
+
+
+def _state_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _channel_rank(dev, raw, cfg, g0, d0) -> dict:
+    """17b on one of two model ranks: the fused GAN step at 512^2 with G and
+    D channel-sharded.  The float step in float64 (B = 2 of the batch: each
+    of its gathers crosses the host): its losses and gathered gradients
+    against one process (rank 0 computes it) at 13d's tolerances.  Under
+    qat and qat_int8: the eval-mode frames (f32, TF32 off) against one
+    process's; then one step at B = 8 as phase 12 trains (bf16 G under
+    autocast, f32 D with TF32, Adam): its ms (CUDA events) beside one
+    process's (the mean of 2 after a first), K1 / K4 launches, the parameter and
+    optimizer bytes beside one process's, and its losses and gathered
+    gradients against one process's step (int8 steps tipped by the
+    BatchNorms' rounding carry them apart: reported, as in 17d)."""
+    import torch.distributed as dist
+
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.parallel import mesh, sharding
+    from livespeechportraits_torch.train import state, steps, trainer
+
+    grid = mesh.make_grid(2)
+    first = grid.model_index == 0
+
+    def errors(ref, got, gd, gg):
+        return {"grad_err": max(_grad_err(gd, ref[1], DP_ZERO_FLOOR),
+                                _grad_err(gg, ref[2], DP_ZERO_FLOOR)),
+                "loss_rel_err": max(abs(got[k] - v) / max(abs(v), 1e-12)
+                                    for k, v in ref[0].items())}
+
+    def gathered_step(g, d, b):
+        with mesh.use_grid(grid):
+            m, gd, gg = _reduced_grads(cfg, g, d, b)
+        return (m, _gathered(gd, list(d.named_parameters()), d, grid),
+                _gathered(gg, list(g.named_parameters()), g, grid))
+
+    # the machinery in float64
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    b64 = {k: v[:2] if v.shape[0] == 8 else v for k, v in _double(
+        trainer.device_rasterize_batch(raw)).items()}
+    ref = None
+    if first:
+        with mesh.use_grid(mesh.LOCAL):  # this rank alone: no collective
+            ref = _reduced_grads(cfg, copy.deepcopy(g0).double(), copy.deepcopy(d0).double(), b64)
+    dist.barrier()
+    got = gathered_step(sharding.shard_params(copy.deepcopy(g0).double(), grid),
+                        sharding.shard_params(copy.deepcopy(d0).double(), grid), b64)
+    out = {"float64": errors(ref, *got) if first else None}
+    del ref, got, b64
+    torch.cuda.empty_cache()
+    for mode, int8 in (("qat", False), ("qat_int8", True)):
+        def make_g():
+            return f2f.qat_generator(copy.deepcopy(g0), int8_forward=int8)
+
+        def eval_frame(g):
+            torch.backends.cudnn.allow_tf32 = False
+            with torch.no_grad():
+                y = f2f.to_uint8(f2f.apply_generator(g, steps.f2f_g_input(
+                    trainer.device_rasterize_batch(raw))))
+            torch.backends.cudnn.allow_tf32 = True  # phase 12's training settings
+            return y
+
+        def trained(g, d, reps: int):
+            """(metrics and the D and G gradients of a first step, its ms, or
+            the ms a step over reps more, K1 / K4 launches of the first
+            step, parameter and optimizer bytes)."""
+            opt_g = state.adam(g.parameters(), 2e-4, 0.5, 0.999)
+            opt_d = state.adam(d.parameters(), 2e-4, 0.5, 0.999)
+
+            def step():
+                return steps.f2f_fused_step(cfg, g, d, opt_g, opt_d,
+                                            trainer.device_rasterize_batch(raw), None,
+                                            torch.bfloat16)
+
+            zero_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step()
+            end.record()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            # the step leaves each parameter's reduced gradient in .grad
+            grads = ([p.grad.clone() for p in d.parameters()],
+                     [p.grad.clone() for p in g.parameters()])
+            ms = _event_wall(step, reps, warm=False) if reps else start.elapsed_time(end)
+            held = (_state_bytes(list(g.parameters()) + list(d.parameters())),
+                    _state_bytes([t for o in (opt_g, opt_d) for s in o.state.values()
+                                  for t in s.values() if torch.is_tensor(t)]))
+            return (({k: v.item() for k, v in metrics.items()}, *grads), ms,
+                    {k: counts[k] for k in ("K1", "K4")}, held)
+
+        ref = None
+        if first:  # one process alone, the other rank waiting
+            with mesh.use_grid(mesh.LOCAL):
+                g, d = make_g(), copy.deepcopy(d0)
+                ref_frame = eval_frame(g)
+                ref = trained(g, d, 2)
+                del g, d
+        dist.barrier()
+        g = sharding.shard_params(make_g(), grid)
+        d = sharding.shard_params(copy.deepcopy(d0), grid)
+        frame = eval_frame(g)
+        (m, gd, gg), ms, launches, held = trained(g, d, 0)
+        gd = _gathered(gd, list(d.named_parameters()), d, grid)
+        gg = _gathered(gg, list(g.named_parameters()), g, grid)
+        res = {"step_ms": ms, "launches_a_step": launches, "param_bytes": held[0],
+               "optimizer_bytes": held[1]}
+        if first:
+            diff = (frame.int() - ref_frame.int()).abs()
+            res.update(errors(ref[0], m, gd, gg), one_process_step_ms=ref[1],
+                       one_process_param_bytes=ref[3][0], one_process_optimizer_bytes=ref[3][1],
+                       frame_share_within_1=float((diff <= 1).float().mean()),
+                       frame_max_levels=int(diff.max()))
+        del g, d, gd, gg
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out[mode] = res
+    return out
+
+
+def _data_qat_rank(dev, raw, cfg, g0, d0) -> dict:
+    """17d on one of two data ranks: --qat_int8 on this rank's 4 rows of a
+    batch whose halves differ twofold in range (f32, TF32 off).  Recorded:
+    every fq8 conv's activation scale (nn_core.activation_scale) in the
+    fused step and in an eval-mode forward, and this rank's local amax /
+    127; the eval-mode frame's rows and the step's reduced gradients, each
+    against one process on the global batch (rank 0); and the same with the
+    scale left per rank (the fault repaired here: the amax's all-reduce
+    skipped).  The eval forward's BatchNorms use the running statistics, so
+    the rows depend on the other rows through the activation scale alone;
+    the step's training BatchNorms carry f32 sums whose rounding the int8
+    steps amplify from layer to layer."""
+    import torch.distributed as dist
+
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.models import nn_core
+    from livespeechportraits_torch.parallel import mesh, multihost
+    from livespeechportraits_torch.train import steps, trainer
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    grid = mesh.make_grid(1)
+    full = trainer.device_rasterize_batch(raw)
+    amp = torch.tensor([0.5] * 4 + [1.0] * 4, device=dev).view(-1, 1, 1, 1)
+    full = {k: v.expand(8, *v.shape[1:]) * amp  # the shared candidates too
+            if k in ("feature_map", "cand_image", "tgt_image") else v for k, v in full.items()}
+    with mesh.use_grid(grid):
+        rows = multihost.local_batch_slice(8)
+    local = {k: v[rows] if v.shape[0] == 8 else v for k, v in full.items()}
+    scales, orig = [], nn_core.activation_scale
+
+    def record(layer, x, *more):
+        s_x = orig(layer, x, *more)
+        scales.append((float(s_x), float(x.detach().abs().amax()) / 127.0))
+        return s_x
+
+    def run(on, batch):
+        """The eval-mode frame, its scales, D's and G's reduced gradients of
+        the step and its scales, under grid ``on``."""
+        g = f2f.qat_generator(copy.deepcopy(g0), int8_forward=True)
+        scales.clear()
+        with mesh.use_grid(on):
+            with torch.no_grad():
+                fake = f2f.apply_generator(g, steps.f2f_g_input(batch))
+            eval_scales = list(scales)
+            scales.clear()
+            _, gd, gg = _reduced_grads(cfg, g, copy.deepcopy(d0), batch)
+        return fake, eval_scales, gd, gg, list(scales)
+
+    nn_core.activation_scale = record
+    try:
+        got = run(grid, local)
+        reduce_max = mesh.all_reduce_max_
+        mesh.all_reduce_max_ = lambda x: x  # the fault: one scale a rank
+        try:
+            fault = run(grid, local)
+        finally:
+            mesh.all_reduce_max_ = reduce_max
+        ref = run(mesh.LOCAL, full) if grid.data_index == 0 else None
+    finally:
+        nn_core.activation_scale = orig
+    dist.barrier()
+    out = {"step_scales": [s for s, _ in got[4]], "eval_scales": [s for s, _ in got[1]],
+           "local_amax_scales": [a for _, a in got[1]], "rows": int(local["tgt_image"].shape[0])}
+    if ref is not None:
+        fake_ref = ref[0][rows]
+        for name, res in (("repaired", got), ("per_rank_scale", fault)):
+            out[name] = {"fake_mean_abs": float((res[0] - fake_ref).abs().mean()),
+                         "fake_max_abs": float((res[0] - fake_ref).abs().max()),
+                         "grad_err_d": _grad_err(res[2], ref[2], DP_ZERO_FLOOR),
+                         "grad_err_g": _grad_err(res[3], ref[3], DP_ZERO_FLOOR)}
+        out["one_process_eval_scales"] = [s for s, _ in ref[1]]
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grid_rank(rank: int, port: int, work: str, device: str, size: int) -> None:
+    """Phase 17's rank: joins a two-rank gloo group on cuda:0 (NCCL refuses
+    two ranks on one card; gloo moves CUDA tensors through the host) and
+    runs 17a, 17b and 17d, saving rank<r>.pt."""
+    from livespeechportraits_torch import _build
+    from livespeechportraits_torch.parallel import multihost
+    from livespeechportraits_torch.train import __main__ as cli
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    dev = multihost.initialize(device, backend="gloo")
+    if dev.type == "cuda":
+        _build.library()
+    try:
+        t0 = time.perf_counter()
+        _dp_case(rank, os.path.join(work, "dp2"), dev, size)
+        out = {"dp_wall": time.perf_counter() - t0, "spatial": _spatial_rank(dev, work)}
+        raw = _raw_device_batch(cli.synthetic_face_data(8, size), dev)
+        cfg, g0, d0 = _gan_models(dev, size)
+        out["channel"] = _channel_rank(dev, raw, cfg, g0, d0)
+        out["data_qat"] = _data_qat_rank(dev, raw, cfg, g0, d0)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        multihost.shutdown()
+
+
+def _grid_ranks(dev, pq, models, person, size: int) -> list:
+    """Spawn phase 17's two ranks (13d, 17a, 17b, 17d) and return their
+    results; 13d's files stay in a directory of this process (``dp_work``,
+    removed at exit)."""
+    import atexit
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.pipeline import animate, video
+
+    lm, sh, _, _, _ = animate.compute_motion(pq._cfg, person, models, video.make_test_tone(1.0))
+    work = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, work, True)
+    torch.save({"lm": lm[:16].cpu(), "sh": animate._shift_shoulders(person, sh[:16]).cpu(),
+                "cand": animate._cand_stack(person, size, "cpu", torch.bfloat16),
+                "float": f2f.cast_generator(models.feature2face, torch.bfloat16),
+                "int8": f2f.cast_generator(pq._models.feature2face, torch.bfloat16)},
+               os.path.join(work, "spatial.pt"))
+    torch.cuda.synchronize()
+    mp.start_processes(_grid_rank, args=(free_port(), work, str(dev), size), nprocs=2,
+                       start_method="spawn", join=True)
+    return [dict(torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False),
+                 dp_work=os.path.join(work, "dp2")) for r in range(2)]
+
+
+def check_model_axis(dev, pq, models, person, size: int = 512) -> dict:
+    """17.  The model axis on the card.  Two ranks (spawned, gloo on cuda:0)
+    run 13d, 17a (spatial: the int8 Predictor's 'normal' renderer at 512^2,
+    B = 16, in bf16 and int8, 256 rows a rank), 17b (channels: the fused
+    GAN step at 512^2, qat and qat_int8) and 17d (the activation scale over
+    two data ranks), while 17c, parallel.dryrun with 4 ranks on the card,
+    runs beside them.  Returns 13d's result and the K1 and K4 entries
+    (``spatial``, ``channel``)."""
+    t0 = time.perf_counter()
+    # 17c in its own processes beside the two ranks (their start-up is most
+    # of its wall; its tiny net takes little of the card)
+    here = os.path.dirname(os.path.abspath(__file__))
+    dry = subprocess.Popen([sys.executable, "-m", "livespeechportraits_torch.parallel.dryrun",
+                            "--ranks", "4", "--device", dev.type], cwd=here,
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        ranks = _grid_ranks(dev, pq, models, person, size)
+        dry_out = dry.communicate(timeout=600)[0]
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+    t_ranks = time.perf_counter() - t0
+    dp = check_dp_two_ranks(dev, ranks[0]["dp_work"], max(r["dp_wall"] for r in ranks), size)
+    bad = []
+    sp = [r["spatial"] for r in ranks]
+    for name in ("float", "int8"):
+        a, b = sp[0][name], sp[1][name]
+        log(f"grid_spatial_{name}", rows_a_rank=sp[0]["rows"],
+            k1_a_rank=[r["k1_launches"] for r in sp],
+            k4_launches_a_forward=[a["k4_launches_a_forward"], b["k4_launches_a_forward"]],
+            k4_layers_bitwise=f"{a['k4_layers_bitwise']}+{b['k4_layers_bitwise']} of "
+                              f"{a['k4_layers']}+{b['k4_layers']}",
+            frame_share_within_1=f"{a['frame_share_within_1']:.6f}",
+            frame_max_levels=a["frame_max_levels"], share_bound=GRID_FRAME_SHARE,
+            ms_a_forward=[f"{a['ms']:.3f}", f"{b['ms']:.3f}"],
+            one_device_ms=f"{a['one_device_ms']:.3f}",
+            exchanged_bytes_a_forward=[a["exchanged_bytes_a_forward"],
+                                       b["exchanged_bytes_a_forward"]])
+        if not (a["frame_share_within_1"] >= GRID_FRAME_SHARE
+                and b["frame_share_within_1"] >= GRID_FRAME_SHARE):
+            bad.append(f"spatial {name}: frames {a['frame_share_within_1']}")
+        if name == "int8" and not (a["k4_layers"] == b["k4_layers"] == 44
+                                   and a["k4_layers_bitwise"] == b["k4_layers_bitwise"] == 44
+                                   and a["k4_launches_a_forward"] == 44):
+            bad.append(f"spatial int8: K4 layers {a['k4_layers_bitwise']} / "
+                       f"{b['k4_layers_bitwise']} bitwise of 44, {a['k4_launches_a_forward']} "
+                       "launches")
+    ch = [r["channel"] for r in ranks]
+    f64 = ch[0]["float64"]
+    log("grid_channel_float64", batch=2, grad_err=f"{f64['grad_err']:.3e}",
+        grad_tol=DP_TWO_RANK_TOL, loss_rel_err=f"{f64['loss_rel_err']:.3e}",
+        loss_tol=DP_LOSS_RTOL)
+    if not (f64["grad_err"] <= DP_TWO_RANK_TOL and f64["loss_rel_err"] <= DP_LOSS_RTOL):
+        bad.append(f"channel float64: {f64}")
+    for mode in ("qat", "qat_int8"):
+        a, b = ch[0][mode], ch[1][mode]
+        share = a["param_bytes"] / a["one_process_param_bytes"]
+        log(f"grid_channel_{mode}", batch=8,
+            eval_frame_share_within_1=f"{a['frame_share_within_1']:.6f}",
+            eval_frame_max_levels=a["frame_max_levels"], share_bound=GRID_FRAME_SHARE,
+            step_ms=[f"{a['step_ms']:.3f}", f"{b['step_ms']:.3f}"],
+            one_process_step_ms=f"{a['one_process_step_ms']:.3f}",
+            launches_a_step=json.dumps(a["launches_a_step"]),
+            param_bytes=[a["param_bytes"], b["param_bytes"]],
+            one_process_param_bytes=a["one_process_param_bytes"],
+            optimizer_bytes=[a["optimizer_bytes"], b["optimizer_bytes"]],
+            one_process_optimizer_bytes=a["one_process_optimizer_bytes"],
+            step_grad_err=f"{a['grad_err']:.3e}", step_loss_rel_err=f"{a['loss_rel_err']:.3e}")
+        if not (a["frame_share_within_1"] >= GRID_FRAME_SHARE and 0.5 <= share <= 0.51
+                and a["launches_a_step"]["K1"] == 1
+                and a["launches_a_step"]["K4"] == (44 if mode == "qat_int8" else 0)):
+            bad.append(f"channel {mode}: {a}")
+    dq = [r["data_qat"] for r in ranks]
+    one_scale = (dq[0]["step_scales"] == dq[1]["step_scales"]
+                 and dq[0]["eval_scales"] == dq[1]["eval_scales"])
+    vs_one = max(abs(a - b) / b for a, b in zip(dq[0]["eval_scales"],
+                                                dq[0]["one_process_eval_scales"]))
+    halves = max(b / a for a, b in zip(dq[0]["local_amax_scales"], dq[1]["local_amax_scales"]))
+    rep, flt = dq[0]["repaired"], dq[0]["per_rank_scale"]
+    log("grid_data_qat_int8", rows_a_rank=[r["rows"] for r in dq],
+        fq8_scales_a_step=len(dq[0]["step_scales"]), one_scale_on_both_ranks=one_scale,
+        eval_scale_rel_diff_vs_one_process_max=f"{vs_one:.3e}",
+        local_amax_ratio_max=f"{halves:.3f}",
+        eval_frame_vs_one_process=f"mean {rep['fake_mean_abs']:.3e} max {rep['fake_max_abs']:.3e}",
+        per_rank_scale_eval_frame=f"mean {flt['fake_mean_abs']:.3e} max "
+                                  f"{flt['fake_max_abs']:.3e}",
+        step_grad_err=[f"{rep['grad_err_d']:.3e}", f"{rep['grad_err_g']:.3e}"],
+        per_rank_scale_step_grad_err=[f"{flt['grad_err_d']:.3e}", f"{flt['grad_err_g']:.3e}"])
+    if not (one_scale and dq[0]["step_scales"] and halves > 1.5
+            and vs_one <= DATA_QAT_SCALE_RTOL
+            and rep["fake_mean_abs"] * DATA_QAT_FAKE_MARGIN <= flt["fake_mean_abs"]):
+        bad.append(f"data-parallel qat_int8: one scale {one_scale}, vs one process {vs_one}, "
+                   f"local ratio {halves}, frame {rep} vs per-rank {flt}")
+    line = next((x for x in dry_out.splitlines() if x.startswith("dryrun_multichip")), "")
+    log("grid_dryrun", line=repr(line), exit=dry.returncode)
+    if dry.returncode or not line.startswith("dryrun_multichip ok: mesh=(2x2)"):
+        bad.append(f"dryrun: rc {dry.returncode}\n{dry_out[-3000:]}")
+    log("phase17", seconds=f"{time.perf_counter() - t0:.1f}", ranks_s=f"{t_ranks:.1f}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    sp0, ch0 = sp[0], ch[0]
+    return {"dp_two_ranks": dp,
+        "K1": {"spatial": {"launches_a_rank_a_forward": sp0["k1_launches"]},
+               "channel": {m: ch0[m]["launches_a_step"]["K1"] for m in ("qat", "qat_int8")}},
+        "K4": {"spatial": {k: {"launches_a_rank_a_forward": sp0[k]["k4_launches_a_forward"],
+                               "ms_a_forward": [r[k]["ms"] for r in sp],
+                               "one_device_ms": sp0[k]["one_device_ms"],
+                               "exchanged_bytes_a_forward": sp0[k]["exchanged_bytes_a_forward"],
+                               "k4_layers_bitwise": sp0[k]["k4_layers_bitwise"]}
+                           for k in ("float", "int8")},
+               "channel": {**{m: {"launches_a_step": ch0[m]["launches_a_step"]["K4"],
+                                  "step_ms": [r[m]["step_ms"] for r in ch],
+                                  "one_process_step_ms": ch0[m]["one_process_step_ms"],
+                                  "eval_frame_share_within_1": ch0[m]["frame_share_within_1"]}
+                              for m in ("qat", "qat_int8")},
+                           "float64_grad_err": f64["grad_err"]}},
+    }
+
+
 class PhaseWalls:
     """Host seconds of each phase of main, for the script's time budget."""
 
@@ -3886,6 +4407,8 @@ class PhaseWalls:
         now = time.perf_counter()
         if self.name is not None:
             self.seconds[self.name] = now - self.t0
+            log("phase_wall", of=self.name, seconds=f"{now - self.t0:.1f}",
+                total=f"{sum(self.seconds.values()):.1f}")
         self.name, self.t0 = name, now
 
 
@@ -4144,7 +4667,6 @@ def main() -> int:
         entry["demo_launches"] = p13["demo"]["demo_launches"][k]
     kernels[0]["render_split_launches"] = p13["serve"]["render_split_launches"]["K1"]
     kernels[3]["render_split_launches"] = p13["serve"]["render_split_launches"]["K4"]
-    kernels[0]["dp_rank_step_launches"] = p13["two_ranks"]["k1_a_rank_a_step"]
 
     phase_walls.mark("measurement")
     # 14. the measurement slice: split_cand (K1's edge-only form), then the
@@ -4173,6 +4695,14 @@ def main() -> int:
     # generators, two requests served from rewritten artifacts, 'large'
     with tempfile.TemporaryDirectory() as tmp:
         kernels[3]["rewrite_forms"] = check_rewrites(dev, pq, tmp)
+
+    phase_walls.mark("model_axis")
+    # 17. the model axis: spatial and channel partitioning over two ranks on
+    # the card, the activation scale over two data ranks, the dry run
+    grid = check_model_axis(dev, pq, models, person)
+    for k in ("K1", "K4"):
+        kernels[0 if k == "K1" else 3].update(grid[k])
+    kernels[0]["dp_rank_step_launches"] = grid["dp_two_ranks"]["k1_a_rank_a_step"]
 
     phase_walls.mark(None)
     log("phase_walls", **{k: f"{v:.1f}" for k, v in phase_walls.seconds.items()})

@@ -158,6 +158,17 @@ class Feature2FaceConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) grid of ranks (parallel.mesh.mesh_from_config): the
+    data axis splits the batch, the model axis a renderer's channels or its
+    rows (parallel.sharding)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1
+
+
+@dataclass(frozen=True)
 class PersonConfig:
     """Per-subject asset and knob pack: the surface of config/*.yaml."""
 

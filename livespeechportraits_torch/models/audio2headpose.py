@@ -2,7 +2,8 @@
 
 Counterpart of ``livespeechportraits_tpu/models/audio2headpose.py``
 (``_audio_downsample``, ``apply_audio2headpose``, ``_decode_scan``,
-``generate_sequence``).  The decode
+``generate_sequence``, and its slow oracle
+``generate_sequence_sliding_window``).  The decode
 primes the WaveNet ring buffers on R-1 warm-up frames, hoists every layer's
 audio projection over all frames into one matmul each, then steps frame by
 frame: stream_step, then one GMM sample that becomes the next input.
@@ -223,6 +224,39 @@ def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_fe
     for _ in range(nframe):
         decode_step(model, cfg, dec, float(sigma_scale))
     return dec.samples
+
+
+def generate_sequence_sliding_window(model: Audio2Headpose, cfg: Audio2HeadposeConfig,
+                                     audio_feats: Tensor, pre_headpose: Tensor, seed: int = 0,
+                                     sigma_scale: float = 0.3,
+                                     noise: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """The reference's O(T * R) decode loop (JAX
+    generate_sequence_sliding_window, audio2headpose.py:189-220), a slow
+    oracle: each output frame feeds the whole R-frame history and audio
+    window through the WaveNet (apply_audio2headpose, output_length 1).
+    Step i samples with step i's draws (gmm.draw_noise(n, ..., seed), or
+    ``noise``), as generate_sequence does, so the two are comparable sample
+    for sample.  [2T, H] APC features -> [T - frame_future, ndim]."""
+    R, f = cfg.wavenet.receptive_field, cfg.frame_future
+    T = audio_feats.shape[0] // 2
+    nframe = T - f
+    if nframe <= 0:
+        raise ValueError(f"utterance too short: {T} frames <= frame_future {f}")
+    paired = audio_feats[:2 * T].reshape(T, -1)
+    audio_pad = torch.cat([paired[:1].expand(R - 1, -1), paired])
+    if noise is None:
+        noise = gmm.draw_noise(nframe, cfg.ncenter, cfg.ndim, seed)
+    gumbel, eps = (n.to(paired.device, torch.float32) for n in noise)
+    history = pre_headpose.reshape(1, 1, -1).expand(1, R, -1)
+    out = []
+    for i in range(nframe):
+        preds = apply_audio2headpose(model, history, audio_pad[i + f:i + f + R][None],
+                                     output_length=1)
+        sample = gmm.sample_gmm(preds, cfg.ncenter, cfg.ndim, gumbel[i:i + 1], eps[i:i + 1],
+                                sigma_scale=float(sigma_scale))  # [1, 1, ndim]
+        out.append(sample[0, 0])
+        history = torch.cat([history[:, 1:], sample], dim=1)
+    return torch.stack(out)
 
 
 # ---------------------------------------------------------------------------

@@ -32,10 +32,32 @@ from torch.utils.checkpoint import checkpoint
 
 from livespeechportraits_torch.config import Feature2FaceConfig
 from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
 N_RES = {"normal": 1, "large": 2}
+
+
+def _conv_in(x: Tensor, conv: nn.Module) -> Tensor:
+    """x as the input of ``conv``: when the conv's output channels are split
+    over a grid's model axis (parallel.sharding.shard_params tags it with
+    ``tp_grid``), mesh.to_model_slices (its backward sums the model ranks'
+    shares of d loss / d x); else x itself, no op."""
+    grid = getattr(conv, "tp_grid", None)
+    return x if grid is None else mesh.to_model_slices(x, grid)
+
+
+def _whole(y: Tensor, conv: Optional[nn.Module]) -> Tensor:
+    """y, the output of ``conv`` after its per-channel BatchNorm and
+    activation, with all its channels: gathered over the model axis when
+    the conv is channel-sharded; else y itself, no op.  What reads the
+    gathered map (the next conv's input, a residual add, a concat, the
+    replicated to-RGB conv) is replicated over the model ranks, so its
+    gradient arrives whole on each of them and ordinary autograd carries
+    it: only the conv inputs' shares are summed (_conv_in)."""
+    grid = None if conv is None else getattr(conv, "tp_grid", None)
+    return y if grid is None else mesh.from_model_slices(y, grid)
 
 
 class ResnetBlock(nn.Module):
@@ -49,12 +71,14 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x: Tensor, training: bool = False, update_stats: bool = True) -> Tensor:
         b = self.block
-        # conv2d runs nn.Conv2d or an int8 QConv2d alike
-        y = torch.relu(nn_core.batchnorm(nn_core.conv2d(x, b[0], padding=1), b[1],
-                                         training=training, update_stats=update_stats))
-        y = nn_core.batchnorm(nn_core.conv2d(y, b[3], padding=1), b[4], training=training,
-                              update_stats=update_stats)
-        return torch.relu(x + y)
+        # conv2d runs nn.Conv2d or an int8 QConv2d alike; _conv_in / _whole
+        # are no ops unless the convs are channel-sharded
+        y = torch.relu(nn_core.batchnorm(nn_core.conv2d(_conv_in(x, b[0]), b[0], padding=1),
+                                         b[1], training=training, update_stats=update_stats))
+        y = _whole(y, b[0])
+        y = nn_core.batchnorm(nn_core.conv2d(_conv_in(y, b[3]), b[3], padding=1), b[4],
+                              training=training, update_stats=update_stats)
+        return torch.relu(x + _whole(y, b[3]))
 
 
 def checkpointed(fn, x: Tensor, update_stats: bool = True) -> Tensor:
@@ -148,20 +172,25 @@ class ResUnetBlock(nn.Module):
 
     @staticmethod
     def _run(layers, y: Tensor, training: bool, update_stats: bool) -> Tensor:
+        last = None  # the conv whose output y is, while only per-channel ops follow it
         for m in layers:
-            if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
-                y = nn_core.conv2d(y, m, stride=m.stride[0], padding=m.padding[0])
-            elif isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, nn.BatchNorm2d):
                 y = nn_core.batchnorm(y, m, training=training, update_stats=update_stats)
-            elif isinstance(m, nn.ReLU):
+                continue
+            if isinstance(m, nn.ReLU):
                 y = torch.relu(y)
+                continue
+            y, last = _whole(y, last), None
+            if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
+                y = nn_core.conv2d(_conv_in(y, m), m, stride=m.stride[0], padding=m.padding[0])
+                last = m
             elif isinstance(m, nn.Upsample):
                 y = nn_core.upsample_nearest_2x(y)
             elif isinstance(m, nn_core.REWRITES):
                 y = m(y)
             elif not isinstance(m, UpsampleAbsorbed):  # ResnetBlock
                 y = m(y, training, update_stats)
-        return y
+        return _whole(y, last)
 
 
 class ResUnetGenerator(nn.Module):
@@ -310,15 +339,16 @@ def apply_generator(model: Feature2FaceG, x: Tensor, training: bool = False,
     dtype = next(model.parameters()).dtype
     x = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
     net = model.netG.model
-    if remat is True:
-        y = checkpointed(lambda t, upd: net(t, training, upd), x)
-    elif remat:
-        if model.size not in N_RES:
-            raise NotImplementedError("remat=K names ResUNet stages; the 'small' U-Net "
-                                      "takes remat=True")
-        y = net(x, training, remat=int(remat))
-    else:
-        y = net(x, training)
+    with mesh.use_grid(getattr(model, "grid", None)):  # a channel-sharded model's grid
+        if remat is True:
+            y = checkpointed(lambda t, upd: net(t, training, upd), x)
+        elif remat:
+            if model.size not in N_RES:
+                raise NotImplementedError("remat=K names ResUNet stages; the 'small' U-Net "
+                                          "takes remat=True")
+            y = net(x, training, remat=int(remat))
+        else:
+            y = net(x, training)
     return torch.tanh(y.float()).permute(0, 2, 3, 1)
 
 
@@ -794,19 +824,23 @@ def apply_discriminator(model: Feature2FaceD, x: Tensor, training: bool = False,
     dtype = next(model.parameters()).dtype
     inp = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
     results = []
-    for k in range(model.num_D):
-        feats, y = [], inp
-        for seq in model.scale_layers(k):
-            conv = seq[0]
-            y = nn_core.conv2d(y, conv, stride=conv.stride[0], padding=conv.padding[0])
-            if len(seq) > 1 and isinstance(seq[1], nn.BatchNorm2d):
-                y = nn_core.batchnorm(y, seq[1], training=training, update_stats=update_stats)
-            if isinstance(seq[-1], nn.LeakyReLU):
-                y = nn_core.leaky_relu(y, 0.2)
-            feats.append(y.permute(0, 2, 3, 1))
-        results.append(feats)
-        if k + 1 < model.num_D:
-            inp = F.avg_pool2d(inp, 3, stride=2, padding=1, count_include_pad=False)
+    with mesh.use_grid(getattr(model, "grid", None)):  # a channel-sharded model's grid
+        for k in range(model.num_D):
+            feats, y = [], inp
+            for seq in model.scale_layers(k):
+                conv = seq[0]
+                y = nn_core.conv2d(_conv_in(y, conv), conv, stride=conv.stride[0],
+                                   padding=conv.padding[0])
+                if len(seq) > 1 and isinstance(seq[1], nn.BatchNorm2d):
+                    y = nn_core.batchnorm(y, seq[1], training=training,
+                                          update_stats=update_stats)
+                if isinstance(seq[-1], nn.LeakyReLU):
+                    y = nn_core.leaky_relu(y, 0.2)
+                y = _whole(y, conv)
+                feats.append(y.permute(0, 2, 3, 1))
+            results.append(feats)
+            if k + 1 < model.num_D:
+                inp = F.avg_pool2d(inp, 3, stride=2, padding=1, count_include_pad=False)
     return results
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from livespeechportraits_torch.parallel import mesh, multihost
+from livespeechportraits_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -187,8 +187,10 @@ def vgg_style_loss(vgg: VGG19, x: Tensor, y: Tensor,
     summed and divided by the number of chunks, as JAX's scan does, which
     equals the unchunked loss (equal chunks).  m must divide the batch;
     m >= B is the unchunked path.  In a process group the Gram matrices are
-    averaged over the ranks before the difference (mesh.all_reduce_sum), so
-    the style term is the global batch's, as are its gradients."""
+    averaged over the data ranks before the difference (mesh.all_reduce_sum
+    over the data group), so the style term is the global batch's, as are
+    its gradients; the model ranks of a grid hold the same rows and compute
+    the same loss."""
     if microbatch is None or x.shape[0] <= microbatch:
         p_loss, gx, gy = _vgg_chunk_stats(vgg, x, y.detach(), weights, style)
         n = 1
@@ -205,7 +207,7 @@ def vgg_style_loss(vgg: VGG19, x: Tensor, y: Tensor,
             gx = cx if gx is None else [a + c for a, c in zip(gx, cx)]
             gy = cy if gy is None else [a + c for a, c in zip(gy, cy)]
         p_loss = p_loss / n
-    world = multihost.world_size()
+    world = mesh.data_size()
     if world > 1:  # the Gram matrices are batch means: the global batch's
         gx = [mesh.all_reduce_sum(g) / world for g in gx]
         gy = [mesh.all_reduce_sum(g) / world for g in gy]

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from livespeechportraits_torch.ops import q8conv_cuda
-from livespeechportraits_torch.parallel import mesh, multihost
+from livespeechportraits_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -178,14 +178,18 @@ def activation_scale(layer: nn.Module, x: Tensor, *more: Tensor) -> Tensor:
     calibrated x_scale (cast to x's dtype first, as the deployed model's
     buffers are), or the dynamic amax / 127 (JAX's _quantize_activation).
     The amax is the joint one of x and ``more`` (a split conv's two
-    halves, one scale and one record for both).  Computed without
+    halves, one scale and one record for both), and in a process group the
+    max over every rank that holds a part of the conv's input
+    (mesh.split_groups: the data group, and the model group under a spatial
+    forward), as JAX's jnp.max over the global array: one all-reduce of a
+    scalar.  The calibrated x_scale takes none.  Computed without
     gradient."""
     if layer.amax_record is None and layer.x_scale is not None:
         return layer.x_scale.detach().to(x.dtype).float()
     amax = x.detach().abs().amax()
     for t in more:
         amax = torch.maximum(amax, t.detach().abs().amax())
-    amax = amax.float()
+    amax = mesh.all_reduce_max_(amax.float())
     if layer.amax_record is not None:
         layer.amax_record.append(amax)
     return torch.clamp(amax, min=1e-12) / 127.0
@@ -268,10 +272,14 @@ class QATConv2d(nn.Conv2d):
 
 def _shared_conv(cls, conv: nn.Conv2d, **kw) -> nn.Conv2d:
     """A ``cls`` conv of conv's geometry holding conv's own Parameters (and
-    its x_scale, when it has one): no new weights are allocated."""
+    its x_scale, when it has one): no new weights are allocated.  A
+    channel-sharded conv's grid (``tp_grid``, parallel.sharding) rides
+    along."""
     out = cls(conv.in_channels, conv.out_channels, conv.kernel_size, stride=conv.stride,
               padding=conv.padding, dilation=conv.dilation, groups=conv.groups,
               bias=conv.bias is not None, device="meta", **kw)
+    if getattr(conv, "tp_grid", None) is not None:
+        out.tp_grid = conv.tp_grid
     out.weight = conv.weight
     if conv.bias is not None:
         out.bias = conv.bias
@@ -740,14 +748,17 @@ def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
     the tensors it saves for the backward are those of update_stats=True,
     as torch.utils.checkpoint's recompute requires.
 
-    In a process group of more than one rank the training statistics are
-    the global batch's (_global_batchnorm), as JAX's data-parallel step is
-    the one-device program on the global batch; one rank runs F.batch_norm."""
+    When the batch is split over more than one rank (mesh.data_size: the
+    active grid's data axis, else the world) the training statistics are the
+    global batch's (_global_batchnorm), as JAX's data-parallel step is the
+    one-device program on the global batch; one rank runs F.batch_norm.  The
+    model ranks of a grid hold other channels of the same rows, so they take
+    no part in the statistics."""
     if training:
         mean, var = bn.running_mean, bn.running_var
         if not update_stats:
             mean, var = mean.clone(), var.clone()
-        if multihost.world_size() > 1:
+        if mesh.data_size() > 1:
             return _global_batchnorm(x, bn, mean, var, eps)
         return F.batch_norm(x, mean, var, bn.weight, bn.bias, training=True, momentum=0.1,
                             eps=eps)
@@ -761,17 +772,18 @@ def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
 
 def _global_batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, running_mean: Tensor,
                       running_var: Tensor, eps: float, momentum: float = 0.1) -> Tensor:
-    """Training BatchNorm on the statistics of every rank's rows, in f32 (or
-    x's dtype, if wider) and in F.batch_norm's two-pass order: the global mean (an all-reduce of the
-    sums), then the biased variance about it (an all-reduce of the squared
-    deviations).  Both all-reduces are differentiable (mesh.all_reduce_sum),
-    so each rank's gradient carries the other ranks' terms.  The running
-    variance is unbiased over the global count (the ranks' slices are
-    equal: multihost.local_batch_slice)."""
+    """Training BatchNorm on the statistics of every data rank's rows, in f32
+    (or x's dtype, if wider) and in F.batch_norm's two-pass order: the global
+    mean (an all-reduce of the sums over the data group), then the biased
+    variance about it (an all-reduce of the squared deviations).  Both
+    all-reduces are differentiable (mesh.all_reduce_sum), so each rank's
+    gradient carries the other ranks' terms.  The running variance is
+    unbiased over the global count (the ranks' slices are equal:
+    multihost.local_batch_slice)."""
     dims = [0] + list(range(2, x.dim()))
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    n = xf.numel() // xf.shape[1] * multihost.world_size()
+    n = xf.numel() // xf.shape[1] * mesh.data_size()
     mean = mesh.all_reduce_sum(xf.sum(dims)) / n
     d = xf - mean.view(shape)
     var = mesh.all_reduce_sum((d * d).sum(dims)) / n

@@ -1,16 +1,40 @@
 """3D head geometry: Euler rotations and batched landmark projection.
 
-Counterpart of ``livespeechportraits_tpu/ops/geometry.py``
-(``euler_to_rotation``, ``project_landmarks``, ``project_shoulders``).
+Counterpart of ``livespeechportraits_tpu/ops/geometry.py`` (``Camera``,
+``euler_to_rotation``, ``euler_to_rotation_grad``, ``project_landmarks``,
+``project_shoulders``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import List, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class Camera:
+    """Pinhole camera intrinsics (the reference's funcs/utils.py:15-56)."""
+
+    fx: float = 0.0
+    fy: float = 0.0
+    cx: float = 0.0
+    cy: float = 0.0
+
+    @property
+    def intrinsic(self) -> np.ndarray:
+        return np.array([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+                        dtype=np.float32)
+
+    def scaled(self, transform: np.ndarray) -> "Camera":
+        """The intrinsics under a 3x3 image-space transform (utils.py:48-56)."""
+        s = float(transform[0, 0])
+        return Camera(fx=self.fx * s, fy=self.fy * s, cx=s * self.cx + float(transform[0, 2]),
+                      cy=s * self.cy + float(transform[1, 2]))
 
 
 def euler_to_rotation(angles_deg: Tensor) -> Tensor:
@@ -27,6 +51,18 @@ def euler_to_rotation(angles_deg: Tensor) -> Tensor:
         torch.stack([-sy, cy * sx, cy * cx], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def euler_to_rotation_grad(angles_deg: Tensor) -> Tuple[Tensor, List[Tensor]]:
+    """(R, [dR/dx, dR/dy, dR/dz]) of euler_to_rotation (the reference's
+    utils.py:210-227 with gradient='true'), each [..., 3, 3] in degrees'
+    units: the forward-mode Jacobian of one frame, vmapped over [T, 3]."""
+    R = euler_to_rotation(angles_deg)
+    jac = torch.func.jacfwd(euler_to_rotation)
+    if angles_deg.dim() > 1:
+        jac = torch.func.vmap(jac)
+    J = jac(angles_deg)  # [..., 3, 3, 3]
+    return R, [J[..., 0], J[..., 1], J[..., 2]]
 
 
 def project_landmarks(camera_intrinsic: Tensor, viewpoint_R: Tensor, viewpoint_T: Tensor,

@@ -74,22 +74,25 @@ def is_primary() -> bool:
 
 
 def local_batch_slice(global_batch: int) -> slice:
-    """The rows of a global batch this rank feeds its device."""
-    n = world_size()
+    """The rows of a global batch this rank feeds its device: its data
+    rank's share (parallel.mesh's active grid; the world without one), so
+    the model ranks of one data index get the same rows."""
+    from livespeechportraits_torch.parallel import mesh  # mesh imports this module
+
+    n, i = mesh.data_size(), mesh.data_index()
     if global_batch % n or global_batch < n:
         raise ValueError(
             f"global_batch={global_batch} must be a positive multiple of "
             f"process_count={n}: truncating would silently drop rows and "
             "break the mesh's data-axis layout")
     per = global_batch // n
-    i = rank()
     return slice(i * per, (i + 1) * per)
 
 
 def shard_batch(batch: Dict[str, np.ndarray], global_batch: int) -> Dict[str, np.ndarray]:
-    """This rank's rows of a global batch.  A leaf whose leading dimension
-    is not the batch's (the subject's shared candidate stack, [1, ...]) is
-    every rank's, as JAX's shard_batch replicates it."""
+    """This rank's rows of a global batch (local_batch_slice).  A leaf whose
+    leading dimension is not the batch's (the subject's shared candidate
+    stack, [1, ...]) is every rank's, as JAX's shard_batch replicates it."""
     sl = local_batch_slice(global_batch)
     return {k: v[sl] if np.ndim(v) and np.shape(v)[0] == global_batch else v
             for k, v in batch.items()}

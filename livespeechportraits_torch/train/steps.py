@@ -25,7 +25,11 @@ discriminator, the losses, the parameters and Adam's moments stay f32.
 backward (f2f.apply_generator), ``vgg_microbatch`` chunks the VGG loss
 (losses.vgg_style_loss).  Under --qat_d the trainer hands these steps a
 discriminator tagged once (f2f.qat_discriminator), whose interior convs run
-on K4 with straight-through gradients.
+on K4 with straight-through gradients.  A generator channel-sharded over a
+(data, model) grid (parallel.sharding.shard_params) carries its grid, and
+the Feature2Face steps and losses run under it (mesh.use_grid): the
+gradients, the BatchNorm statistics and the VGG Gram matrices are reduced
+over its data axis.
 """
 
 from __future__ import annotations
@@ -42,12 +46,18 @@ from livespeechportraits_torch.models import audio2headpose as a2h
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models import losses
 from livespeechportraits_torch.ops import gmm
+from livespeechportraits_torch.parallel import mesh
 from livespeechportraits_torch.train import state
 
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
 Metrics = Dict[str, Tensor]
 Remat = Union[bool, int]
+
+
+def _grid(g: f2f.Feature2FaceG) -> Optional[mesh.Grid]:
+    """The grid a channel-sharded generator carries (None otherwise)."""
+    return getattr(g, "grid", None)
 
 
 def f2f_g_input(batch: Batch) -> Tensor:
@@ -195,12 +205,13 @@ def f2f_g_loss(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2Fac
                compute_dtype: Optional[torch.dtype] = None, remat: Remat = False,
                vgg_microbatch: Optional[int] = None) -> Tuple[Tensor, Metrics]:
     inp = f2f_g_input(batch)
-    fake = _g_forward(g, inp, True, compute_dtype, remat)
-    tgt = f2f_target(batch)
-    with torch.no_grad():  # feature matching detaches the real features
-        pred_real = f2f.apply_discriminator(d, torch.cat([inp, tgt], dim=-1))
-    pred_fake = f2f.apply_discriminator(d, torch.cat([inp, fake], dim=-1))
-    return _g_loss_terms(cfg, fake, tgt, pred_fake, pred_real, vgg, vgg_microbatch)
+    with mesh.use_grid(_grid(g)):
+        fake = _g_forward(g, inp, True, compute_dtype, remat)
+        tgt = f2f_target(batch)
+        with torch.no_grad():  # feature matching detaches the real features
+            pred_real = f2f.apply_discriminator(d, torch.cat([inp, tgt], dim=-1))
+        pred_fake = f2f.apply_discriminator(d, torch.cat([inp, fake], dim=-1))
+        return _g_loss_terms(cfg, fake, tgt, pred_fake, pred_real, vgg, vgg_microbatch)
 
 
 def _g_loss_terms(cfg: Feature2FaceConfig, fake: Tensor, tgt: Tensor, pred_fake, pred_real,
@@ -225,8 +236,9 @@ def _g_loss_terms(cfg: Feature2FaceConfig, fake: Tensor, tgt: Tensor, pred_fake,
 def f2f_d_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2FaceD,
                opt_d: torch.optim.Optimizer, batch: Batch,
                compute_dtype: Optional[torch.dtype] = None) -> Metrics:
-    loss, metrics = f2f_d_loss(cfg, g, d, batch, compute_dtype)
-    state.apply_gradients(opt_d, list(d.parameters()), loss)
+    with mesh.use_grid(_grid(g)):
+        loss, metrics = f2f_d_loss(cfg, g, d, batch, compute_dtype)
+        state.apply_gradients(opt_d, list(d.parameters()), loss)
     return metrics
 
 
@@ -234,8 +246,9 @@ def f2f_g_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature2Fac
                opt_g: torch.optim.Optimizer, batch: Batch, vgg: Optional[losses.VGG19] = None,
                compute_dtype: Optional[torch.dtype] = None, remat: Remat = False,
                vgg_microbatch: Optional[int] = None) -> Metrics:
-    loss, metrics = f2f_g_loss(cfg, g, d, batch, vgg, compute_dtype, remat, vgg_microbatch)
-    state.apply_gradients(opt_g, list(g.parameters()), loss)
+    with mesh.use_grid(_grid(g)):
+        loss, metrics = f2f_g_loss(cfg, g, d, batch, vgg, compute_dtype, remat, vgg_microbatch)
+        state.apply_gradients(opt_g, list(g.parameters()), loss)
     return metrics
 
 
@@ -253,7 +266,6 @@ def f2f_fused_losses(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Featu
     features.  remat_d runs each D tower under f2f.checkpointed."""
     inp = f2f_g_input(batch)
     tgt = f2f_target(batch)
-    fake = _g_forward(g, inp, True, compute_dtype, remat)
 
     def d_tower(pair: Tensor, update_stats: bool):
         if remat_d:
@@ -262,11 +274,13 @@ def f2f_fused_losses(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Featu
                 pair, update_stats)
         return f2f.apply_discriminator(d, pair, training=True, update_stats=update_stats)
 
-    pred_real = d_tower(torch.cat([inp, tgt], dim=-1), True)
-    pred_fake = d_tower(torch.cat([inp, fake], dim=-1), False)
-    loss_d, d_metrics = _d_loss_terms(cfg, pred_real, pred_fake)
-    loss_g, g_metrics = _g_loss_terms(cfg, fake, tgt, pred_fake, pred_real, vgg,
-                                      vgg_microbatch)
+    with mesh.use_grid(_grid(g)):
+        fake = _g_forward(g, inp, True, compute_dtype, remat)
+        pred_real = d_tower(torch.cat([inp, tgt], dim=-1), True)
+        pred_fake = d_tower(torch.cat([inp, fake], dim=-1), False)
+        loss_d, d_metrics = _d_loss_terms(cfg, pred_real, pred_fake)
+        loss_g, g_metrics = _g_loss_terms(cfg, fake, tgt, pred_fake, pred_real, vgg,
+                                          vgg_microbatch)
     return loss_d, loss_g, g_metrics | d_metrics
 
 
@@ -288,8 +302,9 @@ def f2f_fused_step(cfg: Feature2FaceConfig, g: f2f.Feature2FaceG, d: f2f.Feature
     loss_d, loss_g, metrics = f2f_fused_losses(cfg, g, d, batch, vgg, compute_dtype, remat,
                                                remat_d, vgg_microbatch)
     d_params, g_params = list(d.parameters()), list(g.parameters())
-    d_grads = state.gradients(loss_d, d_params, retain_graph=True)
-    g_grads = state.gradients(loss_g, g_params)
+    with mesh.use_grid(_grid(g)):
+        d_grads = state.gradients(loss_d, d_params, retain_graph=True)
+        g_grads = state.gradients(loss_g, g_params)
     for params, grads, opt in ((d_params, d_grads, opt_d), (g_params, g_grads, opt_g)):
         for p, grad in zip(params, grads):
             p.grad = grad

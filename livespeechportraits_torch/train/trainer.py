@@ -466,7 +466,9 @@ def train_feature2face(cfg: Feature2FaceConfig, loop: TrainLoopConfig, sampler,
     run = _Run(loop, {"G": g, "D": d}, opts, schedules, qat_mode=mode)
     opts = run.optimizers
     move = _Mover(dev)
-    panel = _panel_batch(sampler, loop, move) if run.primary else None
+    # every rank runs the panel's forward (rank 0 writes it): a QAT forward
+    # takes its activation scale over the ranks
+    panel = _panel_batch(sampler, loop, move)
     timer = _StepTimer(dev)
     for epoch in run.epochs():
         for k, s in schedules.items():
@@ -509,11 +511,14 @@ def _panel_batch(sampler, loop: TrainLoopConfig, move: _Mover) -> Optional[Dict[
     return None if b is None else move(b)
 
 
-def _display_panel(vis: Visualizer, g: nn.Module, batch: Dict[str, Tensor],
+def _display_panel(vis: Optional[Visualizer], g: nn.Module, batch: Dict[str, Tensor],
                    compute_dtype: Optional[torch.dtype], epoch: int, it: int) -> None:
     """JAX's epoch panel (trainer.py:506-517): the first sample's input edge
-    map, the eval-mode synthesized frame and the target, each in [-1, 1]."""
+    map, the eval-mode synthesized frame and the target, each in [-1, 1].
+    Every rank runs the forward; the rank with a log (``vis``) writes."""
     fake, _ = steps.f2f_validate(g, batch, compute_dtype)
+    if vis is None:
+        return
     fm = batch["feature_map"][0, ..., 0].float().cpu().numpy()
     vis.display_current_results({
         "input_feature_map": np.repeat((fm * 2.0 - 1.0)[..., None], 3, -1),

@@ -14,8 +14,14 @@ wrote (inputs.pt), runs on its own rows of each global batch:
   update under ZeRO-1 (mesh.Zero1) beside replicated Adam on the same
   gradients: the parameters, the optimizer-state bytes and the
   consolidated state dict of each;
+- the fused GAN step's losses and reduced gradients under --qat and
+  --qat_int8 (the "fq" and "fq8" generators, f32) on a global batch whose
+  second half has twice the first half's amplitude: one activation scale
+  for the global batch;
 - the Audio2Feature trainer for two epochs with data_parallel (once with
-  zero1, once without), writing checkpoints;
+  zero1, once without), writing checkpoints, and one epoch of the GAN
+  trainer with data_parallel and qat (every rank runs the epoch panel's
+  forward, whose activation scale is reduced over the ranks);
 - local_batch_slice's refusal of a global batch that does not divide.
 
 Each rank saves rank<r>.pt for the test to compare.
@@ -107,6 +113,48 @@ def gan_case(inp):
     return out
 
 
+def qat_case(inp, int8: bool):
+    """The fused step's metrics, reduced gradients and running statistics
+    with the QAT-tagged generator ("fq", or "fq8" with int8), f32, on this
+    rank's rows."""
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.parallel import multihost
+
+    g, d = gan_models(inp)
+    g = f2f.qat_generator(g, int8_forward=int8)
+    batch = tensors(multihost.shard_batch(inp["qat_batch"], GLOBAL_BATCH))
+    return gan_grads(Feature2FaceConfig(**F2F), g, d, batch)
+
+
+def gan_models(inp):
+    from livespeechportraits_torch.config import Feature2FaceConfig
+    from livespeechportraits_torch.models import feature2face as f2f
+    from livespeechportraits_torch.parallel import mesh
+
+    cfg = Feature2FaceConfig(**F2F)
+    g, d = f2f.Feature2FaceG(cfg), f2f.Feature2FaceD(cfg)
+    g.load_state_dict(inp["gan_g"])
+    d.load_state_dict(inp["gan_d"])
+    return mesh.replicate(g), mesh.replicate(d)
+
+
+def gan_grads(cfg, g, d, batch):
+    """The fused step's metrics, both networks' reduced gradients by name and
+    the running statistics after its forwards."""
+    from livespeechportraits_torch.train import state, steps
+
+    loss_d, loss_g, metrics = steps.f2f_fused_losses(cfg, g, d, batch)
+    d_grads = state.gradients(loss_d, list(d.parameters()), retain_graph=True)
+    g_grads = state.gradients(loss_g, list(g.parameters()))
+    return {"metrics": {k: v.item() for k, v in metrics.items()},
+            "d_grads": dict(zip([n for n, _ in d.named_parameters()], d_grads)),
+            "g_grads": dict(zip([n for n, _ in g.named_parameters()], g_grads)),
+            "stats": {**{f"G.{k}": v.clone() for k, v in g.state_dict().items() if "running" in k},
+                      **{f"D.{k}": v.clone() for k, v in d.state_dict().items()
+                         if "running" in k}}}
+
+
 def vgg_case(batch):
     """(perceptual, style, d (perceptual + style) / d x) of this rank's rows."""
     import torch
@@ -140,6 +188,13 @@ def trainer_runs(work):
             checkpoints_dir=os.path.join(work, "zero1" if zero1 else "replicated"),
             name="a2f", device="cpu", prefetch=0, data_parallel=True, zero1=zero1)
         trainer.train_audio2feature(cfg, loop, sampler, val)
+    from livespeechportraits_torch.config import Feature2FaceConfig
+
+    loop = trainer.TrainLoopConfig(
+        n_epochs=1, n_epochs_decay=0, batch_size=GLOBAL_BATCH, print_freq=1,
+        checkpoints_dir=os.path.join(work, "qat"), name="f2f", device="cpu", prefetch=0,
+        data_parallel=True, qat=True)
+    trainer.train_feature2face(Feature2FaceConfig(**F2F), loop, cli.synthetic_face_data(8, 32))
 
 
 def main(work: str) -> None:
@@ -174,6 +229,8 @@ def main(work: str) -> None:
                            multihost.shard_batch(inp["apc_batch"], GLOBAL_BATCH))
     out["vgg"] = vgg_case(multihost.shard_batch(inp["vgg_batch"], GLOBAL_BATCH))
     out["gan"] = gan_case(inp)
+    out["qat"] = qat_case(inp, False)
+    out["qat_int8"] = qat_case(inp, True)
     trainer_runs(work)
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     multihost.shutdown()

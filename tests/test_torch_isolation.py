@@ -15,6 +15,7 @@ import pytest
 
 from livespeechportraits_torch import config as tconfig
 from livespeechportraits_torch.ops import mel
+from livespeechportraits_torch.parallel import dryrun
 from livespeechportraits_torch.pipeline import assets
 from livespeechportraits_torch.utils import profiling
 from livespeechportraits_tpu import config as jconfig
@@ -23,7 +24,7 @@ from torch_parity import small_person_config, torch_config
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "livespeechportraits_torch"
 CONFIGS = ("PersonConfig", "APCConfig", "Audio2FeatureConfig", "Audio2HeadposeConfig",
-           "WaveNetConfig", "Feature2FaceConfig")
+           "WaveNetConfig", "Feature2FaceConfig", "MeshConfig")
 
 
 def _port_sources():
@@ -124,10 +125,19 @@ def test_config_constants_and_yaml_overlay_equal_the_jax_package(tmp_path):
 
 @pytest.mark.parametrize("fn", [assets.make_synthetic_person, assets.from_jax,
                                 assets.load_models_artifact, mel.compute_mel_sequence,
-                                profiling.link_probe],
+                                profiling.link_probe, dryrun.dryrun_multichip],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_dryrun_command_defaults_to_the_card(monkeypatch):
+    """python -m livespeechportraits_torch.parallel.dryrun runs on the card
+    unless --device cpu."""
+    seen = {}
+    monkeypatch.setattr(dryrun, "dryrun_multichip",
+                        lambda n, device: seen.update(n=n, device=device) or "line")
+    assert dryrun.main(["--ranks", "2"]) == 0 and seen == {"n": 2, "device": "cuda"}
 
 
 TOOLS = ("trace_render", "int8_probe", "render_ablate", "trace_train", "stream_latency",

@@ -111,7 +111,17 @@ def _inputs() -> dict:
         "gan_batch": {"feature_map": (rng.uniform(size=(B, H, H, 1)) > 0.8).astype(np.float32),
                       "cand_image": rng.uniform(-1, 1, (B, H, H, 12)).astype(np.float32),
                       "tgt_image": rng.uniform(-1, 1, (B, H, H, 3)).astype(np.float32)},
+        "qat_batch": _uneven_halves(rng, B, H),
     }
+
+
+def _uneven_halves(rng, B: int, H: int) -> dict:
+    """A GAN batch whose second half (rank 1's rows) has twice the first
+    half's amplitude: its activations, and so their int8 scale, are larger."""
+    amp = np.repeat([0.5, 1.0], B // 2)[:, None, None, None].astype(np.float32)
+    return {"feature_map": (rng.uniform(size=(B, H, H, 1)) > 0.8).astype(np.float32) * amp,
+            "cand_image": rng.uniform(-1, 1, (B, H, H, 12)).astype(np.float32) * amp,
+            "tgt_image": rng.uniform(-1, 1, (B, H, H, 3)).astype(np.float32) * amp}
 
 
 @pytest.fixture(scope="module")
@@ -259,6 +269,45 @@ def test_fused_gan_step_two_ranks_match_one_process(dp):
     for k, v in stats.items():
         np.testing.assert_allclose(r0["stats"][k].numpy(), v.numpy(), rtol=1e-12, atol=1e-14,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["qat", "qat_int8"])
+def test_qat_step_two_ranks_use_one_activation_scale(dp, mode):
+    """--data_parallel --qat / --qat_int8: the "fq" / "fq8" generator's
+    dynamic activation scale is the amax of the global batch
+    (nn_core.activation_scale reduces it over the ranks, as JAX's jnp.max
+    over the global array), so two ranks whose halves differ twofold in
+    amplitude take the one process's step on the global batch: the ranks'
+    mean metrics, both networks' reduced gradients and the running
+    statistics at _check_step's f32 tolerances.  With a scale per rank, each
+    half snaps to its own int8 grid and the step is another one."""
+    _, inp, ranks = dp
+    cfg = Feature2FaceConfig(**W.F2F)
+    g, d = t_f2f.Feature2FaceG(cfg), t_f2f.Feature2FaceD(cfg)
+    g.load_state_dict(inp["gan_g"])
+    d.load_state_dict(inp["gan_d"])
+    one = W.gan_grads(cfg, t_f2f.qat_generator(g, int8_forward=mode == "qat_int8"), d,
+                      _t(inp["qat_batch"]))
+    r0, r1 = ranks[0][mode], ranks[1][mode]
+    for k, v in one["metrics"].items():
+        np.testing.assert_allclose((r0["metrics"][k] + r1["metrics"][k]) / 2, v, rtol=1e-6,
+                                   err_msg=k)
+    for net, key in ((d, "d_grads"), (g, "g_grads")):
+        _check_grads(r0[key], one[key], net.state_dict(), F32_TOL, ZERO_GRAD_FLOOR)
+        for k in r0[key]:
+            assert torch.equal(r0[key][k], r1[key][k]), k
+    for k, v in one["stats"].items():
+        np.testing.assert_allclose(r0["stats"][k].numpy(), v.numpy(), rtol=0, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_qat_gan_trainer_two_ranks_writes_its_panel(dp):
+    """One epoch of the GAN trainer with data_parallel and qat: every rank
+    runs the epoch panel's forward (a lone rank would wait forever in the
+    activation scale's all-reduce), rank 0 writes it."""
+    work, _, _ = dp
+    web = work / "qat" / "f2f" / "web"
+    assert any(web.rglob("*.png")) or any(web.rglob("*.jpg")), sorted(web.rglob("*"))
 
 
 def test_vgg_style_loss_two_ranks_match_one_process(dp):
