@@ -229,14 +229,17 @@ Phases, each printing one line; any failure raises and exits non-zero:
    spawned on the one card over gloo (NCCL refuses two ranks on one card;
    gloo moves the CUDA tensors through the host).  17a, spatial: the int8
    Predictor's 'normal' renderer at 512^2, B = 16, K1's render input split
-   into 256 rows a rank, the bf16 float and the calibrated int8 renderer
-   (sharding.apply_generator_spatial), each of K4's 44 layers' output rows
-   bitwise against the one-device forward, the gathered frames within one
+   into 256 rows a rank, the bf16 float and the calibrated int8 renderer,
+   the int8 split-skip and single trees rewritten from it and the float
+   single tree (SPATIAL_TREES; sharding.apply_generator_spatial), each of
+   K4's 44 layers' output rows (the rewritten up convs' included) bitwise
+   against the one-device forward, the gathered frames within one
    level on >= GRID_FRAME_SHARE of the values, ms a forward a rank beside
    one device's, K1 / K4 launches and the bytes exchanged a forward.  17b,
    channels: the fused GAN step at 512^2 with G and D channel-sharded over
-   the two ranks: the float step in float64 (B = 2) against one process at
-   13d's tolerances; under qat and qat_int8 the eval frames (f32) within
+   the two ranks: the float step and the --qat ("fq") step in float64
+   (B = 2) against one process at 13d's tolerances; under qat and qat_int8
+   the eval frames (f32) within
    one level of one process's, then one step at B = 8 as phase 12 trains
    (bf16 G, f32 D with TF32, Adam): its ms beside one process's, K1 / K4
    launches, the parameter and optimizer bytes a rank, its losses and
@@ -245,8 +248,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
    batch whose halves differ twofold in range: one scale on both ranks, the
    eval frame's rows against one process with it and with a scale per rank
    (the fault), the step's gradients of both.  17c, beside the two ranks:
-   parallel.dryrun with 4 ranks on the card, its line.  The two ranks also
-   run 13d.
+   parallel.dryrun --ranks 4, its three lines: (2x2) on the card, then
+   (4x2) and (4x4) as CPU ranks over gloo (JAX's larger grids), whose
+   losses agree within DRYRUN_SAME_ROWS_RTOL (the same rows).  The two
+   ranks also run 13d.
 9. the kernels' JSON line (each with its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
    type, and where one PyTorch call computes the same function, that call's
@@ -281,6 +286,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3930,6 +3936,11 @@ GRID_FRAME_SHARE = 0.999  # 17a, 17b: share of frame values within one level of 
 # fault's, and each eval scale within DATA_QAT_SCALE_RTOL of one process's.
 DATA_QAT_FAKE_MARGIN = 10.0
 DATA_QAT_SCALE_RTOL = 1e-5
+# 17c: the dry run's line (JAX's format) and the loss gap of its grids of one
+# data axis, (4x2) and (4x4), which train on the same rows
+DRYRUN_LINE = re.compile(r"dryrun_multichip ok: mesh=\((\d+)x(\d+)\) loss_D=(-?\d+\.\d{4}) "
+                         r"loss_G=(-?\d+\.\d{4}) sp_render=ok int8_dp_serve=ok$")
+DRYRUN_SAME_ROWS_RTOL = 1e-4
 
 
 def _event_wall(fn, reps: int, warm: bool = True) -> float:
@@ -3947,11 +3958,17 @@ def _event_wall(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+# 17a's trees: the unrewritten bf16 and calibrated int8 renderers, the int8
+# split-skip and single trees (the forms that cut the 'large' int8 batch's
+# time: phase 16) and the float single tree
+SPATIAL_TREES = ("float", "int8", "int8_split", "int8_single", "float_single")
+
+
 def _spatial_rank(dev, work: str) -> dict:
     """17a on one of two model ranks: K1's render input of the 16 frames,
-    this rank's 256 rows, the bf16 float and the calibrated int8 renderer
-    (sharding.apply_generator_spatial), each K4 layer's output rows against
-    the one-device forward's (computed here too, on the whole batch), the
+    this rank's 256 rows, each of SPATIAL_TREES (sharding.apply_generator_spatial),
+    each K4 layer's output rows (the rewritten ones' included) against the
+    one-device forward's (computed here too, on the whole batch), the
     frames gathered, ms a forward beside one device's, K1 / K4 launches and
     the bytes exchanged a forward."""
     import torch.distributed as dist
@@ -3968,7 +3985,7 @@ def _spatial_rank(dev, work: str) -> dict:
     x = rasterize_cuda.render_input(inp["lm"], inp["sh"], inp["cand"], (size, size))
     out = {"k1_launches": rasterize_cuda.LAUNCHES, "rows": size // grid.model_size}
     slab = sharding.shard_spatial(x, grid, axis=1)
-    for name in ("float", "int8"):
+    for name in SPATIAL_TREES:
         model = inp[name]
         ref_out, orig = {}, nn_core.conv2d_q8
 
@@ -3977,25 +3994,30 @@ def _spatial_rank(dev, work: str) -> dict:
             ref_out[id(layer)] = y
             return y
 
+        hooks = [m.register_forward_hook(lambda m, i, o: ref_out.__setitem__(id(m), o))
+                 for m in model.modules() if isinstance(m, nn_core.REWRITES) and m.quantized]
         nn_core.conv2d_q8 = record
         try:
             with torch.no_grad(), mesh.use_grid(mesh.LOCAL):
                 ref = f2f.apply_generator(model, x)
         finally:
             nn_core.conv2d_q8 = orig
+            for h in hooks:
+                h.remove()
         taps = []
         q8conv_cuda.LAUNCHES = 0
         sharding.EXCHANGED_BYTES = 0
         y = sharding.apply_generator_spatial(model, slab, grid, taps=taps)
         k4 = q8conv_cuda.LAUNCHES
         exchanged = sharding.EXCHANGED_BYTES
-        q8 = [(layer, rows, r0) for layer, rows, r0 in taps
-              if isinstance(layer, nn_core.QConv2d)]
+        q8 = [(layer, rows, r0) for layer, rows, r0 in taps  # the int8 layers, on K4
+              if isinstance(layer, nn_core.QConv2d)
+              or isinstance(layer, nn_core.REWRITES) and layer.quantized]
         equal = sum(torch.equal(ref_out[id(layer)][:, :, r0:r0 + rows.shape[2]], rows)
                     for layer, rows, r0 in q8)
         frames = sharding.gather_spatial(y, grid, axis=1)
         diff = (f2f.to_uint8(frames).int() - f2f.to_uint8(ref).int()).abs()
-        ms = _event_wall(lambda: sharding.apply_generator_spatial(model, slab, grid), 5)
+        ms = _event_wall(lambda: sharding.apply_generator_spatial(model, slab, grid), 3)
         dist.barrier()
         one_ms = None
         if grid.model_index == 0:  # one device alone, the other rank waiting
@@ -4003,7 +4025,10 @@ def _spatial_rank(dev, work: str) -> dict:
                 one_ms = _event_wall(lambda: f2f.apply_generator(model, x), 5)
         dist.barrier()
         out[name] = {"k4_layers": len(q8), "k4_layers_bitwise": int(equal),
-                     "k4_launches_a_forward": k4, "one_device_k4_layers": len(ref_out),
+                     "rewritten_k4_layers": sum(isinstance(layer, nn_core.REWRITES)
+                                                for layer, _, _ in q8),
+                     "k4_launches_a_forward": k4, "k4_launches_want": f2f.k4_launches(model),
+                     "one_device_k4_layers": len(ref_out),
                      "exchanged_bytes_a_forward": exchanged,
                      "frame_share_within_1": float((diff <= 1).float().mean()),
                      "frame_max_levels": int(diff.max()), "ms": ms, "one_device_ms": one_ms,
@@ -4033,9 +4058,11 @@ def _state_bytes(ts) -> int:
 
 def _channel_rank(dev, raw, cfg, g0, d0) -> dict:
     """17b on one of two model ranks: the fused GAN step at 512^2 with G and
-    D channel-sharded.  The float step in float64 (B = 2 of the batch: each
-    of its gathers crosses the host): its losses and gathered gradients
-    against one process (rank 0 computes it) at 13d's tolerances.  Under
+    D channel-sharded.  The float step and the "fq" QAT step in float64
+    (B = 2 of the batch: each of its gathers crosses the host): their
+    losses and gathered gradients against one process (model rank 0
+    computes the float one's, rank 1 the QAT one's) at 13d's tolerances.
+    Under
     qat and qat_int8: the eval-mode frames (f32, TF32 off) against one
     process's; then one step at B = 8 as phase 12 trains (bf16 G under
     autocast, f32 D with TF32, Adam): its ms (CUDA events) beside one
@@ -4064,20 +4091,30 @@ def _channel_rank(dev, raw, cfg, g0, d0) -> dict:
         return (m, _gathered(gd, list(d.named_parameters()), d, grid),
                 _gathered(gg, list(g.named_parameters()), g, grid))
 
-    # the machinery in float64
+    # the machinery in float64: the float step, and the --qat ("fq") step,
+    # where an int8 code tips only within ~1e-15 of a rounding boundary (a
+    # gap is a fault of the sharded path); one process's gradients of each
+    # on a rank of its own at once (no collective), then the two grid steps
+    t0 = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     b64 = {k: v[:2] if v.shape[0] == 8 else v for k, v in _double(
         trainer.device_rasterize_batch(raw)).items()}
-    ref = None
-    if first:
-        with mesh.use_grid(mesh.LOCAL):  # this rank alone: no collective
-            ref = _reduced_grads(cfg, copy.deepcopy(g0).double(), copy.deepcopy(d0).double(), b64)
+    nets64 = {"float64": lambda: copy.deepcopy(g0).double(),
+              "qat_float64": lambda: f2f.qat_generator(copy.deepcopy(g0)).double()}
+    mine = list(nets64)[grid.model_index]
+    with mesh.use_grid(mesh.LOCAL):
+        ref = _reduced_grads(cfg, nets64[mine](), copy.deepcopy(d0).double(), b64)
     dist.barrier()
-    got = gathered_step(sharding.shard_params(copy.deepcopy(g0).double(), grid),
-                        sharding.shard_params(copy.deepcopy(d0).double(), grid), b64)
-    out = {"float64": errors(ref, *got) if first else None}
-    del ref, got, b64
+    out = {}
+    for what, make_g64 in nets64.items():
+        got = gathered_step(sharding.shard_params(make_g64(), grid),
+                            sharding.shard_params(copy.deepcopy(d0).double(), grid), b64)
+        if what == mine:
+            out[what] = errors(ref, *got)
+        del got
+    del ref, b64
     torch.cuda.empty_cache()
+    out["walls"] = {"float64": time.perf_counter() - t0}
     for mode, int8 in (("qat", False), ("qat_int8", True)):
         def make_g():
             return f2f.qat_generator(copy.deepcopy(g0), int8_forward=int8)
@@ -4146,6 +4183,7 @@ def _channel_rank(dev, raw, cfg, g0, d0) -> dict:
         torch.cuda.empty_cache()
         dist.barrier()
         out[mode] = res
+        out["walls"][mode] = time.perf_counter() - t0 - sum(out["walls"].values())
     return out
 
 
@@ -4241,10 +4279,15 @@ def _grid_rank(rank: int, port: int, work: str, device: str, size: int) -> None:
         t0 = time.perf_counter()
         _dp_case(rank, os.path.join(work, "dp2"), dev, size)
         out = {"dp_wall": time.perf_counter() - t0, "spatial": _spatial_rank(dev, work)}
+        walls = {"13d": out["dp_wall"], "17a": time.perf_counter() - t0 - out["dp_wall"]}
         raw = _raw_device_batch(cli.synthetic_face_data(8, size), dev)
         cfg, g0, d0 = _gan_models(dev, size)
+        t1 = time.perf_counter()
         out["channel"] = _channel_rank(dev, raw, cfg, g0, d0)
+        t2 = time.perf_counter()
         out["data_qat"] = _data_qat_rank(dev, raw, cfg, g0, d0)
+        walls.update({"17b": t2 - t1, "17d": time.perf_counter() - t2})
+        out["walls"] = walls
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
         multihost.shutdown()
@@ -4265,10 +4308,13 @@ def _grid_ranks(dev, pq, models, person, size: int) -> list:
     lm, sh, _, _, _ = animate.compute_motion(pq._cfg, person, models, video.make_test_tone(1.0))
     work = tempfile.mkdtemp()
     atexit.register(shutil.rmtree, work, True)
+    trees = {"float": f2f.cast_generator(models.feature2face, torch.bfloat16),
+             "int8": f2f.cast_generator(pq._models.feature2face, torch.bfloat16)}
+    trees["int8_split"] = f2f.split_skip_generator(trees["int8"])
+    trees["int8_single"] = f2f.subpixel_generator(trees["int8"], mode="single")
+    trees["float_single"] = f2f.subpixel_generator(trees["float"], mode="single")
     torch.save({"lm": lm[:16].cpu(), "sh": animate._shift_shoulders(person, sh[:16]).cpu(),
-                "cand": animate._cand_stack(person, size, "cpu", torch.bfloat16),
-                "float": f2f.cast_generator(models.feature2face, torch.bfloat16),
-                "int8": f2f.cast_generator(pq._models.feature2face, torch.bfloat16)},
+                "cand": animate._cand_stack(person, size, "cpu", torch.bfloat16), **trees},
                os.path.join(work, "spatial.pt"))
     torch.cuda.synchronize()
     mp.start_processes(_grid_rank, args=(free_port(), work, str(dev), size), nprocs=2,
@@ -4280,58 +4326,69 @@ def _grid_ranks(dev, pq, models, person, size: int) -> list:
 def check_model_axis(dev, pq, models, person, size: int = 512) -> dict:
     """17.  The model axis on the card.  Two ranks (spawned, gloo on cuda:0)
     run 13d, 17a (spatial: the int8 Predictor's 'normal' renderer at 512^2,
-    B = 16, in bf16 and int8, 256 rows a rank), 17b (channels: the fused
-    GAN step at 512^2, qat and qat_int8) and 17d (the activation scale over
-    two data ranks), while 17c, parallel.dryrun with 4 ranks on the card,
-    runs beside them.  Returns 13d's result and the K1 and K4 entries
-    (``spatial``, ``channel``)."""
+    B = 16, SPATIAL_TREES, 256 rows a rank), 17b (channels: the fused GAN
+    step at 512^2, float64 float and fq, qat and qat_int8) and 17d (the
+    activation scale over two data ranks), while 17c, parallel.dryrun with
+    4 ranks on the card and its 8 and 16 CPU ranks, runs beside them.
+    Returns 13d's result and the K1 and K4 entries (``spatial``,
+    ``channel``)."""
     t0 = time.perf_counter()
     # 17c in its own processes beside the two ranks (their start-up is most
-    # of its wall; its tiny net takes little of the card)
+    # of its wall; its tiny net takes little of the card), at the lowest
+    # CPU priority: its 8 and 16 CPU ranks would otherwise take the host
+    # cores that the two ranks' gloo collectives wait on (on an 8-core H100
+    # host phase 17 took 148.7 s with them at the same priority)
     here = os.path.dirname(os.path.abspath(__file__))
     dry = subprocess.Popen([sys.executable, "-m", "livespeechportraits_torch.parallel.dryrun",
                             "--ranks", "4", "--device", dev.type], cwd=here,
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    os.setpriority(os.PRIO_PROCESS, dry.pid, 19)  # before it spawns its ranks
     try:
         ranks = _grid_ranks(dev, pq, models, person, size)
+        t_ranks = time.perf_counter() - t0
         dry_out = dry.communicate(timeout=600)[0]
     finally:
         if dry.poll() is None:
             dry.kill()
             dry.communicate()
-    t_ranks = time.perf_counter() - t0
+    t_dry = time.perf_counter() - t0
     dp = check_dp_two_ranks(dev, ranks[0]["dp_work"], max(r["dp_wall"] for r in ranks), size)
     bad = []
     sp = [r["spatial"] for r in ranks]
-    for name in ("float", "int8"):
+    for name in SPATIAL_TREES:
         a, b = sp[0][name], sp[1][name]
         log(f"grid_spatial_{name}", rows_a_rank=sp[0]["rows"],
             k1_a_rank=[r["k1_launches"] for r in sp],
             k4_launches_a_forward=[a["k4_launches_a_forward"], b["k4_launches_a_forward"]],
             k4_layers_bitwise=f"{a['k4_layers_bitwise']}+{b['k4_layers_bitwise']} of "
                               f"{a['k4_layers']}+{b['k4_layers']}",
+            rewritten_k4_layers=a["rewritten_k4_layers"],
             frame_share_within_1=f"{a['frame_share_within_1']:.6f}",
             frame_max_levels=a["frame_max_levels"], share_bound=GRID_FRAME_SHARE,
             ms_a_forward=[f"{a['ms']:.3f}", f"{b['ms']:.3f}"],
-            one_device_ms=f"{a['one_device_ms']:.3f}",
+            one_device_ms=f"{a['one_device_ms']:.3f}", collectives="gloo on one card",
             exchanged_bytes_a_forward=[a["exchanged_bytes_a_forward"],
                                        b["exchanged_bytes_a_forward"]])
         if not (a["frame_share_within_1"] >= GRID_FRAME_SHARE
                 and b["frame_share_within_1"] >= GRID_FRAME_SHARE):
             bad.append(f"spatial {name}: frames {a['frame_share_within_1']}")
-        if name == "int8" and not (a["k4_layers"] == b["k4_layers"] == 44
-                                   and a["k4_layers_bitwise"] == b["k4_layers_bitwise"] == 44
-                                   and a["k4_launches_a_forward"] == 44):
-            bad.append(f"spatial int8: K4 layers {a['k4_layers_bitwise']} / "
-                       f"{b['k4_layers_bitwise']} bitwise of 44, {a['k4_launches_a_forward']} "
-                       "launches")
+        want = 44 if name.startswith("int8") else 0
+        if not ((a["rewritten_k4_layers"] > 0) == (name == "int8_split" or name == "int8_single")
+                and a["k4_layers"] == b["k4_layers"] == want
+                and a["k4_layers_bitwise"] == b["k4_layers_bitwise"] == want
+                and a["k4_launches_a_forward"] == b["k4_launches_a_forward"]
+                == a["k4_launches_want"] == want):
+            bad.append(f"spatial {name}: K4 layers {a['k4_layers_bitwise']} / "
+                       f"{b['k4_layers_bitwise']} bitwise of {want}, "
+                       f"{a['k4_launches_a_forward']} launches")
     ch = [r["channel"] for r in ranks]
     f64 = ch[0]["float64"]
-    log("grid_channel_float64", batch=2, grad_err=f"{f64['grad_err']:.3e}",
-        grad_tol=DP_TWO_RANK_TOL, loss_rel_err=f"{f64['loss_rel_err']:.3e}",
-        loss_tol=DP_LOSS_RTOL)
-    if not (f64["grad_err"] <= DP_TWO_RANK_TOL and f64["loss_rel_err"] <= DP_LOSS_RTOL):
-        bad.append(f"channel float64: {f64}")
+    for what, e in (("float64", f64), ("qat_float64", ch[1]["qat_float64"])):
+        log(f"grid_channel_{what}", batch=2, grad_err=f"{e['grad_err']:.3e}",
+            grad_tol=DP_TWO_RANK_TOL, loss_rel_err=f"{e['loss_rel_err']:.3e}",
+            loss_tol=DP_LOSS_RTOL)
+        if not (e["grad_err"] <= DP_TWO_RANK_TOL and e["loss_rel_err"] <= DP_LOSS_RTOL):
+            bad.append(f"channel {what}: {e}")
     for mode in ("qat", "qat_int8"):
         a, b = ch[0][mode], ch[1][mode]
         share = a["param_bytes"] / a["one_process_param_bytes"]
@@ -4371,11 +4428,22 @@ def check_model_axis(dev, pq, models, person, size: int = 512) -> dict:
             and rep["fake_mean_abs"] * DATA_QAT_FAKE_MARGIN <= flt["fake_mean_abs"]):
         bad.append(f"data-parallel qat_int8: one scale {one_scale}, vs one process {vs_one}, "
                    f"local ratio {halves}, frame {rep} vs per-rank {flt}")
-    line = next((x for x in dry_out.splitlines() if x.startswith("dryrun_multichip")), "")
-    log("grid_dryrun", line=repr(line), exit=dry.returncode)
-    if dry.returncode or not line.startswith("dryrun_multichip ok: mesh=(2x2)"):
+    lines = [x for x in dry_out.splitlines() if x.startswith("dryrun_multichip")]
+    for line in lines:
+        log("grid_dryrun", line=repr(line), exit=dry.returncode)
+    found = [DRYRUN_LINE.match(x) for x in lines]
+    meshes = [m and (m[1], m[2]) for m in found]
+    same_rows = (max(abs(float(found[1][k]) - float(found[2][k])) / abs(float(found[2][k]))
+                     for k in (3, 4)) if len(found) == 3 and all(found) else math.inf)
+    log("grid_dryrun_same_rows", grids="(4x2),(4x4)", loss_rel_gap=same_rows,
+        bound=DRYRUN_SAME_ROWS_RTOL)
+    if (dry.returncode or meshes != [("2", "2"), ("4", "2"), ("4", "4")]
+            or not same_rows <= DRYRUN_SAME_ROWS_RTOL):
         bad.append(f"dryrun: rc {dry.returncode}\n{dry_out[-3000:]}")
-    log("phase17", seconds=f"{time.perf_counter() - t0:.1f}", ranks_s=f"{t_ranks:.1f}")
+    log("phase17", seconds=f"{time.perf_counter() - t0:.1f}", ranks_s=f"{t_ranks:.1f}",
+        dryrun_done_s=f"{t_dry:.1f}",
+        rank_walls_s=json.dumps({k: round(v, 1) for k, v in ranks[0]["walls"].items()}),
+        walls_17b_s=json.dumps({k: round(v, 1) for k, v in ch[0]["walls"].items()}))
     if bad:
         raise AssertionError("; ".join(bad))
     sp0, ch0 = sp[0], ch[0]
@@ -4387,13 +4455,14 @@ def check_model_axis(dev, pq, models, person, size: int = 512) -> dict:
                                "one_device_ms": sp0[k]["one_device_ms"],
                                "exchanged_bytes_a_forward": sp0[k]["exchanged_bytes_a_forward"],
                                "k4_layers_bitwise": sp0[k]["k4_layers_bitwise"]}
-                           for k in ("float", "int8")},
+                           for k in SPATIAL_TREES},
                "channel": {**{m: {"launches_a_step": ch0[m]["launches_a_step"]["K4"],
                                   "step_ms": [r[m]["step_ms"] for r in ch],
                                   "one_process_step_ms": ch0[m]["one_process_step_ms"],
                                   "eval_frame_share_within_1": ch0[m]["frame_share_within_1"]}
                               for m in ("qat", "qat_int8")},
-                           "float64_grad_err": f64["grad_err"]}},
+                           "float64_grad_err": f64["grad_err"],
+                           "qat_float64_grad_err": ch[1]["qat_float64"]["grad_err"]}},
     }
 
 

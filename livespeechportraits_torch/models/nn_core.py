@@ -325,10 +325,12 @@ def _clip127(v: Tensor) -> Tensor:
 
 
 def conv2d_fakequant(x: Tensor, layer: QATConv2d, stride: int, padding: int) -> Tensor:
-    """The "fq" forward: y = conv(fq(x), fq(w)) + b in f32, fq snapping to the
-    int8 grid at the deployment scales (weights: per-output-channel amax /
-    127 of the f32 master weights; activations: the calibrated x_scale, else
-    the dynamic amax / 127), the scales stop-gradiented and the rounding
+    """The "fq" forward: y = conv(fq(x), fq(w)) + b in f32 (in float64 for a
+    float64 x: the precision checks of the sharded steps, where a code tips
+    only within ~1e-15 of a rounding boundary), fq snapping to the int8 grid
+    at the deployment scales (weights: per-output-channel amax / 127 of the
+    master weights; activations: the calibrated x_scale, else the dynamic
+    amax / 127), the scales stop-gradiented and the rounding
     straight-through.  Autocast is off inside (under the trainer's bf16
     autocast a bare conv would run in bf16); the result takes x's dtype.
     On the card cuDNN runs this f32 conv, and its gradients, in TF32 while
@@ -336,17 +338,18 @@ def conv2d_fakequant(x: Tensor, layer: QATConv2d, stride: int, padding: int) -> 
     the float discriminator's.  Calibration records the activation amax
     here, for "fq8" convs too."""
     dt = x.dtype if x.is_floating_point() else torch.float32
+    cdt = torch.float64 if dt == torch.float64 else torch.float32
     with torch.autocast(x.device.type, enabled=False):
-        w = layer.weight.float()
+        w = layer.weight.to(cdt)
         s_w = (torch.clamp(w.abs().amax(dim=(1, 2, 3), keepdim=True), min=1e-12)
                / 127.0).detach()
         w_fq = _clip127(_round_ste(w / s_w)) * s_w
-        xf = x.float()
+        xf = x.to(cdt)
         s_x = activation_scale(layer, xf)
         x_fq = _clip127(_round_ste(xf / s_x)) * s_x
         y = F.conv2d(x_fq, w_fq, stride=stride, padding=padding)
         if layer.bias is not None:
-            y = y + layer.bias.float().view(1, -1, 1, 1)
+            y = y + layer.bias.to(cdt).view(1, -1, 1, 1)
     return y.to(dt)
 
 

@@ -3,15 +3,19 @@ ZeRO-1, the spatially partitioned inference render and the frame-sharded
 int8 render, on tiny shapes.
 
 Counterpart of ``__graft_entry__.dryrun_multichip`` (``__graft_entry__.py:
-100-200``), with its mesh rule (4-way model axis from 16 ranks up, 2-way for
-an even count above 1, else 1) and its one line:
+80-200``), with its mesh rule (4-way model axis from 16 ranks up, 2-way for
+an even count above 1, else 1), its one line a grid and its larger grids:
 
     python -m livespeechportraits_torch.parallel.dryrun --ranks N [--device cpu]
 
-starts N ranks itself (one a card when there are N cards, NCCL; else every
-rank on the first card, or on the CPU, over gloo), or joins the process
-group of ``torchrun --nproc_per_node=N -m livespeechportraits_torch.parallel.dryrun``.
-Each rank runs:
+runs N ranks (it starts them itself: one a card when there are N cards,
+NCCL; else every rank on the first card, or on the CPU, over gloo; or it
+joins the process group of ``torchrun --nproc_per_node=N -m
+livespeechportraits_torch.parallel.dryrun``), then 2N and 4N ranks, up to
+32, in processes of their own: on the cards when the machine has that many
+(NCCL), else as CPU ranks over gloo, as JAX runs its larger meshes on
+virtual CPU devices.  The requested grid never leaves ``--device``.  Each
+rank runs:
 
 - the tiny GAN (32^2, 5 downsamplings, num_D 2, n_layers_D 2; ngf 8 as
   JAX's, 16 on the card, where K4 needs Cin % 16 == 0 and the second
@@ -25,16 +29,19 @@ Each rank runs:
 - the int8 renderer (feature2face.quantize_generator, K4 on the card) on
   its 2 of 2 x N frames.
 
-Losses and outputs must be finite.
+Losses and outputs must be finite, and grids of one data axis that ran the
+same net (the same kind of device) must agree in their losses within
+SAME_ROWS_RTOL: they train on the same rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import tempfile
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +51,10 @@ from livespeechportraits_torch.config import Feature2FaceConfig
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.parallel import mesh, multihost, sharding
 from livespeechportraits_torch.train import state, steps, trainer
+
+
+# Grids of one data axis train on the same rows: their losses' relative gap
+SAME_ROWS_RTOL = 1e-4
 
 
 def model_axis(n: int) -> int:
@@ -59,14 +70,13 @@ def _finite(what: str, t: torch.Tensor) -> None:
         raise AssertionError(f"dryrun_multichip: non-finite {what}")
 
 
-def run_rank(device: torch.device) -> str:
+def run_rank(device: torch.device) -> Tuple[str, Tuple[float, float]]:
     """This rank's part of the dry run in the process group (every rank calls
-    it); returns JAX's line."""
+    it): (JAX's line, the global batch's (loss_D, loss_G))."""
     n = multihost.world_size()
     grid = mesh.make_grid(model_axis(n))
-    cfg = Feature2FaceConfig(size="normal", ngf=16 if device.type == "cuda" else 8,
-                             n_downsample=5, load_size=32, num_D=2, n_layers_D=2,
-                             precision="float32")
+    cfg = Feature2FaceConfig(size="normal", ngf=_ngf(device), n_downsample=5, load_size=32,
+                             num_D=2, n_layers_D=2, precision="float32")
     gen = torch.Generator().manual_seed(0)
     g = trainer._init(f2f.Feature2FaceG(cfg), gen=gen).to(device)
     d = trainer._init(f2f.Feature2FaceD(cfg), gen=gen).to(device)
@@ -104,9 +114,15 @@ def run_rank(device: torch.device) -> str:
     with torch.no_grad():
         y_q = f2f.apply_generator(int8, torch.from_numpy(frames[2 * r:2 * r + 2]).to(device))
     _finite("int8 render", y_q)
+    loss_d, loss_g = losses.tolist()
     return (f"dryrun_multichip ok: mesh=({grid.data_size}x{grid.model_size}) "
-            f"loss_D={losses[0].item():.4f} loss_G={losses[1].item():.4f} sp_render=ok "
-            f"int8_dp_serve=ok")
+            f"loss_D={loss_d:.4f} loss_G={loss_g:.4f} sp_render=ok int8_dp_serve=ok",
+            (loss_d, loss_g))
+
+
+def _ngf(device: torch.device) -> int:
+    """JAX's 8, or 16 on the card (K4 needs Cin % 16 == 0)."""
+    return 16 if device.type == "cuda" else 8
 
 
 def _rank_device(device: str, rank: int, n: int) -> tuple:
@@ -128,10 +144,10 @@ def _spawned(rank: int, n: int, port: int, device: str, out: str) -> None:
     dev, backend = _rank_device(device, rank, n)
     dev = multihost.initialize(dev, backend=backend)
     try:
-        line = run_rank(dev)
+        line, losses = run_rank(dev)
         if rank == 0:
             with open(out, "w") as f:
-                f.write(line)
+                json.dump({"line": line, "losses": losses}, f)
     finally:
         multihost.shutdown()
 
@@ -144,26 +160,85 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_multichip(n_ranks: int, device: str = "cuda") -> str:
-    """The dry run over n_ranks ranks; returns (and the command prints) its
-    line.  In a process group (torchrun's, or one already joined) this
-    process is one rank and the group must have n_ranks; otherwise it
-    spawns n_ranks processes and waits for them."""
+def _spawn(n_ranks: int, device: str) -> Tuple[str, Tuple[float, float]]:
+    """The dry run on n_ranks processes of its own (run_rank's result).
+    CPU ranks are forked from a process outside any group (they start with
+    its imports: the 16 ranks of a (4x4) grid spend half the CPU time that
+    spawned ones do); card ranks, and any rank started from inside a group,
+    are spawned."""
+    import torch.multiprocessing as mp
+
+    fork = torch.device(device).type == "cpu" and not dist.is_initialized()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "result.json")
+        mp.start_processes(_spawned, args=(n_ranks, _free_port(), device, out), nprocs=n_ranks,
+                           start_method="fork" if fork else "spawn", join=True)
+        with open(out) as f:
+            res = json.load(f)
+    return res["line"], tuple(res["losses"])
+
+
+def larger_grids(n_ranks: int) -> List[int]:
+    """The rank counts JAX scales the validation to after n: 2n and 4n,
+    those up to 32 (``__graft_entry__.py:94-96``)."""
+    return [m for m in (2 * n_ranks, 4 * n_ranks) if n_ranks < m <= 32]
+
+
+def _larger_device(device: str, n_ranks: int) -> str:
+    """Where a larger grid runs: on the cards when there are n_ranks of them
+    (NCCL), else as CPU ranks over gloo, as JAX provisions its larger meshes
+    as virtual CPU devices."""
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() >= n_ranks:
+        return device
+    return "cpu"
+
+
+def _check_same_rows(grids: list) -> None:
+    """Grids with the same data axis that ran the same net train on the same
+    rows, so their losses agree (JAX's MULTICHIP_r05.json: (4x2) and (4x4)
+    at 3.7414 / 55.3569 and 3.7414 / 55.3570); a wider gap than
+    SAME_ROWS_RTOL is a channel-sharding fault."""
+    for i, (n, dev, losses) in enumerate(grids):
+        for m, dev2, losses2 in grids[i + 1:]:
+            if dev2 != dev or n // model_axis(n) != m // model_axis(m):
+                continue
+            rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, losses2))
+            if rel > SAME_ROWS_RTOL:
+                raise AssertionError(f"dryrun_multichip: the {n}- and {m}-rank grids train on "
+                                     f"the same rows, their losses {losses} and {losses2} "
+                                     f"differ by {rel:.3e} (relative) > {SAME_ROWS_RTOL}")
+
+
+def dryrun_multichip(n_ranks: int, device: str = "cuda") -> List[str]:
+    """The dry run over n_ranks ranks, then, as JAX's, over 2n and 4n ranks
+    (up to 32; larger_grids): one line a grid, returned (the command prints
+    them).  The requested grid runs on ``device``: in a process group
+    (torchrun's, or one already joined) this process is one of its ranks and
+    the group must have n_ranks; otherwise it spawns n_ranks processes.  The
+    larger grids spawn their own processes on the primary rank, on the cards
+    when the machine has that many (NCCL), else as CPU ranks over gloo (JAX
+    runs them on virtual CPU devices); another rank of a group returns the
+    requested grid's line alone.  Grids with the same data axis on the same
+    kind of device must agree in their losses (_check_same_rows)."""
     if dist.is_initialized() or "WORLD_SIZE" in os.environ:
         dev, backend = _rank_device(device, int(os.environ.get("LOCAL_RANK", 0)), n_ranks)
         dev = multihost.initialize(dev, backend=backend)  # joins once
         if multihost.world_size() != n_ranks:
             raise ValueError(f"the process group has {multihost.world_size()} ranks, the dry "
                              f"run asks for {n_ranks}")
-        return run_rank(dev)
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "line")
-        mp.start_processes(_spawned, args=(n_ranks, _free_port(), device, out), nprocs=n_ranks,
-                           start_method="spawn", join=True)
-        with open(out) as f:
-            return f.read()
+        line, losses = run_rank(dev)
+        if not multihost.is_primary():
+            return [line]
+    else:
+        line, losses = _spawn(n_ranks, device)
+    lines, grids = [line], [(n_ranks, torch.device(device).type, losses)]
+    for m in larger_grids(n_ranks):
+        where = _larger_device(device, m)
+        line, losses = _spawn(m, where)
+        lines.append(line)
+        grids.append((m, torch.device(where).type, losses))
+    _check_same_rows(grids)
+    return lines
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -171,9 +246,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    line = dryrun_multichip(args.ranks, args.device)
+    lines = dryrun_multichip(args.ranks, args.device)
     if multihost.is_primary():
-        print(line)
+        for line in lines:
+            print(line)
     return 0
 
 

@@ -24,9 +24,13 @@ Spatial partitioning (``shard_spatial``, ``apply_generator_spatial``,
 rows.  A 3x3 stride-1 conv takes one halo row from each neighbour (zeros at
 the image's true top and bottom), a stride-2 down conv two rows from above;
 the nearest 2x upsample, the concat, the residual add and the eval
-BatchNorm are local.  A stage whose input slab is below SPATIAL_MIN_ROWS
-rows (or odd) gathers its rows, runs whole on every rank with every stage
-inside it, and keeps its own rows of the result.  The output stays sharded,
+BatchNorm are local.  The rewritten trees (feature2face.subpixel_generator,
+s2d_input_generator, split_skip_generator) take a rule a form: an absorbed
+up conv one coarse halo row on each side of each source, the s2d input conv
+the stride-2 rule's two rows (see _Slabs.rewritten).  A stage whose input
+slab is below SPATIAL_MIN_ROWS rows (or odd) gathers its rows, runs whole
+on every rank with every stage inside it, and keeps its own rows of the
+result.  The output stays sharded,
 as JAX's does (tests/test_parallel.py:427); ``gather_spatial`` joins it.
 
 The halo exchange and the gathers are all-gathers (gloo takes them on CUDA
@@ -36,7 +40,7 @@ tensors, so two ranks can share one card, where NCCL refuses them).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,6 +48,7 @@ from torch import nn
 
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models import nn_core
+from livespeechportraits_torch.ops import q8conv_cuda
 from livespeechportraits_torch.parallel import mesh
 
 Tensor = torch.Tensor
@@ -174,33 +179,66 @@ def _slab_of(y: Tensor, grid: mesh.Grid) -> Tensor:
 
 class _Slabs:
     """The spatial forward's state: the grid, whether the current stage runs
-    whole on every rank, and the taps (conv, output rows, first row) when a
+    whole on every rank, and the taps (layer, output rows, first row) when a
     caller collects them."""
 
     def __init__(self, grid: mesh.Grid, taps: Optional[list]):
         self.grid, self.whole, self.taps = grid, False, taps
 
-    def halo(self, x: Tensor, top: int, bottom: int) -> Tuple[Tensor, Tensor]:
-        """(the ``top`` rows above this slab, the ``bottom`` rows below it):
-        the neighbours' edge rows, zeros at the image's true top and bottom;
-        one all-gather of every rank's edges."""
+    def halo(self, xs: Sequence[Tensor], top: int, bottom: int) -> List[Tuple[Tensor, Tensor]]:
+        """For each slab x of xs (one row count, one dtype): (the ``top`` rows
+        above it, the ``bottom`` rows below it), the neighbours' edge rows,
+        zeros at the image's true top and bottom; one all-gather of every
+        rank's edges of every x."""
         global EXCHANGED_BYTES
         g = self.grid
-        edges = torch.cat([x[:, :, :bottom], x[:, :, x.shape[2] - top:]], dim=2)
+        edges = torch.cat([torch.cat([x[:, :, :bottom], x[:, :, x.shape[2] - top:]], dim=2)
+                           for x in xs], dim=1)
         d = edges.permute(0, 2, 3, 1).contiguous()  # NHWC: the channels_last bytes
         parts = [torch.empty_like(d) for _ in range(g.model_size)]
         dist.all_gather(parts, d, group=g.model_group)
         EXCHANGED_BYTES += d.numel() * d.element_size()
         parts = [p.permute(0, 3, 1, 2) for p in parts]
-        j = g.model_index
-        above = parts[j - 1][:, :, bottom:] if j > 0 else x.new_zeros(
-            x.shape[0], x.shape[1], top, x.shape[3])
-        below = parts[j + 1][:, :, :bottom] if j + 1 < g.model_size else x.new_zeros(
-            x.shape[0], x.shape[1], bottom, x.shape[3])
-        return above, below
+        j, out, c0 = g.model_index, [], 0
+        for x in xs:
+            c = slice(c0, c0 + x.shape[1])
+            c0 = c.stop
+            above = parts[j - 1][:, c, bottom:] if j > 0 else x.new_zeros(
+                x.shape[0], x.shape[1], top, x.shape[3])
+            below = parts[j + 1][:, c, :bottom] if j + 1 < g.model_size else x.new_zeros(
+                x.shape[0], x.shape[1], bottom, x.shape[3])
+            out.append((above, below))
+        return out
+
+    def with_halo(self, xs: Sequence[Tensor], multiple: int = 1) -> Tuple[List[Tensor], int]:
+        """(each slab of xs with one halo row on each side, padded with zero
+        rows to a multiple of ``multiple`` rows, in channels_last memory; the
+        row where the slab's own rows start in them)."""
+        x0 = xs[0]
+        pad = -(x0.shape[2] + 2) % multiple
+        zt, zb = pad // 2, pad - pad // 2
+        out = []
+        for x, (above, below) in zip(xs, self.halo(xs, 1, 1)):
+            parts = [above, x, below]
+            if pad:
+                parts = [x.new_zeros(x.shape[0], x.shape[1], zt, x.shape[3]), *parts,
+                         x.new_zeros(x.shape[0], x.shape[1], zb, x.shape[3])]
+            out.append(torch.cat(parts, dim=2).contiguous(memory_format=torch.channels_last))
+        return out, zt + 1
+
+    def with_two_above(self, x: Tensor) -> Tensor:
+        """The slab with the two rows above it (the stride-2 rule), in
+        channels_last memory."""
+        ((above, _),) = self.halo([x], 2, 0)
+        return torch.cat([above, x], dim=2).contiguous(memory_format=torch.channels_last)
 
     def row0(self, rows: int) -> int:
         return 0 if self.whole else self.grid.model_index * rows
+
+    def tap(self, layer: nn.Module, y: Tensor) -> Tensor:
+        if self.taps is not None:
+            self.taps.append((layer, y, self.row0(y.shape[2])))
+        return y
 
     def conv(self, x: Tensor, conv: nn.Module) -> Tensor:
         """A 3x3 conv (padding 1, stride 1 or 2) of this slab: its output rows.
@@ -221,26 +259,43 @@ class _Slabs:
         if self.whole:
             y = nn_core.conv2d(x, conv, stride=stride, padding=1)
         elif stride == 1:
-            above, below = self.halo(x, 1, 1)
-            pad = -(h + 2) % 8
-            zt, zb = pad // 2, pad - pad // 2
-            parts = [above, x, below]
-            if pad:
-                parts = [x.new_zeros(x.shape[0], x.shape[1], zt, x.shape[3]), *parts,
-                         x.new_zeros(x.shape[0], x.shape[1], zb, x.shape[3])]
-            xh = torch.cat(parts, dim=2).contiguous(memory_format=torch.channels_last)
-            y = nn_core.conv2d(xh, conv, stride=1, padding=1)[:, :, zt + 1:zt + 1 + h]
+            (xh,), r = self.with_halo([x], q8conv_cuda.HALO_TR)
+            y = nn_core.conv2d(xh, conv, stride=1, padding=1)[:, :, r:r + h]
         else:
-            above, _ = self.halo(x, 2, 0)
-            xh = torch.cat([above, x], dim=2).contiguous(memory_format=torch.channels_last)
-            y = nn_core.conv2d(xh, conv, stride=2, padding=1)[:, :, 1:1 + h // 2]
-        if self.taps is not None:
-            self.taps.append((conv, y, self.row0(y.shape[2])))
-        return y
+            y = nn_core.conv2d(self.with_two_above(x), conv, stride=2, padding=1)
+            y = y[:, :, 1:1 + h // 2]
+        return self.tap(conv, y)
+
+    def rewritten(self, layer: nn.Module, *xs: Tensor) -> Tensor:
+        """A rewritten layer (nn_core.REWRITES) of this slab: its output rows.
+
+        ConvS2DDown, the outermost down conv: the stride-2 rule's two rows
+        from above, packed with the slab (an even row count) and cropped past
+        the first packed row.  An absorbed up conv (subpixel four or single,
+        dilated, split: coarse rows in, twice as many fine rows out) reads
+        coarse rows i - 1 .. i + 1 for fine rows 2i and 2i + 1 at its own
+        padding, so it takes each source (split: the skip and the inner
+        output) with a coarse halo row on each side and keeps the fine rows
+        past the first two; the single form's slab is padded with zero rows
+        to a multiple of 8 (it is a stride-1 3x3 conv, K4's halo kernel).
+        Kept rows read the one-device layer's inputs, so an int8 layer's rows
+        equal its rows bit for bit."""
+        h = xs[0].shape[2]
+        if self.whole:
+            y = layer(*xs)
+        elif isinstance(layer, nn_core.ConvS2DDown):
+            y = layer(self.with_two_above(xs[0]))[:, :, 1:1 + h // 2]
+        else:
+            multiple = q8conv_cuda.HALO_TR if isinstance(layer, nn_core.UpConvSubpixel1) else 1
+            xh, r = self.with_halo(xs, multiple)
+            y = layer(*xh)[:, :, 2 * r:2 * (r + h)]
+        return self.tap(layer, y)
 
     def run(self, layers, y: Tensor) -> Tensor:
         for m in layers:
-            if isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
+            if isinstance(m, nn_core.REWRITES):
+                y = self.rewritten(m, y)
+            elif isinstance(m, (nn.Conv2d, nn_core.QConv2d)):
                 y = self.conv(y, m)
             elif isinstance(m, nn.BatchNorm2d):
                 y = nn_core.batchnorm(y, m)
@@ -248,7 +303,7 @@ class _Slabs:
                 y = torch.relu(y)
             elif isinstance(m, nn.Upsample):
                 y = nn_core.upsample_nearest_2x(y)
-            else:  # ResnetBlock
+            elif not isinstance(m, f2f.UpsampleAbsorbed):  # ResnetBlock
                 b = m.block
                 r = torch.relu(nn_core.batchnorm(self.conv(y, b[0]), b[1]))
                 y = torch.relu(y + nn_core.batchnorm(self.conv(r, b[3]), b[4]))
@@ -268,12 +323,17 @@ class _Slabs:
             y = _slab_of(y if stage.outermost else y[1], self.grid)
             return y if stage.outermost else (x, y)
         layers = list(stage.model)
-        cut = next(i for i, m in enumerate(layers) if isinstance(m, nn.Upsample))
+        cut = next(i for i, m in enumerate(layers)
+                   if isinstance(m, (nn.Upsample, f2f.UpsampleAbsorbed)))
         inner = layers[cut - 1] if isinstance(layers[cut - 1], f2f.ResUnetBlock) else None
         down, up = layers[:cut - 1 if inner is not None else cut], layers[cut:]
         y = self.run(down, x)
         if inner is not None:
-            y = torch.cat(self.stage(inner, y), dim=1)
+            pair = self.stage(inner, y)
+            if isinstance(up[1], nn_core.UpConvSplit):  # the concat-free up conv
+                y, up = self.rewritten(up[1], *pair), up[2:]
+            else:
+                y = torch.cat(pair, dim=1)
         y = self.run(up, y)
         return y if stage.outermost else (x, y)
 
@@ -282,15 +342,9 @@ def _check_spatial(model: f2f.Feature2FaceG) -> None:
     if model.size not in f2f.N_RES:
         raise ValueError(f"the spatial forward takes the ResUNet ('normal', 'large'), not "
                          f"{model.size!r}")
-    for m in model.modules():
-        if isinstance(m, (*nn_core.REWRITES, f2f.UpsampleAbsorbed)):
-            raise ValueError(
-                f"a rewritten generator (subpixel, s2d input or split skip: "
-                f"{type(m).__name__}) under spatial partitioning is not ported; spatially "
-                "partition the unrewritten tree")
-        if getattr(m, "tp_grid", None) is not None:
-            raise ValueError("the spatial forward takes a model with whole channels "
-                             "(full_state_dict of a channel-sharded one)")
+    if any(getattr(m, "tp_grid", None) is not None for m in model.modules()):
+        raise ValueError("the spatial forward takes a model with whole channels "
+                         "(full_state_dict of a channel-sharded one)")
 
 
 @torch.no_grad()
@@ -300,9 +354,11 @@ def apply_generator_spatial(model: f2f.Feature2FaceG, x: Tensor, grid: mesh.Grid
     rank's slab of rows: x [B, H / mp, W, input_nc] NHWC (``shard_spatial(x,
     grid, axis=1)``) -> its rows of the frames [B, H / mp, W, 3] in [-1, 1],
     f32 (``gather_spatial(y, grid, axis=1)`` joins them).  Float or int8
-    (QConv2d on K4) unrewritten ResUNets; a dynamic int8 activation scale is
-    the max over the data and model ranks.  ``taps``: a list that collects
-    each conv's (layer, output rows, first global row)."""
+    (QConv2d and the int8 rewritten layers on K4) ResUNets, unrewritten or
+    rewritten (subpixel four, single or dilated, s2d input, split skip, and
+    their combinations); a dynamic int8 activation scale is the max over the
+    data and model ranks.  ``taps``: a list that collects each conv's and
+    each rewritten layer's (layer, output rows, first global row)."""
     _check_spatial(model)
     dtype = next(model.parameters()).dtype
     y = x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)

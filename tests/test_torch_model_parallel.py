@@ -24,7 +24,10 @@ sharded programs on the 8 virtual CPU devices of this process
 
 from __future__ import annotations
 
+import ast
+import copy
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -40,8 +43,10 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 import _torch_mp_worker as W
 from livespeechportraits_torch.config import Feature2FaceConfig as TConfig
 from livespeechportraits_torch.models import feature2face as t_f2f
+from livespeechportraits_torch.parallel import dryrun as t_dryrun
 from livespeechportraits_torch.parallel import mesh as t_mesh
 from livespeechportraits_torch.parallel import sharding as t_sharding
+from livespeechportraits_torch.pipeline.assets import REWRITE_FORMS
 from livespeechportraits_torch.utils.convert import params_from_jax
 from livespeechportraits_tpu.config import Feature2FaceConfig
 from livespeechportraits_tpu.models import feature2face as j_f2f
@@ -57,6 +62,8 @@ WORKER = os.path.join(REPO, "tests", "_torch_mp_worker.py")
 FWD_ATOL = 2e-5  # JAX's sharded forwards against one device
 LOSS_RTOL = 1e-4  # JAX's QAT step under a mesh against one device
 PARAM_ATOL = 5e-4
+QAT64_TOL = 1e-7  # the float64 "fq" step's gradients against one process, of their norm
+ZERO_GRAD_FLOOR = 1e-3  # a zero-true-gradient tensor: share of its network's largest norm
 
 
 def _free_port() -> int:
@@ -195,15 +202,56 @@ def test_spatial_forward_matches_jax_and_stays_sharded(grid_run):
         assert q["layers"] == q["one_device_layers"] == q["bitwise"] == 26
 
 
+def _jax_rewritten(tree: dict, form: str) -> dict:
+    """JAX assets.transform_person_models' rewrites of one generator tree."""
+    kw = REWRITE_FORMS[form]
+    if kw.get("subpixel"):
+        tree = j_f2f.subpixel_generator(tree, mode=kw["subpixel"])
+    if kw.get("s2d_input"):
+        tree = j_f2f.s2d_input_generator(tree)
+    if kw.get("split_skip"):
+        tree = j_f2f.split_skip_generator(tree)
+    return tree
+
+
+@pytest.mark.parametrize("form", W.SPATIAL_FORMS)
+def test_rewritten_spatial_forward_matches_jax_and_one_device(grid_run, form):
+    """The rewritten trees under spatial partitioning, as JAX's GSPMD forward
+    takes them: each rank's 32 rows of the float tree within 2e-5 of JAX's
+    jitted forward of JAX's own rewrite, its height over "model" and its
+    batch over "data"; and in int8 with dynamic scales every int8 layer's
+    rows, the rewritten up convs' included, bitwise the port's one-device
+    forward's, as many layers tapped as that forward runs."""
+    inp, ranks = grid_run
+    m = j_mesh.make_mesh(4)
+    tree = _jax_rewritten({"net": inp["sp_jax"]["net"], "size": "normal"}, form)
+    net = j_mesh.replicate(m, tree["net"])
+    xds = jax.device_put(jnp.asarray(inp["sp_x"]), NamedSharding(m, P("data", "model", None,
+                                                                      None)))
+    y_ref = np.asarray(jax.jit(lambda n, v: j_f2f.apply_generator(
+        {"net": n, "size": "normal"}, v)[0])(net, xds))
+    up = t_f2f.int8_up_convs(TConfig(**W.SPATIAL))
+    n_rewritten = sum(1 for *_, n_a in up if n_a) if "split" in form else len(up)
+    for r, res in enumerate(ranks):
+        got = res["spatial"]["forms"][form]
+        b, j = r // 2, r % 2
+        np.testing.assert_allclose(got["y"].numpy(), y_ref[b:b + 1, 32 * j:32 * (j + 1)],
+                                   atol=FWD_ATOL, rtol=0)
+        q = got["int8"]
+        assert q["layers"] == q["one_device_layers"] == q["bitwise"] == 26, q
+        assert q["rewritten_layers"] == n_rewritten
+
+
 def test_spatial_forward_refuses_what_it_does_not_take():
-    """A rewritten tree, a channel-sharded one and rows that do not divide
-    raise before any collective."""
+    """A channel-sharded tree and rows that do not divide raise before any
+    collective; shard_params refuses the 'small' U-Net."""
     g = t_f2f.Feature2FaceG(TConfig(**W.TP))
     one = t_mesh.make_grid(1)
     x = torch.zeros(1, 32, 32, 13)
-    with pytest.raises(ValueError, match="rewritten generator"):
-        t_sharding.apply_generator_spatial(t_f2f.subpixel_generator(g, mode="single"), x, one)
     two = t_mesh.Grid(1, 2, 0, 0, None, None, (0,), (0, 1))
+    with pytest.raises(ValueError, match="whole channels"):
+        t_sharding.apply_generator_spatial(t_sharding.shard_params(copy.deepcopy(g), two), x,
+                                           one)
     with pytest.raises(ValueError, match="divisible by the model axis"):
         t_sharding.shard_spatial(torch.zeros(1, 13, 33, 32), two)
     small = t_f2f.Feature2FaceG(TConfig(size="small", ngf=8, n_downsample=5, load_size=32))
@@ -258,6 +306,30 @@ def test_qat_gan_step_on_the_grid_matches_jax(grid_run, monkeypatch):
                 assert torch.equal(r["qat"][f"{net}_full"][k], v), (net, k)
 
 
+def test_qat_step_grads_on_the_grid_match_one_process_in_float64(grid_run):
+    """The channel-sharded "fq" fused step in float64: each network's
+    gradients, reduced over the data axis and gathered over the model axis,
+    within 1e-7 of their norm of one process's on the global batch, for G
+    and D alike (a tensor whose true gradient is zero held to 1e-3 of its
+    network's largest norm).  In float64 an int8 code tips only where a
+    value lies within ~1e-15 of a rounding boundary, so a wider gap is a
+    fault of the sharded path, not rounding.  Both data ranks reduce the
+    same gradients."""
+    _, ranks = grid_run
+    one = ranks[0]["qat64"]["one_process"]
+    for net in ("G", "D"):
+        got, want = ranks[0]["qat64"]["grid"][net], one[net]
+        assert len(got) == len(want)
+        floor = ZERO_GRAD_FLOOR * max(float(w.norm()) for w in want)
+        err = max(float((a - b).norm()) / max(float(b.norm()), floor)
+                  for a, b in zip(got, want))
+        assert err <= QAT64_TOL, (net, err)
+        assert all(a.dtype == torch.float64 for a in got)
+        for r in ranks[1:]:
+            for a, b in zip(r["qat64"]["grid"][net], got):
+                assert torch.equal(a, b), net
+
+
 def test_full_state_dict_loads_strictly_into_one_device_networks(grid_run):
     """A state dict written under the grid is the one-device networks'."""
     _, ranks = grid_run
@@ -287,9 +359,50 @@ def test_zero1_over_the_data_group_is_replicated_adam_on_half_the_state(grid_run
 
 
 def test_dryrun_multichip_on_four_cpu_ranks(grid_run):
-    """parallel.dryrun on the four ranks: the mesh rule's 2 x 2 and JAX's line."""
+    """parallel.dryrun's grid on the four ranks of a group (run_rank, what
+    dryrun_multichip runs under torchrun): the mesh rule's 2 x 2 and JAX's
+    line."""
     _, ranks = grid_run
     line = ranks[0]["dryrun"]
     assert line.startswith("dryrun_multichip ok: mesh=(2x2) loss_D=")
     assert line.endswith("sp_render=ok int8_dp_serve=ok")
     assert all(r["dryrun"] == line for r in ranks)
+
+
+DRYRUN_LINE = re.compile(r"dryrun_multichip ok: mesh=\((\d+)x(\d+)\) loss_D=(-?\d+\.\d{4}) "
+                         r"loss_G=(-?\d+\.\d{4}) sp_render=ok int8_dp_serve=ok$")
+
+
+def test_dryrun_multichip_scales_to_two_and_four_times_the_ranks():
+    """dryrun_multichip(1, device="cpu") as JAX's dryrun_multichip(1): the
+    requested (1x1) grid, then (1x2) and (2x2) on 2 and 4 CPU ranks that the
+    call spawns, one line each in JAX's format; (1x1) and (1x2) train on the
+    same rows, so their losses agree within 1e-4 relative."""
+    code = ("from livespeechportraits_torch.parallel import dryrun; "
+            "print(repr(dryrun.dryrun_multichip(1, 'cpu')))")
+    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert run.returncode == 0, run.stderr[-3000:]
+    lines = ast.literal_eval(run.stdout.strip().splitlines()[-1])
+    found = [DRYRUN_LINE.match(line) for line in lines]
+    assert all(found), lines
+    assert [(m[1], m[2]) for m in found] == [("1", "1"), ("1", "2"), ("2", "2")]
+    for k in (3, 4):
+        assert float(found[1][k]) == pytest.approx(float(found[0][k]), rel=1e-4)
+
+
+@pytest.mark.parametrize("n,want", [(1, [2, 4]), (2, [4, 8]), (4, [8, 16]), (8, [16, 32]),
+                                    (16, [32]), (32, [])])
+def test_dryrun_larger_grids_are_jaxs(n, want):
+    """JAX's n < n_big <= 32 over (2n, 4n) (__graft_entry__.py:94-96)."""
+    assert t_dryrun.larger_grids(n) == want
+
+
+def test_dryrun_holds_grids_of_one_data_axis_to_one_loss():
+    """(4x2) and (4x4) train on the same rows: a gap above 1e-4 relative
+    raises; grids of another data axis or another device are not
+    compared."""
+    t_dryrun._check_same_rows([(8, "cpu", (3.7414, 55.3569)), (16, "cpu", (3.7414, 55.3570)),
+                               (4, "cpu", (5.9, 56.4)), (16, "cuda", (6.0, 60.0))])
+    with pytest.raises(AssertionError, match="same rows"):
+        t_dryrun._check_same_rows([(8, "cpu", (3.7414, 55.3569)), (16, "cpu", (3.75, 55.3569))])
