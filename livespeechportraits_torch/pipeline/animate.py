@@ -21,9 +21,12 @@ conv's candidate half once a call, K1's edge-only input a batch.  Stages:
        transfer's encoder on the device and its decoder on the host
 
 Every stage runs on the device of the models.  ``stage_ms`` holds host
-wall-clock per stage; with ``profile=True`` each stage ends in
-``torch.cuda.synchronize()`` so the attribution is true.  The streaming
-path (``pipeline/streaming.py``) renders through the same ``FrameLink``.
+wall-clock per stage: under ``fused=True`` "motion" is the span ``motion``
+of the request's trace (utils/profiling.py), and "render_device" and
+"render" are the spans ``render`` and ``render.tail``; staged, with
+``profile=True`` each stage ends in ``torch.cuda.synchronize()`` so the
+attribution is true.  The streaming path (``pipeline/streaming.py``)
+renders through the same ``FrameLink``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from livespeechportraits_torch.models import feature2face as f2f_model
 from livespeechportraits_torch.ops import manifold, mel, rasterize_cuda
 from livespeechportraits_torch.pipeline import compress, motion_graph
 from livespeechportraits_torch.pipeline.assets import PersonAssets, PersonModels
+from livespeechportraits_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -58,7 +62,9 @@ class AnimateResult:
     headpose: np.ndarray  # [T, 6]
     pts3d: np.ndarray  # [T, 73, 3]
     nframe: int
-    # Host wall-clock per stage (device-true only with profile=True).
+    # Host wall-clock per stage: "motion" (fused), "render_device" and
+    # "render" are the request trace's spans motion, render and render.tail;
+    # the staged walls are device-true only with profile=True.
     stage_ms: Dict[str, float] = field(default_factory=dict)
     # The frames' transfer to the host: bytes fetched, pack4e refetches.
     link: Dict[str, int] = field(default_factory=dict)
@@ -216,9 +222,10 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
     (pipeline/motion_graph.py): on the card G1, G2 once a frame and G3
     replayed from CUDA graphs captured on the bucket length's first use, on
     the CPU the same functions run eagerly; the same ops as the staged
-    path, so the same results.  ``stage_ms`` then holds one "motion" entry
-    (host wall, no synchronize).  With profile=True the stages run staged,
-    as JAX's do."""
+    path, so the same results.  ``stage_ms`` then holds one "motion" entry,
+    the host wall of the trace's span ``motion`` (no synchronize; its
+    device time is the span's ``device_ms``).  With profile=True the stages
+    run staged, as JAX's do."""
     sm = stage_ms if stage_ms is not None else {}
     dev = _device_of(models)
     ff = cfg.audio2headpose.frame_future
@@ -227,10 +234,10 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
                          f"frame_future={ff} (audio too short for the bucket)")
 
     if fused and not profile:
-        t0 = time.perf_counter()
+        span = profiling.current().begin("motion", "predict")
         out = motion_graph.for_models(cfg, assets, models).run(
             audio, seed=seed, noise=headpose_noise, valid_frames=valid_frames)
-        sm["motion"] = (time.perf_counter() - t0) * 1e3
+        sm["motion"] = span.close()
         return out
 
     t0 = time.perf_counter()
@@ -353,11 +360,15 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     JPEG-class code on the device (pipeline/compress.py), which the native
     codec decodes.  On the card each batch is fetched into pinned memory
     behind its render, and the host decodes it while the device renders the
-    next batch: ``render_device`` then covers the device work and the
-    overlapped host work, ``render`` the last batch's decode.  A batch's
-    U-Net input is one K1 launch (rasterize_cuda.render_input) and no host
-    round trip, so the host queues a batch while the device still renders
-    the one before.  ``link`` receives FrameLink.stats() (summed over the
+    next batch: ``render_device`` (the trace's span ``render``) then covers
+    the device work and the overlapped host work, ``render`` (the span
+    ``render.tail``) the last batch's decode.  The span ``render``'s
+    device time runs from an event before the first batch to one after the
+    last batch's send, the longest over the render devices; the counter
+    ``frames_rendered`` counts the rows through the U-Net, padding included.
+    A batch's U-Net input is one K1 launch (rasterize_cuda.render_input) and
+    no host round trip, so the host queues a batch while the device still
+    renders the one before.  ``link`` receives FrameLink.stats() (summed over the
     devices).
 
     render_devices (JAX's ``mesh=``): each batch of render_batch frames is
@@ -381,7 +392,8 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
         raise ValueError(f"render_batch {render_batch} must divide over the data axis "
                          f"({len(devices)} devices)")
     per = render_batch // len(devices)
-    t0 = time.perf_counter()
+    trace = profiling.current()
+    render = trace.begin("render", "predict")
     nframe = landmarks2d.shape[0]
     H = W = cfg.feature2face.load_size
     shoulders2d = _shift_shoulders(assets, shoulders2d)
@@ -411,6 +423,8 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
         for k, ((_, _, _, frame_link), s) in enumerate(zip(shares, sent)):
             frames[start + k * per:start + (k + 1) * per] = frame_link.receive(s)
 
+    used = list(dict.fromkeys(devices))
+    starts = [trace.mark(d) for d in used]  # before the first batch's K1 launch
     for start in range(0, pad_to, render_batch):
         sent = []
         for k, (d, replica, cand, frame_link) in enumerate(shares):
@@ -432,12 +446,17 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
         if pending is not None:
             finish(pending)
         pending = (start, sent)
-    for d in dict.fromkeys(devices):
+    for d, begun in zip(used, starts):
+        render.time_device(begun, trace.mark(d))
+    trace.count("frames_rendered", pad_to)
+    for d in used:
         _sync(d)
-    sm["render_device"] = (time.perf_counter() - t0) * 1e3
+    sm["render_device"] = render.close()
+    trace.resolve()
+    tail = trace.begin("render.tail", "render")
     finish(pending)
     frames_u8 = frames[:nframe].numpy()
-    sm["render"] = (time.perf_counter() - t0) * 1e3 - sm["render_device"]
+    sm["render"] = tail.close()
     if link is not None:
         stats = [s[3].stats() for s in shares]
         link.update({k: sum(st[k] for st in stats) for k in stats[0]})

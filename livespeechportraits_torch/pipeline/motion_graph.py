@@ -29,6 +29,14 @@ returns.  A capture or a replay that fails raises: nothing falls back to
 eager work on the card.  On the CPU (the tests) the same three functions
 run eagerly, G2 once a frame.
 
+A request records into its trace (utils/profiling.py) the spans
+``motion.g1``, ``motion.decode`` and ``motion.g3`` (the host's enqueue;
+on the card the device time between CUDA events recorded before G1, after
+G1, after the G2 loop and after G3, the first and last also timing the
+caller's span ``motion``), a span ``motion.capture`` a capture, and the
+counters ``decode_steps`` (G2's replays, or its eager calls) and
+``graph_captures``.
+
 One decode step graph rather than one unrolled decode a bucket: a step is
 about 340 nodes, so the 10 s bucket unrolled would be about 204k nodes a
 bucket, where G2 is one small graph that every bucket and every stream
@@ -63,6 +71,7 @@ from livespeechportraits_torch.models import audio2feature as a2f_model
 from livespeechportraits_torch.models import audio2headpose as a2h_model
 from livespeechportraits_torch.ops import (device_consts, geometry, gmm, manifold, mel,
                                            recurrent_cuda, smoothing)
+from livespeechportraits_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -236,7 +245,12 @@ def capture(name: str, fn: Callable[[], object], stream: "torch.cuda.Stream", po
             device: torch.device) -> Graph:
     """Run ``fn`` once eagerly on ``stream`` (the warm-up: constant uploads,
     library handles, the kernel library), then capture it into a CUDA graph
-    in ``pool`` and instantiate it.  Raises if the capture fails."""
+    in ``pool`` and instantiate it.  Raises if the capture fails.  Inside
+    a request, a span ``motion.capture`` and the counter ``graph_captures``:
+    a bucket first used while serving stalls the request this long."""
+    trace = profiling.current()
+    span = trace.begin("motion.capture", "motion")
+    trace.count("graph_captures")
     cur = torch.cuda.current_stream(device)
     stream.wait_stream(cur)
     with torch.cuda.stream(stream):
@@ -268,6 +282,7 @@ def capture(name: str, fn: Callable[[], object], stream: "torch.cuda.Stream", po
     recurrent_cuda.GRU_LAUNCHES, recurrent_cuda.LSTM_LAUNCHES = k2, k3
     by_plan = recurrent_cuda.PLAN_LAUNCHES - plans
     recurrent_cuda.PLAN_LAUNCHES.subtract(by_plan)
+    span.close()
     return Graph(name, g, (t1 - t0) * 1e3, (t2 - t1) * 1e3, nodes,
                  {k: v for k, v in launches.items() if v},
                  torch.cuda.memory_reserved(device) - reserved, dict(by_plan))
@@ -533,16 +548,25 @@ class MotionGraphs:
             self.stage_noise(gumbel, eps)
             self.mark_staged()
             if graphs:
-                b.g1.replay()
-                g2 = self.g2_graph
-                for _ in range(nframe):
-                    g2.replay()
-                b.g3.replay()
+                g1, g2, g3 = b.g1.replay, self.g2_graph.replay, b.g3.replay
             else:
-                self.g1(b)
-                for _ in range(nframe):
-                    self.g2()
-                self.g3(b)
+                g1, g2, g3 = (lambda: self.g1(b)), self.g2, (lambda: self.g3(b))
+            trace = profiling.current()
+            stamps = [(time.time_ns(), trace.mark(self.device))]
+            g1()
+            stamps.append((time.time_ns(), trace.mark(self.device)))
+            for _ in range(nframe):
+                g2()
+            trace.count("decode_steps", nframe)
+            stamps.append((time.time_ns(), trace.mark(self.device)))
+            g3()
+            stamps.append((time.time_ns(), trace.mark(self.device)))
+            for name, (t0, e0), (t1, e1) in zip(("motion.g1", "motion.decode", "motion.g3"),
+                                                stamps, stamps[1:]):
+                trace.add(name, "motion", t0, t1, (e0, e1))
+            motion = trace.open_span("motion")
+            if motion is not None:
+                motion.time_device(stamps[0][1], stamps[-1][1])
             out = tuple(t.clone() for t in b.out)
         if post_valid is not None:
             nframe = min(nframe, post_valid)

@@ -45,6 +45,7 @@ from livespeechportraits_torch.pipeline import assets as assets_mod
 from livespeechportraits_torch.pipeline import motion_graph
 from livespeechportraits_torch.pipeline import video as video_mod
 from livespeechportraits_torch.pipeline.streaming import StreamingAnimator
+from livespeechportraits_torch.utils import profiling
 
 
 @dataclass
@@ -55,6 +56,7 @@ class PredictResult:
     stage_ms: dict
     frames: Optional[np.ndarray] = None  # [nframe, H, W, 3] uint8
     link: Optional[dict] = None  # the transfer's bytes fetched and pack4e refetches
+    trace: Optional[profiling.RequestTrace] = None  # the request's spans and counters
 
 
 class Predictor:
@@ -175,46 +177,54 @@ class Predictor:
                 transfer: str = "yuv420", write_video: bool = True) -> PredictResult:
         """audio (a wav path, or float32 in [-1, 1] at 16 kHz) -> a muxed
         video in results_dir (cleaned per request) and its frames.
-        write_video=False skips the mux (video_path '')."""
-        if self._cfg is None:
-            raise RuntimeError("call setup() first")
-        shutil.rmtree(self.results_dir, ignore_errors=True)
-        os.makedirs(self.results_dir, exist_ok=True)
-        if isinstance(driving_audio, str):
-            audio = video_mod.load_wav(driving_audio)
-            name = os.path.splitext(os.path.basename(driving_audio))[0]
-        else:
-            audio = np.asarray(driving_audio, np.float32)
-            name = "request"
-        audio = audio[: int(self.max_audio_seconds * 16000)]
+        write_video=False skips the mux (video_path '').
 
-        true_audio = audio
-        ff = self._cfg.audio2headpose.frame_future
-        true_frames = int(len(true_audio) / 16000 * 60) - ff
-        if true_frames <= 0:
-            raise ValueError(f"audio too short: {len(true_audio) / 16000:.2f}s yields "
-                             f"{true_frames} frames after the head-pose decoder's {ff}-frame "
-                             f"lookahead; send > {(ff + 1) / 60:.2f}s")
-        valid_frames = None
-        if self.bucket_seconds > 0:
-            bucket = int(self.bucket_seconds * 16000)
-            audio = np.pad(audio, (0, -(-len(audio) // bucket) * bucket - len(audio)))
-            valid_frames = int(len(true_audio) / 16000 * 60)
+        Every call, failed ones too, leaves one trace in
+        ``profiling.REQUESTS`` (``PredictResult.trace``): the span
+        ``predict`` from entry to return, the counter ``frames_returned``,
+        and what the motion half and the renderer record below it."""
+        with profiling.request() as trace:
+            if self._cfg is None:
+                raise RuntimeError("call setup() first")
+            shutil.rmtree(self.results_dir, ignore_errors=True)
+            os.makedirs(self.results_dir, exist_ok=True)
+            if isinstance(driving_audio, str):
+                audio = video_mod.load_wav(driving_audio)
+                name = os.path.splitext(os.path.basename(driving_audio))[0]
+            else:
+                audio = np.asarray(driving_audio, np.float32)
+                name = "request"
+            audio = audio[: int(self.max_audio_seconds * 16000)]
 
-        t0 = time.perf_counter()
-        # the motion half fused, as JAX's serve.py runs it
-        result = animate_mod.animate(self._cfg, self._assets, self._models, audio, seed=seed,
-                                     render_batch=render_batch, transfer=transfer,
-                                     valid_frames=valid_frames,
-                                     render_devices=self._render_devices, fused=True)
-        wall = time.perf_counter() - t0
-        frames = result.frames[:true_frames]
-        out_path = ""
-        if write_video:
-            out_path = os.path.join(self.results_dir, f"{name}.avi")
-            video_mod.write_video(frames, out_path, true_audio)
-        return PredictResult(video_path=out_path, nframe=len(frames), wall_s=wall,
-                             stage_ms=result.stage_ms, frames=frames, link=result.link)
+            true_audio = audio
+            ff = self._cfg.audio2headpose.frame_future
+            true_frames = int(len(true_audio) / 16000 * 60) - ff
+            if true_frames <= 0:
+                raise ValueError(f"audio too short: {len(true_audio) / 16000:.2f}s yields "
+                                 f"{true_frames} frames after the head-pose decoder's {ff}-frame "
+                                 f"lookahead; send > {(ff + 1) / 60:.2f}s")
+            valid_frames = None
+            if self.bucket_seconds > 0:
+                bucket = int(self.bucket_seconds * 16000)
+                audio = np.pad(audio, (0, -(-len(audio) // bucket) * bucket - len(audio)))
+                valid_frames = int(len(true_audio) / 16000 * 60)
+
+            t0 = time.perf_counter()
+            # the motion half fused, as JAX's serve.py runs it
+            result = animate_mod.animate(self._cfg, self._assets, self._models, audio, seed=seed,
+                                         render_batch=render_batch, transfer=transfer,
+                                         valid_frames=valid_frames,
+                                         render_devices=self._render_devices, fused=True)
+            wall = time.perf_counter() - t0
+            frames = result.frames[:true_frames]
+            out_path = ""
+            if write_video:
+                out_path = os.path.join(self.results_dir, f"{name}.avi")
+                video_mod.write_video(frames, out_path, true_audio)
+            trace.count("frames_returned", len(frames))
+            return PredictResult(video_path=out_path, nframe=len(frames), wall_s=wall,
+                                 stage_ms=result.stage_ms, frames=frames, link=result.link,
+                                 trace=trace)
 
     def stream(self, driving_audio: str | np.ndarray, seed: int = 0, render_batch: int = 8,
                push_samples: int = 1600, pipeline_depth: int = 1, transfer: str = "rgb",
