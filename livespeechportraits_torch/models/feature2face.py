@@ -583,9 +583,11 @@ def _fold_pair(conv, bn: nn.BatchNorm2d, eps: float) -> None:
     bn.running_var.fill_(1.0 - eps)
 
 
-def fold_bn_generator(model: Feature2FaceG, eps: float = 1e-5) -> Feature2FaceG:
+def fold_bn_generator(model: Feature2FaceG, eps: float = nn_core.BN_EPS) -> Feature2FaceG:
     """Eval-only: fold every conv -> BN pair into the conv, on a float or an
-    int8 model (for an int8 conv the fold lands on w_scale)."""
+    int8 model (for an int8 conv the fold lands on w_scale), and mark the
+    BNs it leaves at the identity (mark_folded_bn), which the eval forward
+    then skips."""
     _resunet_only(model, "fold_bn")
     q = copy.deepcopy(model)
     for m in q.modules():
@@ -597,7 +599,38 @@ def fold_bn_generator(model: Feature2FaceG, eps: float = 1e-5) -> Feature2FaceG:
             for i in range(len(seq) - 1):
                 if isinstance(seq[i + 1], nn.BatchNorm2d):
                     _fold_pair(seq[i], seq[i + 1], eps)
-    return q
+    return mark_folded_bn(q)
+
+
+def _is_identity_bn(bn: nn.modules.batchnorm._BatchNorm) -> bool:
+    """Whether bn's eval forward is the identity: scale 1, bias 0, mean 0 and
+    rsqrt(var + eps) exactly 1 in f32, as JAX's 1 - eps gives (and so in
+    bf16 and f16, where var rounds to 1)."""
+    var = bn.running_var.float()
+    return bool(torch.all(bn.weight == 1) and torch.all(bn.bias == 0)
+                and torch.all(bn.running_mean == 0)
+                and torch.all(torch.rsqrt(var + nn_core.BN_EPS) == 1))
+
+
+def mark_folded_bn(model: nn.Module) -> nn.Module:
+    """Mark, in place, each BatchNorm of ``model`` that holds the identity
+    BN folding leaves (``folded`` True; every other BatchNorm False), and
+    return the model.  One host-side check of the values, made where a tree
+    is folded (fold_bn_generator) or loaded (assets.from_jax, so also a
+    serving artifact); the mark goes with the module through copy.deepcopy
+    and .to().  nn_core.batchnorm's eval mode returns a marked BN's input
+    unchanged, the same frames bit for bit; training mode ignores the
+    mark."""
+    for m in model.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.folded = _is_identity_bn(m)
+    return model
+
+
+def folded_bn_count(model: nn.Module) -> int:
+    """The BatchNorms of ``model`` that an eval forward skips."""
+    return sum(getattr(m, "folded", False) for m in model.modules()
+               if isinstance(m, nn.modules.batchnorm._BatchNorm))
 
 
 def _convs_in_order(stage: ResUnetBlock) -> Iterator[nn.Module]:

@@ -734,16 +734,24 @@ def s2d_from_conv3x3s2(conv: nn.Conv2d) -> ConvS2DDown:
     return ConvS2DDown({"w_s2d": w_s2d}, carry["shape"], b=carry["b"])
 
 
-def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
+# The eval BatchNorm's epsilon (JAX's nn_core.batchnorm)
+BN_EPS = 1e-5
+
+
+def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = BN_EPS,
               training: bool = False, update_stats: bool = True) -> Tensor:
     """BatchNorm over channel axis 1.
 
     Eval mode (the default) uses the running stats: (x - mean) * rsqrt(var +
-    eps) * scale + bias, in x's dtype.  Training mode normalises with the
-    batch's own statistics over every axis but the channel axis (two passes:
-    the mean, then the biased variance about it) and, with update_stats,
-    moves the running stats as torch does: momentum 0.1, the biased batch
-    mean and the unbiased batch variance (JAX's nn_core.batchnorm with
+    eps) * scale + bias, in x's dtype.  A BatchNorm marked ``folded``
+    (feature2face.mark_folded_bn: BN folding left it at the identity) costs
+    nothing there: x comes back as it is, which is what the four passes
+    give in f32, bf16 and f16 (x * 1 + 0; a zero's sign aside).  Training
+    mode normalises with the batch's own statistics over every axis but the
+    channel axis (two passes: the mean, then the biased variance about it)
+    and ignores the mark; with update_stats it moves the running stats as
+    torch does: momentum 0.1, the biased batch mean and the unbiased batch
+    variance (JAX's nn_core.batchnorm with
     BN_ONEPASS off; the one-pass variance, clamped at 0, is not copied).
     update_stats=False leaves them as they are (the discriminator's second
     forward of a step, whose statistics JAX discards, and a rematerialised
@@ -765,6 +773,8 @@ def batchnorm(x: Tensor, bn: nn.modules.batchnorm._BatchNorm, eps: float = 1e-5,
             return _global_batchnorm(x, bn, mean, var, eps)
         return F.batch_norm(x, mean, var, bn.weight, bn.bias, training=True, momentum=0.1,
                             eps=eps)
+    if getattr(bn, "folded", False):
+        return x
     shape = (1, -1) + (1,) * (x.dim() - 2)
     mean = bn.running_mean.to(x.dtype).view(shape)
     var = bn.running_var.to(x.dtype).view(shape)

@@ -365,7 +365,9 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
     ``render.tail``) the last batch's decode.  The span ``render``'s
     device time runs from an event before the first batch to one after the
     last batch's send, the longest over the render devices; the counter
-    ``frames_rendered`` counts the rows through the U-Net, padding included.
+    ``frames_rendered`` counts the rows through the U-Net, padding included,
+    and ``folded_bn_skipped`` the BatchNorm layers the forwards skipped
+    (feature2face.folded_bn_count of each replica, once a batch).
     A batch's U-Net input is one K1 launch (rasterize_cuda.render_input) and
     no host round trip, so the host queues a batch while the device still
     renders the one before.  ``link`` receives FrameLink.stats() (summed over the
@@ -409,6 +411,7 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
             if split_cand:
                 cand = f2f_model.precompute_cand_down(replica, cand)
             shares.append((d, replica, cand, FrameLink(transfer, H, W, per)))
+    skipped = sum(f2f_model.folded_bn_count(s[1]) for s in shares)
 
     pad_to = -(-nframe // render_batch) * render_batch
     lm = torch.cat([landmarks2d, landmarks2d[-1:].expand(pad_to - nframe, 73, 2)])
@@ -443,6 +446,7 @@ def render_frames(cfg: PersonConfig, assets: PersonAssets, models: PersonModels,
                 sent.append(frame_link.send(img))
             if keep_feature_maps:
                 maps.append(inp[..., 0].float().to(dev))
+        trace.count("folded_bn_skipped", skipped)
         if pending is not None:
             finish(pending)
         pending = (start, sent)

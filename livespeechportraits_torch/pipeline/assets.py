@@ -112,13 +112,14 @@ def from_jax(cfg: PersonConfig, models_np: Any, device: torch.device | str = "cu
     """Load a JAX ``PersonModels`` (pytrees of numpy-convertible leaves)
     through ``params_from_jax``; every module loads with strict=True.  A
     quantized, folded or calibrated generator tree loads into the matching
-    int8 module tree."""
+    int8 module tree, its folded BatchNorms marked (f2f.mark_folded_bn)."""
     models = build_models(cfg)
     for name in MODEL_FIELDS:
         sd = params_from_jax(getattr(models_np, name))
         if name == "feature2face":
             f2f.conform_to_state_dict(models.feature2face, sd)
         getattr(models, name).load_state_dict(sd, strict=True)
+    f2f.mark_folded_bn(models.feature2face)
     return models.to(device)
 
 

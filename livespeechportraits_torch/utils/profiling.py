@@ -17,7 +17,8 @@ happens:
   ``motion.g1``, ``motion.decode``, ``motion.g3`` and ``motion.capture`` (a
   graph captured inside the request); ``decode_steps``, ``graph_captures``;
 - the renderer (``animate.render_frames``): ``render`` and ``render.tail``;
-  ``frames_rendered``.
+  ``frames_rendered``, ``folded_bn_skipped`` (the BatchNorm layers that BN
+  folding left at the identity, which the forwards skipped).
 
 ``AnimateResult.stage_ms`` reads its ``motion``, ``render_device`` and
 ``render`` entries off the spans ``motion``, ``render`` and

@@ -3,6 +3,10 @@
 calibrate transforms, each against the JAX package on the same numpy inputs
 at test widths (ngf 8, 5 downsamplings, 32^2)."""
 
+import copy
+import dataclasses
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,8 +19,9 @@ from livespeechportraits_tpu.models import nn_core as jcore
 from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.models import nn_core
 from livespeechportraits_torch.ops import q8conv_cuda
+from livespeechportraits_torch.pipeline import assets
 from livespeechportraits_torch.utils.convert import params_from_jax, params_to_jax
-from torch_parity import torch_config
+from torch_parity import small_person_config, torch_config
 
 CFG = Feature2FaceConfig(size="normal", ngf=8, n_downsample=5, load_size=32)
 
@@ -262,6 +267,102 @@ def test_calibration_errors():
             fn(q)
     with pytest.raises(NotImplementedError):
         f2f.calibrate_generator(q, torch.tensor(_inputs(19)))
+
+
+def _bn_names(model) -> set:
+    return {n for n, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)}
+
+
+def _marked(model) -> set:
+    return {n for n, m in model.named_modules() if getattr(m, "folded", False)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_skipping_folded_bns_is_bitwise(dtype):
+    """A quantized, folded and calibrated tree skips every BN the fold left
+    at the identity; its calibration scales and its frames equal, bit for
+    bit, those of the same tree with every BN applied (a copy whose marks
+    are cleared)."""
+    q = f2f.fold_bn_generator(f2f.quantize_generator(_port_generator(
+        _jax_generator(23, noisy_bn=True))))
+    full = copy.deepcopy(q)
+    for m in full.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.folded = False
+    assert _marked(q) == _bn_names(q) and len(_bn_names(q)) == f2f.folded_bn_count(q) == 25
+    assert f2f.folded_bn_count(full) == 0
+    calib = torch.tensor(_inputs(24))
+    q, full = (f2f.calibrate_generator(m, calib, compute_dtype=dtype) for m in (q, full))
+    scales = [(a, b) for a, b in zip(q.state_dict().items(), full.state_dict().items())
+              if a[0].endswith("x_scale")]
+    assert len(scales) == 26 and all(torch.equal(a[1], b[1]) for a, b in scales)
+    x = torch.tensor(_inputs(25))
+    with torch.no_grad():
+        y, y_full = (f2f.apply_generator(f2f.cast_generator(m, dtype), x) for m in (q, full))
+    assert torch.equal(y, y_full)
+    assert torch.equal(f2f.to_uint8(y), f2f.to_uint8(y_full))
+
+
+def test_a_marked_bn_still_normalises_in_training():
+    """The mark is honoured in eval mode only: training normalises with the
+    batch's statistics and moves the running stats as before."""
+    q = f2f.fold_bn_generator(_port_generator(_jax_generator(26)))
+    bn = q.netG.model.model[3].model[1]  # the second stage's down BN
+    assert bn.folded
+    x = torch.tensor(_rng(27).normal(2.0, 3.0, (4, bn.num_features, 5, 5)).astype(np.float32))
+    assert nn_core.batchnorm(x, bn) is x
+    plain = torch.nn.BatchNorm2d(bn.num_features)
+    plain.load_state_dict(bn.state_dict())
+    y = nn_core.batchnorm(x, bn, training=True)
+    torch.testing.assert_close(y, nn_core.batchnorm(x, plain, training=True), rtol=0, atol=0)
+    assert y.abs().mean() < 1.0 and not torch.allclose(y, x)
+    assert torch.equal(bn.running_mean, plain.running_mean) and bn.running_mean.abs().sum() > 0
+
+
+def _from_jax(f2f_tree):
+    """assets.from_jax on a person whose renderer is ``f2f_tree`` (the motion
+    models: the port's seed-0 init, through params_to_jax)."""
+    cfg = torch_config(dataclasses.replace(small_person_config(image_size=32),
+                                           feature2face=CFG))
+    base = assets.init_models(cfg, 0)
+    trees = {n: params_to_jax(getattr(base, n)) for n in assets.MODEL_FIELDS}
+    return cfg, assets.from_jax(cfg, types.SimpleNamespace(**dict(trees, feature2face=f2f_tree)),
+                                device="cpu")
+
+
+@pytest.mark.parametrize("source,marks", [
+    ("float", False), ("float_jax", False), ("fold_float", True), ("fold_int8", True),
+    ("jax_fold", True), ("artifact", True), ("artifact_bf16", False)])
+def test_folded_bns_are_marked_wherever_the_tree_comes_from(source, marks, tmp_path):
+    """fold_bn_generator marks every BN of the ResUNet; a folded tree
+    converted from JAX (jf2f.fold_bn_generator) or booted from a serving
+    artifact marks the same ones; an unfolded tree marks none.  A folded
+    tree cast to bf16 and written loads as f32 with var 1, whose BN is not
+    the identity in f32: it marks none."""
+    tree = _jax_generator(28, noisy_bn=True)
+    if source == "float":
+        model = f2f.mark_folded_bn(_port_generator(tree))
+    elif source == "float_jax":
+        model = _from_jax(tree)[1].feature2face
+    elif source == "fold_float":
+        model = f2f.fold_bn_generator(_port_generator(tree))
+    elif source == "fold_int8":
+        model = f2f.fold_bn_generator(f2f.quantize_generator(_port_generator(tree)))
+    elif source == "jax_fold":
+        folded = jf2f.fold_bn_generator(jf2f.quantize_generator(tree))
+        model = _from_jax(jax.tree.map(np.asarray, folded))[1].feature2face
+        assert any(isinstance(m, nn_core.QConv2d) for m in model.modules())
+    else:
+        cfg, models = _from_jax(tree)
+        net = f2f.fold_bn_generator(f2f.quantize_generator(models.feature2face))
+        if source == "artifact_bf16":
+            net = f2f.cast_generator(net, torch.bfloat16)
+        path = assets.save_models_artifact(dataclasses.replace(models, feature2face=net),
+                                           str(tmp_path / "serving.npz"))
+        model = assets.load_models_artifact(path, cfg, device="cpu").feature2face
+    assert len(_bn_names(model)) == 25
+    assert _marked(model) == (_bn_names(model) if marks else set())
+    assert f2f.folded_bn_count(model) == len(_marked(model))
 
 
 def test_recording_is_scoped_to_the_block():

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from livespeechportraits_torch import serve
+from livespeechportraits_torch.models import feature2face as f2f
 from livespeechportraits_torch.utils import profiling
 from torch_parity import small_person_config, torch_config
 
@@ -26,14 +27,15 @@ def _chirp(seconds: float) -> np.ndarray:
     return (0.3 * np.sin(2 * np.pi * f * np.arange(n) / 16000)).astype(np.float32)
 
 
-def _predictor(device: str, tmp_path_factory) -> serve.Predictor:
-    """A float Predictor at 32^2 and test widths, 1 s buckets up to 2 s."""
+def _predictor(device: str, tmp_path_factory, quantize: bool = False) -> serve.Predictor:
+    """A float (or, with quantize, an int8, folded and calibrated) Predictor
+    at 32^2 and test widths, 1 s buckets up to 2 s."""
     with pytest.MonkeyPatch.context() as mp:
         small = torch_config(small_person_config())
         mp.setattr(serve, "PersonConfig", lambda name="Synthetic": small)
         p = serve.Predictor(max_audio_seconds=2.0, bucket_seconds=1.0, device=device,
                             results_dir=str(tmp_path_factory.mktemp("trace_srv")))
-        p.setup("Synthetic", image_size=32)
+        p.setup("Synthetic", image_size=32, quantize=quantize)
     return p
 
 
@@ -88,6 +90,27 @@ def test_counters_count_the_padding(traced):
     assert c["frames_rendered"] == -(-res.nframe // BATCH) * BATCH == 80
     assert c["decode_steps"] == g2_calls == 120 - 15
     assert c["graph_captures"] == 0  # the CPU runs the functions eagerly
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_folded_bn_skipped_counts_the_skipped_layers(traced, tmp_path_factory, quantize):
+    """folded_bn_skipped: the folded BNs of the renderer (all 25 of the
+    int8 ResUNet's, none of the float one's) times the render batches, in
+    the request's counters and in program.json."""
+    pred, res, _, log_dir = traced
+    if quantize:
+        pred = _predictor("cpu", tmp_path_factory, quantize=True)
+        log_dir = tmp_path_factory.mktemp("trace_log_int8")
+        with profiling.trace(str(log_dir)):
+            res = pred.predict(_chirp(1.4), render_batch=BATCH, transfer="rgb",
+                               write_video=False)
+    marked = f2f.folded_bn_count(pred._models.feature2face)
+    assert marked == (25 if quantize else 0)
+    assert res.trace.counters["folded_bn_skipped"] == marked * 80 // BATCH
+    program = json.loads((log_dir / "program.json").read_text())
+    counters = next(e["args"]["counters"] for e in program["traceEvents"]
+                    if e["name"] == "predict" and e["tid"] == f"request {res.trace.id}")
+    assert counters["folded_bn_skipped"] == marked * 80 // BATCH
 
 
 def test_failed_calls_leave_one_record_each_and_the_ring_stays_bounded(traced):
