@@ -2,8 +2,9 @@
 the plain float32 reference of the same subject files and audio.
 
 For each checked request the reference runs the whole motion half on the
-request's own (unpadded) audio and renders the frames the run kept; each
-kept frame's squared error against the program's, in uint8 levels, is
+request's own (unpadded) audio and renders the frames the run kept, through
+the mix's transfer as the caller receives them (``reference/transfer.py``);
+each kept frame's squared error against the program's, in uint8 levels, is
 averaged over its pixels.  ``frame_mse_max`` is the worst frame's.  The
 limit of each number compared lives in the configuration's ``limits``;
 ``lspbench/control.py`` measures the readings it is set from.
@@ -12,7 +13,7 @@ limit of each number compared lives in the configuration's ``limits``;
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,16 +24,19 @@ BLOCK = 4  # frames a reference forward
 
 
 def reference_frames(c: dict, A: dict, sd: dict, audio: np.ndarray, seed: int,
-                     keep: np.ndarray, runner: Optional[nets.ConvRunner] = None) -> np.ndarray:
+                     keep: np.ndarray, runner: Optional[nets.ConvRunner] = None,
+                     transform: Callable = nets.to_uint8) -> np.ndarray:
     """The reference's uint8 frames ``keep`` of ``audio`` decoded with
-    ``seed``: float32 with TF32 off, the renderer in blocks of frames."""
+    ``seed``: float32 with TF32 off, the renderer in blocks of frames, its
+    output turned into frames by the mix's ``transform``
+    (``reference/transfer.py``)."""
     with torch.no_grad(), nets.f32_strict():
         lm, sh = motion.motion(c, A, sd, audio, seed, A["bank"].device)
         out = []
         for i in range(0, len(keep), BLOCK):
             rows = keep[i:i + BLOCK]
             x = render.render_input(lm[rows], sh[rows], A["candidates"])
-            out.append(nets.to_uint8(nets.generator(sd["f2f"], c, x, runner)).cpu().numpy())
+            out.append(transform(nets.generator(sd["f2f"], c, x, runner)).cpu().numpy())
     return np.concatenate(out)
 
 

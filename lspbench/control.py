@@ -6,7 +6,9 @@ For each seed of ``--seeds`` the program answers the seed's checked
 requests back to back, at the cell's own load (one caller), and the check's
 numbers against the float32 reference are printed: the lower readings.
 Then the control, the configuration's ``control``, answers the control
-seeds' and is held against the same reference: the upper readings.
+seeds' and is held against the same reference: the upper readings.  Both
+sides' frames come through the mix's transfer, the reference's through its
+transform (``reference/transfer.py``).
 
 - ``int8_program``: the program with its own int8 path switched on
   (``setup(quantize=True)``): the step below a bf16 renderer.
@@ -38,9 +40,10 @@ from lspbench import check, manifest, run, traffic  # noqa: E402
 def readings(cell: manifest.Cell, seeds, device: str, pred=None, runner=None):
     """Yield (seed, numbers) of the program ``pred`` or, with ``runner``, of
     the reference with that conv runner in its place."""
-    from lspbench.reference import subject
+    from lspbench.reference import subject, transfer
 
     c, mix = cell.config, cell.traffic
+    transform = transfer.TRANSFORMS[mix["transfer"]]
     A, sd = subject.read_subject(os.path.join(run.BUILD, "subjects", c["name"]), c, device)
     for seed in seeds:
         reqs = traffic.pool(mix, seed)
@@ -56,9 +59,9 @@ def readings(cell: manifest.Cell, seeds, device: str, pred=None, runner=None):
                 frames = np.arange(rec.nframe)
             else:
                 prog.append(check.reference_frames(c, A, sd, audio, run.request_seed(seed, p),
-                                                   frames, runner))
+                                                   frames, runner, transform))
             ref.append(check.reference_frames(c, A, sd, audio, run.request_seed(seed, p),
-                                              frames))
+                                              frames, transform=transform))
         yield seed, check.numbers(zip(prog, ref))
 
 

@@ -45,6 +45,8 @@ def _applies(metric: dict, cell: str) -> bool:
 def validate(m: dict, root: str = ROOT) -> List[str]:
     """Every breach of BENCHMARK.json's format that can be seen from the files;
     empty when there is none."""
+    from lspbench.reference.transfer import TRANSFORMS
+
     err: List[str] = []
     if set(m) != KEYS:
         err.append(f"keys {sorted(m)} are not {sorted(KEYS)}")
@@ -105,6 +107,12 @@ def validate(m: dict, root: str = ROOT) -> List[str]:
             err.append(f"{w['name']}: unknown config {w['config']}")
         if not os.path.exists(traffic_path(w["traffic"])):
             err.append(f"{w['name']}: no traffic file for {w['traffic']}")
+        else:
+            with open(traffic_path(w["traffic"])) as f:
+                transfer = json.load(f).get("transfer")
+            if transfer not in TRANSFORMS:
+                err.append(f"{w['name']}: the reference has no transform for the transfer "
+                           f"{transfer!r}, so its frames cannot be checked")
         if (w["config"], w["traffic"]) in pairs:
             err.append(f"{w['name']}: its config and traffic are another cell's")
         pairs.add((w["config"], w["traffic"]))

@@ -11,9 +11,9 @@ loop), as a served subject answers them under the server's device lock.
 With ``--trace 1`` a few more requests follow under torch.profiler, for
 the per-layer metrics that read the device.  Then the program is freed and
 the plain float32 reference (``lspbench/reference``) checks the frames of a
-sample of the window's requests.  The last line of standard output is the
-result; the numbers compared, beside their limits, are the last lines of
-standard error.
+sample of the window's requests, its own through the mix's transfer.  The
+last line of standard output is the result; the numbers compared, beside
+their limits, are the last lines of standard error.
 """
 
 from __future__ import annotations
@@ -260,7 +260,7 @@ def _traced(pred, reqs, audios, seed: int, first: int, mix: dict):
 def _check(c: dict, mix: dict, seed: int, records: List[Record], root: str, device: str):
     """The reference's frames of the checked requests against the program's,
     every frame: (numbers, limits)."""
-    from lspbench.reference import subject
+    from lspbench.reference import subject, transfer
 
     done = [r for r in records if r.frames is not None]
     if not done:
@@ -273,7 +273,8 @@ def _check(c: dict, mix: dict, seed: int, records: List[Record], root: str, devi
         audio = reqs[r.position % len(reqs)].audio()
         frames = int(len(audio) / 16000 * 60) - c["a2h_frame_future"]
         ref.append(check.reference_frames(c, A, sd, audio, request_seed(seed, r.position),
-                                          np.arange(frames)))
+                                          np.arange(frames),
+                                          transform=transfer.TRANSFORMS[mix["transfer"]]))
     log(f"reference: requests {[r.position for r in done]}, "
         f"{sum(r.nframe for r in done)} frames, {time.perf_counter() - t:.1f} s")
     return check.numbers(zip([r.frames for r in done], ref)), c["limits"]

@@ -6,7 +6,10 @@ the JAX package's)."""
 from __future__ import annotations
 
 import ast
+import json
 import os
+import subprocess
+import sys
 
 from lspbench import manifest
 
@@ -41,3 +44,29 @@ def test_the_reference_imports_nothing_of_the_program():
 
 def test_the_names_are_compared_whole():
     assert "livespeechportraits_torch".split(".")[0] not in JAX
+
+
+# each module of lspbench/reference/ in turn, in one fresh process: the
+# top-level names of what sys.modules gained with it, its imports' imports too
+_LOADS = """
+import importlib, json, os, sys
+here = os.path.join("lspbench", "reference")
+names = lambda: {m.split(".")[0] for m in sys.modules}
+out = {}
+for f in sorted(os.listdir(here)):
+    if f.endswith(".py"):
+        before = names()
+        importlib.import_module("lspbench.reference." + f[:-3])
+        out[f] = sorted(names() - before)
+print(json.dumps(out))
+"""
+
+
+def test_no_reference_module_loads_the_program_even_through_another():
+    env = {**os.environ, "USE_FLAX": "0", "USE_JAX": "0"}
+    done = subprocess.run([sys.executable, "-c", _LOADS], cwd=manifest.ROOT, env=env,
+                          capture_output=True, text=True, timeout=300, check=True)
+    loads = json.loads(done.stdout.strip().splitlines()[-1])
+    assert "subject.py" in loads and "transfer.py" in loads
+    bad = {f: sorted(set(m) & (JAX | {"livespeechportraits_torch"})) for f, m in loads.items()}
+    assert {f: m for f, m in bad.items() if m} == {}

@@ -29,9 +29,12 @@ LIMITS = {"obama_normal_bf16": {"frame_mse_mean": 6.0, "pixels_off8": 0.001},
           "may_large_int8": {"frame_mse_max": 600.0, "frame_mse_mean": 300.0}}
 
 
-def _cell(name: str) -> manifest.Cell:
+def _cell(name: str, **mix) -> manifest.Cell:
+    """A tiny cell of configuration ``name`` under ``serve_short`` cut to
+    1-2 s requests, with the mix's keys ``mix`` changed."""
     m = manifest.load()
-    mix = tiny_mix("serve_short", lengths={"dist": "stratified_uniform", "low": 1.0, "high": 2.0})
+    mix = tiny_mix("serve_short", **{"lengths": {"dist": "stratified_uniform", "low": 1.0,
+                                                 "high": 2.0}, **mix})
     c = tiny_config(name, limits=LIMITS[name], **MOTION)
     return manifest.Cell(f"tiny.{name}", 1, c, mix,
                          [x for x in m["end_to_end"] if x["name"] in ("setup_s", "request_p90_ms")],
