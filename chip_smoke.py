@@ -8,8 +8,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
 1. device: the card's name, torch and CUDA versions, nvidia-smi's name and
    power limit.  No CUDA device is a failure; nothing falls back to the CPU.
 2. build: nvcc builds the kernels in livespeechportraits_torch/csrc/; then
-   ptxas -v of the recurrence kernels and of K1's three instances:
-   registers and spills (none allowed).
+   ptxas -v of the recurrence kernels, of K1's instances and of K5 (the
+   head-pose decode): registers and spills (none allowed).
 2b. the kernels and aten ops that three nn_core.conv2d_q8 calls of a
    calibrated (static x_scale) bf16 layer launch: K4 alone, no quantize
    pass.
@@ -197,15 +197,20 @@ Phases, each printing one line; any failure raises and exits non-zero:
    scores), train512 (4 steps at B = 4, losses finite), link_probe and
    upload_diet.
 15. the fused motion half (pipeline/motion_graph.py) on the int8
-   Predictor's subject, 3.0 s of tone: G1, G2 (165 times) and G3 eagerly
-   under torch's sync debug mode "error"; the bucket's capture, each graph's
+   Predictor's subject, 3.0 s of tone: G1, G2 (165 decode steps in one K5
+   launch) and G3 eagerly under torch's sync debug mode "error"; the
+   bucket's capture (G1 and G3; the decode is no graph), each graph's
    nodes, capture and instantiate ms and pool bytes; fused against staged
    on the card (the landmarks and head pose bitwise or within
    FUSED_*_TOL, the first stage that differs named; frames within one
    level); K2 and K3 in a traced G1 replay and, replayed from a graph at
-   the request's shapes, against their plain twins (RNN_TOL); each graph's
-   device ms; the request through predict() against the staged request
-   (median of 3, in turns), its K2 / K3 launches inside the replay (the
+   the request's shapes, against their plain twins (RNN_TOL); K5 on the
+   primed decode against decode_step's loop on a copy of the buffers, at
+   the request's bucket (165 steps) and the 10 s bucket (585): samples,
+   rings and x_prev within DECODE_TOL, row and step equal, K5's device ms
+   beside its bound; G1's, the decode's and G3's device ms; the request
+   through predict() against the staged request (median of 3, in turns),
+   its K2 / K3 launches inside the replay and its one K5 launch (the
    counts set to 0 just before); a 3.0 s stream (chunk 32, 100 ms pushes):
    at least 3 fused chunks, frames against the per-stage stream; a float
    Predictor's boot and prewarm() capturing every bucket to 10 s.
@@ -590,11 +595,13 @@ def check_rnn_plans(launches, plans) -> None:
 
 
 def kernel_label(mangled: str):
-    """A short name for a kernel instance of K1-K3 from its mangled name,
-    e.g. 'cluster<3,4,2>' or 'rasterize<LandmarkSrc,InputOut<2,13>>' (element
-    bytes, channels); None for others."""
+    """A short name for a kernel instance of K1-K3 and K5 from its mangled
+    name, e.g. 'cluster<3,4,2>' or 'rasterize<LandmarkSrc,InputOut<2,13>>'
+    (element bytes, channels), 'headpose_decode'; None for others."""
     import re
 
+    if "headpose_decode_kernel" in mangled:
+        return "headpose_decode"
     k = re.search(r"rnn_(cluster|grid)_kernelILi(\d)E(?:Li(\d)ELi(\d)E)?", mangled)
     if k:
         return f"{k.group(1)}<{','.join(g for g in k.groups()[1:] if g)}>"
@@ -1119,11 +1126,12 @@ def check_serve(dev, tmp: str):
 
 
 def zero_launch_counts() -> None:
-    from livespeechportraits_torch.ops import q8conv_cuda, rasterize_cuda, recurrent_cuda
+    from livespeechportraits_torch.ops import (decode_cuda, q8conv_cuda, rasterize_cuda,
+                                               recurrent_cuda)
     from livespeechportraits_torch.pipeline import motion_graph
 
     rasterize_cuda.LAUNCHES = recurrent_cuda.GRU_LAUNCHES = recurrent_cuda.LSTM_LAUNCHES = 0
-    q8conv_cuda.LAUNCHES = 0
+    q8conv_cuda.LAUNCHES = decode_cuda.LAUNCHES = 0
     recurrent_cuda.PLAN_LAUNCHES.clear()
     motion_graph.REPLAYED_LAUNCHES.clear()
 
@@ -1470,7 +1478,7 @@ def check_onboard(dev, tmp: str) -> tuple:
     clips_s = time.perf_counter() - t0
     counts = launch_counts()
     add(counts)
-    if counts != {"K1": math.ceil(600 / 32), "K2": 0, "K3": 0, "K4": 0}:
+    if counts != {"K1": math.ceil(600 / 32), "K2": 0, "K3": 0, "K4": 0, "K5": 0}:
         raise AssertionError(f"onboard clips: launches {counts}, want K1 {math.ceil(600 / 32)}")
     # K1's f32 plane at the clips' batch: the first batch's table, bitwise
     # against the plain twin on the card, timed beside the bound
@@ -1535,7 +1543,7 @@ def check_onboard(dev, tmp: str) -> tuple:
         launches=json.dumps(counts), bank_rows=bank.shape[0], bank_max_abs_err=f"{bank_err:.3e}",
         tol=RNN_TOL, files=len(ours), files_differing=json.dumps(differ),
         manifest=json.dumps(manifest))
-    if counts != {"K1": 0, "K2": 6, "K3": 0, "K4": 0} or bank.shape != (2160, 512):
+    if counts != {"K1": 0, "K2": 6, "K3": 0, "K4": 0, "K5": 0} or bank.shape != (2160, 512):
         raise AssertionError(f"onboard pack: launches {counts}, bank {bank.shape}")
     if not bank_err <= RNN_TOL or differ or sorted(ours) != sorted(theirs):
         raise AssertionError(f"onboard pack: bank error {bank_err}, files differing {differ}")
@@ -1768,7 +1776,7 @@ def check_training(dev, tmp: str) -> tuple:
         best_val_l1=res.best_val, launches=json.dumps(counts), val_batches=val_batches,
         k1_mismatched=mismatched, k1=json.dumps({k: (round(v, 5) if isinstance(v, float) else v)
                                                  for k, v in k1.items()}))
-    if counts != {"K1": len(ms) + val_batches + 1, "K2": 0, "K3": 0, "K4": 0}:
+    if counts != {"K1": len(ms) + val_batches + 1, "K2": 0, "K3": 0, "K4": 0, "K5": 0}:
         raise AssertionError(f"train feature2face: launches {counts}, want K1 one a step "
                              f"({len(ms)}), one a validation batch ({val_batches}) and one "
                              "for the epoch panel's batch")
@@ -2034,7 +2042,7 @@ def check_qat(dev, tmp: str, sampler) -> dict:
     # the epoch panel: its batch's edge maps once a run (K1), G's 44 tagged
     # convs once an epoch (K4)
     want = {"K1": n_steps + val + 1, "K2": 0, "K3": 0,
-            "K4": 112 * n_steps + 44 * val + 44 * 2}
+            "K4": 112 * n_steps + 44 * val + 44 * 2, "K5": 0}
     if counts != want:
         raise AssertionError(f"QAT training launches {counts}, want {want}")
     if not (all(np.isfinite(v).all() and v for v in losses.values()) and moved
@@ -2657,9 +2665,9 @@ def check_demo_cli(tmp: str, train_dir: str) -> dict:
             bad.append(f"{name}: exit {out[name]['exit']}, counts {c}")
     k = out["artifact"]["launches"]
     batches = -(-n // 16)
-    if k != {"K1": batches, "K2": 3, "K3": 3, "K4": 44 * batches}:
+    if k != {"K1": batches, "K2": 3, "K3": 3, "K4": 44 * batches, "K5": 1}:
         bad.append(f"artifact run launched {k}, expected K1 {batches}, K2 3, K3 3, K4 "
-                   f"{44 * batches}")
+                   f"{44 * batches}, K5 1")
     d = out["no_calibrate_ckpts"]
     if d["exit"] or d["launches"]["K4"] != 44 * batches or d["counts"].get(
             "feature_map_video") != n:
@@ -3260,6 +3268,58 @@ def check_tools(dev, tmp: str, cfg, person, models) -> dict:
 FUSED_LANDMARK_TOL_PX = 1e-4
 FUSED_HEADPOSE_TOL = 1e-5
 FUSED_FRAME_LEVELS = 1
+# K5 against decode_step's loop on the same buffers, f32: the kernel sums in
+# another order and the decode feeds each sample back (measured on an H100:
+# 1.79e-7 on the samples of a 10 s decode of lspbench's may_large_int8
+# subject); about 10x that, as tests/test_torch_cuda.py's DECODE_TOL
+DECODE_TOL = 2e-6
+DECODE_STATE = ("samples", "ring_flat", "x_prev", "row", "step")
+
+
+def k5_bound(steps: int, ncenter: int):
+    """K5's bound for a decode of ``steps`` steps (ms, what sets it): two
+    f32 operations a weight of the WaveNet's matrices a step (the filter
+    and gate taps on x_old and h, the residual, skip, start and end convs),
+    and the bytes of the packed weights read once plus a step's rows (the
+    filter and gate projections, the noise read, the sample written)."""
+    from livespeechportraits_torch.ops import decode_cuda as dc
+
+    L, R, S, I = dc.LAYERS * dc.BLOCKS, dc.RES, dc.SKIP, dc.INPUT
+    E = (2 * I + 1) * ncenter
+    weights = L * R * (5 * R + S) + R * (I + R) + E * (S + E)
+    biases = L * (3 * R + S) + 2 * R + 2 * E
+    nbytes = 4 * (weights + biases + steps * (2 * L * R + ncenter + 2 * I))
+    return bound(nbytes, 2 * weights * steps, "f32")
+
+
+def check_decode_kernel(dev, mg, b, smi: str) -> float:
+    """K5 on bucket b's decode, primed by G1's replay (its audio and noise
+    staged by the last request of that length), against decode_step's loop
+    on a copy of the primed buffers: the samples, rings and x_prev within
+    DECODE_TOL, row and step equal.  Logs K5's device ms (CUDA events, the
+    compared launch) beside its bound; returns the ms."""
+    from livespeechportraits_torch.models import audio2headpose as a2h_model
+
+    model, a2h = mg.models.audio2headpose, mg.cfg.audio2headpose
+    with torch.no_grad():
+        b.g1.replay()
+        twin = a2h_model.DecodeBuffers(model, a2h, mg.dec.rows, dev)
+        for name in DECODE_STATE + ("fproj", "gproj", "gumbel", "eps"):
+            getattr(twin, name).copy_(getattr(mg.dec, name))
+        k5_ms = _event_ms(lambda: mg.g2(b.nframe))
+        for _ in range(b.nframe):
+            a2h_model.decode_step(model, a2h, twin, mg.sigma_scale)
+    torch.cuda.synchronize()
+    err = {k: _max_diff(getattr(mg.dec, k), getattr(twin, k)) for k in DECODE_STATE}
+    bound_ms, by = k5_bound(b.nframe, a2h.ncenter)
+    log("decode_kernel", steps=b.nframe, **{f"{k}_max": f"{v:.3e}" for k, v in err.items()},
+        tol=DECODE_TOL, samples_scale=f"{float(twin.samples[:b.nframe].abs().max()):.4f}",
+        row=int(mg.dec.row), k5_ms=f"{k5_ms:.4f}", us_per_step=f"{1e3 * k5_ms / b.nframe:.3f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=by, share=f"{bound_ms / k5_ms:.4f}", card=repr(smi))
+    if (any(err[k] > DECODE_TOL for k in ("samples", "ring_flat", "x_prev")) or err["row"]
+            or err["step"] or int(mg.dec.row) != b.nframe):
+        raise AssertionError(f"K5 over {b.nframe} steps against decode_step's loop: {err}")
+    return k5_ms
 
 
 def _max_diff(a, b) -> float:
@@ -3327,13 +3387,16 @@ def check_graph_recurrences(dev, mg, cfg, models, mel80, feats) -> dict:
 
 def check_fused_motion(dev, pq, smi: str) -> dict:
     """15.  The fused motion half (pipeline/motion_graph.py) on the int8
-    Predictor's subject at full width, 3.0 s of tone: (1) G1, G2 and G3
-    once eagerly under torch's sync debug mode "error"; (2) the bucket's
-    capture: each graph's nodes, capture and instantiate ms and pool
-    bytes; (3) fused against staged on the card (landmarks and head pose
-    bitwise, or within FUSED_*_TOL with the first stage that differs
-    named; frames within one level); (4) K2 and K3 in a profiled G1 replay,
-    and replayed from a graph against their plain twins; (5) the request's
+    Predictor's subject at full width, 3.0 s of tone: (1) G1, G2 (one K5
+    launch) and G3 once eagerly under torch's sync debug mode "error"; (2)
+    the bucket's capture of G1 and G3: each graph's nodes, capture and
+    instantiate ms and pool bytes (the decode is no graph); (3) fused
+    against staged on the card (landmarks and head pose bitwise, or within
+    FUSED_*_TOL with the first stage that differs named; frames within one
+    level); (4) K2 and K3 in a profiled G1 replay,
+    and replayed from a graph against their plain twins; K5 against
+    decode_step's loop at the request's bucket and at the 10 s bucket
+    (DECODE_TOL), its device ms beside its bound; (5) the request's
     motion ms and wall against the staged stages, median of 3, in turns;
     (6) a 3.0 s stream: its fused chunks engage and equal the per-stage
     stream; (7) a Predictor boot that captures every bucket to 10 s.
@@ -3360,15 +3423,15 @@ def check_fused_motion(dev, pq, smi: str) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("fused_sync_debug", functions="G1,G2x165,G3", synchronizing_calls=0)
+    log("fused_sync_debug", functions="G1,G2(K5x165),G3", synchronizing_calls=0)
 
-    # (2) capture (G2 may be captured already by phase 6d's prewarm)
+    # (2) capture
     mg.buckets.pop(n_mel, None)
     t0 = time.perf_counter()
     b = mg.prepare(n_mel)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    stats = {g.name: g.stats() for g in (mg.g2_graph, b.g1, b.g3)}
+    stats = {g.name: g.stats() for g in (b.g1, b.g3)}
     for name, st in stats.items():
         log("fused_graph", name=name, **{k: (json.dumps(v) if isinstance(v, dict) else v)
                                          for k, v in st.items()})
@@ -3432,12 +3495,15 @@ def check_fused_motion(dev, pq, smi: str) -> dict:
                              f"{top_kernels(events, 12)}")
     rnn_err = check_graph_recurrences(dev, mg, cfg, models, mel80, feats)
 
-    # device ms of each graph's replay
+    # K5 against its plain twin at the request's bucket and at the 10 s
+    # bucket (585 steps); device ms of G1's and G3's replays and K5's
+    g2_ms = check_decode_kernel(dev, mg, b, smi) / b.nframe
     g1_ms = _event_ms(b.g1.replay)
-    g2_ms = _event_ms(lambda: [mg.g2_graph.replay() for _ in range(b.nframe)]) / b.nframe
     g3_ms = _event_ms(b.g3.replay)
     log("fused_device_ms", g1=f"{g1_ms:.4f}", g2_per_step=f"{g2_ms:.5f}", g3=f"{g3_ms:.4f}",
         g2_x_nframe=f"{g2_ms * b.nframe:.3f}", nframe=b.nframe)
+    mg.run(video.make_test_tone(10.0))
+    check_decode_kernel(dev, mg, mg.buckets[1200], smi)
 
     # (5) the request as predict() runs it (int8, yuv420, batch 16), fused
     # and staged in turns, median of 3
@@ -3484,8 +3550,10 @@ def check_fused_motion(dev, pq, smi: str) -> dict:
         main_wall_s=f"{main_wall:.4f}", launches=json.dumps(main_launches),
         replayed=json.dumps(main_replayed),
         fused_stage_ms=json.dumps({k: round(v, 3) for k, v in sms["fused"][0].items()}))
-    if req.nframe != valid - ff or main_replayed != {"K2": 3, "K3": 3}:
-        raise AssertionError(f"fused request: {req.nframe} frames, replayed {main_replayed}")
+    if (req.nframe != valid - ff or main_replayed != {"K2": 3, "K3": 3}
+            or main_launches["K5"] != 1):
+        raise AssertionError(f"fused request: {req.nframe} frames, replayed {main_replayed}, "
+                             f"{main_launches['K5']} K5 launches")
 
     # (6) a 3.0 s stream (int8, chunk 32, batch 8, 100 ms pushes, depth 1):
     # the fused chunks against the per-stage stream
@@ -3538,7 +3606,7 @@ def check_fused_motion(dev, pq, smi: str) -> dict:
         g1_10s=json.dumps(graphs.get(f"G1[{pb.bucket_lengths()[-1]}]")),
         static_buffer_bytes=motion_graph.for_models(pb._cfg, pb._assets,
                                                     pb._models).nbytes())
-    if len(graphs) != 2 * len(pb.bucket_lengths()) + 1:
+    if len(graphs) != 2 * len(pb.bucket_lengths()):
         raise AssertionError(f"fused boot: {len(graphs)} graphs for "
                              f"{len(pb.bucket_lengths())} buckets")
     del pb
@@ -4508,9 +4576,11 @@ def main() -> int:
         nvcc_seconds=_build.build_seconds, library=lib_path.name)
     # registers and spills of the recurrence kernels (ptxas -v; the
     # main-path instances are GRU H=512: cluster<3,4,2>, LSTM H=256:
-    # cluster<4,2,1>) and of K1's five instances (the f32 plane; the render
-    # input in bf16 and f32, 13 channels and the edge-only 1): none may spill
-    for what, src, want in (("recurrence", "recurrent.cu", 1), ("k1", "rasterize.cu", 5)):
+    # cluster<4,2,1>), of K1's five instances (the f32 plane; the render
+    # input in bf16 and f32, 13 channels and the edge-only 1) and of K5, the
+    # head-pose decode: none may spill
+    for what, src, want in (("recurrence", "recurrent.cu", 1), ("k1", "rasterize.cu", 5),
+                            ("decode", "headpose.cu", 1)):
         regs = ptxas_report.summary(_build.build_logs.get(src, ""), kernel_label)
         log(f"ptxas_{what}", instances=json.dumps(dict(sorted(regs.items()))))
         spills = {k: v for k, v in regs.items() if v["spill_stores"] or v["spill_loads"]}
@@ -4750,8 +4820,8 @@ def main() -> int:
     log("phase14", seconds=f"{time.perf_counter() - t14:.1f}")
 
     phase_walls.mark("fused_motion")
-    # 15. the fused motion half: three CUDA graphs on the int8 Predictor's
-    # subject, the request and the stream against the staged path
+    # 15. the fused motion half: two CUDA graphs and K5 on the int8
+    # Predictor's subject, the request and the stream against the staged path
     with tempfile.TemporaryDirectory() as tmp:
         pq.results_dir = tmp
         p15 = check_fused_motion(dev, pq, smi)

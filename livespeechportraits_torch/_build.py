@@ -102,8 +102,9 @@ def library() -> ctypes.CDLL:
         lib.lsp_q8conv.argtypes = [p, i, p, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p, i, i,
                                    i, p, i, i, i, i, i, i, p]
         lib.lsp_smem_optin.argtypes = []
+        lib.lsp_headpose_decode.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, f, p]
         for fn in (lib.lsp_rasterize, lib.lsp_render_input, lib.lsp_gru, lib.lsp_lstm,
-                   lib.lsp_q8conv, lib.lsp_smem_optin):
+                   lib.lsp_q8conv, lib.lsp_smem_optin, lib.lsp_headpose_decode):
             fn.restype = ctypes.c_int
         lib.lsp_error_string.argtypes = [i]
         lib.lsp_error_string.restype = ctypes.c_char_p

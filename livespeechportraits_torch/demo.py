@@ -27,8 +27,9 @@ result is the unpadded run's); ``--save_intermediates`` also writes the
 frames as numbered jpgs and ``landmarks.npy`` / ``headpose.npy``; a config
 with ``Image2Image: {save_input: true}`` writes the renderer's edge maps as
 ``<audio name>_feature_maps.avi``; ``--fused`` runs the motion half as
-one fused program (on the card its three CUDA graphs, pipeline/
-motion_graph.py; the same results, one "motion" stage entry).
+one fused program (on the card two CUDA graphs and one launch of the
+head-pose decode kernel, pipeline/motion_graph.py; the same results, one
+"motion" stage entry).
 """
 
 from __future__ import annotations
@@ -111,8 +112,8 @@ def main(argv=None) -> None:
                              "pushes later, so their fetch overlaps the next pushes")
     parser.add_argument("--fused", action="store_true",
                         help="run the motion half (mel->APC->LLE->mouth->head-pose->post) as "
-                             "the fused program: CUDA graphs on the card, one graph launch a "
-                             "frame for the head-pose decode (same results; one 'motion' "
+                             "the fused program: CUDA graphs on the card and one kernel "
+                             "launch for the head-pose decode (same results; one 'motion' "
                              "stage entry)")
     args = parser.parse_args(argv)
 

@@ -11,10 +11,13 @@ frame: stream_step, then one GMM sample that becomes the next input.
 With ``frame_future`` f and receptive field R, decode step i reads audio row
 i+f (rows < 0 clamp to row 0) and the history starts as ``pre_headpose``
 repeated.  The decode's state lives in ``DecodeBuffers`` and one step is
-``decode_step``, device ops only: the staged path calls it in a Python loop
-over frames, the fused motion program (pipeline/motion_graph.py) replays a
-CUDA graph of it.  Its noise is drawn up front on the CPU
-(ops/gmm.draw_noise), so a run draws the same noise on any device.
+``decode_step``, device ops only.  Every decode (the staged path, the
+fused motion program of pipeline/motion_graph.py, the stream) runs its
+steps through ``decode_steps``: on the card one launch of kernel K5
+(ops/decode_cuda.py), which takes the published WaveNet alone, on the
+CPU ``decode_step`` in a loop, its plain twin.  Its noise is drawn up
+front on the CPU (ops/gmm.draw_noise), so a run draws the same noise on
+any device.
 
 The LSTM variant (JAX audio2headpose.py:223-287, the reference's
 audio2headpose.py:57-102) is ``Audio2HeadposeLSTM``: the same audio MLP,
@@ -35,7 +38,7 @@ from torch import nn
 
 from livespeechportraits_torch.config import Audio2HeadposeConfig
 from livespeechportraits_torch.models import nn_core, wavenet
-from livespeechportraits_torch.ops import gmm, recurrent_cuda
+from livespeechportraits_torch.ops import decode_cuda, gmm, recurrent_cuda
 
 Tensor = torch.Tensor
 
@@ -101,7 +104,7 @@ class DecodeBuffers:
     noise ``gumbel`` [rows, ncenter] and ``eps`` [rows, ndim], and the
     ``samples`` [rows, ndim]; ``row`` (int64 [1]) is the row the next step
     reads and writes.  The fused motion program keeps one set a subject and
-    device and replays a CUDA graph of one step over it."""
+    device."""
 
     def __init__(self, model: Audio2Headpose, cfg: Audio2HeadposeConfig, rows: int,
                  device: torch.device | str):
@@ -182,8 +185,7 @@ def decode_step(model: Audio2Headpose, cfg: Audio2HeadposeConfig, dec: DecodeBuf
     """One decode step on ``dec``: the WaveNet step from x_prev with row
     ``row``'s projections, then one GMM sample with row ``row``'s noise,
     written to row ``row`` of the samples and to x_prev; row and step move
-    on by one.  Device ops only: the fused program captures this function
-    once and replays it a frame."""
+    on by one.  Device ops only (no host read); K5's plain twin."""
     row = dec.row
     fsel = dec.fproj.index_select(1, row)  # [layers, 1, dil]
     gsel = dec.gproj.index_select(1, row)
@@ -195,6 +197,21 @@ def decode_step(model: Audio2Headpose, cfg: Audio2HeadposeConfig, dec: DecodeBuf
     dec.samples.index_copy_(0, row, x)
     dec.x_prev.copy_(x)
     dec.row.add_(1)
+
+
+def decode_steps(model: Audio2Headpose, cfg: Audio2HeadposeConfig, dec: DecodeBuffers, n: int,
+                 sigma_scale: float) -> None:
+    """n consecutive decode steps on ``dec``, from row ``row``: every decode
+    of the port runs here.  The rule: CUDA buffers run in one launch of K5
+    (ops/decode_cuda.py), which takes the published A2H WaveNet, 12 GMM
+    dimensions and 1 or 2 components and raises on any other config
+    (``decode_cuda.unsupported`` says why); CPU buffers run ``decode_step``
+    n times."""
+    if dec.ring_flat.device.type == "cuda":
+        decode_cuda.decode(model, cfg, dec, n, sigma_scale)
+        return
+    for _ in range(n):
+        decode_step(model, cfg, dec, sigma_scale)
 
 
 def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_feats: Tensor,
@@ -221,8 +238,7 @@ def generate_sequence(model: Audio2Headpose, cfg: Audio2HeadposeConfig, audio_fe
     prime_decode(model, cfg, audio_ds, pre_headpose, dec, 0, nframe)
     dec.gumbel.copy_(noise[0][:nframe])
     dec.eps.copy_(noise[1][:nframe])
-    for _ in range(nframe):
-        decode_step(model, cfg, dec, float(sigma_scale))
+    decode_steps(model, cfg, dec, nframe, float(sigma_scale))
     return dec.samples
 
 

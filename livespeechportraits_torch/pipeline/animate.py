@@ -219,10 +219,10 @@ def compute_motion(cfg: PersonConfig, assets: PersonAssets, models: PersonModels
     stage is prefix-causal over the padded audio.
 
     fused (JAX's): stages 1-5 as the fused motion program
-    (pipeline/motion_graph.py): on the card G1, G2 once a frame and G3
-    replayed from CUDA graphs captured on the bucket length's first use, on
-    the CPU the same functions run eagerly; the same ops as the staged
-    path, so the same results.  ``stage_ms`` then holds one "motion" entry,
+    (pipeline/motion_graph.py): on the card G1 and G3 replayed from CUDA
+    graphs captured on the bucket length's first use and the decode G2 in
+    one launch of K5, on the CPU the same functions run eagerly; the same
+    ops as the staged path, so the same results.  ``stage_ms`` then holds one "motion" entry,
     the host wall of the trace's span ``motion`` (no synchronize; its
     device time is the span's ``device_ms``).  With profile=True the stages
     run staged, as JAX's do."""

@@ -1,5 +1,5 @@
 """The fused motion half: stages 1-5 as three device functions over
-preallocated buffers, replayed from CUDA graphs on the card.
+preallocated buffers, two of them replayed from CUDA graphs on the card.
 
 Counterpart of JAX's ``_jit_motion`` (livespeechportraits_tpu/pipeline/
 animate.py, one device program for stages 1-5, taken by
@@ -13,41 +13,37 @@ allocated before it runs, and makes no host read:
   A2F (K3) and its decode, the A2H audio downsample, the conditioning
   projections of every decode step, and the priming of the WaveNet's ring
   buffers (``pre_decode``);
-- G2 (``MotionGraphs.g2``; one a subject and device): one head-pose decode
-  step (``audio2headpose.decode_step``): row ``row`` of the projections
-  and the noise, the ring slots ``step % d`` on the device, one GMM sample
-  written to row ``row`` and to x_prev, row and step moved on;
+- G2 (``MotionGraphs.g2``): the head-pose decode, n steps from row
+  ``row`` of the projections and the noise through
+  ``audio2headpose.decode_steps``: on the card one launch of kernel K5
+  (ops/decode_cuda.py), which reads row and step on the device; not a
+  graph;
 - G3 (``MotionGraphs.g3``; one a bucket length): post, with the valid
   length a device scalar (``post``).
 
-On a CUDA device each is captured once, on first use, after one eager
-warm-up on the capture stream, into the subject's private memory pool; a
-request is then G1's replay, G2 replayed once a frame, and G3's replay.
+On a CUDA device G1 and G3 are captured once, on first use, after one
+eager warm-up on the capture stream, into the subject's private memory
+pool; a request is then G1's replay, G2's one launch, and G3's replay.
 The audio, the noise and two scalars go in through pinned staging buffers
 and ``non_blocking`` copies; the outputs are cloned out before the call
 returns.  A capture or a replay that fails raises: nothing falls back to
 eager work on the card.  On the CPU (the tests) the same three functions
-run eagerly, G2 once a frame.
+run eagerly, G2's steps in ``decode_step``'s loop.
 
 A request records into its trace (utils/profiling.py) the spans
 ``motion.g1``, ``motion.decode`` and ``motion.g3`` (the host's enqueue;
 on the card the device time between CUDA events recorded before G1, after
-G1, after the G2 loop and after G3, the first and last also timing the
-caller's span ``motion``), a span ``motion.capture`` a capture, and the
-counters ``decode_steps`` (G2's replays, or its eager calls) and
-``graph_captures``.
-
-One decode step graph rather than one unrolled decode a bucket: a step is
-about 340 nodes, so the 10 s bucket unrolled would be about 204k nodes a
-bucket, where G2 is one small graph that every bucket and every stream
-share.
+G1, after G2 and after G3, the first and last also timing the caller's
+span ``motion``), a span ``motion.capture`` a capture, and the
+counters ``decode_steps`` (the steps G2 decoded, bucket padding
+included) and ``graph_captures``.
 
 A stream's steady state (``ChunkGraphs``, C = its chunk) adds two graphs:
 the front (mel at device frame offsets, APC from the carried GRU state,
 LLE) and the motion chunk (the A2F chunk from the carried LSTM state, the
 downsample, the conditioning window at a device offset, its projections);
-the decode is the same G2, C times, with the stream's carried WaveNet state
-copied in before and out after.
+the decode is the same G2 over C steps, with the stream's carried WaveNet
+state copied in before and out after.
 """
 
 from __future__ import annotations
@@ -319,8 +315,8 @@ class Bucket:
 
 class MotionGraphs:
     """The fused motion half of one subject (cfg, assets, models) on the
-    models' device: the shared decode buffers and G2, a ``Bucket`` a length,
-    a ``ChunkGraphs`` a stream chunk size.  ``for_models`` keeps one a
+    models' device: the shared decode buffers, a ``Bucket`` a length, a
+    ``ChunkGraphs`` a stream chunk size.  ``for_models`` keeps one a
     subject and device; calls are serialised by ``lock``."""
 
     def __init__(self, cfg: PersonConfig, assets, models, rows: int = DEFAULT_ROWS):
@@ -341,7 +337,6 @@ class MotionGraphs:
         a2h = self.cfg.audio2headpose
         self.dec = a2h_model.DecodeBuffers(self.models.audio2headpose, a2h, rows, self.device)
         self.noise_host = self.pinned((rows, a2h.ncenter)), self.pinned((rows, a2h.ndim))
-        self.g2_graph: Optional[Graph] = None
         self.buckets: Dict[int, Bucket] = {}
         self.chunks: Dict[int, ChunkGraphs] = {}
 
@@ -398,9 +393,9 @@ class MotionGraphs:
         pre_decode(self.cfg, self.assets, self.models, b.audio, b.n_mel, b.feat_last,
                    b.a2f_gumbel, self.dec, b.pred_feat)
 
-    def g2(self) -> None:
-        a2h_model.decode_step(self.models.audio2headpose, self.cfg.audio2headpose, self.dec,
-                              self.sigma_scale)
+    def g2(self, n: int) -> None:
+        a2h_model.decode_steps(self.models.audio2headpose, self.cfg.audio2headpose, self.dec, n,
+                               self.sigma_scale)
 
     def g3(self, b: Bucket) -> None:
         outs = post(self.cfg, self.assets, b.pred_feat[:b.nframe], self.dec.samples[:b.nframe],
@@ -428,23 +423,15 @@ class MotionGraphs:
                 self._alloc(self.dec.rows)
             self._weights = key
 
-    def g2_step(self) -> Graph:
-        """G2, captured on first use (row reset first: the warm-up reads it)."""
-        if self.g2_graph is None:
-            self.dec.row.zero_()
-            self.g2_graph = self.capture("G2", self.g2)
-        return self.g2_graph
-
     def prepare(self, n_mel: int) -> Bucket:
-        """The bucket of length ``n_mel`` with its graphs (and G2) captured:
-        what a request of that length replays.  The card only."""
+        """The bucket of length ``n_mel`` with its graphs captured: what a
+        request of that length replays.  The card only."""
         if not self.on_card:
             raise ValueError("CUDA graphs need a CUDA device; the CPU runs the functions")
         with self.lock, self.on_device():
             self.check_weights()
             self.reserve(n_mel // 2)
             b = self.bucket(n_mel)
-            self.g2_step()
             if b.g1 is None:
                 b.g1 = self.capture(f"G1[{n_mel}]", lambda: self.g1(b))
             if b.g3 is None:
@@ -453,8 +440,6 @@ class MotionGraphs:
 
     def graph_stats(self) -> Dict[str, dict]:
         out = {}
-        if self.g2_graph is not None:
-            out["G2"] = self.g2_graph.stats()
         for b in self.buckets.values():
             for g in (b.g1, b.g3):
                 if g is not None:
@@ -548,15 +533,14 @@ class MotionGraphs:
             self.stage_noise(gumbel, eps)
             self.mark_staged()
             if graphs:
-                g1, g2, g3 = b.g1.replay, self.g2_graph.replay, b.g3.replay
+                g1, g3 = b.g1.replay, b.g3.replay
             else:
-                g1, g2, g3 = (lambda: self.g1(b)), self.g2, (lambda: self.g3(b))
+                g1, g3 = (lambda: self.g1(b)), (lambda: self.g3(b))
             trace = profiling.current()
             stamps = [(time.time_ns(), trace.mark(self.device))]
             g1()
             stamps.append((time.time_ns(), trace.mark(self.device)))
-            for _ in range(nframe):
-                g2()
+            self.g2(nframe)
             trace.count("decode_steps", nframe)
             stamps.append((time.time_ns(), trace.mark(self.device)))
             g3()
@@ -599,7 +583,7 @@ def for_models(cfg: PersonConfig, assets, models) -> MotionGraphs:
 class ChunkGraphs:
     """The static buffers and graphs of a stream's steady-state chunk of C
     frames (JAX's _stream_chunk_fused = ``front`` then ``motion``;
-    _motion_chunk_fused = ``motion``), then G2 C times."""
+    _motion_chunk_fused = ``motion``), then G2 over C steps."""
 
     def __init__(self, mg: MotionGraphs, C: int):
         cfg, dev, models = mg.cfg, mg.device, mg.models
@@ -673,7 +657,6 @@ class ChunkGraphs:
         mg = self.mg
         if not mg.on_card:
             return
-        mg.g2_step()
         if front and self.front_graph is None:
             self.front_graph = mg.capture(f"stream_front[{self.C}]", self.front)
         if self.motion_graph is None:

@@ -28,11 +28,12 @@ fused advances first, in JAX's order: ``_advance_stream_fused`` (mel, APC,
 LLE, A2F, the downsample and the decode of one chunk: ``stage_ms``'s
 ``mega_chunks``), then, after a per-stage mel + APC, ``_advance_motion_fused``
 (A2F, the downsample and the decode: ``fused_chunks``).  On the card they
-replay CUDA graphs of the chunk (pipeline/motion_graph.ChunkGraphs) and the
-head-pose decode step (G2) C times, with the stream's carried state copied
-in and out; on the CPU the same functions run eagerly.  Both run the
-per-stage path's functions, so the frames are the same bits; start-up,
-ragged pushes, catch-up bursts and flush() run per stage, as in JAX.
+replay CUDA graphs of the chunk (pipeline/motion_graph.ChunkGraphs), then
+decode the chunk's C head-pose steps (G2: one launch of kernel K5), with
+the stream's carried state copied in and out; on the CPU the same
+functions run eagerly.  Both run the per-stage path's functions, so the
+frames are the same bits; start-up, ragged pushes, catch-up bursts and
+flush() run per stage, as in JAX.
 
 *divergence: offline lip de-intersection shifts the outer lips by the mean
 overlap over ALL flipped frames of the clip, which is non-causal; streaming
@@ -393,8 +394,7 @@ class StreamingAnimator:
             gumbel, eps = self._step_noise(i0, n)
             dec.gumbel[:n].copy_(gumbel)
             dec.eps[:n].copy_(eps)
-            for _ in range(n):
-                a2h_model.decode_step(model, a2h, dec, float(a2h.sample_sigma_scale))
+            a2h_model.decode_steps(model, a2h, dec, n, float(a2h.sample_sigma_scale))
             self._head_raw.append(dec.samples[:n].cpu())
             self._decoded += n
             self._down_rows.retire(self._decoded + self.ff_h)
@@ -411,7 +411,7 @@ class StreamingAnimator:
         return ch
 
     def _run_fused_chunk(self, front: bool, lag: int) -> None:
-        """One chunk through the chunk graphs and G2 C times, with this
+        """One chunk through the chunk graphs and G2 over C steps, with this
         stream's carried state copied in and out; then the rows into the
         stream's buffers, as the per-stage path appends them."""
         C = self.chunk
@@ -455,15 +455,11 @@ class StreamingAnimator:
                 if front:
                     ch.front_graph.replay()
                 ch.motion_graph.replay()
-                g2 = mg.g2_graph
-                for _ in range(C):
-                    g2.replay()
             else:
                 if front:
                     ch.front()
                 ch.motion()
-                for _ in range(C):
-                    mg.g2()
+            mg.g2(C)
             self._dec.load_state(mg.dec.state())
             self._lstm = [(s[0].clone(), s[1].clone()) for s in ch.lstm]
             if front:

@@ -144,7 +144,7 @@ class Predictor:
         self._cfg, self._assets, self._models, self._person = cfg, person, models, person_id
         self._render_devices = mesh.make_mesh(self.device) if data_parallel else None
         # the fused motion half's decode buffers, sized for the longest
-        # bucket (a request never grows them, so never captures G2 again)
+        # bucket (a request never grows them, so never captures again)
         self._motion().reserve(self.bucket_lengths()[-1] // 2 if self.bucket_seconds > 0
                                else int(self.max_audio_seconds * 60))
 
@@ -161,10 +161,10 @@ class Predictor:
         return [2 * int(k * bucket / 16000 * 60) for k in range(1, -(-cap // bucket) + 1)]
 
     def prewarm(self) -> dict:
-        """Capture the fused motion graphs of every bucket (and G2) on the
-        card, so no request pays a capture: {graph name: its nodes,
-        capture and instantiate ms, pool bytes, K2 / K3 launches}.  Nothing
-        to capture on the CPU or without bucketing."""
+        """Capture the fused motion graphs of every bucket on the card, so
+        no request pays a capture: {graph name: its nodes, capture and
+        instantiate ms, pool bytes, K2 / K3 launches}.  Nothing to capture
+        on the CPU or without bucketing."""
         if self._cfg is None:
             raise RuntimeError("call setup() first")
         mg = self._motion()

@@ -141,12 +141,14 @@ def kernel_ms(fn: Callable[[], object], dev: torch.device, reps: int = 20) -> Di
 
 
 def launch_counts() -> Dict[str, int]:
-    """The kernels' launches, K1-K4: the wrappers' counters, and for K2 / K3
+    """The kernels' launches, K1-K5: the wrappers' counters, and for K2 / K3
     also the launches inside replays of the fused motion program's CUDA
     graphs (motion_graph.REPLAYED_LAUNCHES)."""
-    from livespeechportraits_torch.ops import q8conv_cuda, rasterize_cuda, recurrent_cuda
+    from livespeechportraits_torch.ops import (decode_cuda, q8conv_cuda, rasterize_cuda,
+                                               recurrent_cuda)
     from livespeechportraits_torch.pipeline import motion_graph
 
     replayed = motion_graph.REPLAYED_LAUNCHES
     return {"K1": rasterize_cuda.LAUNCHES, "K2": recurrent_cuda.GRU_LAUNCHES + replayed["K2"],
-            "K3": recurrent_cuda.LSTM_LAUNCHES + replayed["K3"], "K4": q8conv_cuda.LAUNCHES}
+            "K3": recurrent_cuda.LSTM_LAUNCHES + replayed["K3"], "K4": q8conv_cuda.LAUNCHES,
+            "K5": decode_cuda.LAUNCHES}

@@ -14,7 +14,7 @@ first two pushes are left out of the walls.  One JSON line each, after the
 card's name and power limit: the per-push host walls after the first two
 (median, p95, max, mean; the latency a live caller sees a push), the
 flush's, the frames, the real-time budget of a chunk, the algorithmic
-latency, each stage's median ms a push, and the launches a push: the K1-K4
+latency, each stage's median ms a push, and the launches a push: the K1-K5
 counters over the measured pass, and the CUDA kernel launches the profiler
 counts in a traced stream of the first second (the host's launch calls,
 flush included; the counterpart of JAX's dispatch count).  On the card the row also carries the device ->

@@ -3,8 +3,8 @@ at test widths: ``compute_motion(fused=True)`` / ``animate(fused=True)``,
 ``Predictor.predict`` (which serves fused) and the stream's fused
 steady-state advances, held against the port's staged path and against the
 JAX package's ``fused=True``.  On the CPU the fused program's three
-functions (G1, G2 once a frame, G3) run eagerly; the card replays them from
-CUDA graphs (chip_smoke.py phase 15)."""
+functions (G1, G2's decode steps, G3) run eagerly; the card replays G1 and
+G3 from CUDA graphs and decodes in kernel K5 (chip_smoke.py phase 15)."""
 
 import jax
 import numpy as np
@@ -150,8 +150,9 @@ def test_g1_g2_g3_make_no_host_read_and_build_no_host_tensor(person):
     with torch.no_grad():
         ch.front()
         ch.motion()
-    for name, fn in (("G1", lambda: mg.g1(b)), ("G2", mg.g2), ("G3", lambda: mg.g3(b)),
-                     ("stream_front", ch.front), ("stream_motion", ch.motion)):
+    for name, fn in (("G1", lambda: mg.g1(b)), ("G2", lambda: mg.g2(1)),
+                     ("G3", lambda: mg.g3(b)), ("stream_front", ch.front),
+                     ("stream_motion", ch.motion)):
         with torch.no_grad(), _OpRecorder() as rec:
             fn()
         assert rec.ops, name

@@ -44,6 +44,17 @@ def small_person_config(image_size: int = 64, precision: str = "float32",
     )
 
 
+def card_person_config(image_size: int = 64, precision: str = "float32"):
+    """The port's small_person_config for a run on the card: test widths
+    but for the head-pose WaveNet, which keeps its published shape (on the
+    32-wide APC features): the decode kernel K5 takes that shape alone, and
+    a decode on the card of any other raises."""
+    cfg = torch_config(small_person_config(image_size=image_size, precision=precision))
+    a2h = cfg.audio2headpose
+    wn = tconfig.WaveNetConfig(cond_channels=a2h.apc_hidden_size)
+    return tconfig.replace(cfg, audio2headpose=tconfig.replace(a2h, wavenet=wn))
+
+
 def torch_config(cfg):
     """The port's config (livespeechportraits_torch.config) equal to a JAX
     package config of the same class name, through dataclasses.asdict and
